@@ -1,0 +1,319 @@
+"""Smoke run of tinyopt_tpu_torch on one CUDA GPU.
+
+Builds the package's CUDA kernels from ``tinyopt_tpu_torch/csrc``, holds
+each kernel against its plain PyTorch twin on the card, drives the main
+path — ``batched_optimize`` on the 50-dim Gaussian-prior bench problem at
+10,000 instances, once through the fused solver (K2) and once through the
+"cg" solver (K1) — and checks what comes out.  Every phase that fails
+raises, so the script exits non-zero; without a CUDA device it exits
+non-zero before printing any result.
+
+    python3 chip_smoke.py
+
+Output: one line per phase, then a line ``{"kernels": [...]}`` with each
+kernel's launches on the main path, its largest disagreement with its
+twin, and its time beside the twin's; the card's name and power limit;
+and last ``{"ok": true, "device": {...}}``.  The full record is also
+written to ``chiprun_out/chip_smoke.json``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+BATCH, DIMS = 10_000, 50
+REPS = 5
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def bench_options(to, solver="fused"):
+    """The options of bench.py (reference benchmarks/options.h:10-27)."""
+    return to.Options(
+        max_iters=10, min_error=0.0, min_rerr_dec=1e-12,
+        min_step_norm2=1e-16, max_consec_failures=3, save_history=False,
+        hessian=to.HessianOptions(save_last=False, solver=solver, cg_iters=8,
+                                  carry_system=False, fused_block=512))
+
+
+def gpu_ms(fn, n=1, warmup=1):
+    """Mean device milliseconds per call of ``fn`` over ``n`` calls.
+
+    CUDA events bracket the calls, which the host queues behind ~0.1 s of
+    device sleep: a call that never waits for the device is timed without
+    its launch overhead, one that synchronizes (the twins' host loops) is
+    timed with it."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(n):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / n
+
+
+def assert_parity(ref, got, *, rtol, atol, iter_slack=1, fail_slack=0,
+                  grad_rtol=1e-4, what=""):
+    """tests/test_fused.py:51 ``_assert_parity`` on torch tensors; returns
+    max |x_got - x_ref|."""
+    (xr, outr), (xg, outg) = ref, got
+    torch.testing.assert_close(xg, xr, rtol=rtol, atol=atol, equal_nan=True,
+                               msg=what)
+    assert torch.equal(outr.succeeded(), outg.succeeded()), what
+    assert torch.equal(outr.converged(), outg.converged()), what
+    di = (outr.num_iters - outg.num_iters).abs().max().item()
+    df = (outr.num_failures - outg.num_failures).abs().max().item()
+    assert di <= iter_slack, f"{what}: iteration gap {di}"
+    assert df <= fail_slack, f"{what}: failure-count gap {df}"
+    torch.testing.assert_close(outg.final_cost.cost, outr.final_cost.cost,
+                               rtol=rtol, atol=atol, equal_nan=True, msg=what)
+    torch.testing.assert_close(outg.final_grad, outr.final_grad,
+                               rtol=grad_rtol, atol=1e-5, equal_nan=True,
+                               msg=what)
+    return (xg - xr).abs().max().item()
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, HERE)
+    import tinyopt_tpu_torch as to
+    from tinyopt_tpu_torch import _build
+    from tinyopt_tpu_torch.models.problems import (jennrich_sampson_residuals,
+                                                   make_prior_batch,
+                                                   prior_residual)
+    from tinyopt_tpu_torch.ops import cuda_cg, cuda_solver
+    from tinyopt_tpu_torch.ops.linalg import solve_psd_cg
+
+    dev = torch.device("cuda", 0)
+    record = {"python": sys.version.split()[0], "torch": torch.__version__,
+              "cuda": torch.version.cuda}
+
+    # ---- 1. device ----
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    log(f"[device] {kind} x{torch.cuda.device_count()} | nvidia-smi: {smi}")
+    record["nvidia_smi"] = smi
+
+    # ---- 2. build ----
+    t0 = time.perf_counter()
+    _build.load()
+    record["build_s"] = time.perf_counter() - t0
+    log(f"[build] {_build.library_path()} built and loaded in "
+        f"{record['build_s']:.2f} s")
+
+    # ---- 3. K1 against its twin ----
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def spd(B, d, dtype):
+        A = torch.randn((B, 2 * d, d), generator=gen, dtype=dtype,
+                        device=dev) / (2 * d) ** 0.5
+        H = A.mT @ A + 1e-3 * torch.eye(d, dtype=dtype, device=dev)
+        b = torch.randn((B, d), generator=gen, dtype=dtype, device=dev)
+        return H, b
+
+    # Tolerance on max|x_k - x_twin|, relative to max|x| (CG's rounding
+    # error is spread over all components, so it is not elementwise): the
+    # kernel's row dot products and block reductions sum in another order
+    # than the twin's batched matmul, so the iterates agree to rounding,
+    # amplified by cond(H) over the iterations — not bit for bit.
+    k1_tol = {torch.float32: 1e-5, torch.float64: 1e-11}
+    k1 = {"max_abs_err": 0.0}
+    for dtype in (torch.float32, torch.float64):
+        H, b = spd(BATCH, DIMS, dtype)
+        for iters in (8, 50):
+            xk = cuda_cg.cg_solve(H, b, iters)
+            xt = solve_psd_cg(H, b, iters)
+            torch.cuda.synchronize()
+            err = (xk - xt).abs().max().item()
+            scale = xt.abs().max().item()
+            log(f"[K1] {BATCH}x{DIMS}x{DIMS} {dtype} iters={iters}: "
+                f"max|x_k - x_twin| = {err:.3e} (max|x| {scale:.3e})")
+            assert err <= k1_tol[dtype] * max(1.0, scale), "K1 disagrees"
+            if iters == 8:
+                k1[f"ms_{dtype}"] = gpu_ms(lambda: cuda_cg.cg_solve(H, b, 8),
+                                          n=20)
+                k1[f"plain_ms_{dtype}"] = gpu_ms(
+                    lambda: solve_psd_cg(H, b, 8), n=5)
+                log(f"[K1] time {dtype}: kernel {k1[f'ms_{dtype}']:.4f} ms, "
+                    f"twin {k1[f'plain_ms_{dtype}']:.4f} ms per call")
+                if dtype == torch.float32:
+                    k1["max_abs_err"] = err
+    # alpha-freeze: H = 0 has p'Hp = 0 at every iteration, x stays 0
+    H, b = spd(257, DIMS, torch.float32)
+    H[::2] = 0
+    xk = cuda_cg.cg_solve(H, b, 8)
+    xt = solve_psd_cg(H, b, 8)
+    assert torch.all(xk[::2] == 0) and torch.all(xt[::2] == 0), "K1 freeze"
+    torch.testing.assert_close(xk, xt, rtol=1e-5, atol=1e-5)
+    log("[K1] alpha-freeze (H = 0) and ragged B = 257: ok")
+    # shared memory above 48 KB (d = 100, f64) and H rows read from device
+    # memory past 227 KB (d = 300, f64)
+    for B, d in ((256, 100), (64, 300)):
+        H, b = spd(B, d, torch.float64)
+        xk = cuda_cg.cg_solve(H, b, 20)
+        xt = solve_psd_cg(H, b, 20)
+        err = (xk - xt).abs().max().item()
+        log(f"[K1] {B}x{d}x{d} float64 iters=20: max err {err:.3e}")
+        assert err <= 1e-11 * max(1.0, xt.abs().max().item()), "K1 large d"
+
+    # ---- 4. K2 against its twin ----
+    def k2_pair(fn, opts, x0, data=None):
+        d_ex = None if data is None else type(data)(*(a[0] for a in data))
+        plan = cuda_solver.fused_plan(opts, "residuals", x0[0],
+                                      residual_fn=fn, data_example=d_ex)
+        assert plan is not None, "outside the fused envelope"
+        kern = lambda: cuda_solver.fused_solve(  # noqa: E731
+            fn, opts, x0, data, plan)
+        plain = lambda: cuda_solver.fused_solve_plain(  # noqa: E731
+            fn, opts, x0, data, plan)
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        return got, ref, kern, plain
+
+    k2 = {}
+    # float64 is held to rtol 1e-9, not to equality: the warp butterflies
+    # sum err, g'g and dx'dx in another order than torch.sum, so the two
+    # may differ in the last bits (on these inputs they agree exactly).
+    k2_tol = {torch.float32: dict(rtol=1e-5, atol=1e-6),
+              torch.float64: dict(rtol=1e-9, atol=1e-12)}
+    for dtype in (torch.float32, torch.float64):
+        data, x0 = make_prior_batch(BATCH, DIMS, dtype, generator=gen,
+                                    device=dev)
+        opts = bench_options(to)
+        got, ref, kern, plain = k2_pair(prior_residual, opts, x0, data)
+        err = assert_parity(ref, got, **k2_tol[dtype],
+                            what=f"K2 prior {dtype}")
+        conv = got[1].converged().float().mean().item()
+        log(f"[K2] prior {BATCH}x{DIMS} {dtype}: max|x_k - x_twin| = "
+            f"{err:.3e}, conv {conv:.4f}, mean iters "
+            f"{got[1].num_iters.float().mean().item():.3f}")
+        k2[f"ms_{dtype}"] = gpu_ms(kern, n=5)
+        k2[f"plain_ms_{dtype}"] = gpu_ms(plain, n=3)
+        log(f"[K2] time {dtype}: kernel {k2[f'ms_{dtype}']:.4f} ms, twin "
+            f"{k2[f'plain_ms_{dtype}']:.4f} ms per {BATCH} solves")
+        if dtype == torch.float32:
+            k2["max_abs_err"] = err
+    for dtype in (torch.float32, torch.float64):
+        x0 = (torch.rand((4096, 2), generator=gen, dtype=dtype, device=dev)
+              * 0.35 + 0.1)
+        opts = to.Options(
+            max_iters=20, min_error=0.0, min_rerr_dec=1e-12,
+            min_step_norm2=1e-16, max_consec_failures=5, save_history=False,
+            hessian=to.HessianOptions(save_last=False, solver="fused",
+                                      cg_iters=8, carry_system=False))
+        got, ref, _, _ = k2_pair(jennrich_sampson_residuals, opts, x0)
+        # ill-conditioned: tests/test_fused.py:118-126 tolerances
+        err = assert_parity(ref, got, rtol=2e-3, atol=1e-3, iter_slack=2,
+                            fail_slack=2, grad_rtol=2e-2,
+                            what=f"K2 Jennrich-Sampson {dtype}")
+        nfail = got[1].num_failures.sum().item()
+        assert nfail > 0, "Jennrich-Sampson produced no rejections"
+        log(f"[K2] Jennrich-Sampson 4096x2 {dtype}: max err {err:.3e}, "
+            f"{nfail} rejections, stops "
+            f"{torch.bincount(got[1].stop_reason.clamp(min=0)).tolist()}")
+
+    # ---- 5. main path ----
+    data, x0 = make_prior_batch(BATCH, DIMS, torch.float32, generator=gen,
+                                device=dev)
+    cuda_cg.cg_solve.launches = 0
+    cuda_solver.fused_solve.launches = 0
+    x_f, out_f = to.batched_optimize(x0, prior_residual, bench_options(to),
+                                     data_batch=data)
+    x_c, out_c = to.batched_optimize(x0, prior_residual,
+                                     bench_options(to, "cg"), data_batch=data)
+    torch.cuda.synchronize()
+    launches = {"K1": cuda_cg.cg_solve.launches,
+                "K2": cuda_solver.fused_solve.launches}
+    log(f"[main] launches on the main path: {launches}")
+    assert launches["K2"] > 0, "the fused main path did not launch K2"
+    assert launches["K1"] > 0, "the cg main path did not launch K1"
+    for name, x, out in (("fused", x_f, out_f), ("cg", x_c, out_c)):
+        assert x.shape == (BATCH, DIMS) and torch.all(torch.isfinite(x))
+        assert torch.all(out.succeeded()), name
+        # the prior's optimum is x = y
+        gap = (x - data.y).abs().max().item()
+        assert gap < 1e-4, f"{name}: max|x - y| = {gap}"
+        log(f"[main] {name}: max|x - y| = {gap:.3e}, conv "
+            f"{out.converged().float().mean().item():.4f}")
+
+    record["main"] = {}
+    for solver in ("fused", "cg"):
+        opts = bench_options(to, solver)
+        solve = to.batched_solver(prior_residual, opts, "residuals", x0[0],
+                                  type(data)(*(a[0] for a in data)))
+        solve(x0, data)                        # warm-up call, untimed
+        times, conv, iters = [], [], []
+        for rep in range(REPS):
+            g = torch.Generator(device=dev).manual_seed(1000 + rep)
+            d_rep, x_rep = make_prior_batch(BATCH, DIMS, torch.float32,
+                                            generator=g, device=dev)
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            _, out = solve(x_rep, d_rep)
+            e1.record()
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1))
+            conv.append(out.converged().float().mean().item())
+            iters.append(out.num_iters.float().mean().item())
+        rec = {"ms": times, "median_ms": statistics.median(times),
+               "solves_per_s": REPS * BATCH / (sum(times) / 1e3),
+               "conv": sum(conv) / REPS, "mean_iters": sum(iters) / REPS}
+        record["main"][solver] = rec
+        log(f"[main] {solver}: {rec['solves_per_s']:.1f} solves/s "
+            f"({REPS} reps x {BATCH} over {sum(times):.3f} ms; median rep "
+            f"{rec['median_ms']:.3f} ms), conv {rec['conv']:.4f}, mean iters "
+            f"{rec['mean_iters']:.3f}, ms {times}")
+
+    kernels = [
+        {"name": "K1 cg_kernel", "route": "cuda",
+         "source": "tinyopt_tpu_torch/csrc/cg.cu",
+         "replaces": "tinyopt_tpu/ops/pallas_cg.py:77",
+         "launches": launches["K1"], "max_abs_err": k1["max_abs_err"],
+         "ms": k1["ms_torch.float32"],
+         "plain_ms": k1["plain_ms_torch.float32"]},
+        {"name": "K2 solver_kernel", "route": "cuda",
+         "source": "tinyopt_tpu_torch/csrc/solver.cu",
+         "replaces": "tinyopt_tpu/ops/pallas_solver.py:150",
+         "launches": launches["K2"], "max_abs_err": k2["max_abs_err"],
+         "ms": k2["ms_torch.float32"],
+         "plain_ms": k2["plain_ms_torch.float32"]},
+    ]
+    record.update(k1=k1, k2=k2, kernels=kernels)
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
+        json.dump(record, f, indent=1)
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,131 @@
+"""Build and load the package's CUDA kernels.
+
+All kernels live in ``csrc/*.cu`` (with shared headers ``csrc/*.cuh``) and
+expose a plain C interface.  At first use they are compiled by ``nvcc``
+into ONE shared library for Hopper (``sm_90a``), placed in ``_build/``
+next to this file under a name keyed by a hash of the sources and flags,
+and loaded with ``ctypes``.  Nothing is compiled when the package is
+imported, and nothing here runs on a machine without CUDA unless a CUDA
+tensor reaches a kernel wrapper.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "_build")
+
+# --fmad=false: no contraction of a*b + c into one fused multiply-add, so
+# the kernels round every product and sum as their plain torch twins do
+# (measured on an H100: with contraction the Jennrich-Sampson K2 runs drift
+# from the twin, without it they agree bit for bit).
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+
+def sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu"))
+                  + glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernels of "
+            "tinyopt_tpu_torch are compiled at first use and need the CUDA "
+            "toolkit")
+    return path
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(os.path.basename(src).encode())
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libtinyopt_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile ``csrc/*.cu`` into the shared library if it is missing."""
+    path = library_path()
+    if os.path.exists(path):
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    cu = [s for s in sources() if s.endswith(".cu")]
+    # Compile to a private temporary name, then publish atomically, so two
+    # processes building at once never load a half-written library.
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *cu]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return path
+
+
+class SolverParams(ctypes.Structure):
+    """Mirror of ``struct SolverParams`` in csrc/solver.cu."""
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "B", "d", "n_res", "family", "fam_m", "is_lm", "coloring",
+        "max_iters_total", "max_consec_failures", "max_total_failures",
+        "cg_iters", "use_quality", "use_squared_norm", "downscale_by_2",
+        "normalize")] + [(n, ctypes.c_double) for n in (
+            "min_error", "min_rerr_dec", "min_step_norm2", "min_grad_norm2",
+            "damping_init", "lam_lo", "lam_hi", "good_factor", "bad_factor",
+            "grad_clipping")]
+
+
+class SolverIO(ctypes.Structure):
+    """Mirror of ``struct SolverIO`` in csrc/solver.cu (device pointers)."""
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "x0", "data0", "data1", "x", "cost", "rerr", "lam", "g", "stop",
+        "iters", "nfail", "nconsec", "nres")]
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, with every entry
+    point's ``argtypes``/``restype`` declared."""
+    lib = ctypes.CDLL(build())
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    for name in ("tinyopt_cg_f32", "tinyopt_cg_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [vp, vp, vp, ci, ci, ci, vp]
+        fn.restype = ci
+    for name in ("tinyopt_solver_f32", "tinyopt_solver_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.POINTER(SolverParams), ctypes.POINTER(SolverIO),
+                       vp]
+        fn.restype = ci
+    lib.tinyopt_cuda_error_string.argtypes = [ci]
+    lib.tinyopt_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a kernel entry point returned a CUDA error code."""
+    if err != 0:
+        msg = load().tinyopt_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -1,0 +1,58 @@
+// Shared device helpers of the tinyopt_tpu_torch CUDA kernels.
+#pragma once
+
+#include <cfloat>
+#include <cmath>
+#include <cuda_runtime.h>
+
+namespace tinyopt {
+
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// Sum over the 32 lanes of a warp by an xor butterfly.  Every lane ends
+// with the bit-identical total (each pairwise add is commutative), so
+// control flow that branches on the result stays warp-uniform.
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFullMask, v, off);
+  return v;
+}
+
+// Sum over a whole block; ``red`` is 33 elements of shared scratch.  Every
+// thread of the block must call it (it synchronises the block).
+template <typename T>
+__device__ __forceinline__ T block_sum(T v, T* red) {
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int nw = (blockDim.x + 31) >> 5;
+  v = warp_sum(v);
+  __syncthreads();
+  if (lane == 0) red[w] = v;
+  __syncthreads();
+  if (w == 0) {
+    T t = lane < nw ? red[lane] : T(0);
+    t = warp_sum(t);
+    if (lane == 0) red[32] = t;
+  }
+  __syncthreads();
+  return red[32];
+}
+
+// finfo(T).tiny / finfo(T).eps, the constants the JAX package uses.
+template <typename T> __device__ __forceinline__ T tiny_v();
+template <> __device__ __forceinline__ float tiny_v<float>() { return FLT_MIN; }
+template <> __device__ __forceinline__ double tiny_v<double>() { return DBL_MIN; }
+template <typename T> __device__ __forceinline__ T eps_v();
+template <> __device__ __forceinline__ float eps_v<float>() { return FLT_EPSILON; }
+template <> __device__ __forceinline__ double eps_v<double>() { return DBL_EPSILON; }
+// The reference's FloatEpsilon policy (math.h:297-301).
+template <typename T> __device__ __forceinline__ T float_epsilon_v();
+template <> __device__ __forceinline__ float float_epsilon_v<float>() { return 1e-4f; }
+template <> __device__ __forceinline__ double float_epsilon_v<double>() { return 1e-7; }
+
+// Largest dynamic shared memory a block may use on Hopper (227 KB).
+constexpr size_t kMaxSmem = 232448;
+constexpr size_t kDefaultSmem = 48 * 1024;
+
+}  // namespace tinyopt

@@ -1,0 +1,451 @@
+// K2: the whole batched LM / GN solve, one warp per instance.
+//
+// Replaces the TPU kernel tinyopt_tpu/ops/pallas_solver.py::_solver_kernel
+// (launched by fused_batched_solver).  Per instance, x0 -> converged x with
+// every intermediate in shared memory: linearize at x, g = J'r, diag(J'J)
+// (identity coloring: one jvp of the all-ones probe; otherwise one jvp per
+// tangent dimension), the damped normal equations solved in closed form
+// when the coloring proves H diagonal, else by Jacobi-PCG applying H as
+// J'(J p); the propose / lambda-escalating retry loop, accept / reject,
+// rollback and probe, the LM schedule, the failure budgets and the
+// priority-ordered stop cascade of the JAX kernel (and of the carry_system=
+// False loop, optimizers/loop.py).  The plain twin is
+// ops/cuda_solver.py::fused_solve_plain, with the same op order.
+//
+// CUDA has no automatic differentiation, so the kernel is templated on a
+// residual FAMILY that provides residual / jvp / vjp as warp-collective
+// device functions, written by hand: PriorFamily (models/problems.
+// prior_residual, r = (x - y) * inv_std) and JenSamFamily
+// (jennrich_sampson_residuals, r_i = 2 + 2i - exp(i x1) - exp(i x2)).
+//
+// Layout: lanes stride over the d tangent entries and the n_res residual
+// rows; dot products are __shfl_xor_sync butterflies, so every lane holds
+// the same scalar state and all control flow is warp-uniform.  Each warp
+// runs its own outer loop, which replaces the tile-level "any instance
+// active" gates of the TPU kernel (the per-instance results are the same,
+// pallas_solver.py:566-574).  Per-warp state: 14 d + 2 n_res values of
+// shared memory (3.2 KB at d = 50 in float).
+//
+// What bounds it on an H100: latency.  The inputs are 10k x 50 x 3 values
+// (6 MB); each outer iteration is a chain of dependent warp reductions and
+// shared-memory passes, and instances in one block finish at different
+// iterations.  Registers and shared memory set how many warps are resident
+// to hide that latency.
+#include "common.cuh"
+
+namespace tinyopt {
+
+struct SolverParams {
+  int B, d, n_res, family, fam_m, is_lm, coloring, max_iters_total,
+      max_consec_failures, max_total_failures, cg_iters, use_quality,
+      use_squared_norm, downscale_by_2, normalize;
+  double min_error, min_rerr_dec, min_step_norm2, min_grad_norm2,
+      damping_init, lam_lo, lam_hi, good_factor, bad_factor, grad_clipping;
+};
+
+struct SolverIO {
+  const void* x0;
+  const void* data0;
+  const void* data1;
+  void *x, *cost, *rerr, *lam, *g, *stop, *iters, *nfail, *nconsec, *nres;
+};
+
+enum Family { kPrior = 0, kJennrichSampson = 1 };
+enum Coloring { kColorNone = 0, kColorIdentity = 1 };
+enum Stop {
+  kSolverFailed = -3, kNanOrInf = -2, kNone = 0, kMinError = 1,
+  kMinRelError = 2, kMinDeltaNorm = 3, kMinGradNorm = 4, kMaxIters = 5,
+  kMaxNoDecr = 6, kMaxConsecNoDecr = 7
+};
+
+// r = (x - y) * inv_std;  J p = p * inv_std;  J'q = q * inv_std.
+template <typename T>
+struct PriorFamily {
+  const T* y;
+  const T* inv_std;
+  int d;
+  __device__ int n_res() const { return d; }
+  __device__ void residual(int b, const T* x, T* r, int lane) const {
+    const T* yb = y + (size_t)b * d;
+    const T* sb = inv_std + (size_t)b * d;
+    for (int i = lane; i < d; i += 32) r[i] = (x[i] - yb[i]) * sb[i];
+  }
+  __device__ void jvp(int b, const T* x, const T* p, T* out, int lane) const {
+    const T* sb = inv_std + (size_t)b * d;
+    for (int i = lane; i < d; i += 32) out[i] = p[i] * sb[i];
+  }
+  __device__ void vjp(int b, const T* x, const T* q, T* out, int lane) const {
+    const T* sb = inv_std + (size_t)b * d;
+    for (int i = lane; i < d; i += 32) out[i] = q[i] * sb[i];
+  }
+};
+
+// Jennrich-Sampson, m residuals over x = (x1, x2), c = i + 1:
+//   r_i = (2 + 2c) - (e^{c x1} + e^{c x2})
+//   (J p)_i = -((c p1) e^{c x1} + (c p2) e^{c x2})
+//   (J'q)_k = sum_i ((-q_i) e^{c x_k}) c
+template <typename T>
+struct JenSamFamily {
+  int m;
+  __device__ int n_res() const { return m; }
+  __device__ void residual(int b, const T* x, T* r, int lane) const {
+    for (int i = lane; i < m; i += 32) {
+      const T c = T(i + 1);
+      r[i] = (T(2) + T(2) * c) - (exp(c * x[0]) + exp(c * x[1]));
+    }
+  }
+  __device__ void jvp(int b, const T* x, const T* p, T* out, int lane) const {
+    for (int i = lane; i < m; i += 32) {
+      const T c = T(i + 1);
+      out[i] = -((c * p[0]) * exp(c * x[0]) + (c * p[1]) * exp(c * x[1]));
+    }
+  }
+  __device__ void vjp(int b, const T* x, const T* q, T* out, int lane) const {
+    T s0 = 0, s1 = 0;
+    for (int i = lane; i < m; i += 32) {
+      const T c = T(i + 1);
+      s0 += ((-q[i]) * exp(c * x[0])) * c;
+      s1 += ((-q[i]) * exp(c * x[1])) * c;
+    }
+    s0 = warp_sum(s0);
+    s1 = warp_sum(s1);
+    if (lane == 0) {
+      out[0] = s0;
+      out[1] = s1;
+    }
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ T clampv(T v, T lo, T hi) {
+  return fmin(fmax(v, lo), hi);
+}
+
+template <typename T>
+__device__ __forceinline__ bool warp_all_finite(const T* v, int n, int lane) {
+  int f = 1;
+  for (int i = lane; i < n; i += 32) f &= isfinite(v[i]) ? 1 : 0;
+  return __all_sync(kFullMask, f) != 0;
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_dot(const T* a, const T* b, int n, int lane) {
+  T s = 0;
+  for (int i = lane; i < n; i += 32) s += a[i] * b[i];
+  return warp_sum(s);
+}
+
+template <typename T, typename Fam>
+__global__ void solver_kernel(const SolverParams p, const SolverIO io,
+                              const Fam fam, int warps_per_block,
+                              int ws_stride) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int b = blockIdx.x * warps_per_block + w;
+  if (b >= p.B) return;       // whole warp: b is warp-uniform
+
+  const int d = p.d;
+  const int nr = p.n_res;
+  T* x = reinterpret_cast<T*>(smem_raw) + (size_t)w * ws_stride;
+  T* best_x = x + d;
+  T* last_dx = best_x + d;
+  T* g = last_dx + d;
+  T* diagH = g + d;
+  T* dx = diagH + d;          // accepted proposal of this iteration
+  T* dxn = dx + d;            // proposal of the current try
+  T* dampl = dxn + d;
+  T* dinv = dampl + d;
+  T* cr = dinv + d;           // PCG residual
+  T* cz = cr + d;             // PCG preconditioned residual
+  T* cp = cz + d;             // PCG direction
+  T* chp = cp + d;            // H p
+  T* tv = chp + d;            // tangent probe
+  T* r = tv + d;              // residuals (n_res)
+  T* jp = r + nr;             // J v (n_res)
+
+  const T tiny = tiny_v<T>();
+  const T feps = float_epsilon_v<T>();
+  const T noise = T(8) * eps_v<T>();
+  const T inf = T(INFINITY);
+  const T lam_lo = T(p.lam_lo), lam_hi = T(p.lam_hi);
+  const T base_bad = T(p.bad_factor), good_f = T(p.good_factor);
+  const bool is_lm = p.is_lm != 0;
+  const int max_tries = p.max_consec_failures > 0 ? p.max_consec_failures : 255;
+
+  const T* x0 = static_cast<const T*>(io.x0) + (size_t)b * d;
+  for (int i = lane; i < d; i += 32) {
+    x[i] = x0[i];
+    best_x[i] = x0[i];
+    last_dx[i] = 0;
+    g[i] = 0;
+  }
+  T best_cost = inf, final_rerr = inf;
+  T lam = T(p.damping_init), bad = base_bad;
+  int has_last = 0, it = 0, nfail = 0, nconsec = 0, stop = kNone;
+  int best_nres = 0;
+  __syncwarp();
+
+  // y = H v = J'(J v) + dampl * v   (v and y are d-vectors)
+  auto matvec = [&](const T* v, T* y) {
+    fam.jvp(b, x, v, jp, lane);
+    __syncwarp();
+    fam.vjp(b, x, jp, y, lane);
+    __syncwarp();
+    for (int i = lane; i < d; i += 32) y[i] = y[i] + dampl[i] * v[i];
+    __syncwarp();
+  };
+
+  // dxn = solve((H + diag(dampl)) dxn = -g); returns all(isfinite(dxn)).
+  auto propose = [&](T lam_try) -> bool {
+    for (int i = lane; i < d; i += 32) {
+      const T damp = diagH[i] == T(0) ? T(1) : diagH[i];
+      const T dl = is_lm ? damp * lam_try : T(0);
+      dampl[i] = dl;
+      const T dd = diagH[i] + dl;
+      dinv[i] = dd > T(0) ? T(1) / dd : T(1);
+    }
+    if (p.coloring == kColorIdentity) {
+      // One color: H = J'J is exactly diagonal, the damped system solves
+      // in closed form (the JAX kernel's n_colors == 1 branch).
+      for (int i = lane; i < d; i += 32) dxn[i] = (-g[i]) * dinv[i];
+      __syncwarp();
+      return warp_all_finite(dxn, d, lane);
+    }
+    // Jacobi-PCG, ops/linalg.pcg_core formulas.
+    T part = 0;
+    for (int i = lane; i < d; i += 32) {
+      dxn[i] = 0;
+      cr[i] = -g[i];
+      cz[i] = cr[i] * dinv[i];
+      cp[i] = cz[i];
+      part += cr[i] * cz[i];
+    }
+    T rz = warp_sum(part);
+    __syncwarp();
+    for (int k = 0; k < p.cg_iters; ++k) {
+      matvec(cp, chp);
+      const T denom = warp_dot(cp, chp, d, lane);
+      const T alpha = denom > tiny ? rz / denom : T(0);
+      part = 0;
+      for (int i = lane; i < d; i += 32) {
+        dxn[i] = dxn[i] + alpha * cp[i];
+        cr[i] = cr[i] - alpha * chp[i];
+        cz[i] = cr[i] * dinv[i];
+        part += cr[i] * cz[i];
+      }
+      const T rz_new = warp_sum(part);
+      const T beta = rz_new / (rz > tiny ? rz : tiny);
+      for (int i = lane; i < d; i += 32) cp[i] = cz[i] + beta * cp[i];
+      rz = rz_new;
+      __syncwarp();
+    }
+    return warp_all_finite(dxn, d, lane);
+  };
+
+  while (stop == kNone && it < p.max_iters_total) {
+    // ---- linearize at x, accumulate g, diag(H), err ----
+    fam.residual(b, x, r, lane);
+    __syncwarp();
+    fam.vjp(b, x, r, g, lane);
+    __syncwarp();
+    if (p.coloring == kColorIdentity) {
+      for (int i = lane; i < d; i += 32) tv[i] = T(1);
+      __syncwarp();
+      fam.jvp(b, x, tv, jp, lane);
+      __syncwarp();
+      for (int i = lane; i < d; i += 32) diagH[i] = jp[i] * jp[i];
+    } else {
+      for (int j = 0; j < d; ++j) {
+        for (int i = lane; i < d; i += 32) tv[i] = i == j ? T(1) : T(0);
+        __syncwarp();
+        fam.jvp(b, x, tv, jp, lane);
+        __syncwarp();
+        const T dj = warp_dot(jp, jp, nr, lane);
+        if (lane == 0) diagH[j] = dj;
+        __syncwarp();
+      }
+    }
+    T err = warp_dot(r, r, nr, lane);
+    if (!p.use_squared_norm) err = sqrt(err);
+    if (p.downscale_by_2) err = T(0.5) * err;
+    if (p.normalize) err = err / T(nr > 1 ? nr : 1);
+    if (p.grad_clipping > 0) {
+      const T v = T(p.grad_clipping);
+      for (int i = lane; i < d; i += 32) g[i] = fmin(fmax(g[i], -v), v);
+    }
+    __syncwarp();
+
+    // ---- propose, retry with lambda escalation (optimizer.h:356-399) ----
+    bool ok = false, give_up = false;
+    T r_lam = lam, r_bad = bad;
+    int nf = nfail, nc = nconsec;
+    for (int i = lane; i < d; i += 32) dx[i] = 0;
+    __syncwarp();
+    while (!ok && !give_up && nc <= max_tries) {
+      const bool ok_new = propose(r_lam);
+      if (!ok_new) {
+        ++nf;
+        ++nc;
+      }
+      const bool gu_new = !ok_new && p.max_consec_failures > 0 &&
+                          nc >= p.max_consec_failures;
+      if (ok_new)
+        for (int i = lane; i < d; i += 32) dx[i] = dxn[i];
+      ok = ok_new;
+      if (!ok_new && !gu_new && is_lm) {
+        r_lam = clampv(r_lam * r_bad, lam_lo, lam_hi);
+        r_bad = r_bad * base_bad;
+      }
+      give_up = give_up || gu_new;
+      __syncwarp();
+    }
+    lam = r_lam;
+    bad = r_bad;
+
+    // ---- early failure routing ----
+    const bool err_bad = !isfinite(err) || !warp_all_finite(g, d, lane);
+    int stop_early = err_bad ? kNanOrInf : (ok ? kNone : kSolverFailed);
+    const T dx_norm2 = warp_dot(dx, dx, d, lane);
+    if (stop_early == kNone && !isfinite(dx_norm2)) stop_early = kNanOrInf;
+    const bool early_fail = stop_early != kNone;
+
+    // ---- accept / reject (optimizer.h:427-459) ----
+    const T derr = err - best_cost;
+    const bool is_good = derr < T(0);
+    const T rel_derr = (best_cost > feps && isfinite(best_cost))
+                           ? (best_cost - err) / best_cost : T(0);
+    const bool first_eval = !isfinite(best_cost);
+    const bool good = is_good || first_eval;
+    if (is_lm) {
+      if (!early_fail && good && !first_eval) {
+        const T q = p.use_quality ? rel_derr : T(0);
+        const T t = T(2) * q - T(1);
+        T s = q != T(0) ? fmax(good_f, T(1) - t * t * t) : good_f;
+        if (bad != base_bad) s = s / bad;
+        lam = clampv(lam * s, lam_lo, lam_hi);
+        bad = base_bad;
+      } else if (!early_fail && !good) {
+        lam = clampv(lam * bad, lam_lo, lam_hi);
+        bad = bad * base_bad;
+      }
+    }
+    const bool accepted = !early_fail && good;
+    const bool rejected = !early_fail && !good;
+    const int nconsec_new = accepted ? 0 : nc + (rejected ? 1 : 0);
+    const int nfail_new = nf + (rejected ? 1 : 0);
+    if (accepted) {
+      best_cost = err;
+      best_nres = nr;
+      final_rerr = rel_derr;
+    }
+    int budget_stop = kNone;
+    if (rejected && p.max_consec_failures > 0 &&
+        nconsec_new >= p.max_consec_failures)
+      budget_stop = kMaxConsecNoDecr;
+    else if (rejected && p.max_total_failures > 0 &&
+             nfail_new >= p.max_total_failures)
+      budget_stop = kMaxNoDecr;
+    const bool budget_fail = stop_early == kNone && budget_stop != kNone;
+
+    // ---- stop cascade (optimizer.h:518-534), first match wins ----
+    const T gn2 = warp_dot(g, g, d, lane);
+    int cascade = kNone;
+    if (p.min_error > 0 && err < T(p.min_error))
+      cascade = kMinError;
+    else if (p.min_rerr_dec > 0 && rel_derr > noise && rel_derr < T(p.min_rerr_dec))
+      cascade = kMinRelError;
+    else if (p.min_step_norm2 > 0 && dx_norm2 < T(p.min_step_norm2))
+      cascade = kMinDeltaNorm;
+    else if (p.min_grad_norm2 > 0 && gn2 < T(p.min_grad_norm2))
+      cascade = kMinGradNorm;
+    const int stop_new = stop_early != kNone ? stop_early
+                         : (budget_stop != kNone ? budget_stop : cascade);
+
+    // ---- apply / rollback / probe (optimizer.h:266-299) ----
+    const bool returned_dx = !early_fail && !budget_fail;
+    const bool success = accepted && returned_dx;
+    const bool probe = !success && !has_last && returned_dx;
+    const bool roll = !success && has_last;
+    const bool apply = (success || probe) && cascade == kNone &&
+                       it + 1 < p.max_iters_total;
+    for (int i = lane; i < d; i += 32) {
+      const T xb = roll ? best_x[i] : x[i];
+      const T xn = xb + (apply ? dx[i] : T(0));
+      if (success) best_x[i] = x[i];
+      if (success || probe) last_dx[i] = dx[i];
+      x[i] = xn;
+    }
+    has_last = success ? 1 : (has_last ? 0 : (probe ? 1 : 0));
+    ++it;
+    nfail = nfail_new;
+    nconsec = nconsec_new;
+    stop = stop_new;
+    __syncwarp();
+  }
+
+  if (stop == kNone) stop = kMaxIters;
+  T* xo = static_cast<T*>(io.x) + (size_t)b * d;
+  T* go = static_cast<T*>(io.g) + (size_t)b * d;
+  for (int i = lane; i < d; i += 32) {
+    xo[i] = x[i];
+    go[i] = g[i];
+  }
+  if (lane == 0) {
+    static_cast<T*>(io.cost)[b] = best_cost;
+    static_cast<T*>(io.rerr)[b] = final_rerr;
+    static_cast<T*>(io.lam)[b] = lam;
+    static_cast<int*>(io.stop)[b] = stop;
+    static_cast<int*>(io.iters)[b] = it;
+    static_cast<int*>(io.nfail)[b] = nfail;
+    static_cast<int*>(io.nconsec)[b] = nconsec;
+    static_cast<int*>(io.nres)[b] = best_nres;
+  }
+}
+
+template <typename T, typename Fam>
+int launch_family(const SolverParams& p, const SolverIO& io, const Fam& fam,
+                  cudaStream_t stream) {
+  const int ws_stride = 14 * p.d + 2 * p.n_res;
+  const size_t per_warp = (size_t)ws_stride * sizeof(T);
+  int wpb = 4;
+  while (wpb > 1 && wpb * per_warp > kDefaultSmem) wpb /= 2;
+  const size_t smem = wpb * per_warp;
+  if (smem > kDefaultSmem) {
+    cudaError_t e = cudaFuncSetAttribute(solver_kernel<T, Fam>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int grid = (p.B + wpb - 1) / wpb;
+  solver_kernel<T, Fam><<<grid, 32 * wpb, smem, stream>>>(p, io, fam, wpb, ws_stride);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_solver(const SolverParams* p, const SolverIO* io, void* stream) {
+  if (p->B <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p->family == kPrior) {
+    PriorFamily<T> fam{static_cast<const T*>(io->data0),
+                       static_cast<const T*>(io->data1), p->d};
+    return launch_family<T>(*p, *io, fam, s);
+  }
+  if (p->family == kJennrichSampson) {
+    JenSamFamily<T> fam{p->fam_m};
+    return launch_family<T>(*p, *io, fam, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace tinyopt
+
+extern "C" int tinyopt_solver_f32(const tinyopt::SolverParams* p,
+                                  const tinyopt::SolverIO* io, void* stream) {
+  return tinyopt::launch_solver<float>(p, io, stream);
+}
+
+extern "C" int tinyopt_solver_f64(const tinyopt::SolverParams* p,
+                                  const tinyopt::SolverIO* io, void* stream) {
+  return tinyopt::launch_solver<double>(p, io, stream);
+}

@@ -1,0 +1,471 @@
+"""K2 — the whole-solve CUDA kernel (``csrc/solver.cu``), its plain twin
+and the fused path's envelope.
+
+Counterpart of ``tinyopt_tpu/ops/pallas_solver.py`` (``_solver_kernel``,
+``fused_batched_solver``, ``fused_supported``).  The fused path runs the
+``carry_system=False`` + CG semantics of the optimizer loop with the
+normal matrix never built: g = Jᵀr by one vjp, diag(JᵀJ) by jvps, the
+damped step by Jacobi-PCG applying H as Jᵀ(J p) — or in closed form when
+the coloring proves H diagonal.
+
+:func:`fused_solve` dispatches by device.  On the CPU it runs
+:func:`fused_solve_plain`, a batch-native torch version of the same
+algorithm with the kernel's op order, differentiating ANY residual with
+``torch.func``.  On a CUDA device it launches K2, which has no automatic
+differentiation: the residual must be one of the hand-written families of
+``FAMILIES`` (prior_residual, jennrich_sampson_residuals).  It never falls
+back: a configuration the kernel does not cover raises, and
+:func:`fused_plan` (behind :func:`fused_supported`) decides before any
+launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+from torch.utils import _pytree as pytree
+
+from .. import manifold as mf
+from ..cost import Cost
+from ..diff.auto import instance_residuals, num_residuals
+from ..models.problems import jennrich_sampson_residuals, prior_residual
+from ..options import Options, SolverType
+from ..output import Output
+from ..solvers.lm import lm_bad_step, lm_good_step, lm_init, where_state
+from ..stop_reasons import StopReason
+from ..utils import float_epsilon
+from .coloring import DiagColoring, detect_diag_coloring
+from .linalg import jacobi_inverse, pcg_core
+
+_I32 = torch.int32
+
+#: Residual functions with a hand-written device family in csrc/solver.cu,
+#: mapped to the family id of ``enum Family`` there.
+FAMILIES = {prior_residual: 0, jennrich_sampson_residuals: 1}
+
+#: Per-warp shared-memory budget of K2 (one warp per instance needs
+#: 14·d + 2·n_res values; a block may use at most 227 KB).
+_MAX_SMEM = 232448
+
+
+class FusedPlan(NamedTuple):
+    """What the fused path fixes when it is built: the parameter layout,
+    the residual count and the diag(JᵀJ) coloring of the example."""
+    spec: mf.TangentSpec
+    n_res: int
+    coloring: DiagColoring | None     # identity structure, or None
+
+
+def fused_plan(options: Options, mode: str, x_example, n_res: int | None = None,
+               *, residual_fn, data_example=None) -> FusedPlan | None:
+    """The fused path's plan on the device of ``x_example``, or ``None``
+    when the configuration lies outside its envelope.
+
+    The envelope is everything ``tinyopt_tpu``'s ``fused_supported``
+    requires (residuals mode, LM/GN, carry_system=False, no save_last,
+    logging, callbacks, timeout, check_final_cost or min-H-diag check,
+    same-dtype float parameters, a non-empty residual), plus: no history,
+    and a coloring that is the identity or none.  On a CUDA device also a
+    registered residual family (``FAMILIES``), float32/float64, and a
+    per-instance footprint that fits one warp's shared memory.
+    """
+    o = options
+    if o.solver_type not in (SolverType.LEVENBERG_MARQUARDT,
+                             SolverType.GAUSS_NEWTON):
+        return None               # DogLeg in K2: ROADMAP Queue 2
+    if mode != "residuals":
+        return None
+    if (o.hessian.save_last or o.hessian.carry_system
+            or o.check_final_cost or o.log.enable or o.log.print_failure
+            or o.max_duration_ms > 0
+            or o.stop_callback is not None or o.stop_callback2 is not None
+            or o.hessian.check_min_H_diag > 0 or o.save_history):
+        return None
+    leaves = [torch.as_tensor(l) for l in pytree.tree_leaves(x_example)]
+    if not leaves or any(not l.is_floating_point() for l in leaves) \
+            or any(l.dtype != leaves[0].dtype for l in leaves):
+        return None
+    device = leaves[0].device.type
+    spec = mf.tangent_spec(x_example)
+    if spec.dims == 0 or device not in ("cpu", "cuda"):
+        return None
+    if device == "cuda":
+        if FAMILIES.get(residual_fn) is None \
+                or spec.dtype not in (torch.float32, torch.float64):
+            return None
+        if FAMILIES[residual_fn] == 1 and spec.dims != 2:
+            return None
+    if n_res is None:
+        n_res = num_residuals(residual_fn, x_example, data_example)
+    if n_res == 0:
+        return None
+    itemsize = torch.empty((), dtype=spec.dtype).element_size()
+    if device == "cuda" and (14 * spec.dims + 2 * n_res) * itemsize > _MAX_SMEM:
+        return None
+    coloring = None
+    if o.hessian.diag_coloring == "auto":
+        coloring = detect_diag_coloring(residual_fn, x_example, data_example,
+                                        spec, n_res, spec.dims, spec.dtype)
+    if coloring is not None and not coloring.identity:
+        return None               # multi-color CPR probes: ROADMAP Queue 2
+    return FusedPlan(spec, n_res, coloring)
+
+
+def fused_supported(options: Options, mode: str, x_example,
+                    n_res: int | None = None, *, residual_fn=None,
+                    data_example=None) -> bool:
+    """Whether the fused whole-solve path covers this configuration on the
+    device of ``x_example`` (see :func:`fused_plan`)."""
+    return residual_fn is not None and fused_plan(
+        options, mode, x_example, n_res, residual_fn=residual_fn,
+        data_example=data_example) is not None
+
+
+def _output(B, dtype, dev, cost, rerr, stop, it, nfail, nconsec, lam, g,
+            nres) -> Output:
+    return Output(
+        final_cost=Cost(cost=cost, num_residuals=nres,
+                        inlier_ratio=torch.ones((B,), dtype=torch.float32,
+                                                device=dev)),
+        final_rerr_dec=rerr, stop_reason=stop, num_iters=it,
+        num_failures=nfail, num_consec_failures=nconsec,
+        duration_ms=torch.zeros((B,), dtype=torch.float32, device=dev),
+        final_grad=g, final_hessian=None,
+        errs=torch.zeros((B, 0), dtype=dtype, device=dev),
+        deltas2=torch.zeros((B, 0), dtype=dtype, device=dev),
+        successes=torch.zeros((B, 0), dtype=torch.bool, device=dev),
+        num_hist=torch.zeros((B,), dtype=_I32, device=dev),
+        final_lambda=lam)
+
+
+def fused_solve_plain(residual_fn, opts: Options, x0: torch.Tensor, data,
+                      plan: FusedPlan):
+    """The plain twin of K2 on flat parameters ``x0`` (B, d).
+
+    Batch-native: per-instance (B,) state, active instances updated by
+    selects, the retry loop running while any instance retries — the
+    per-instance results of the kernel's one-warp-per-instance loop."""
+    B, d = x0.shape
+    dtype, dev = x0.dtype, x0.device
+    n_res, coloring = plan.n_res, plan.coloring
+    is_lm = opts.solver_type == SolverType.LEVENBERG_MARQUARDT
+    mcf, mtf = opts.max_consec_failures, opts.max_total_failures
+    max_tries = mcf if mcf > 0 else 255
+    cg_iters = opts.hessian.cg_iters or d
+    max_iters_total = opts.max_iters + 1        # +1 rollback slot
+    feps = float_epsilon(dtype)
+    noise = 8.0 * torch.finfo(dtype).eps
+    r1 = instance_residuals(residual_fn, plan.spec, data is not None)
+    extra = () if data is None else (data,)
+    G = torch.func.vmap(lambda xv, dv, *dd: r1(xv + dv, *dd))
+
+    def col(v):
+        return v[:, None]
+
+    def linearize_at(x):
+        """(r, jvp_fn, vjp_fn) of δ ↦ r(x + δ) at δ = 0."""
+        zero = torch.zeros_like(x)
+
+        def Gx(dm):
+            return G(x, dm, *extra)
+        r, vjp = torch.func.vjp(Gx, zero)
+        return (r, lambda p: torch.func.jvp(Gx, (zero,), (p,))[1],
+                lambda q: vjp(q)[0])
+
+    def accumulate(r, jvp_fn, vjp_fn):
+        g = vjp_fn(r)
+        if coloring is not None:
+            Jp = jvp_fn(torch.ones((B, d), dtype=dtype, device=dev))
+            diagH = (Jp * Jp)[:, :d]
+        else:
+            diagH = torch.zeros((B, d), dtype=dtype, device=dev)
+            for j in range(d):
+                e_j = torch.zeros((1, d), dtype=dtype, device=dev)
+                e_j[0, j] = 1.0
+                Jej = jvp_fn(e_j.expand(B, d))
+                diagH = diagH + col(torch.sum(Jej * Jej, dim=-1)) * e_j
+        err = torch.sum(r * r, dim=-1)
+        if not opts.cost.use_squared_norm:
+            err = torch.sqrt(err)
+        if opts.cost.downscale_by_2:
+            err = 0.5 * err
+        if opts.cost.normalize:
+            err = err / max(n_res, 1)
+        if opts.grad_clipping > 0:
+            g = torch.clamp(g, -opts.grad_clipping, opts.grad_clipping)
+        return diagH, g, err
+
+    def propose(jvp_fn, vjp_fn, diagH, g, lam):
+        if is_lm:
+            damp = torch.where(diagH == 0, torch.ones_like(diagH), diagH)
+            dampl = damp * col(lam)
+        else:
+            dampl = torch.zeros_like(diagH)
+        dinv = jacobi_inverse(diagH + dampl)
+        if coloring is not None:
+            # identity coloring: H diagonal, closed-form damped step
+            dx = -g * dinv
+        else:
+            dx = pcg_core(lambda p: vjp_fn(jvp_fn(p)) + dampl * p, dinv, -g,
+                          cg_iters)
+        return dx, torch.all(torch.isfinite(dx), dim=-1)
+
+    def full(v, dt=dtype):
+        return torch.full((B,), v, dtype=dt, device=dev)
+
+    codes = {c: torch.tensor(int(c), dtype=_I32, device=dev)
+             for c in StopReason}
+    code = codes.__getitem__
+
+    x, best_x = x0.clone(), x0.clone()
+    best_cost, final_rerr = full(float("inf")), full(float("inf"))
+    lm = lm_init(opts, dtype, B, dev)
+    last_dx = torch.zeros_like(x0)
+    g_out = torch.zeros_like(x0)
+    has_last = full(False, torch.bool)
+    it, nfail, nconsec, stop, best_nres = (full(0, _I32) for _ in range(5))
+
+    while True:
+        act = (stop == int(StopReason.NONE)) & (it < max_iters_total)
+        if not bool(act.any()):
+            break
+        r_lin, jvp_fn, vjp_fn = linearize_at(x)
+        diagH, g, err = accumulate(r_lin, jvp_fn, vjp_fn)
+
+        # --- propose, retry with λ escalation (optimizer.h:356-399) ---
+        dx = torch.zeros_like(x)
+        ok, give_up = full(False, torch.bool), full(False, torch.bool)
+        lm_t, nf, nc = lm, nfail, nconsec
+        while True:
+            upd = act & (~ok) & (~give_up) & (nc <= max_tries)
+            if not bool(upd.any()):
+                break
+            dx_new, ok_new = propose(jvp_fn, vjp_fn, diagH, g, lm_t.lam)
+            failed = (upd & ~ok_new).to(_I32)
+            nf2, nc2 = nf + failed, nc + failed
+            gu_new = (~ok_new) & (mcf > 0) & (nc2 >= mcf)
+            if is_lm:
+                lm_t = where_state(upd & (~ok_new) & (~gu_new),
+                                   lm_bad_step(lm_t, opts), lm_t)
+            dx = torch.where(col(upd & ok_new), dx_new, dx)
+            ok = torch.where(upd, ok_new, ok)
+            nf = torch.where(upd, nf2, nf)
+            nc = torch.where(upd, nc2, nc)
+            give_up = torch.where(upd, give_up | gu_new, give_up)
+        solved = ok
+
+        # --- early failure routing ---
+        err_bad = (~torch.isfinite(err)) | ~torch.all(torch.isfinite(g), -1)
+        stop_early = torch.where(
+            err_bad, code(StopReason.SYSTEM_HAS_NAN_OR_INF),
+            torch.where(solved, code(StopReason.NONE),
+                        code(StopReason.SOLVER_FAILED)))
+        dx_norm2 = torch.sum(dx * dx, dim=-1)
+        stop_early = torch.where((stop_early == 0) & ~torch.isfinite(dx_norm2),
+                                 code(StopReason.SYSTEM_HAS_NAN_OR_INF),
+                                 stop_early)
+        early_fail = stop_early != 0
+
+        # --- accept / reject (optimizer.h:427-459) ---
+        is_good = (err - best_cost) < 0
+        rel_derr = torch.where((best_cost > feps) & torch.isfinite(best_cost),
+                               (best_cost - err) / best_cost,
+                               torch.zeros_like(err))
+        first_eval = ~torch.isfinite(best_cost)
+        good = is_good | first_eval
+        if is_lm:
+            quality = (rel_derr if opts.use_step_quality_approx
+                       else torch.zeros_like(err))
+            apply_good = act & (~early_fail) & good & (~first_eval)
+            apply_bad = act & (~early_fail) & (~good)
+            lm_t = where_state(
+                apply_good, lm_good_step(lm_t, quality, opts),
+                where_state(apply_bad, lm_bad_step(lm_t, opts), lm_t))
+        accepted = (~early_fail) & good
+        rejected = (~early_fail) & (~good)
+        rej = rejected.to(_I32)
+        nconsec_n = torch.where(accepted, torch.zeros_like(nc), nc + rej)
+        nfail_n = nf + rej
+        budget_stop = torch.where(
+            rejected & (mcf > 0) & (nconsec_n >= mcf),
+            code(StopReason.MAX_CONSEC_NO_DECR),
+            torch.where(rejected & (mtf > 0) & (nfail_n >= mtf),
+                        code(StopReason.MAX_NO_DECR), code(StopReason.NONE)))
+        budget_fail = (stop_early == 0) & (budget_stop != 0)
+
+        # --- stop cascade: first match in MIN_ERROR..MIN_GRAD_NORM order ---
+        grad_norm2 = torch.sum(g * g, dim=-1)
+        cascade = torch.zeros_like(stop)
+        for enabled, pred, c in (
+                (opts.min_error > 0, lambda: err < opts.min_error,
+                 StopReason.MIN_ERROR),
+                (opts.min_rerr_dec > 0,
+                 lambda: (rel_derr > noise) & (rel_derr < opts.min_rerr_dec),
+                 StopReason.MIN_REL_ERROR),
+                (opts.min_step_norm2 > 0,
+                 lambda: dx_norm2 < opts.min_step_norm2,
+                 StopReason.MIN_DELTA_NORM),
+                (opts.min_grad_norm2 > 0,
+                 lambda: grad_norm2 < opts.min_grad_norm2,
+                 StopReason.MIN_GRAD_NORM)):
+            if enabled:
+                cascade = torch.where((cascade == 0) & pred(), code(c),
+                                      cascade)
+        stop_n = torch.where(stop_early != 0, stop_early,
+                             torch.where(budget_stop != 0, budget_stop,
+                                         cascade))
+
+        # --- apply / rollback / probe (optimizer.h:266-299) ---
+        returned_dx = (~early_fail) & (~budget_fail)
+        success = act & accepted & returned_dx
+        fail = ~success
+        probe = act & fail & (~has_last) & returned_dx
+        roll = act & fail & has_last
+        x_base = torch.where(col(roll), best_x, x)
+        applied = torch.where(col((success | probe) & (cascade == 0)
+                                  & (it + 1 < max_iters_total)),
+                              dx, torch.zeros_like(dx))
+        x_new = x_base + applied
+        best_x = torch.where(col(success), x, best_x)
+        last_dx = torch.where(col(success | probe), dx, last_dx)
+        has_last_n = torch.where(success, torch.ones_like(has_last),
+                                 torch.where(has_last,
+                                             torch.zeros_like(has_last),
+                                             probe))
+        x = x_new
+        best_cost = torch.where(act & accepted, err, best_cost)
+        best_nres = torch.where(act & accepted, full(n_res, _I32), best_nres)
+        final_rerr = torch.where(act & accepted, rel_derr, final_rerr)
+        lm = where_state(act, lm_t, lm)
+        has_last = torch.where(act, has_last_n, has_last)
+        it = torch.where(act, it + 1, it)
+        nfail = torch.where(act, nfail_n, nfail)
+        nconsec = torch.where(act, nconsec_n, nconsec)
+        stop = torch.where(act, stop_n, stop)
+        g_out = torch.where(col(act), g, g_out)
+
+    stop = torch.where(stop == int(StopReason.NONE),
+                       code(StopReason.MAX_ITERS), stop)
+    return x, _output(B, dtype, dev, best_cost, final_rerr, stop, it, nfail,
+                      nconsec, lm.lam, g_out, best_nres)
+
+
+def fused_solve_cuda(family: int, opts: Options, x0: torch.Tensor, data,
+                     plan: FusedPlan):
+    """Launch K2 on flat parameters ``x0`` (B, d), a CUDA tensor."""
+    from .. import _build
+
+    n_res, coloring = plan.n_res, plan.coloring
+    if coloring is not None and not coloring.identity:
+        raise ValueError("K2 covers the identity coloring or none; got "
+                         f"{coloring.n_colors} colors")
+    if x0.dtype not in (torch.float32, torch.float64) or x0.dim() != 2:
+        raise ValueError(f"K2: unsupported x0 {x0.dtype} {tuple(x0.shape)}")
+    B, d = x0.shape
+    dtype, dev = x0.dtype, x0.device
+    x0 = x0.contiguous()
+    data_ptrs = [None, None]
+    if family == 0:
+        y, inv_std = (t.to(dtype).contiguous() for t in (data.y, data.inv_std))
+        for t in (y, inv_std):
+            if t.shape != (B, d) or t.device != dev:
+                raise ValueError("K2 prior family: y and inv_std must be "
+                                 f"({B}, {d}) on {dev}")
+        data_ptrs = [y.data_ptr(), inv_std.data_ptr()]
+    elif family == 1:
+        if d != 2 or data is not None:
+            raise ValueError("K2 Jennrich-Sampson family: x is (B, 2), no "
+                             "data")
+    else:
+        raise ValueError(f"K2: unknown residual family {family}")
+
+    def vec(n, dt=dtype):
+        return torch.empty((B, n), dtype=dt, device=dev)
+
+    def scal(dt=dtype):
+        return torch.empty((B,), dtype=dt, device=dev)
+
+    x_out, g = vec(d), vec(d)
+    cost, rerr, lam = scal(), scal(), scal()
+    stop, it, nfail, nconsec, nres = (scal(_I32) for _ in range(5))
+    lm = opts.lm
+    prm = _build.SolverParams(
+        B=B, d=d, n_res=n_res, family=family,
+        fam_m=n_res if family == 1 else 0,
+        is_lm=int(opts.solver_type == SolverType.LEVENBERG_MARQUARDT),
+        coloring=int(coloring is not None),
+        max_iters_total=opts.max_iters + 1,
+        max_consec_failures=opts.max_consec_failures,
+        max_total_failures=opts.max_total_failures,
+        cg_iters=opts.hessian.cg_iters or d,
+        use_quality=int(opts.use_step_quality_approx),
+        use_squared_norm=int(opts.cost.use_squared_norm),
+        downscale_by_2=int(opts.cost.downscale_by_2),
+        normalize=int(opts.cost.normalize),
+        min_error=opts.min_error, min_rerr_dec=opts.min_rerr_dec,
+        min_step_norm2=opts.min_step_norm2,
+        min_grad_norm2=opts.min_grad_norm2,
+        damping_init=lm.damping_init, lam_lo=lm.damping_range[0],
+        lam_hi=lm.damping_range[1], good_factor=lm.good_factor,
+        bad_factor=lm.bad_factor, grad_clipping=opts.grad_clipping)
+    io = _build.SolverIO(
+        x0=x0.data_ptr(), data0=data_ptrs[0], data1=data_ptrs[1],
+        x=x_out.data_ptr(), cost=cost.data_ptr(), rerr=rerr.data_ptr(),
+        lam=lam.data_ptr(), g=g.data_ptr(), stop=stop.data_ptr(),
+        iters=it.data_ptr(), nfail=nfail.data_ptr(),
+        nconsec=nconsec.data_ptr(), nres=nres.data_ptr())
+    lib = _build.load()
+    fn = lib.tinyopt_solver_f32 if dtype == torch.float32 \
+        else lib.tinyopt_solver_f64
+    with torch.cuda.device(dev):
+        err = fn(ctypes.byref(prm), ctypes.byref(io),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "K2 solver kernel")
+    fused_solve.launches += 1
+    return x_out, _output(B, dtype, dev, cost, rerr, stop, it, nfail, nconsec,
+                          lam, g, nres)
+
+
+def fused_solve(residual_fn, opts: Options, x0: torch.Tensor, data,
+                plan: FusedPlan):
+    """The fused whole solve on flat ``x0`` (B, d): the plain twin for a
+    CPU tensor, K2 for a CUDA tensor (counted in ``fused_solve.launches``).
+    """
+    if x0.device.type == "cpu":
+        return fused_solve_plain(residual_fn, opts, x0, data, plan)
+    if x0.device.type != "cuda":
+        raise ValueError(f"fused_solve: no kernel for device {x0.device}")
+    if residual_fn not in FAMILIES:
+        raise ValueError(
+            "fused_solve: K2 has no device family for this residual "
+            "function (registered: prior_residual, "
+            "jennrich_sampson_residuals); check fused_plan first")
+    return fused_solve_cuda(FAMILIES[residual_fn], opts, x0, data, plan)
+
+
+#: Number of K2 launches in this process (reset freely by callers).
+fused_solve.launches = 0
+
+
+def fused_batched_solver(residual_fn, options: Options, x_example,
+                         data_example=None, *, plan: FusedPlan | None = None):
+    """Build ``solve(x0_batch[, data_batch]) -> (x_opt_batch, Output)`` for
+    the fused path; raises outside its envelope (:func:`fused_plan`)."""
+    if plan is None:
+        plan = fused_plan(options, "residuals", x_example,
+                          residual_fn=residual_fn, data_example=data_example)
+    if plan is None:
+        raise ValueError(
+            "fused_batched_solver: configuration not supported (see "
+            "fused_plan: residuals mode, LM/GN, carry_system=False, no "
+            "save_last/history/logging/callbacks, identity or no coloring; "
+            "on CUDA a registered residual family)")
+
+    def solve(x0_batch, data_batch=None):
+        x0 = mf.flatten_batch(x0_batch, plan.spec)
+        x, out = fused_solve(residual_fn, options, x0, data_batch, plan)
+        return mf.unflatten(x, plan.spec), out
+
+    return solve

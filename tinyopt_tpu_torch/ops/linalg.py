@@ -1,0 +1,104 @@
+"""Dense linear-algebra primitives for the normal-equation solves.
+
+Counterpart of ``tinyopt_tpu.ops.linalg`` (reference: include/tinyopt/
+math.h:232-277).  Every function takes a leading batch axis.
+``solve_psd_cg`` is also the plain twin of the K1 CUDA kernel
+(``ops/cuda_cg.py``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def damp_diagonal(H: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
+    """Multiplicative LM damping ``H[i,i] += λ·H[i,i]`` (solvers/lm.h:107-117),
+    with absolute λ·1 damping where the diagonal is exactly zero.
+
+    ``H`` (..., d, d), ``lam`` broadcastable to H's batch shape."""
+    diag = torch.diagonal(H, dim1=-2, dim2=-1)
+    damp = torch.where(diag == 0, torch.ones_like(diag), diag)
+    lam = torch.as_tensor(lam, dtype=H.dtype, device=H.device)
+    return H + torch.diag_embed(lam[..., None] * damp)
+
+
+def solve_psd(H: torch.Tensor, b: torch.Tensor, use_cholesky: bool = True):
+    """Solve ``H dx = b`` for symmetric positive-definite H.
+
+    Returns ``(dx, ok)``; ``ok`` is False where the factorization failed
+    (``cholesky_ex`` info ≠ 0) or the solution is non-finite
+    (``SolveLDLT`` returning nullopt, math.h:232-240).  With
+    ``use_cholesky=False`` it mirrors the reference's unchecked inverse
+    path including the 1-dim guard (gn.h:150-171)."""
+    d = H.shape[-1]
+    if use_cholesky:
+        if d == 1:
+            h = H[..., 0, 0]
+            ok = (h > 0) & torch.isfinite(h) & torch.isfinite(b[..., 0])
+            hs = torch.where(h == 0, torch.ones_like(h), h)[..., None]
+            dx = torch.where(ok[..., None], b / hs, torch.zeros_like(b))
+            return dx, ok
+        L, info = torch.linalg.cholesky_ex(H)
+        dx = torch.cholesky_solve(b[..., None], L)[..., 0]
+        ok = (info == 0) & torch.all(torch.isfinite(dx), dim=-1)
+        return dx, ok
+    if d == 1:
+        eps = float(torch.finfo(H.dtype).eps) ** 0.5
+        h = H[..., 0, 0]
+        good = h > eps
+        hs = torch.where(good, h, torch.ones_like(h))[..., None]
+        dx = torch.where(good[..., None], b / hs, torch.zeros_like(b))
+        return dx, torch.ones_like(good)
+    dx = torch.linalg.solve(H, b)
+    return dx, torch.ones(H.shape[:-2], dtype=torch.bool, device=H.device)
+
+
+def pcg_core(matvec, dinv: torch.Tensor, b: torch.Tensor,
+             iters: int) -> torch.Tensor:
+    """Jacobi-preconditioned CG, exactly ``iters`` iterations.
+
+    The formulas of ``tinyopt_tpu.ops.linalg.pcg_core``: a direction with
+    pᵀHp ≤ finfo.tiny freezes the iterate (α = 0), and the CG β divides by
+    max(rz, tiny).  ``matvec`` maps (..., d) -> (..., d); ``dinv`` is the
+    inverse diagonal (1 where non-positive)."""
+    eps = torch.finfo(b.dtype).tiny
+    x = torch.zeros_like(b)
+    r = b
+    z = r * dinv
+    p = z
+    rz = torch.sum(r * z, dim=-1)
+    for _ in range(iters):
+        Hp = matvec(p)
+        denom = torch.sum(p * Hp, dim=-1)
+        pos = denom > eps
+        alpha = torch.where(pos, rz / torch.where(pos, denom,
+                                                  torch.ones_like(denom)),
+                            torch.zeros_like(rz))
+        x = x + alpha[..., None] * p
+        r = r - alpha[..., None] * Hp
+        z = r * dinv
+        rz_new = torch.sum(r * z, dim=-1)
+        p = z + (rz_new / torch.clamp(rz, min=eps))[..., None] * p
+        rz = rz_new
+    return x
+
+
+def jacobi_inverse(diag: torch.Tensor) -> torch.Tensor:
+    """1/diag where diag > 0, else 1 (the PCG preconditioner)."""
+    pos = diag > 0
+    return torch.where(pos, 1.0 / torch.where(pos, diag,
+                                              torch.ones_like(diag)),
+                       torch.ones_like(diag))
+
+
+def solve_psd_cg(H: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor:
+    """Batched Jacobi-PCG solve of ``H dx = b`` — the plain twin of K1.
+
+    ``H``: (..., d, d), ``b``: (..., d).  Fixed-iteration CG composes with
+    the LM loop as an inexact solve: a poor step is rejected and λ
+    escalates."""
+    def mv(v):
+        return torch.matmul(H, v[..., None])[..., 0]
+
+    dinv = jacobi_inverse(torch.diagonal(H, dim1=-2, dim2=-1))
+    return pcg_core(mv, dinv, b, iters)
