@@ -12,7 +12,9 @@ non-zero before printing any result.
 
 Output: one line per phase, then a line ``{"kernels": [...]}`` with each
 kernel's launches on the main path, its largest disagreement with its
-twin, and its time beside the twin's; the card's name and power limit;
+twin, its time beside the twin's, and its memory bound (``bound_ms``) and
+the share of it the kernel reaches (float32, and float64 as ``*_f64``);
+the card's name and power limit;
 and last ``{"ok": true, "device": {...}}``.  The full record is also
 written to ``chiprun_out/chip_smoke.json``.
 """
@@ -31,6 +33,10 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 BATCH, DIMS = 10_000, 50
 REPS = 5
+# H100 SXM data sheet at 700 W: device memory rate, and the peak rate of
+# float32 / float64 arithmetic outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {4: 67e12, 8: 34e12}
 
 
 def log(*a):
@@ -65,6 +71,31 @@ def gpu_ms(fn, n=1, warmup=1):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / n
+
+
+def k1_bound(B, d, iters, itemsize):
+    """Least time in ms K1's work could take on the card, and what sets it:
+    H and b read once and x written once over the memory rate ("bytes"),
+    or its operations (2d² + 11d an iteration) over the peak rate
+    ("operations"), whichever is larger."""
+    t_bytes = (B * d * d + 2 * B * d) * itemsize / HBM_BYTES_PER_S * 1e3
+    t_ops = B * iters * (2 * d * d + 11 * d) / PEAK_FLOPS[itemsize] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k2_bound_ms(B, d, itemsize):
+    """K2's bytes on the prior problem over the memory rate: x0, y and
+    inv_std read, x and g written, 8 scalars an instance written."""
+    return (5 * B * d + 8 * B) * itemsize / HBM_BYTES_PER_S * 1e3
+
+
+def offset_view(H):
+    """The values of ``H`` in a contiguous view one element past an aligned
+    base: K1 cannot take one bulk copy per instance from it."""
+    flat = torch.empty(H.numel() + 1, dtype=H.dtype, device=H.device)
+    view = flat[1:].view(H.shape)
+    view.copy_(H)
+    return view
 
 
 def assert_parity(ref, got, *, rtol, atol, iter_slack=1, fail_slack=0,
@@ -136,13 +167,17 @@ def main() -> int:
 
     # Tolerance on max|x_k - x_twin|, relative to max|x| (CG's rounding
     # error is spread over all components, so it is not elementwise): the
-    # kernel's row dot products and block reductions sum in another order
-    # than the twin's batched matmul, so the iterates agree to rounding,
-    # amplified by cond(H) over the iterations — not bit for bit.
+    # kernel's column sums (fused multiply-adds), warp and block reductions
+    # sum in another order than the twin's batched matmul, so the iterates
+    # agree to rounding, amplified by cond(H) over the iterations — not bit
+    # for bit.
     k1_tol = {torch.float32: 1e-5, torch.float64: 1e-11}
     k1 = {"max_abs_err": 0.0}
     for dtype in (torch.float32, torch.float64):
         H, b = spd(BATCH, DIMS, dtype)
+        plan = cuda_cg.k1_launch_plan(BATCH, DIMS, H.element_size(),
+                                      H.data_ptr())
+        log(f"[K1] plan {dtype}: {plan}")
         for iters in (8, 50):
             xk = cuda_cg.cg_solve(H, b, iters)
             xt = solve_psd_cg(H, b, iters)
@@ -157,8 +192,15 @@ def main() -> int:
                                           n=20)
                 k1[f"plain_ms_{dtype}"] = gpu_ms(
                     lambda: solve_psd_cg(H, b, 8), n=5)
+                k1[f"bound_ms_{dtype}"], k1[f"bound_by_{dtype}"] = k1_bound(
+                    BATCH, DIMS, 8, H.element_size())
+                k1[f"share_{dtype}"] = (k1[f"bound_ms_{dtype}"]
+                                        / k1[f"ms_{dtype}"])
                 log(f"[K1] time {dtype}: kernel {k1[f'ms_{dtype}']:.4f} ms, "
-                    f"twin {k1[f'plain_ms_{dtype}']:.4f} ms per call")
+                    f"twin {k1[f'plain_ms_{dtype}']:.4f} ms per call; "
+                    f"bound {k1[f'bound_ms_{dtype}']:.4f} ms "
+                    f"({k1[f'bound_by_{dtype}']}), share "
+                    f"{k1[f'share_{dtype}']:.3f}")
                 if dtype == torch.float32:
                     k1["max_abs_err"] = err
     # alpha-freeze: H = 0 has p'Hp = 0 at every iteration, x stays 0
@@ -169,6 +211,34 @@ def main() -> int:
     assert torch.all(xk[::2] == 0) and torch.all(xt[::2] == 0), "K1 freeze"
     torch.testing.assert_close(xk, xt, rtol=1e-5, atol=1e-5)
     log("[K1] alpha-freeze (H = 0) and ragged B = 257: ok")
+    # the warp kernel's edges: per-value copies (an instance of 324 or 676
+    # bytes; a view one element past an aligned base), lanes without a
+    # second column (d <= 32), an odd d with a second column (33: padded
+    # rows in float64), two full columns (d = 64), B below the
+    # warps of a block; and the block kernel just past it (d = 65), at 8
+    # iterations.  Each is held against the float64 twin on the same
+    # inputs: float64 to 1e-11 of max|x|; float32 to twice the float32
+    # twin's own gap, or 1e-5 of max|x| where that is larger — at d = 9,
+    # 8 iterations run CG to exhaustion, where float32 iterates are
+    # rounding noise, twin and kernel alike.
+    for dtype in (torch.float32, torch.float64):
+        for B, d in ((257, 9), (257, 13), (257, 33), (3, 50), (257, 50),
+                     (257, 64), (257, 65)):
+            H, b = spd(B, d, dtype)
+            x64 = solve_psd_cg(H.double(), b.double(), 8)
+            scale = max(1.0, x64.abs().max().item())
+            twin_gap = (solve_psd_cg(H, b, 8).double() - x64).abs().max().item()
+            limit = (max(2 * twin_gap, 1e-5 * scale)
+                     if dtype == torch.float32 else 1e-11 * scale)
+            for Hk in (H, offset_view(H)):
+                plan = cuda_cg.k1_launch_plan(B, d, Hk.element_size(),
+                                              Hk.data_ptr())
+                xk = cuda_cg.cg_solve(Hk, b, 8)
+                err = (xk.double() - x64).abs().max().item()
+                log(f"[K1] {B}x{d}x{d} {dtype} {plan.path}/{plan.h_in}/"
+                    f"{plan.copy}: max|x_k - x_f64| = {err:.3e}, twin "
+                    f"{twin_gap:.3e}, max|x| {scale:.3e}")
+                assert err <= limit, "K1 edge shape"
     # shared memory above 48 KB (d = 100, f64) and H rows read from device
     # memory past 227 KB (d = 300, f64)
     for B, d in ((256, 100), (64, 300)):
@@ -212,6 +282,8 @@ def main() -> int:
             f"{got[1].num_iters.float().mean().item():.3f}")
         k2[f"ms_{dtype}"] = gpu_ms(kern, n=5)
         k2[f"plain_ms_{dtype}"] = gpu_ms(plain, n=3)
+        k2[f"bound_ms_{dtype}"] = k2_bound_ms(BATCH, DIMS, x0.element_size())
+        k2[f"share_{dtype}"] = k2[f"bound_ms_{dtype}"] / k2[f"ms_{dtype}"]
         log(f"[K2] time {dtype}: kernel {k2[f'ms_{dtype}']:.4f} ms, twin "
             f"{k2[f'plain_ms_{dtype}']:.4f} ms per {BATCH} solves")
         if dtype == torch.float32:
@@ -290,18 +362,29 @@ def main() -> int:
             f"{rec['mean_iters']:.3f}, ms {times}")
 
     kernels = [
-        {"name": "K1 cg_kernel", "route": "cuda",
+        {"name": "K1 cg_warp_kernel", "route": "cuda",
          "source": "tinyopt_tpu_torch/csrc/cg.cu",
          "replaces": "tinyopt_tpu/ops/pallas_cg.py:77",
          "launches": launches["K1"], "max_abs_err": k1["max_abs_err"],
          "ms": k1["ms_torch.float32"],
-         "plain_ms": k1["plain_ms_torch.float32"]},
+         "plain_ms": k1["plain_ms_torch.float32"],
+         "bound_ms": k1["bound_ms_torch.float32"],
+         "bound_by": k1["bound_by_torch.float32"],
+         "share": k1["share_torch.float32"],
+         "library_ms": None, "ms_f64": k1["ms_torch.float64"],
+         "bound_ms_f64": k1["bound_ms_torch.float64"],
+         "share_f64": k1["share_torch.float64"]},
         {"name": "K2 solver_kernel", "route": "cuda",
          "source": "tinyopt_tpu_torch/csrc/solver.cu",
          "replaces": "tinyopt_tpu/ops/pallas_solver.py:150",
          "launches": launches["K2"], "max_abs_err": k2["max_abs_err"],
          "ms": k2["ms_torch.float32"],
-         "plain_ms": k2["plain_ms_torch.float32"]},
+         "plain_ms": k2["plain_ms_torch.float32"],
+         "bound_ms": k2["bound_ms_torch.float32"], "bound_by": "bytes",
+         "share": k2["share_torch.float32"],
+         "library_ms": None, "ms_f64": k2["ms_torch.float64"],
+         "bound_ms_f64": k2["bound_ms_torch.float64"],
+         "share_f64": k2["share_torch.float64"]},
     ]
     record.update(k1=k1, k2=k2, kernels=kernels)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

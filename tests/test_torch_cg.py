@@ -109,6 +109,132 @@ def test_cg_solve_on_cpu_takes_the_twin():
                                      4).numpy())
 
 
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("d", [9, 13, 33, 50, 64, 65, 100, 300])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_k1_launch_plan(d, itemsize, offset):
+    """The kernel, copy mode and geometry K1 takes, from the shape and H's
+    address alone: ``offset`` values past a 256-byte aligned base."""
+    B = 10_007
+    plan = cuda_cg.k1_launch_plan(B, d, itemsize, 4096 + offset * itemsize)
+    assert plan.smem_bytes <= cuda_cg.MAX_SMEM
+    if d > 64:
+        assert plan.path == "block" and plan.copy == "plain"
+        # H in shared memory while it fits a block: d = 300 in float64 is
+        # 720 KB, in float32 360 KB
+        assert plan.h_in == ("device" if d == 300 else "shared")
+        assert plan.warps * 32 == min(max(-(-d // 32) * 32, 32), 256)
+        assert plan.smem_bytes == (6 * d + 33) * itemsize + (
+            d * d * itemsize if plan.h_in == "shared" else 0)
+        return
+    assert plan.path == "warp"
+    # a lane's 2d values fit its registers in float32, and in float64 up
+    # to d = 32; above, float64 keeps column j + 32 in shared memory
+    assert plan.h_in == ("split" if itemsize == 8 and d > 32 else "registers")
+    # one bulk copy needs 16-byte multiples: d*d*itemsize and the address
+    bulk = (d * d * itemsize) % 16 == 0 and offset == 0
+    assert plan.copy == ("bulk" if bulk else "elementwise")
+    assert d not in (9, 13) or itemsize == 8 or plan.copy == "elementwise"
+    assert plan.warps == cuda_cg.WARP_WARPS[itemsize]
+    # one 128-byte aligned buffer of one H a warp, 8 values of slack, rows
+    # padded to an even length under "split"
+    ld = d + d % 2 if plan.h_in == "split" else d
+    h_buf = -(-(d * ld + 8) * itemsize // 128) * 128
+    assert plan.smem_bytes == 128 + plan.warps * (64 * itemsize + h_buf)
+
+
+def test_k1_launch_plan_small_batch():
+    """No more warps a block than instances; no other itemsize."""
+    assert cuda_cg.k1_launch_plan(1, 50, 4, 0).warps == 1
+    assert cuda_cg.k1_launch_plan(3, 50, 4, 0).warps == 3
+    assert cuda_cg.k1_launch_plan(3, 50, 8, 0).warps == 2
+    with pytest.raises(ValueError):
+        cuda_cg.k1_launch_plan(100, 50, 2, 0)
+
+
+def test_k1_entry_point_matches_its_declaration():
+    """The plan reaches csrc/cg.cu through ctypes: the C entry points take
+    as many arguments as ``_build.load`` declares, and the kernel's codes
+    for where H is read are those of ``cuda_cg.H_IN_CODES``."""
+    import inspect
+    import re
+    from tinyopt_tpu_torch import _build
+    with open(f"{_build.CSRC}/cg.cu") as f:
+        src = f.read()
+    enum = re.search(r"enum HIn \{([^}]*)\}", src).group(1)
+    codes = {m[0]: int(m[1]) for m in re.findall(r"k(\w+) = (\d+)", enum)}
+    assert {k.lower(): v for k, v in codes.items()} == cuda_cg.H_IN_CODES
+    decl = inspect.getsource(_build.load)
+    n_declared = re.search(r"argtypes = \[([^\]]*)\]", decl).group(1).count(",") + 1
+    for name in ("tinyopt_cg_f32", "tinyopt_cg_f64"):
+        params = re.search(rf'extern "C" int {name}\(([^)]*)\)', src).group(1)
+        assert params.count(",") + 1 == n_declared == 12, name
+
+
+def _offset_view(H):
+    """The same values as ``H`` in a contiguous view one element past an
+    aligned base, so the warp kernel must copy element by element."""
+    flat = torch.empty(H.numel() + 1, dtype=H.dtype, device=H.device)
+    view = flat[1:].view(H.shape)
+    view.copy_(H)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", [1, 3, 10_007])
+@pytest.mark.parametrize("d", [9, 13, 33, 50, 64, 65, 100])
+def test_k1_shapes_on_gpu(dtype, B, d):
+    """Both kernels, both copy modes and the ragged edges (d = 33: rows
+    padded to an even length under "split"), 8 iterations;
+    H = 0 in every other instance freezes x at 0 (α = 0).  Each is held
+    against the float64 twin on the same inputs: float64 within
+    1e-11·max|x|; float32 no farther than twice the float32 twin's own
+    gap, or 1e-5·max|x| where that is larger.  At d = 9, 8 iterations run
+    CG to exhaustion and float32 iterates are rounding noise, twin and
+    kernel alike, so the twin's gap there is the scale."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K1 is a CUDA kernel)")
+    H, b = _spd(np.random.default_rng(d), B, d, np.float64)
+    H[1::2] = 0.0
+    Hc = torch.from_numpy(H).to("cuda", dtype)
+    bc = torch.from_numpy(b).to("cuda", dtype)
+    x64 = tlin.solve_psd_cg(Hc.double(), bc.double(), 8)
+    scale = max(1.0, x64.abs().max().item())
+    if dtype == torch.float32:
+        twin_gap = (tlin.solve_psd_cg(Hc, bc, 8).double() - x64).abs().max()
+        limit = max(2 * twin_gap.item(), 1e-5 * scale)
+    else:
+        limit = 1e-11 * scale
+    for Hk in (Hc, _offset_view(Hc)):
+        before = cuda_cg.cg_solve.launches
+        xk = cuda_cg.cg_solve(Hk, bc, 8)
+        assert cuda_cg.cg_solve.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.all(xk[1::2] == 0)
+        err = (xk.double() - x64).abs().max().item()
+        assert err <= limit, (err, limit, Hk.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k1_batch_sizes_in_any_order_on_gpu(dtype):
+    """A block of fewer warps (B = 3) between two of more (B = 10,007,
+    B = 257) of the same kernel: each launch admits the shared memory it
+    needs, whatever size launched before."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K1 is a CUDA kernel)")
+    tol = 1e-5 if dtype == torch.float32 else 1e-11
+    for B in (10_007, 3, 257):
+        H, b = _spd(np.random.default_rng(B), B, 50, np.float64)
+        Hc = torch.from_numpy(H).to("cuda", dtype)
+        bc = torch.from_numpy(b).to("cuda", dtype)
+        xk = cuda_cg.cg_solve(Hc, bc, 8)
+        xt = tlin.solve_psd_cg(Hc, bc, 8)
+        err = (xk - xt).abs().max().item()
+        assert err <= tol * max(1.0, xt.abs().max().item()), (B, err)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_k1_kernel_matches_twin_on_gpu(dtype):

@@ -92,7 +92,8 @@ def test_options_from_reference_copies_nested_groups():
 def test_prior_problem_from_numpy():
     rng = np.random.default_rng(0)
     y, s = rng.uniform(-1, 1, (3, 4)), rng.uniform(0.1, 1.1, (3, 4))
-    p = prior_problem_from_numpy(y, 1 / s, dtype=torch.float64)
+    p = prior_problem_from_numpy(y, 1 / s, device="cpu",
+                                 dtype=torch.float64)
     np.testing.assert_array_equal(p.y.numpy(), y)
     np.testing.assert_array_equal(p.inv_std.numpy(), 1 / s)
     assert p.y.dtype == torch.float64 and p.y.device.type == "cpu"
@@ -105,7 +106,7 @@ def test_port_never_imports_jax():
         "from tinyopt_tpu_torch.models.problems import (make_prior_batch,"
         " prior_residual)\n"
         "x, out = to.optimize(torch.tensor(1.0), lambda x: x * x - 2)\n"
-        "data, x0 = make_prior_batch(4, 3, torch.float64)\n"
+        "data, x0 = make_prior_batch(4, 3, torch.float64, device='cpu')\n"
         "opts = to.Options(save_history=False, hessian=to.HessianOptions("
         "solver='fused', carry_system=False, save_last=False))\n"
         "to.batched_optimize(x0, prior_residual, opts, data_batch=data)\n"

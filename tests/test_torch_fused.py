@@ -96,7 +96,7 @@ def test_twin_matches_pallas_kernel_prior(case, dtype):
     jf = j_fused(j_prior, opts, jnp.asarray(x0[0]),
                  jax.tree_util.tree_map(lambda a: a[0], jd), interpret=True)
     ref = jf(jnp.asarray(x0), jd)
-    td = prior_problem_from_numpy(y, inv, dtype=TDT[dtype])
+    td = prior_problem_from_numpy(y, inv, device="cpu", dtype=TDT[dtype])
     tx = torch.from_numpy(x0)
     topts = options_from_reference(opts)
     assert fused_supported(topts, "residuals", tx[0],
@@ -210,7 +210,8 @@ def test_batched_solver_dispatch_on_cpu():
     """solver="fused" inside the envelope runs the twin; outside it, the
     batch-native loop with CG semantics — same answers either way."""
     y, inv, x0 = _prior(8, 4, np.float64, 1)
-    td = prior_problem_from_numpy(y, inv, dtype=torch.float64)
+    td = prior_problem_from_numpy(y, inv, device="cpu",
+                                  dtype=torch.float64)
     tx = torch.from_numpy(x0)
     fused = to.batched_optimize(tx, prior_residual,
                                 options_from_reference(_opts()),

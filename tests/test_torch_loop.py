@@ -66,7 +66,7 @@ def _run_prior(opts, B=12, d=6, dtype=np.float64, seed=0):
     got = to.batched_optimize(torch.from_numpy(x0), prior_residual,
                               options_from_reference(opts),
                               data_batch=prior_problem_from_numpy(
-                                  y, inv, dtype=TDT[dtype]))
+                                  y, inv, device="cpu", dtype=TDT[dtype]))
     return ref, got
 
 

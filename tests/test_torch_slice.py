@@ -75,7 +75,7 @@ def test_prior50_slice_matches_reference(solver_type, solver, dtype):
     got = to.batched_optimize(torch.from_numpy(x0), prior_residual,
                               options_from_reference(opts),
                               data_batch=prior_problem_from_numpy(
-                                  y, inv, dtype=tdt))
+                                  y, inv, device="cpu", dtype=tdt))
     assert got[0].shape == (B, d) and torch.all(torch.isfinite(got[0]))
     assert_parity(ref, got)
     assert bool(torch.all(got[1].converged()))

@@ -48,9 +48,10 @@ def options_from_reference(obj) -> _opt.Options:
     return _copy(_opt.Options, obj)
 
 
-def prior_problem_from_numpy(y, inv_std, device="cpu",
+def prior_problem_from_numpy(y, inv_std, device="cuda",
                              dtype=torch.float32) -> PriorProblem:
-    """``PriorProblem`` on ``device`` from host arrays (B, d)."""
+    """``PriorProblem`` on ``device`` (the card unless the caller asks for
+    another) from host arrays (B, d)."""
     return PriorProblem(
         y=torch.as_tensor(np.asarray(y), dtype=dtype, device=device),
         inv_std=torch.as_tensor(np.asarray(inv_std), dtype=dtype,

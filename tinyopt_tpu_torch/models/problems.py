@@ -34,10 +34,11 @@ class PriorProblem(NamedTuple):
 
 def make_prior_batch(batch: int, dims: int, dtype=torch.float32, *,
                      generator: torch.Generator | None = None, seed: int = 0,
-                     device="cpu"):
+                     device="cuda"):
     """Batched Gaussian-prior instances + random starts (the bench suite):
-    y ~ U(-1, 1), σ ~ U(0.1, 1.1), x0 ~ U(-1, 1), drawn on ``device`` from
-    ``generator`` (or a new one seeded with ``seed``)."""
+    y ~ U(-1, 1), σ ~ U(0.1, 1.1), x0 ~ U(-1, 1), drawn on ``device`` (the
+    card unless the caller asks for another) from ``generator`` (or a new
+    one seeded with ``seed``)."""
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(seed)
 

@@ -7,21 +7,97 @@ directly.
 
 :func:`cg_solve` takes the plain twin, ``ops.linalg.solve_psd_cg``, only
 for tensors on the CPU.  A CUDA tensor always launches the kernel; a
-kernel that fails to build or launch raises.
+kernel that fails to build or launch raises.  Which of K1's two kernels
+runs, and how, is decided here from the shape and H's address alone
+(:func:`k1_launch_plan`), so the CPU tests check every choice.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from .linalg import solve_psd_cg
 
-__all__ = ["cg_solve", "cg_solve_cuda", "solve_psd_cg"]
+__all__ = ["K1Plan", "cg_solve", "cg_solve_cuda", "k1_launch_plan",
+           "solve_psd_cg"]
+
+#: Dynamic shared memory a block may use on Hopper (csrc/common.cuh).
+MAX_SMEM = 232448
+#: The warp kernel gives each lane two columns: d ≤ 64.
+WARP_MAX_D = 64
+#: Warps per block of the warp kernel, by itemsize, each with one buffer
+#: of one instance's H: timed fastest on an H100 at 10k×50×50 (PERF.md §6,
+#: PR 3, with deeper rings and H in shared memory, both slower).
+WARP_WARPS = {4: 4, 8: 2}
+#: Where K1's iterations read H (the entry point's ``h_in``, csrc/cg.cu).
+H_IN_CODES = {"device": 0, "shared": 1, "split": 2, "registers": 3}
 
 
-def cg_solve_cuda(H: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor:
-    """Launch K1 on ``H`` (B, d, d) and ``b`` (B, d), both CUDA tensors of
-    one float dtype, on the current stream."""
+class K1Plan(NamedTuple):
+    """How K1 runs one call (the arguments of ``tinyopt_cg_f32/f64``).
+
+    ``path``: "warp" (one warp per instance, d ≤ 64) or "block" (one
+    block per instance).  ``h_in``: where the iterations read H —
+    "registers" (warp path: float32, and float64 at d ≤ 32), "split"
+    (warp path, float64 at d > 32: column j in registers, j + 32 in
+    shared memory), "shared" or "device" (block path, H in shared memory
+    while it fits 227 KB, else its rows from device memory).  ``copy``:
+    how H reaches shared memory — "bulk" (one ``cp.async.bulk`` per
+    instance), "elementwise" (per-value ``cp.async``) or "plain" (loads,
+    block path).  ``warps`` per block, ``smem_bytes`` per block."""
+    path: str
+    h_in: str
+    copy: str
+    warps: int
+    smem_bytes: int
+
+
+def _round_up(v: int, m: int) -> int:
+    return (v + m - 1) // m * m
+
+
+def _warp_smem_bytes(d: int, itemsize: int, warps: int) -> int:
+    """Shared memory of one block of the warp kernel (``WarpLayout`` in
+    csrc/cg.cu): the warps' mbarriers, their p buffers of 64 values, and
+    one buffer of one H a warp — d rows, an even number of values apart
+    under "split", and 8 values more — 128-byte aligned."""
+    ld = d + (d & 1) if itemsize == 8 and d > 32 else d
+    return (_round_up(8 * warps, 128) + warps * WARP_MAX_D * itemsize
+            + warps * _round_up((d * ld + 8) * itemsize, 128))
+
+
+def k1_launch_plan(B: int, d: int, itemsize: int, h_ptr: int) -> K1Plan:
+    """Pick K1's kernel and launch geometry from the shape and H's address.
+
+    d ≤ 64 takes the warp kernel, with as much of H in registers as fits
+    a lane: all of it in float32, and in float64 at d ≤ 32; one of a
+    lane's two columns in float64 above.  The copy is one bulk copy per
+    instance when an instance's H (d·d·itemsize bytes) and ``h_ptr`` are
+    multiples of 16 bytes, per-value ``cp.async`` otherwise.  Larger d
+    takes the block kernel, with H in shared memory while it fits."""
+    if itemsize not in (4, 8):
+        raise ValueError(f"k1_launch_plan: itemsize {itemsize}")
+    h_bytes = d * d * itemsize
+    if d <= WARP_MAX_D:
+        h_in = "split" if itemsize == 8 and d > 32 else "registers"
+        warps = max(1, min(WARP_WARPS[itemsize], B))
+        bulk = h_bytes % 16 == 0 and h_ptr % 16 == 0
+        return K1Plan("warp", h_in, "bulk" if bulk else "elementwise",
+                      warps, _warp_smem_bytes(d, itemsize, warps))
+    vec_bytes = (6 * d + 33) * itemsize
+    in_smem = vec_bytes + h_bytes <= MAX_SMEM
+    threads = min(max(_round_up(d, 32), 32), 256)
+    return K1Plan("block", "shared" if in_smem else "device", "plain",
+                  threads // 32, vec_bytes + (h_bytes if in_smem else 0))
+
+
+def cg_solve_cuda(H: torch.Tensor, b: torch.Tensor,
+                  iters: int) -> torch.Tensor:
+    """Launch K1 on ``H`` (B, d, d), symmetric, and ``b`` (B, d), both
+    CUDA tensors of one float dtype, on the current stream, as
+    :func:`k1_launch_plan` of the inputs says."""
     from .. import _build
 
     if H.dtype not in (torch.float32, torch.float64):
@@ -36,10 +112,13 @@ def cg_solve_cuda(H: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor:
     b = b.contiguous()
     x = torch.empty_like(b)
     B, d = b.shape
+    plan = k1_launch_plan(B, d, H.element_size(), H.data_ptr())
     lib = _build.load()
     fn = lib.tinyopt_cg_f32 if H.dtype == torch.float32 else lib.tinyopt_cg_f64
     with torch.cuda.device(H.device):
         err = fn(H.data_ptr(), b.data_ptr(), x.data_ptr(), B, d, int(iters),
+                 int(plan.path == "warp"), H_IN_CODES[plan.h_in],
+                 int(plan.copy == "bulk"), plan.warps, plan.smem_bytes,
                  torch.cuda.current_stream(H.device).cuda_stream)
     _build.check(err, "K1 cg kernel")
     cg_solve.launches += 1
@@ -49,7 +128,10 @@ def cg_solve_cuda(H: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor:
 def cg_solve(H: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor:
     """Batched Jacobi-PCG ``H x = b`` with exactly ``iters`` iterations.
 
-    ``H`` (B, d, d), ``b`` (B, d).  CPU tensors run the plain twin
+    ``H`` (B, d, d) must be symmetric: K1's warp kernel forms Hp from H's
+    columns (as the reference's "sublane" matvec did), so for an H that is
+    not bit-for-bit symmetric it agrees with the twin's row products only
+    to rounding.  ``b`` (B, d).  CPU tensors run the plain twin
     (``solve_psd_cg``); CUDA tensors launch K1 and add one to
     ``cg_solve.launches``."""
     if H.device.type == "cpu":
