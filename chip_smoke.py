@@ -21,6 +21,7 @@ written to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -263,16 +264,25 @@ def main() -> int:
         torch.cuda.synchronize()
         return got, ref, kern, plain
 
+    def k2_plan(x0, n_res, family, coloring):
+        plan = cuda_solver.k2_launch_plan(x0.shape[0], x0.shape[1], n_res,
+                                          x0.element_size(), family,
+                                          coloring)
+        return (f"{plan.path} S={plan.S} E={plan.E} warps={plan.warps} "
+                f"grid<={plan.grid}")
+
     k2 = {}
-    # float64 is held to rtol 1e-9, not to equality: the warp butterflies
-    # sum err, g'g and dx'dx in another order than torch.sum, so the two
-    # may differ in the last bits (on these inputs they agree exactly).
+    # float64 is held to rtol 1e-9, not to equality: the kernels' sums
+    # follow one warp butterfly order, torch.sum its own, so the two may
+    # differ in the last bits (on these inputs they agree exactly).
     k2_tol = {torch.float32: dict(rtol=1e-5, atol=1e-6),
               torch.float64: dict(rtol=1e-9, atol=1e-12)}
     for dtype in (torch.float32, torch.float64):
         data, x0 = make_prior_batch(BATCH, DIMS, dtype, generator=gen,
                                     device=dev)
         opts = bench_options(to)
+        log(f"[K2] plan prior {BATCH}x{DIMS} {dtype}: "
+            f"{k2_plan(x0, DIMS, 0, 'identity')}")
         got, ref, kern, plain = k2_pair(prior_residual, opts, x0, data)
         err = assert_parity(ref, got, **k2_tol[dtype],
                             what=f"K2 prior {dtype}")
@@ -296,16 +306,54 @@ def main() -> int:
             min_step_norm2=1e-16, max_consec_failures=5, save_history=False,
             hessian=to.HessianOptions(save_last=False, solver="fused",
                                       cg_iters=8, carry_system=False))
-        got, ref, _, _ = k2_pair(jennrich_sampson_residuals, opts, x0)
+        log(f"[K2] plan Jennrich-Sampson 4096x2 {dtype}: "
+            f"{k2_plan(x0, 10, 1, None)}")
+        got, ref, kern, plain = k2_pair(jennrich_sampson_residuals, opts, x0)
         # ill-conditioned: tests/test_fused.py:118-126 tolerances
         err = assert_parity(ref, got, rtol=2e-3, atol=1e-3, iter_slack=2,
                             fail_slack=2, grad_rtol=2e-2,
                             what=f"K2 Jennrich-Sampson {dtype}")
         nfail = got[1].num_failures.sum().item()
         assert nfail > 0, "Jennrich-Sampson produced no rejections"
+        k2[f"js_ms_{dtype}"] = gpu_ms(kern, n=5)
+        k2[f"js_plain_ms_{dtype}"] = gpu_ms(plain, n=3)
         log(f"[K2] Jennrich-Sampson 4096x2 {dtype}: max err {err:.3e}, "
             f"{nfail} rejections, stops "
-            f"{torch.bincount(got[1].stop_reason.clamp(min=0)).tolist()}")
+            f"{torch.bincount(got[1].stop_reason.clamp(min=0)).tolist()}; "
+            f"kernel {k2[f'js_ms_{dtype}']:.4f} ms, twin "
+            f"{k2[f'js_plain_ms_{dtype}']:.4f} ms per 4096 solves")
+    # the edges of K2's plans: segments of 2 to 16 lanes, entries past d on
+    # a segment's last lanes, the register kernel's largest d and the warp
+    # kernel past it, a batch that is no multiple of a block's instances;
+    # the closed-form step and PCG
+    for dtype in (torch.float32, torch.float64):
+        for d in (1, 9, 16, 17, 32, 33, 50, 64, 65):
+            data, x0 = make_prior_batch(257, d, dtype, generator=gen,
+                                        device=dev)
+            for coloring in ("auto", "off"):
+                opts = bench_options(to)
+                opts = dataclasses.replace(opts, hessian=dataclasses.replace(
+                    opts.hessian, diag_coloring=coloring))
+                got, ref, _, _ = k2_pair(prior_residual, opts, x0, data)
+                err = assert_parity(ref, got, **k2_tol[dtype],
+                                    what=f"K2 prior 257x{d} {dtype}")
+                assert torch.equal(got[1].stop_reason, ref[1].stop_reason)
+                log(f"[K2] prior 257x{d} {dtype} coloring {coloring} "
+                    f"({k2_plan(x0, d, 0, 'identity' if coloring == 'auto' else None)}): "
+                    f"max|x_k - x_twin| = {err:.3e}")
+    # one instance with inv_std = nan: it stops with SYSTEM_HAS_NAN_OR_INF,
+    # the instances beside it in its warp match the twin
+    data, x0 = make_prior_batch(64, DIMS, torch.float32, generator=gen,
+                                device=dev)
+    data.inv_std[5, 3] = float("nan")
+    got, ref, _, _ = k2_pair(prior_residual, bench_options(to), x0, data)
+    assert_parity(ref, got, **k2_tol[torch.float32], what="K2 nan neighbour")
+    stops = got[1].stop_reason
+    assert stops[5].item() == int(to.StopReason.SYSTEM_HAS_NAN_OR_INF)
+    assert torch.equal(stops, ref[1].stop_reason)
+    assert bool(torch.all(torch.cat([stops[:5], stops[6:]]) > 0))
+    log(f"[K2] nan neighbour: instance 5 stops {stops[5].item()}, its "
+        f"neighbours {stops[:8].tolist()} as the twin's")
 
     # ---- 5. main path ----
     data, x0 = make_prior_batch(BATCH, DIMS, torch.float32, generator=gen,
@@ -374,8 +422,8 @@ def main() -> int:
          "library_ms": None, "ms_f64": k1["ms_torch.float64"],
          "bound_ms_f64": k1["bound_ms_torch.float64"],
          "share_f64": k1["share_torch.float64"]},
-        {"name": "K2 solver_kernel", "route": "cuda",
-         "source": "tinyopt_tpu_torch/csrc/solver.cu",
+        {"name": "K2 solver_seg_kernel", "route": "cuda",
+         "source": "tinyopt_tpu_torch/csrc/solver_seg.cuh",
          "replaces": "tinyopt_tpu/ops/pallas_solver.py:150",
          "launches": launches["K2"], "max_abs_err": k2["max_abs_err"],
          "ms": k2["ms_torch.float32"],
@@ -384,7 +432,9 @@ def main() -> int:
          "share": k2["share_torch.float32"],
          "library_ms": None, "ms_f64": k2["ms_torch.float64"],
          "bound_ms_f64": k2["bound_ms_torch.float64"],
-         "share_f64": k2["share_torch.float64"]},
+         "share_f64": k2["share_torch.float64"],
+         "js_ms": k2["js_ms_torch.float32"],
+         "js_ms_f64": k2["js_ms_torch.float64"]},
     ]
     record.update(k1=k1, k2=k2, kernels=kernels)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

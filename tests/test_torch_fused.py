@@ -272,3 +272,182 @@ def test_k2_kernel_matches_twin_on_gpu(case):
                       fail_slack=2, grad_rtol=2e-2)
     else:
         assert_parity(*to_cpu)
+
+
+def _k2_pairs():
+    """The (S, E) pairs csrc/solver_seg.cuh builds for each family: the
+    widths of ``K2_SEGMENTS`` with the family's ``kSegE`` (csrc/solver.cuh),
+    S·E ≤ 64."""
+    import re
+    from tinyopt_tpu_torch import _build
+    with open(f"{_build.CSRC}/solver_seg.cuh") as f:
+        seg = f.read()
+    with open(f"{_build.CSRC}/solver.cuh") as f:
+        hdr = f.read()
+    widths = re.search(r"#define K2_SEGMENTS\(X\)([^\n]*)", seg).group(1)
+    widths = [int(w) for w in re.findall(r"X\((\d+)\)", widths)]
+    pairs = {}
+    for fam, name in ((0, "PriorFamily"), (1, "JenSamFamily")):
+        E = int(re.search(rf"struct {name} {{.*?kSegE = (\d+);", hdr,
+                          re.S).group(1))
+        pairs[fam] = {(S, E) for S in widths if S * E <= 64}
+    return pairs
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("case,d", [
+    (c, d) for c in ("prior_identity", "prior_none")
+    for d in (1, 2, 9, 16, 17, 32, 33, 50, 64, 65, 600)]
+    + [("jennrich_sampson", 2)])
+def test_k2_launch_plan(case, d, itemsize):
+    """K2's kernel and geometry from the shapes alone: the register kernel
+    up to max(d, n_res) = 64 on segments that hold every entry, with a
+    pair of (S, E) the kernel is built for; past 64, the warp kernel."""
+    family, n_res, coloring = {
+        "prior_identity": (0, d, "identity"), "prior_none": (0, d, None),
+        "jennrich_sampson": (1, 10, None)}[case]
+    B = 10_007
+    plan = cuda_solver.k2_launch_plan(B, d, n_res, itemsize, family, coloring)
+    m = max(d, n_res)
+    assert plan.S * plan.E >= m
+    assert plan.S & (plan.S - 1) == 0 and 2 <= plan.S <= 32
+    if m > cuda_solver.SEG_MAX:
+        assert plan.path == "warp" and plan.S == 32
+        # 4 warps a block while their shared memory fits 48 KB
+        per_warp = (14 * d + 2 * n_res) * itemsize
+        assert plan.warps == max(w for w in (1, 2, 4)
+                                 if w == 1 or w * per_warp <= 48 * 1024)
+        assert plan.smem_bytes == plan.warps * per_warp
+        assert plan.grid * plan.warps >= B
+        return
+    assert plan.path == "segment" and plan.smem_bytes == 0
+    assert (plan.S, plan.E) in _k2_pairs()[family]
+    assert plan.E == cuda_solver.SEG_E[family]
+    # the least segment that holds max(d, n_res) entries
+    assert plan.S == 2 or (plan.S // 2) * plan.E < m
+    assert plan.warps == cuda_solver.SEG_WARPS
+    per_block = plan.warps * 32 // plan.S
+    assert plan.grid == -(-B // per_block)
+
+
+def test_k2_launch_plan_small_batch_and_errors():
+    """No more warps a block than the batch needs; bad inputs raise."""
+    plan = cuda_solver.k2_launch_plan(1, 50, 50, 4, 0, "identity")
+    assert plan.path == "segment" and plan.warps == 1 and plan.grid == 1
+    for bad in [(3, 50, 50, 2, 0, None), (3, 50, 50, 4, 7, None),
+                (3, 3, 10, 4, 1, None), (3, 2, 10, 4, 1, "identity"),
+                (3, 50, 50, 4, 0, "two colors")]:
+        with pytest.raises(ValueError):
+            cuda_solver.k2_launch_plan(*bad)
+
+
+def test_k2_entry_point_matches_its_declaration():
+    """The plan and the solver's parameters reach csrc/solver.cu through
+    ctypes: the C entry points take as many arguments as ``_build.load``
+    declares, the path codes are those of ``enum Path``, and the ctypes
+    structs name the C structs' fields in their order."""
+    import inspect
+    import re
+    from tinyopt_tpu_torch import _build
+    with open(f"{_build.CSRC}/solver.cuh") as f:
+        hdr = f.read()
+    with open(f"{_build.CSRC}/solver.cu") as f:
+        src = f.read()
+    enum = re.search(r"enum Path \{([^}]*)\}", hdr).group(1)
+    codes = {m[0]: int(m[1]) for m in re.findall(r"kPath(\w+) = (\d+)", enum)}
+    assert {k.lower(): v for k, v in codes.items()} == cuda_solver.PATH_CODES
+    decl = inspect.getsource(_build.load)
+    block = decl[decl.index('"tinyopt_solver_f32"'):]
+    declared = re.search(r"argtypes = \[([^\]]*)\]", block).group(1)
+    n_declared = declared.count(",") + 1
+    for name in ("tinyopt_solver_f32", "tinyopt_solver_f64"):
+        params = re.search(rf'extern "C" int {name}\(([^)]*)\)', src).group(1)
+        assert params.count(",") + 1 == n_declared == 10, name
+    for struct, cls in (("SolverParams", _build.SolverParams),
+                        ("SolverIO", _build.SolverIO)):
+        body = re.search(rf"struct {struct} \{{([^}}]*)\}}", hdr).group(1)
+        names = re.findall(r"\*?(\w+)\s*[,;]", re.sub(r"//[^\n]*", "", body))
+        assert names == [f[0] for f in cls._fields_], struct
+
+
+def _k2_case(B, d, dtype, seed, kw, dev, nan_at=None):
+    y, inv, x0 = _prior(B, d, dtype, seed)
+    if nan_at is not None:
+        inv[nan_at] = np.nan
+    data = prior_problem_from_numpy(y, inv, device=dev, dtype=TDT[dtype])
+    x = torch.from_numpy(x0).to(dev)
+    opts = options_from_reference(_opts(**kw))
+    plan = cuda_solver.fused_plan(opts, "residuals", x[0],
+                                  residual_fn=prior_residual,
+                                  data_example=PriorProblem(data.y[0],
+                                                            data.inv_std[0]))
+    assert plan is not None
+    before = cuda_solver.fused_solve.launches
+    got = cuda_solver.fused_solve(prior_residual, opts, x, data, plan)
+    assert cuda_solver.fused_solve.launches == before + 1
+    ref = cuda_solver.fused_solve_plain(prior_residual, opts, x, data, plan)
+    return [(a.cpu(), map_output(lambda v: v.cpu(), o)) for a, o in (ref, got)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("B", [1, 3, 10_007])
+@pytest.mark.parametrize("d", [1, 9, 16, 17, 32, 33, 50, 64, 65])
+def test_k2_shapes_on_gpu(dtype, B, d):
+    """K2 against its twin on the card at the edges of its plans: segments
+    of 2 to 16 lanes, entries past d on a segment's last lanes, the
+    register kernel's largest d and the warp kernel past it; LM and GN,
+    the closed-form step and PCG; batches smaller than a warp's
+    segments and larger than the grid."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K2 is a CUDA kernel)")
+    dev = torch.device("cuda")
+    for kw in ({}, dict(solver_type=jto.GaussNewton),
+               dict(hessian=dict(diag_coloring="off")),
+               dict(solver_type=jto.GaussNewton,
+                    hessian=dict(diag_coloring="off"))):
+        assert_parity(*_k2_case(B, d, dtype, 7 + d, kw, dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_k2_nan_neighbour_on_gpu(dtype):
+    """One instance with inv_std = nan stops with SYSTEM_HAS_NAN_OR_INF;
+    the instances sharing its warp match the twin."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K2 is a CUDA kernel)")
+    dev = torch.device("cuda")
+    for d, kw in ((50, {}), (9, dict(hessian=dict(diag_coloring="off")))):
+        ref, got = _k2_case(64, d, dtype, 11, kw, dev, nan_at=(5, 3))
+        assert_parity(ref, got)
+        stops = got[1].stop_reason.numpy()
+        assert stops[5] == int(to.StopReason.SYSTEM_HAS_NAN_OR_INF)
+        assert np.all(np.delete(stops, 5) > 0)
+        np.testing.assert_array_equal(stops, ref[1].stop_reason.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_k2_jennrich_sampson_spread_on_gpu(dtype):
+    """Jennrich-Sampson from starts spread so that the segments of one warp
+    stop at different iterations, against the twin."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K2 is a CUDA kernel)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(4)
+    x0 = rng.uniform(0.1, 0.45, (1000, 2))
+    x0[::3] = 0.2578 + rng.uniform(-1e-3, 1e-3, (334, 2))   # near the optimum
+    x = torch.from_numpy(x0.astype(dtype)).to(dev)
+    opts = options_from_reference(_opts(max_iters=20, max_consec_failures=5))
+    fn = jennrich_sampson_residuals
+    plan = cuda_solver.fused_plan(opts, "residuals", x[0], residual_fn=fn)
+    got = cuda_solver.fused_solve(fn, opts, x, None, plan)
+    ref = cuda_solver.fused_solve_plain(fn, opts, x, None, plan)
+    got, ref = [(a.cpu(), map_output(lambda v: v.cpu(), o))
+                for a, o in (got, ref)]
+    assert_parity(ref, got, rtol=2e-3, atol=1e-3, iter_slack=2,
+                  fail_slack=2, grad_rtol=2e-2)
+    S = cuda_solver.k2_launch_plan(1000, 2, plan.n_res, x.element_size(), 1,
+                                   None).S
+    iters = got[1].num_iters.numpy()[: 32 // S]
+    assert len(set(iters.tolist())) > 1, iters

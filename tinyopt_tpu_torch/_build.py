@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels.
 
 All kernels live in ``csrc/*.cu`` (with shared headers ``csrc/*.cuh``) and
-expose a plain C interface.  At first use they are compiled by ``nvcc``
-into ONE shared library for Hopper (``sm_90a``), placed in ``_build/``
+expose a plain C interface.  At first use they are compiled by ``nvcc``,
+one process per ``.cu`` source, all started together, and linked into
+ONE shared library for Hopper (``sm_90a``), placed in ``_build/``
 next to this file under a name keyed by a hash of the sources and flags,
 and loaded with ``ctypes``.  Nothing is compiled when the package is
 imported, and nothing here runs on a machine without CUDA unless a CUDA
@@ -67,28 +68,37 @@ def build() -> str:
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     cu = [s for s in sources() if s.endswith(".cu")]
-    # Compile to a private temporary name, then publish atomically, so two
-    # processes building at once never load a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *cu]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    # Compile in a private temporary directory, then publish the library
+    # atomically, so two processes building at once never load a
+    # half-written library.
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(c)[:-3] + ".o") for c in cu]
+        cmds = [[_nvcc(), *compile_flags, "-c", "-I", CSRC, "-o", o, c]
+                for c, o in zip(cu, objs)]
+        cmds.append([_nvcc(), *NVCC_FLAGS, "-o", os.path.join(tmp, "lib.so"),
+                     *objs])
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds[:-1]]
+        outs = [p.communicate()[0] for p in procs]
+        for cmd, p, out in zip(cmds, procs, outs):
+            if p.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}")
+        proc = subprocess.run(cmds[-1], capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"nvcc failed ({proc.returncode}): {' '.join(cmds[-1])}\n"
                 f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        os.replace(os.path.join(tmp, "lib.so"), path)
     return path
 
 
 class SolverParams(ctypes.Structure):
     """Mirror of ``struct SolverParams`` in csrc/solver.cu."""
     _fields_ = [(n, ctypes.c_int) for n in (
-        "B", "d", "n_res", "family", "fam_m", "is_lm", "coloring",
+        "d", "n_res", "family", "fam_m", "is_lm", "coloring",
         "max_iters_total", "max_consec_failures", "max_total_failures",
         "cg_iters", "use_quality", "use_squared_norm", "downscale_by_2",
         "normalize")] + [(n, ctypes.c_double) for n in (
@@ -101,7 +111,7 @@ class SolverIO(ctypes.Structure):
     """Mirror of ``struct SolverIO`` in csrc/solver.cu (device pointers)."""
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "x0", "data0", "data1", "x", "cost", "rerr", "lam", "g", "stop",
-        "iters", "nfail", "nconsec", "nres")]
+        "iters", "nfail", "nconsec", "nres", "nhist", "inlier", "duration")]
 
 
 @functools.lru_cache(maxsize=None)
@@ -117,9 +127,11 @@ def load() -> ctypes.CDLL:
         fn.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp]
         fn.restype = ci
     for name in ("tinyopt_solver_f32", "tinyopt_solver_f64"):
+        # params, io, B, then ops.cuda_solver.K2Plan's path, S, E, warps,
+        # grid, smem_bytes, then the stream
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(SolverParams), ctypes.POINTER(SolverIO),
-                       vp]
+                       ci, ci, ci, ci, ci, ci, ci, vp]
         fn.restype = ci
     lib.tinyopt_cuda_error_string.argtypes = [ci]
     lib.tinyopt_cuda_error_string.restype = ctypes.c_char_p

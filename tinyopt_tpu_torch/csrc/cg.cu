@@ -53,7 +53,6 @@
 // that flag does not suppress: K1 is held to a relative tolerance against
 // its twin, not to bit equality.
 #include <cstdint>
-#include <mutex>
 
 #include "common.cuh"
 
@@ -407,56 +406,6 @@ WarpKernel<T> warp_kernel_for(int d, int h_in) {
   if (h_in != (split ? kSplit : kRegisters)) return nullptr;
   if (d <= 32) return by_rows<T, 1, false>(d);
   return by_rows<T, 2, sizeof(T) == 8>(d);
-}
-
-// The blocks of `kern` (threads a block, smem bytes of dynamic shared
-// memory) that fit the current device at once, worked out at the first
-// launch of each (device, kernel, threads, smem) and kept, so a launch
-// makes no query of the device after that.  The kernel's limit on dynamic
-// shared memory is one attribute of the kernel, whatever size launched
-// last: it is raised to smem where it is lower, never lowered.
-inline cudaError_t device_fit(const void* kern, int threads, int smem,
-                              int* blocks) {
-  struct Fit { int dev; const void* kern; int threads, smem, blocks; };
-  struct Limit { int dev; const void* kern; int smem; };
-  static std::mutex mu;
-  static Fit fits[64];
-  static Limit limits[64];
-  static int n_fits = 0, n_limits = 0;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  std::lock_guard<std::mutex> lock(mu);
-  Limit* lim = nullptr;
-  for (int i = 0; i < n_limits; ++i)
-    if (limits[i].dev == dev && limits[i].kern == kern) lim = &limits[i];
-  if (lim == nullptr && n_limits < 64) {
-    lim = &limits[n_limits++];
-    *lim = {dev, kern, -1};
-  }
-  if (lim == nullptr || lim->smem < smem) {
-    if ((e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  smem)) != cudaSuccess)
-      return e;
-    if (lim != nullptr) lim->smem = smem;
-  }
-  for (int i = 0; i < n_fits; ++i) {
-    const Fit& f = fits[i];
-    if (f.dev == dev && f.kern == kern && f.threads == threads && f.smem == smem) {
-      *blocks = f.blocks;
-      return cudaSuccess;
-    }
-  }
-  int sms = 0, per_sm = 0;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
-      cudaSuccess)
-    return e;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
-                                                         smem)) != cudaSuccess)
-    return e;
-  *blocks = per_sm * sms;
-  if (n_fits < 64) fits[n_fits++] = {dev, kern, threads, smem, *blocks};
-  return cudaSuccess;
 }
 
 // path 1: the warp kernel, h_in kRegisters or kSplit (warp_kernel_for);

@@ -1,125 +1,39 @@
-// K2: the whole batched LM / GN solve, one warp per instance.
+// K2: the whole batched LM / GN solve.  This file holds the C entry
+// points and K2's kernel for max(d, n_res) > 64, one warp per instance with
+// its state in shared memory; csrc/solver_seg.cuh holds the kernel for
+// max(d, n_res) <= 64 (the bench prior, Jennrich-Sampson), state in
+// registers.  ops/cuda_solver.k2_launch_plan picks one and its geometry.
 //
 // Replaces the TPU kernel tinyopt_tpu/ops/pallas_solver.py::_solver_kernel
-// (launched by fused_batched_solver).  Per instance, x0 -> converged x with
-// every intermediate in shared memory: linearize at x, g = J'r, diag(J'J)
-// (identity coloring: one jvp of the all-ones probe; otherwise one jvp per
-// tangent dimension), the damped normal equations solved in closed form
-// when the coloring proves H diagonal, else by Jacobi-PCG applying H as
-// J'(J p); the propose / lambda-escalating retry loop, accept / reject,
-// rollback and probe, the LM schedule, the failure budgets and the
-// priority-ordered stop cascade of the JAX kernel (and of the carry_system=
-// False loop, optimizers/loop.py).  The plain twin is
-// ops/cuda_solver.py::fused_solve_plain, with the same op order.
+// (launched by fused_batched_solver).  Per instance, x0 -> converged x:
+// linearize at x, g = J'r, diag(J'J) (identity coloring: one jvp of the
+// all-ones probe; otherwise one jvp per tangent dimension), the damped
+// normal equations solved in closed form when the coloring proves H
+// diagonal, else by Jacobi-PCG applying H as J'(J p); the propose /
+// lambda-escalating retry loop, accept / reject, rollback and probe, the LM
+// schedule, the failure budgets and the priority-ordered stop cascade of
+// the JAX kernel (and of the carry_system=False loop, optimizers/loop.py).
+// The plain twin is ops/cuda_solver.py::fused_solve_plain, with the same
+// op order.
 //
-// CUDA has no automatic differentiation, so the kernel is templated on a
-// residual FAMILY that provides residual / jvp / vjp as warp-collective
-// device functions, written by hand: PriorFamily (models/problems.
+// CUDA has no automatic differentiation, so the kernels are templated on a
+// residual FAMILY that provides residual / jvp / vjp as device functions
+// written by hand (csrc/solver.cuh): PriorFamily (models/problems.
 // prior_residual, r = (x - y) * inv_std) and JenSamFamily
 // (jennrich_sampson_residuals, r_i = 2 + 2i - exp(i x1) - exp(i x2)).
 //
-// Layout: lanes stride over the d tangent entries and the n_res residual
-// rows; dot products are __shfl_xor_sync butterflies, so every lane holds
-// the same scalar state and all control flow is warp-uniform.  Each warp
-// runs its own outer loop, which replaces the tile-level "any instance
-// active" gates of the TPU kernel (the per-instance results are the same,
-// pallas_solver.py:566-574).  Per-warp state: 14 d + 2 n_res values of
-// shared memory (3.2 KB at d = 50 in float).
-//
-// What bounds it on an H100: latency.  The inputs are 10k x 50 x 3 values
-// (6 MB); each outer iteration is a chain of dependent warp reductions and
-// shared-memory passes, and instances in one block finish at different
-// iterations.  Registers and shared memory set how many warps are resident
-// to hide that latency.
-#include "common.cuh"
+// solver_kernel's layout: lanes stride over the d tangent entries and the
+// n_res residual rows; dot products are __shfl_xor_sync butterflies, so
+// every lane holds the same scalar state and all control flow is
+// warp-uniform.  Each warp runs its own outer loop, which replaces the
+// tile-level "any instance active" gates of the TPU kernel (the
+// per-instance results are the same, pallas_solver.py:566-574).  Per-warp
+// state: 14 d + 2 n_res values of shared memory (77 KB at d = 600 in
+// double).  What bounds it: latency, a chain of dependent warp reductions
+// and shared-memory passes an iteration.
+#include "solver.cuh"
 
 namespace tinyopt {
-
-struct SolverParams {
-  int B, d, n_res, family, fam_m, is_lm, coloring, max_iters_total,
-      max_consec_failures, max_total_failures, cg_iters, use_quality,
-      use_squared_norm, downscale_by_2, normalize;
-  double min_error, min_rerr_dec, min_step_norm2, min_grad_norm2,
-      damping_init, lam_lo, lam_hi, good_factor, bad_factor, grad_clipping;
-};
-
-struct SolverIO {
-  const void* x0;
-  const void* data0;
-  const void* data1;
-  void *x, *cost, *rerr, *lam, *g, *stop, *iters, *nfail, *nconsec, *nres;
-};
-
-enum Family { kPrior = 0, kJennrichSampson = 1 };
-enum Coloring { kColorNone = 0, kColorIdentity = 1 };
-enum Stop {
-  kSolverFailed = -3, kNanOrInf = -2, kNone = 0, kMinError = 1,
-  kMinRelError = 2, kMinDeltaNorm = 3, kMinGradNorm = 4, kMaxIters = 5,
-  kMaxNoDecr = 6, kMaxConsecNoDecr = 7
-};
-
-// r = (x - y) * inv_std;  J p = p * inv_std;  J'q = q * inv_std.
-template <typename T>
-struct PriorFamily {
-  const T* y;
-  const T* inv_std;
-  int d;
-  __device__ int n_res() const { return d; }
-  __device__ void residual(int b, const T* x, T* r, int lane) const {
-    const T* yb = y + (size_t)b * d;
-    const T* sb = inv_std + (size_t)b * d;
-    for (int i = lane; i < d; i += 32) r[i] = (x[i] - yb[i]) * sb[i];
-  }
-  __device__ void jvp(int b, const T* x, const T* p, T* out, int lane) const {
-    const T* sb = inv_std + (size_t)b * d;
-    for (int i = lane; i < d; i += 32) out[i] = p[i] * sb[i];
-  }
-  __device__ void vjp(int b, const T* x, const T* q, T* out, int lane) const {
-    const T* sb = inv_std + (size_t)b * d;
-    for (int i = lane; i < d; i += 32) out[i] = q[i] * sb[i];
-  }
-};
-
-// Jennrich-Sampson, m residuals over x = (x1, x2), c = i + 1:
-//   r_i = (2 + 2c) - (e^{c x1} + e^{c x2})
-//   (J p)_i = -((c p1) e^{c x1} + (c p2) e^{c x2})
-//   (J'q)_k = sum_i ((-q_i) e^{c x_k}) c
-template <typename T>
-struct JenSamFamily {
-  int m;
-  __device__ int n_res() const { return m; }
-  __device__ void residual(int b, const T* x, T* r, int lane) const {
-    for (int i = lane; i < m; i += 32) {
-      const T c = T(i + 1);
-      r[i] = (T(2) + T(2) * c) - (exp(c * x[0]) + exp(c * x[1]));
-    }
-  }
-  __device__ void jvp(int b, const T* x, const T* p, T* out, int lane) const {
-    for (int i = lane; i < m; i += 32) {
-      const T c = T(i + 1);
-      out[i] = -((c * p[0]) * exp(c * x[0]) + (c * p[1]) * exp(c * x[1]));
-    }
-  }
-  __device__ void vjp(int b, const T* x, const T* q, T* out, int lane) const {
-    T s0 = 0, s1 = 0;
-    for (int i = lane; i < m; i += 32) {
-      const T c = T(i + 1);
-      s0 += ((-q[i]) * exp(c * x[0])) * c;
-      s1 += ((-q[i]) * exp(c * x[1])) * c;
-    }
-    s0 = warp_sum(s0);
-    s1 = warp_sum(s1);
-    if (lane == 0) {
-      out[0] = s0;
-      out[1] = s1;
-    }
-  }
-};
-
-template <typename T>
-__device__ __forceinline__ T clampv(T v, T lo, T hi) {
-  return fmin(fmax(v, lo), hi);
-}
 
 template <typename T>
 __device__ __forceinline__ bool warp_all_finite(const T* v, int n, int lane) {
@@ -137,13 +51,13 @@ __device__ __forceinline__ T warp_dot(const T* a, const T* b, int n, int lane) {
 
 template <typename T, typename Fam>
 __global__ void solver_kernel(const SolverParams p, const SolverIO io,
-                              const Fam fam, int warps_per_block,
+                              const Fam fam, int B, int warps_per_block,
                               int ws_stride) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
   const int b = blockIdx.x * warps_per_block + w;
-  if (b >= p.B) return;       // whole warp: b is warp-uniform
+  if (b >= B) return;         // whole warp: b is warp-uniform
 
   const int d = p.d;
   const int nr = p.n_res;
@@ -400,40 +314,55 @@ __global__ void solver_kernel(const SolverParams p, const SolverIO io,
     static_cast<int*>(io.nfail)[b] = nfail;
     static_cast<int*>(io.nconsec)[b] = nconsec;
     static_cast<int*>(io.nres)[b] = best_nres;
+    static_cast<int*>(io.nhist)[b] = 0;
+    static_cast<float*>(io.inlier)[b] = 1.0f;
+    static_cast<float*>(io.duration)[b] = 0.0f;
   }
 }
 
+// One warp per instance, `warps` a block, smem = warps * (14 d + 2 n_res)
+// values (ops/cuda_solver.k2_launch_plan).
 template <typename T, typename Fam>
-int launch_family(const SolverParams& p, const SolverIO& io, const Fam& fam,
-                  cudaStream_t stream) {
+int launch_warp(const SolverParams& p, const SolverIO& io, const Fam& fam,
+                int B, int warps, int grid, int smem, cudaStream_t stream) {
   const int ws_stride = 14 * p.d + 2 * p.n_res;
-  const size_t per_warp = (size_t)ws_stride * sizeof(T);
-  int wpb = 4;
-  while (wpb > 1 && wpb * per_warp > kDefaultSmem) wpb /= 2;
-  const size_t smem = wpb * per_warp;
-  if (smem > kDefaultSmem) {
-    cudaError_t e = cudaFuncSetAttribute(solver_kernel<T, Fam>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int grid = (p.B + wpb - 1) / wpb;
-  solver_kernel<T, Fam><<<grid, 32 * wpb, smem, stream>>>(p, io, fam, wpb, ws_stride);
+  const long long need = (long long)warps * ws_stride * sizeof(T);
+  if (warps < 1 || warps > 32 || smem < need || (size_t)smem > kMaxSmem ||
+      (long long)grid * warps < B)
+    return (int)cudaErrorInvalidValue;
+  auto kern = solver_kernel<T, Fam>;
+  int fit = 0;
+  cudaError_t e = device_fit(reinterpret_cast<const void*>(kern), warps * 32,
+                             smem, &fit);
+  if (e != cudaSuccess) return (int)e;
+  if (fit < 1) return (int)cudaErrorInvalidConfiguration;
+  kern<<<grid, 32 * warps, smem, stream>>>(p, io, fam, B, warps, ws_stride);
   return (int)cudaGetLastError();
 }
 
+// path kPathSegment: solver_seg_kernel (S lanes and E entries a lane per
+// instance, max(d, n_res) <= 64); kPathWarp: solver_kernel.  The plan's
+// numbers come from ops/cuda_solver.k2_launch_plan; one the kernels cannot
+// run is refused with cudaErrorInvalidValue.
 template <typename T>
-int launch_solver(const SolverParams* p, const SolverIO* io, void* stream) {
-  if (p->B <= 0) return 0;
+int launch_solver(const SolverParams* p, const SolverIO* io, int B, int path,
+                  int S, int E, int warps, int grid, int smem, void* stream) {
+  if (B <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p->d < 1 || p->n_res < 1 || grid < 1 ||
+      (p->family == kJennrichSampson && (p->d != 2 || p->fam_m != p->n_res)))
+    return (int)cudaErrorInvalidValue;
+  if (path == kPathSegment)
+    return launch_segment<T>(*p, *io, B, S, E, warps, grid, smem, s);
+  if (path != kPathWarp) return (int)cudaErrorInvalidValue;
   if (p->family == kPrior) {
     PriorFamily<T> fam{static_cast<const T*>(io->data0),
                        static_cast<const T*>(io->data1), p->d};
-    return launch_family<T>(*p, *io, fam, s);
+    return launch_warp<T>(*p, *io, fam, B, warps, grid, smem, s);
   }
   if (p->family == kJennrichSampson) {
     JenSamFamily<T> fam{p->fam_m};
-    return launch_family<T>(*p, *io, fam, s);
+    return launch_warp<T>(*p, *io, fam, B, warps, grid, smem, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -441,11 +370,17 @@ int launch_solver(const SolverParams* p, const SolverIO* io, void* stream) {
 }  // namespace tinyopt
 
 extern "C" int tinyopt_solver_f32(const tinyopt::SolverParams* p,
-                                  const tinyopt::SolverIO* io, void* stream) {
-  return tinyopt::launch_solver<float>(p, io, stream);
+                                  const tinyopt::SolverIO* io, int B, int path,
+                                  int S, int E, int warps, int grid, int smem,
+                                  void* stream) {
+  return tinyopt::launch_solver<float>(p, io, B, path, S, E, warps, grid, smem,
+                                       stream);
 }
 
 extern "C" int tinyopt_solver_f64(const tinyopt::SolverParams* p,
-                                  const tinyopt::SolverIO* io, void* stream) {
-  return tinyopt::launch_solver<double>(p, io, stream);
+                                  const tinyopt::SolverIO* io, int B, int path,
+                                  int S, int E, int warps, int grid, int smem,
+                                  void* stream) {
+  return tinyopt::launch_solver<double>(p, io, B, path, S, E, warps, grid, smem,
+                                        stream);
 }

@@ -16,12 +16,14 @@ differentiation: the residual must be one of the hand-written families of
 ``FAMILIES`` (prior_residual, jennrich_sampson_residuals).  It never falls
 back: a configuration the kernel does not cover raises, and
 :func:`fused_plan` (behind :func:`fused_supported`) decides before any
-launch.
+launch.  Which of K2's two kernels runs, and how, is decided here from the
+shapes alone (:func:`k2_launch_plan`), so the CPU tests check every choice.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -45,9 +47,21 @@ _I32 = torch.int32
 #: mapped to the family id of ``enum Family`` there.
 FAMILIES = {prior_residual: 0, jennrich_sampson_residuals: 1}
 
-#: Per-warp shared-memory budget of K2 (one warp per instance needs
-#: 14·d + 2·n_res values; a block may use at most 227 KB).
+#: Per-warp shared-memory budget of K2's warp kernel (one warp per
+#: instance needs 14·d + 2·n_res values; a block may use at most 227 KB).
 _MAX_SMEM = 232448
+#: Shared memory a block may use without opting in (csrc/common.cuh).
+_DEFAULT_SMEM = 48 * 1024
+#: K2's register kernel covers max(d, n_res) up to this.
+SEG_MAX = 64
+#: Entries of each vector a lane of the register kernel holds, by family
+#: (``kSegE`` of the family in csrc/solver.cuh): a segment is the least
+#: power of two of lanes, 2 to 32, that holds max(d, n_res).
+SEG_E = {0: 4, 1: 2}
+#: Warps a block of the register kernel.
+SEG_WARPS = 4
+#: The entry point's path codes (``enum Path``, csrc/solver.cuh).
+PATH_CODES = {"warp": 0, "segment": 1}
 
 
 class FusedPlan(NamedTuple):
@@ -121,6 +135,89 @@ def fused_supported(options: Options, mode: str, x_example,
     return residual_fn is not None and fused_plan(
         options, mode, x_example, n_res, residual_fn=residual_fn,
         data_example=data_example) is not None
+
+
+class K2Plan(NamedTuple):
+    """How K2 runs one call (the plan arguments of ``tinyopt_solver_f32/f64``).
+
+    ``path``: "segment" (``solver_seg_kernel``, csrc/solver_seg.cuh: S lanes
+    an instance, E entries of every vector a lane, all state in registers;
+    a persistent grid, so the entry point launches at most as many blocks
+    as fit the card) or "warp" (``solver_kernel``, csrc/solver.cu: one warp
+    an instance, state in ``smem_bytes`` of shared memory a block; S = 32).
+    ``warps`` a block; ``grid``: the blocks that give every instance a
+    segment or a warp of its own."""
+    path: str
+    S: int
+    E: int
+    warps: int
+    grid: int
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=256)
+def k2_launch_plan(B: int, d: int, n_res: int, itemsize: int, family: int,
+                   coloring: str | None) -> K2Plan:
+    """Pick K2's kernel and geometry from the shapes alone.
+
+    ``family``: the id of ``FAMILIES``; ``coloring``: "identity" (the
+    closed-form step) or ``None`` (per-dim diag sweeps and PCG).
+    max(d, n_res) ≤ 64 takes the register kernel, E = SEG_E[family]
+    entries a lane, on segments of S = the least power of two (2 to 32)
+    with S·E ≥ max(d, n_res).  Larger shapes take the warp kernel, with up to 4 warps a block while their shared memory fits
+    48 KB."""
+    if itemsize not in (4, 8):
+        raise ValueError(f"k2_launch_plan: itemsize {itemsize}")
+    if family not in FAMILIES.values():
+        raise ValueError(f"k2_launch_plan: unknown residual family {family}")
+    if coloring not in (None, "identity"):
+        raise ValueError(f"k2_launch_plan: coloring {coloring!r}")
+    if family == 1 and (d != 2 or coloring is not None):
+        raise ValueError("k2_launch_plan: Jennrich-Sampson has d = 2 and no "
+                         "diagonal coloring")
+    m = max(d, n_res)
+    if m <= SEG_MAX:
+        E = SEG_E[family]
+        S = 2
+        while S * E < m:
+            S *= 2
+        per_warp = 32 // S
+        warps = max(1, min(SEG_WARPS, -(-B // per_warp)))
+        return K2Plan("segment", S, E, warps,
+                      max(1, -(-B // (warps * per_warp))), 0)
+    per_warp = (14 * d + 2 * n_res) * itemsize
+    warps = 4
+    while warps > 1 and warps * per_warp > _DEFAULT_SMEM:
+        warps //= 2
+    return K2Plan("warp", 32, -(-m // 32), warps, max(1, -(-B // warps)),
+                  warps * per_warp)
+
+
+def k2_params(family: int, opts: Options, plan: FusedPlan):
+    """K2's ``SolverParams`` for a solver: everything but the batch size,
+    so a solver builds it once."""
+    from .. import _build
+    lm = opts.lm
+    d = plan.spec.dims
+    return _build.SolverParams(
+        d=d, n_res=plan.n_res, family=family,
+        fam_m=plan.n_res if family == 1 else 0,
+        is_lm=int(opts.solver_type == SolverType.LEVENBERG_MARQUARDT),
+        coloring=int(plan.coloring is not None),
+        max_iters_total=opts.max_iters + 1,
+        max_consec_failures=opts.max_consec_failures,
+        max_total_failures=opts.max_total_failures,
+        cg_iters=opts.hessian.cg_iters or d,
+        use_quality=int(opts.use_step_quality_approx),
+        use_squared_norm=int(opts.cost.use_squared_norm),
+        downscale_by_2=int(opts.cost.downscale_by_2),
+        normalize=int(opts.cost.normalize),
+        min_error=opts.min_error, min_rerr_dec=opts.min_rerr_dec,
+        min_step_norm2=opts.min_step_norm2,
+        min_grad_norm2=opts.min_grad_norm2,
+        damping_init=lm.damping_init, lam_lo=lm.damping_range[0],
+        lam_hi=lm.damping_range[1], good_factor=lm.good_factor,
+        bad_factor=lm.bad_factor, grad_clipping=opts.grad_clipping)
 
 
 def _output(B, dtype, dev, cost, rerr, stop, it, nfail, nconsec, lam, g,
@@ -352,19 +449,48 @@ def fused_solve_plain(residual_fn, opts: Options, x0: torch.Tensor, data,
                       nconsec, lm.lam, g_out, best_nres)
 
 
+def _kernel_outputs(B: int, d: int, dtype, dev):
+    """Every tensor K2 writes, as disjoint views of two new buffers: one of
+    the solver's type (x and g, then cost, rerr, λ) and one of int32 (six
+    counters, then the float32 inlier ratio and duration viewed in its last
+    2·B entries).  Returns (x, Output, the SolverIO output pointers)."""
+    f = torch.empty(B * (2 * d + 3), dtype=dtype, device=dev)
+    i = torch.empty(8 * B, dtype=_I32, device=dev)
+    x, g = f[:2 * B * d].view(2, B, d)
+    cost, rerr, lam = f[2 * B * d:].view(3, B)
+    stop, it, nfail, nconsec, nres, nhist = i[:6 * B].view(6, B)
+    inlier, duration = i[6 * B:].view(torch.float32).view(2, B)
+    out = Output(
+        final_cost=Cost(cost=cost, num_residuals=nres, inlier_ratio=inlier),
+        final_rerr_dec=rerr, stop_reason=stop, num_iters=it,
+        num_failures=nfail, num_consec_failures=nconsec,
+        duration_ms=duration, final_grad=g, final_hessian=None,
+        errs=x[:, :0], deltas2=g[:, :0],
+        successes=torch.empty((B, 0), dtype=torch.bool, device=dev),
+        num_hist=nhist, final_lambda=lam)
+    ptrs = dict(x=x, cost=cost, rerr=rerr, lam=lam, g=g, stop=stop,
+                iters=it, nfail=nfail, nconsec=nconsec, nres=nres,
+                nhist=nhist, inlier=inlier, duration=duration)
+    return x, out, {k: v.data_ptr() for k, v in ptrs.items()}
+
+
 def fused_solve_cuda(family: int, opts: Options, x0: torch.Tensor, data,
-                     plan: FusedPlan):
-    """Launch K2 on flat parameters ``x0`` (B, d), a CUDA tensor."""
+                     plan: FusedPlan, params=None):
+    """Launch K2 on flat parameters ``x0`` (B, d), a CUDA tensor, as
+    :func:`k2_launch_plan` of the shapes says.  ``params``: the solver's
+    :func:`k2_params` (built here when not given)."""
     from .. import _build
 
-    n_res, coloring = plan.n_res, plan.coloring
+    if x0.dtype not in (torch.float32, torch.float64) or x0.dim() != 2:
+        raise ValueError(f"K2: unsupported x0 {x0.dtype} {tuple(x0.shape)}")
+    coloring = plan.coloring
     if coloring is not None and not coloring.identity:
         raise ValueError("K2 covers the identity coloring or none; got "
                          f"{coloring.n_colors} colors")
-    if x0.dtype not in (torch.float32, torch.float64) or x0.dim() != 2:
-        raise ValueError(f"K2: unsupported x0 {x0.dtype} {tuple(x0.shape)}")
     B, d = x0.shape
     dtype, dev = x0.dtype, x0.device
+    kp = k2_launch_plan(B, d, plan.n_res, x0.element_size(), family,
+                        None if coloring is None else "identity")
     x0 = x0.contiguous()
     data_ptrs = [None, None]
     if family == 0:
@@ -374,64 +500,33 @@ def fused_solve_cuda(family: int, opts: Options, x0: torch.Tensor, data,
                 raise ValueError("K2 prior family: y and inv_std must be "
                                  f"({B}, {d}) on {dev}")
         data_ptrs = [y.data_ptr(), inv_std.data_ptr()]
-    elif family == 1:
-        if d != 2 or data is not None:
-            raise ValueError("K2 Jennrich-Sampson family: x is (B, 2), no "
-                             "data")
-    else:
-        raise ValueError(f"K2: unknown residual family {family}")
-
-    def vec(n, dt=dtype):
-        return torch.empty((B, n), dtype=dt, device=dev)
-
-    def scal(dt=dtype):
-        return torch.empty((B,), dtype=dt, device=dev)
-
-    x_out, g = vec(d), vec(d)
-    cost, rerr, lam = scal(), scal(), scal()
-    stop, it, nfail, nconsec, nres = (scal(_I32) for _ in range(5))
-    lm = opts.lm
-    prm = _build.SolverParams(
-        B=B, d=d, n_res=n_res, family=family,
-        fam_m=n_res if family == 1 else 0,
-        is_lm=int(opts.solver_type == SolverType.LEVENBERG_MARQUARDT),
-        coloring=int(coloring is not None),
-        max_iters_total=opts.max_iters + 1,
-        max_consec_failures=opts.max_consec_failures,
-        max_total_failures=opts.max_total_failures,
-        cg_iters=opts.hessian.cg_iters or d,
-        use_quality=int(opts.use_step_quality_approx),
-        use_squared_norm=int(opts.cost.use_squared_norm),
-        downscale_by_2=int(opts.cost.downscale_by_2),
-        normalize=int(opts.cost.normalize),
-        min_error=opts.min_error, min_rerr_dec=opts.min_rerr_dec,
-        min_step_norm2=opts.min_step_norm2,
-        min_grad_norm2=opts.min_grad_norm2,
-        damping_init=lm.damping_init, lam_lo=lm.damping_range[0],
-        lam_hi=lm.damping_range[1], good_factor=lm.good_factor,
-        bad_factor=lm.bad_factor, grad_clipping=opts.grad_clipping)
-    io = _build.SolverIO(
-        x0=x0.data_ptr(), data0=data_ptrs[0], data1=data_ptrs[1],
-        x=x_out.data_ptr(), cost=cost.data_ptr(), rerr=rerr.data_ptr(),
-        lam=lam.data_ptr(), g=g.data_ptr(), stop=stop.data_ptr(),
-        iters=it.data_ptr(), nfail=nfail.data_ptr(),
-        nconsec=nconsec.data_ptr(), nres=nres.data_ptr())
+    elif data is not None:
+        raise ValueError("K2 Jennrich-Sampson family: x is (B, 2), no data")
+    if params is None:
+        params = k2_params(family, opts, plan)
+    if params.d != d or params.family != family:
+        raise ValueError(f"K2: parameters for d = {params.d}, family "
+                         f"{params.family}; got d = {d}, family {family}")
+    x_out, out, ptrs = _kernel_outputs(B, d, dtype, dev)
+    io = _build.SolverIO(x0=x0.data_ptr(), data0=data_ptrs[0],
+                         data1=data_ptrs[1], **ptrs)
     lib = _build.load()
     fn = lib.tinyopt_solver_f32 if dtype == torch.float32 \
         else lib.tinyopt_solver_f64
     with torch.cuda.device(dev):
-        err = fn(ctypes.byref(prm), ctypes.byref(io),
-                 torch.cuda.current_stream(dev).cuda_stream)
+        err = fn(ctypes.byref(params), ctypes.byref(io), B,
+                 PATH_CODES[kp.path], kp.S, kp.E, kp.warps, kp.grid,
+                 kp.smem_bytes, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "K2 solver kernel")
     fused_solve.launches += 1
-    return x_out, _output(B, dtype, dev, cost, rerr, stop, it, nfail, nconsec,
-                          lam, g, nres)
+    return x_out, out
 
 
 def fused_solve(residual_fn, opts: Options, x0: torch.Tensor, data,
-                plan: FusedPlan):
+                plan: FusedPlan, params=None):
     """The fused whole solve on flat ``x0`` (B, d): the plain twin for a
-    CPU tensor, K2 for a CUDA tensor (counted in ``fused_solve.launches``).
+    CPU tensor, K2 for a CUDA tensor (counted in ``fused_solve.launches``;
+    ``params``: the solver's :func:`k2_params`, else built for the call).
     """
     if x0.device.type == "cpu":
         return fused_solve_plain(residual_fn, opts, x0, data, plan)
@@ -442,7 +537,8 @@ def fused_solve(residual_fn, opts: Options, x0: torch.Tensor, data,
             "fused_solve: K2 has no device family for this residual "
             "function (registered: prior_residual, "
             "jennrich_sampson_residuals); check fused_plan first")
-    return fused_solve_cuda(FAMILIES[residual_fn], opts, x0, data, plan)
+    return fused_solve_cuda(FAMILIES[residual_fn], opts, x0, data, plan,
+                            params)
 
 
 #: Number of K2 launches in this process (reset freely by callers).
@@ -463,9 +559,13 @@ def fused_batched_solver(residual_fn, options: Options, x_example,
             "save_last/history/logging/callbacks, identity or no coloring; "
             "on CUDA a registered residual family)")
 
+    family = FAMILIES.get(residual_fn)
+    params = None if family is None else k2_params(family, options, plan)
+
     def solve(x0_batch, data_batch=None):
         x0 = mf.flatten_batch(x0_batch, plan.spec)
-        x, out = fused_solve(residual_fn, options, x0, data_batch, plan)
+        x, out = fused_solve(residual_fn, options, x0, data_batch, plan,
+                             params)
         return mf.unflatten(x, plan.spec), out
 
     return solve

@@ -70,8 +70,8 @@ class HessianOptions:
     #: always uses one jvp sweep per tangent dimension.
     diag_coloring: str = "auto"
     #: Instances per grid tile of the JAX package's fused kernel.  Unused
-    #: by this package: its K2 kernel runs one warp per instance and sizes
-    #: its blocks from the shared-memory footprint.
+    #: by this package: K2's geometry comes from the shapes alone
+    #: (ops/cuda_solver.k2_launch_plan).
     fused_block: int = 0
     #: Schur-family options (not ported yet; kept for field parity).
     schur_refine: int = 0
