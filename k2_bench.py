@@ -157,59 +157,10 @@ def check(side, ref, what):
     return (x - xr).abs().max().item()
 
 
-def variants(pkg, make_prior_batch, gen, dev):
-    """Time this tree's register kernel at hand-made plans (S, E, warps),
-    each checked bit for bit against the plan k2_launch_plan picks."""
-    cs = pkg.ops.cuda_solver
-    chosen = cs.k2_launch_plan
-    out = []
-    # (S, E, min blocks an SM, or 100: an atomic instance counter, warps)
-    cases = [("prior", *[(S, E, 0, w) for S, E in ((32, 2), (16, 4), (8, 8))
-                         for w in (2, 4)],
-              (16, 4, 4, 4), (16, 4, 5, 4), (16, 4, 6, 4), (16, 4, 100, 4)),
-             ("js", *[(S, E, 0, w) for S, E in ((16, 1), (8, 2), (4, 4))
-                      for w in (2, 4)], (16, 2, 0, 4), (32, 2, 0, 4))]
-    for dtype in (torch.float32, torch.float64):
-        data, x0 = make_prior_batch(B, D, dtype, generator=gen, device=dev)
-        js0 = (torch.rand((JS_B, 2), generator=gen, dtype=dtype, device=dev)
-               * 0.35 + 0.1)
-        for problem, *pairs in cases:
-            if problem == "prior":
-                side = Side(pkg, "prior", {}, x0, data.y, data.inv_std)
-                n = B
-            else:
-                side = Side(pkg, "js", {"max_iters": 20,
-                                        "max_consec_failures": 5}, js0)
-                n = JS_B
-            xr, outr = side.run()
-            for S, E, minb, warps in pairs:
-                if True:
-                    per_block = warps * 32 // S
-                    plan = cs.K2Plan("segment", S, E, warps,
-                                     -(-n // per_block), minb)
-                    cs.k2_launch_plan = lambda *a, plan=plan: plan  # noqa
-                    try:
-                        x, o = side.run()
-                        torch.cuda.synchronize()
-                        same = bool(torch.equal(x, xr) and torch.equal(
-                            o.num_iters, outr.num_iters))
-                        ms = gpu_ms(side.run, n=N_LAUNCH)
-                    finally:
-                        cs.k2_launch_plan = chosen
-                    out.append({"dtype": str(dtype), "problem": problem,
-                                "S": S, "E": E, "warps": warps, "ms": ms,
-                                "min_blocks": minb, "bit_equal": same})
-                    log(f"[variant] {problem} {dtype} S={S} E={E} "
-                        f"warps={warps} min_blocks={minb}: {ms:.4f} ms, "
-                        f"bit-equal {same}")
-    return out
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True)
     ap.add_argument("--ptxas", action="store_true")
-    ap.add_argument("--variants", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("k2_bench: no CUDA device", file=sys.stderr)
@@ -234,8 +185,6 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     cs = new_pkg.ops.cuda_solver
-    if args.variants:
-        rec["variants"] = variants(new_pkg, make_prior_batch, gen, dev)
     for dtype in (torch.float32, torch.float64):
         name = str(dtype).split(".")[-1]
         r = rec[name] = {}

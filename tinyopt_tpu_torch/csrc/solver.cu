@@ -352,8 +352,10 @@ int launch_solver(const SolverParams* p, const SolverIO* io, int B, int path,
   if (p->d < 1 || p->n_res < 1 || grid < 1 ||
       (p->family == kJennrichSampson && (p->d != 2 || p->fam_m != p->n_res)))
     return (int)cudaErrorInvalidValue;
-  if (path == kPathSegment)
-    return launch_segment<T>(*p, *io, B, S, E, warps, grid, smem, s);
+  if (path == kPathSegment) {
+    if (smem != 0) return (int)cudaErrorInvalidValue;
+    return launch_segment<T>(*p, *io, B, S, E, warps, grid, s);
+  }
   if (path != kPathWarp) return (int)cudaErrorInvalidValue;
   if (p->family == kPrior) {
     PriorFamily<T> fam{static_cast<const T*>(io->data0),

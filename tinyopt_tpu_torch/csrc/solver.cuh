@@ -255,13 +255,11 @@ __device__ __forceinline__ T clampv(T v, T lo, T hi) {
 // (csrc/solver_seg_f32.cu, csrc/solver_seg_f64.cu).
 template <typename T>
 int launch_segment(const SolverParams& p, const SolverIO& io, int B, int S,
-                   int E, int warps, int grid, int minb, cudaStream_t stream);
+                   int E, int warps, int grid, cudaStream_t stream);
 
 extern template int launch_segment<float>(const SolverParams&, const SolverIO&,
-                                          int, int, int, int, int, int,
-                                          cudaStream_t);
+                                          int, int, int, int, int, cudaStream_t);
 extern template int launch_segment<double>(const SolverParams&, const SolverIO&,
-                                           int, int, int, int, int, int,
-                                           cudaStream_t);
+                                           int, int, int, int, int, cudaStream_t);
 
 }  // namespace tinyopt

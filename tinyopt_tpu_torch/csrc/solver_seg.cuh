@@ -48,11 +48,8 @@ namespace tinyopt {
 // Threads a block of solver_seg_kernel at most (ops/cuda_solver.SEG_WARPS).
 constexpr int kSegMaxThreads = 128;
 
-static __device__ unsigned int g_k2_next;   // dev: atomic instance counter
-
-template <typename T, typename Fam, int S, int E, bool kIdentity, int kMinBlocks,
-          bool kAtomic = false>
-__global__ void __launch_bounds__(kSegMaxThreads, kMinBlocks)
+template <typename T, typename Fam, int S, int E, bool kIdentity>
+__global__ void __launch_bounds__(kSegMaxThreads)
 solver_seg_kernel(const SolverParams p, const SolverIO io,
                                   const Fam fam, int B) {
   constexpr int W = 32 / S;   // instances a warp
@@ -378,13 +375,7 @@ solver_seg_kernel(const SolverParams p, const SolverIO io,
         static_cast<float*>(io.inlier)[b] = 1.0f;
         static_cast<float*>(io.duration)[b] = 0.0f;
       }
-      if constexpr (kAtomic) {
-        unsigned nb = 0;
-        if (sl == 0) nb = atomicAdd(&g_k2_next, 1u);
-        b = stride + (int)__shfl_sync(bits, nb, 0, S);
-      } else {
-        b += stride;
-      }
+      b += stride;
       start();
     }
   }
@@ -399,36 +390,15 @@ solver_seg_kernel(const SolverParams p, const SolverIO io,
 template <typename T, typename Fam, bool kIdentity>
 int launch_seg_family(const SolverParams& p, const SolverIO& io,
                       const Fam& fam, int B, int S, int E, int warps,
-                      int grid, int minb, cudaStream_t stream) {
+                      int grid, cudaStream_t stream) {
   void (*kern)(const SolverParams, const SolverIO, const Fam, int) = nullptr;
-#define K2_PICK(s)                                                        \
-  if constexpr (s * Fam::kSegE <= 64) {                                   \
-    if (S == s && E == Fam::kSegE && minb == 0)                           \
-      kern = solver_seg_kernel<T, Fam, s, Fam::kSegE, kIdentity, 1>;      \
+  if (E != Fam::kSegE) return (int)cudaErrorInvalidValue;
+#define K2_PICK(s)                                                           \
+  if constexpr (s * Fam::kSegE <= 64) {                                      \
+    if (S == s) kern = solver_seg_kernel<T, Fam, s, Fam::kSegE, kIdentity>;  \
   }
   K2_SEGMENTS(K2_PICK)
 #undef K2_PICK
-  // dev: segment shapes off the plan, timed by k2_bench.py --variants
-  if constexpr (kIdentity) {
-    if (S == 32 && E == 2 && minb == 0) kern = solver_seg_kernel<T, Fam, 32, 2, kIdentity, 1>;
-    if (S == 8 && E == 8 && minb == 0) kern = solver_seg_kernel<T, Fam, 8, 8, kIdentity, 1>;
-  }
-  if constexpr (Fam::kSegE == 2) {
-    if (S == 16 && E == 1 && minb == 0) kern = solver_seg_kernel<T, Fam, 16, 1, kIdentity, 1>;
-    if (S == 4 && E == 4 && minb == 0) kern = solver_seg_kernel<T, Fam, 4, 4, kIdentity, 1>;
-  }
-  if constexpr (kIdentity) {
-    if (S == 16 && minb == 4) kern = solver_seg_kernel<T, Fam, 16, Fam::kSegE, kIdentity, 4>;
-    if (S == 16 && minb == 5) kern = solver_seg_kernel<T, Fam, 16, Fam::kSegE, kIdentity, 5>;
-    if (S == 16 && minb == 6) kern = solver_seg_kernel<T, Fam, 16, Fam::kSegE, kIdentity, 6>;
-    if (S == 16 && minb == 100) {
-      kern = solver_seg_kernel<T, Fam, 16, Fam::kSegE, kIdentity, 1, true>;
-      void* ctr = nullptr;
-      cudaError_t e = cudaGetSymbolAddress(&ctr, g_k2_next);
-      if (e == cudaSuccess) e = cudaMemsetAsync(ctr, 0, sizeof(unsigned), stream);
-      if (e != cudaSuccess) return (int)e;
-    }
-  }
   if (kern == nullptr) return (int)cudaErrorInvalidValue;
   int fit = 0;
   cudaError_t e = device_fit(reinterpret_cast<const void*>(kern), warps * 32,
@@ -441,7 +411,7 @@ int launch_seg_family(const SolverParams& p, const SolverIO& io,
 
 template <typename T>
 int launch_segment(const SolverParams& p, const SolverIO& io, int B, int S,
-                   int E, int warps, int grid, int minb, cudaStream_t stream) {
+                   int E, int warps, int grid, cudaStream_t stream) {
   const int m = p.d > p.n_res ? p.d : p.n_res;
   if (S < 2 || S > 32 || (S & (S - 1)) || E < 1 || S * E < m || m > 64 ||
       warps < 1 || warps * 32 > kSegMaxThreads ||
@@ -452,13 +422,13 @@ int launch_segment(const SolverParams& p, const SolverIO& io, int B, int S,
     PriorFamily<T> fam{static_cast<const T*>(io.data0),
                        static_cast<const T*>(io.data1), p.d};
     return identity
-        ? launch_seg_family<T, PriorFamily<T>, true>(p, io, fam, B, S, E, warps, grid, minb, stream)
-        : launch_seg_family<T, PriorFamily<T>, false>(p, io, fam, B, S, E, warps, grid, minb, stream);
+        ? launch_seg_family<T, PriorFamily<T>, true>(p, io, fam, B, S, E, warps, grid, stream)
+        : launch_seg_family<T, PriorFamily<T>, false>(p, io, fam, B, S, E, warps, grid, stream);
   }
   if (p.family == kJennrichSampson && !identity) {
     JenSamFamily<T> fam{p.fam_m};
     return launch_seg_family<T, JenSamFamily<T>, false>(p, io, fam, B, S, E,
-                                                        warps, grid, minb, stream);
+                                                        warps, grid, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -4,5 +4,5 @@
 
 namespace tinyopt {
 template int launch_segment<double>(const SolverParams&, const SolverIO&, int,
-                                 int, int, int, int, int, cudaStream_t);
+                                 int, int, int, int, cudaStream_t);
 }  // namespace tinyopt
