@@ -1,10 +1,12 @@
 """Smoke run of tinyopt_tpu_torch on one CUDA GPU.
 
 Builds the package's CUDA kernels from ``tinyopt_tpu_torch/csrc``, holds
-each kernel against its plain PyTorch twin on the card, drives the main
-path — ``batched_optimize`` on the 50-dim Gaussian-prior bench problem at
-10,000 instances, once through the fused solver (K2) and once through the
-"cg" solver (K1) — and checks what comes out.  Every phase that fails
+each kernel against its plain PyTorch twin on the card (K2 also at the
+edges of its launch plans, printed per shape, and beside an instance whose
+data is NaN), drives the main path — ``batched_optimize`` on the 50-dim
+Gaussian-prior bench problem at 10,000 instances, once through the fused
+solver (K2) and once through the "cg" solver (K1) — and checks what comes
+out.  Every phase that fails
 raises, so the script exits non-zero; without a CUDA device it exits
 non-zero before printing any result.
 
@@ -13,7 +15,8 @@ non-zero before printing any result.
 Output: one line per phase, then a line ``{"kernels": [...]}`` with each
 kernel's launches on the main path, its largest disagreement with its
 twin, its time beside the twin's, and its memory bound (``bound_ms``) and
-the share of it the kernel reaches (float32, and float64 as ``*_f64``);
+the share of it the kernel reaches (float32, and float64 as ``*_f64``;
+K2's time on Jennrich-Sampson 4096 x 2 as ``js_ms``);
 the card's name and power limit;
 and last ``{"ok": true, "device": {...}}``.  The full record is also
 written to ``chiprun_out/chip_smoke.json``.
@@ -341,6 +344,16 @@ def main() -> int:
                 log(f"[K2] prior 257x{d} {dtype} coloring {coloring} "
                     f"({k2_plan(x0, d, 0, 'identity' if coloring == 'auto' else None)}): "
                     f"max|x_k - x_twin| = {err:.3e}")
+    # batches smaller than a warp's segments
+    for B in (1, 3):
+        data, x0 = make_prior_batch(B, DIMS, torch.float32, generator=gen,
+                                    device=dev)
+        got, ref, _, _ = k2_pair(prior_residual, bench_options(to), x0, data)
+        err = assert_parity(ref, got, **k2_tol[torch.float32],
+                            what=f"K2 prior {B}x{DIMS}")
+        log(f"[K2] prior {B}x{DIMS} float32 "
+            f"({k2_plan(x0, DIMS, 0, 'identity')}): max|x_k - x_twin| = "
+            f"{err:.3e}")
     # one instance with inv_std = nan: it stops with SYSTEM_HAS_NAN_OR_INF,
     # the instances beside it in its warp match the twin
     data, x0 = make_prior_batch(64, DIMS, torch.float32, generator=gen,

@@ -23,7 +23,7 @@ launches queued behind a device sleep (``chip_smoke.gpu_ms``).  Host
 times are microseconds per call of a solver built by ``batched_solver``
 (what a user calls: flatten, the wrapper, the launch, the outputs), from
 the host clock around 200 calls at 64 instances that do not wait for the
-device.  Output: one line per measurement, the card's name and power
+device, in turns (old, new, new, old).  Output: one line per measurement, the card's name and power
 limit, and the record in ``chiprun_out/k2_bench.json``.
 """
 
@@ -119,11 +119,11 @@ def host_us(fn, n=200):
 
 
 class Side:
-    """One tree's K2 on one problem: the plan built once, the launch as a
-    closure."""
+    """One tree's K2 on one problem: the plan and a solver built once;
+    ``run`` launches K2, ``twin`` runs its plain twin, ``solve`` calls the
+    solver a user builds with ``batched_solver``."""
 
     def __init__(self, pkg, problem, opts_kw, x0, y=None, inv_std=None):
-        self.pkg = pkg
         cs = pkg.ops.cuda_solver
         probs = pkg.models.problems
         opts = bench_options(pkg)
@@ -140,9 +140,8 @@ class Side:
         assert plan is not None
         self.run = lambda: cs.fused_solve(fn, opts, x0, data, plan)  # noqa
         self.twin = lambda: cs.fused_solve_plain(fn, opts, x0, data, plan)  # noqa
-        self.solver = lambda xb, db: pkg.batched_solver(  # noqa: E731
-            fn, opts, "residuals", xb[0],
-            None if db is None else probs.PriorProblem(db[0][0], db[1][0]))
+        solver = pkg.batched_solver(fn, opts, "residuals", x0[0], d_ex)
+        self.solve = lambda: solver(x0, data)  # noqa: E731
 
 
 def check(side, ref, what):
@@ -203,13 +202,13 @@ def main() -> int:
         plan = cs.k2_launch_plan(B, D, D, x0.element_size(), 0, "identity")
         r["plan"] = plan._asdict()
         log(f"[plan] prior {B}x{D} {name}: {plan}")
-        xs, ys, ss = x0[:64].clone(), data.y[:64].clone(), data.inv_std[:64].clone()
-        r["host_us"] = {}
-        for w, p in (("old", old_pkg), ("new", new_pkg)):
-            solve = Side(p, "prior", {}, xs, ys, ss).solver(xs, (ys, ss))
-            dd = p.models.problems.PriorProblem(ys, ss)
-            r["host_us"][w] = host_us(lambda: solve(xs, dd))
-        log(f"[host] {name} 64x{D}: us per solve call {r['host_us']}")
+        small = [t[:64].clone() for t in (x0, data.y, data.inv_std)]
+        calls = {w: Side(p, "prior", {}, *small).solve
+                 for w, p in (("old", old_pkg), ("new", new_pkg))}
+        r["host_us_turns"] = [[w, host_us(calls[w])]
+                              for w in ("old", "new", "new", "old")]
+        log(f"[host] {name} 64x{D}: us per solve call, turns "
+            f"{r['host_us_turns']}")
 
         js0 = (torch.rand((JS_B, 2), generator=gen, dtype=dtype, device=dev)
                * 0.35 + 0.1)

@@ -96,7 +96,7 @@ def build() -> str:
 
 
 class SolverParams(ctypes.Structure):
-    """Mirror of ``struct SolverParams`` in csrc/solver.cu."""
+    """Mirror of ``struct SolverParams`` in csrc/solver.cuh."""
     _fields_ = [(n, ctypes.c_int) for n in (
         "d", "n_res", "family", "fam_m", "is_lm", "coloring",
         "max_iters_total", "max_consec_failures", "max_total_failures",
@@ -108,7 +108,7 @@ class SolverParams(ctypes.Structure):
 
 
 class SolverIO(ctypes.Structure):
-    """Mirror of ``struct SolverIO`` in csrc/solver.cu (device pointers)."""
+    """Mirror of ``struct SolverIO`` in csrc/solver.cuh (device pointers)."""
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "x0", "data0", "data1", "x", "cost", "rerr", "lam", "g", "stop",
         "iters", "nfail", "nconsec", "nres", "nhist", "inlier", "duration")]

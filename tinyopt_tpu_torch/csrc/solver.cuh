@@ -42,7 +42,7 @@ enum Stop {
 // Sums over a segment of S lanes (S a power of two, segments aligned to
 // multiples of S), lane sl holding entries sl + k*S, k < E, S*E <= 64.
 // They add in the order of solver_kernel's warp_dot, which the twin's
-// reductions match bit for bit on an H100 (PERF.md, PR 1): slot l < 32
+// reductions match bit for bit on an H100 (PERF.md): slot l < 32
 // holds 0 + t_l + t_{l+32}, then xor butterflies over the 32 slots with
 // offsets 16 down to 1.  lane_part takes the steps whose offset is at
 // least S, which pair entries of one lane; seg_sum the others, shuffles
@@ -88,7 +88,7 @@ struct PriorFamily {
   int d;
   // Entries of each vector a lane of solver_seg_kernel holds: light work
   // an entry, so few lanes an instance and more instances a warp (timed
-  // fastest of S x E = 32 x 2, 16 x 4 and 8 x 8 at d = 50, PERF.md, PR 4).
+  // fastest of S x E = 32 x 2, 16 x 4 and 8 x 8 at d = 50, PERF.md).
   static constexpr int kSegE = 4;
 
   // Shared-memory form (solver_kernel): lanes stride over the vectors.
@@ -151,7 +151,7 @@ struct JenSamFamily {
   int m;
   // Two exponentials an entry of every product: the entries spread over
   // more lanes (timed fastest of S x E = 16 x 1, 8 x 2 and 4 x 4 at m = 10,
-  // PERF.md, PR 4).
+  // PERF.md).
   static constexpr int kSegE = 2;
 
   __device__ int n_res() const { return m; }

@@ -15,8 +15,9 @@
 // * One instance runs on a SEGMENT of S lanes (S a power of two, 2..32;
 //   32 / S instances a warp).  Lane sl holds entries sl + k*S, k < E, of
 //   every vector, in registers: x, best_x, g, diag(H), dx, the proposal,
-//   the damping and its inverse, the PCG vectors, the residuals and J v.
-//   Shared memory holds nothing.  The family's per-instance data (y and
+//   the damping and its inverse, the PCG vectors, the residuals and J v
+//   (the reference's last_dx is never read, so it is not kept).  Shared
+//   memory holds nothing.  The family's per-instance data (y and
 //   inv_std for the prior) is loaded once, when the instance starts.
 // * Dot products are segment butterflies of log2(S) shuffles, after adds
 //   inside the lane, in the order of solver_kernel's warp_dot (lane_part,
@@ -46,12 +47,17 @@
 namespace tinyopt {
 
 // Threads a block of solver_seg_kernel at most (ops/cuda_solver.SEG_WARPS).
+// The launch bound (128 threads, at least 1 block an SM) lets ptxas allot
+// registers for blocks this small: 88 a thread in float and 126 in double
+// on the closed-form prior kernel, no spill, against 95 and 130 without a
+// bound; naming the threads alone made ptxas cap float at 80 and spill
+// (PERF.md).
 constexpr int kSegMaxThreads = 128;
 
 template <typename T, typename Fam, int S, int E, bool kIdentity>
-__global__ void __launch_bounds__(kSegMaxThreads)
-solver_seg_kernel(const SolverParams p, const SolverIO io,
-                                  const Fam fam, int B) {
+__global__ void __launch_bounds__(kSegMaxThreads, 1)
+solver_seg_kernel(const SolverParams p, const SolverIO io, const Fam fam,
+                  int B) {
   constexpr int W = 32 / S;   // instances a warp
   const int lane = threadIdx.x & 31;
   const int sl = lane & (S - 1);

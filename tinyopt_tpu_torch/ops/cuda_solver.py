@@ -164,8 +164,8 @@ def k2_launch_plan(B: int, d: int, n_res: int, itemsize: int, family: int,
     closed-form step) or ``None`` (per-dim diag sweeps and PCG).
     max(d, n_res) ≤ 64 takes the register kernel, E = SEG_E[family]
     entries a lane, on segments of S = the least power of two (2 to 32)
-    with S·E ≥ max(d, n_res).  Larger shapes take the warp kernel, with up to 4 warps a block while their shared memory fits
-    48 KB."""
+    with S·E ≥ max(d, n_res).  Larger shapes take the warp kernel, with up
+    to 4 warps a block while their shared memory fits 48 KB."""
     if itemsize not in (4, 8):
         raise ValueError(f"k2_launch_plan: itemsize {itemsize}")
     if family not in FAMILIES.values():
