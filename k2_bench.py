@@ -62,8 +62,8 @@ def ptxas_report(build) -> list[str]:
     """nvcc -Xptxas -v over K2's sources, one process each: one line per
     kernel, its name demangled where cu++filt is found."""
     flags = [f for f in build.NVCC_FLAGS if f != "-shared"]
-    srcs = [os.path.join(build.CSRC, s) for s in
-            ("solver.cu", "solver_seg_f32.cu", "solver_seg_f64.cu")]
+    srcs = [s for s in build.sources()
+            if os.path.basename(s).startswith("solver") and s.endswith(".cu")]
     with tempfile.TemporaryDirectory() as tmp:
         def one(src):
             cmd = [build._nvcc(), *flags, "-Xptxas", "-v", "-c", "-I",

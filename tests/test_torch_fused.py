@@ -129,6 +129,136 @@ def test_twin_matches_pallas_kernel_jennrich_sampson(dtype):
     assert int(got[1].num_failures.sum()) > 0
 
 
+def assert_history(ref, got, rtol=1e-5, atol=1e-6):
+    """The history rows of the JAX kernel and of K2's twin: num_hist and
+    successes equal, errs and deltas2 to the tolerance, every slot past
+    num_hist 0 / False in the twin."""
+    outr, outg = ref[1], got[1]
+    np.testing.assert_array_equal(outg.num_hist.numpy(),
+                                  np.asarray(outr.num_hist))
+    np.testing.assert_array_equal(outg.successes.numpy(),
+                                  np.asarray(outr.successes))
+    np.testing.assert_allclose(outg.errs.numpy(), np.asarray(outr.errs),
+                               rtol=rtol, atol=atol)
+    np.testing.assert_allclose(outg.deltas2.numpy(), np.asarray(outr.deltas2),
+                               rtol=rtol, atol=atol)
+    past = torch.arange(outg.errs.shape[1])[None, :] >= outg.num_hist[:, None]
+    assert bool(torch.all(outg.errs[past] == 0))
+    assert bool(torch.all(outg.deltas2[past] == 0))
+    assert not bool(torch.any(outg.successes[past]))
+
+
+def _banded_t(x, y):
+    return torch.cat([x[:-1] + 0.5 * x[1:], x[-1:]]) - y
+
+
+def _banded_j(x, y):
+    return jnp.concatenate([x[:-1] + 0.5 * x[1:], x[-1:]]) - y
+
+
+@pytest.mark.parametrize("case,dtype", [
+    (c, t) for c in ("prior", "banded_off", "jennrich_sampson",
+                     "prior_off_history") for t in (np.float32, np.float64)
+    # banded in float32 ends at cost 0 to rounding, where the stop among
+    # MIN_DELTA_NORM and MAX_CONSEC_NO_DECR is rounding noise
+    if (c, t) != ("banded_off", np.float32)])
+def test_twin_matches_pallas_kernel_dogleg(case, dtype):
+    """tests/test_fused.py:127-165: the dogleg in the kernel on the prior
+    (closed-form GN and regularized steps), the banded problem with
+    coloring off (PCG for every solve and the curvature matvec), and
+    Jennrich-Sampson near its singular minimum (the κ-cap and both
+    Levenberg fallbacks); and the dogleg with history, coloring off."""
+    kw = dict(solver_type=jto.DogLeg)
+    tol = dict(rtol=1e-5, atol=1e-6)
+    if case in ("prior", "prior_off_history"):
+        y, inv, x0 = _prior(16, 7, dtype, 3)
+        if case == "prior_off_history":
+            kw.update(save_history=True, hessian=dict(diag_coloring="off"))
+        jfn, tfn = j_prior, prior_residual
+        jd = JPrior(y=jnp.asarray(y), inv_std=jnp.asarray(inv))
+        td = prior_problem_from_numpy(y, inv, device="cpu", dtype=TDT[dtype])
+        jd_ex = jax.tree_util.tree_map(lambda a: a[0], jd)
+        td_ex = PriorProblem(td.y[0], td.inv_std[0])
+    elif case == "banded_off":
+        kw["hessian"] = dict(diag_coloring="off")
+        y = np.random.default_rng(0).normal(size=(12, 6)).astype(dtype)
+        x0 = np.zeros((12, 6), dtype)
+        jfn, tfn, jd, td = _banded_j, _banded_t, jnp.asarray(y), \
+            torch.from_numpy(y)
+        jd_ex, td_ex = jd[0], td[0]
+        tol = dict(rtol=1e-4, atol=1e-5)
+    else:
+        kw["max_iters"] = 30
+        x0 = (np.array([[0.3, 0.4]]) + 0.01 * np.random.default_rng(2)
+              .normal(size=(8, 2))).astype(dtype)
+        jfn, tfn, jd, td, jd_ex, td_ex = (j_jennrich,
+                                          jennrich_sampson_residuals,
+                                          None, None, None, None)
+    opts = _opts(**kw)
+    jf = j_fused(jfn, opts, jnp.asarray(x0[0]), jd_ex, interpret=True)
+    ref = jf(jnp.asarray(x0)) if jd is None else jf(jnp.asarray(x0), jd)
+    topts = options_from_reference(opts)
+    tx = torch.from_numpy(x0)
+    assert fused_supported(topts, "residuals", tx[0], residual_fn=tfn,
+                           data_example=td_ex)
+    solve = fused_batched_solver(tfn, topts, tx[0], td_ex)
+    got = solve(tx) if td is None else solve(tx, td)
+    np.testing.assert_array_equal(got[1].stop_reason.numpy(),
+                                  np.asarray(ref[1].stop_reason))
+    if case == "jennrich_sampson":
+        # tests/test_fused.py:153-165: equal stops and iterations, cost
+        # to 1e-3 (H is singular)
+        np.testing.assert_array_equal(got[1].num_iters.numpy(),
+                                      np.asarray(ref[1].num_iters))
+        np.testing.assert_allclose(got[1].final_cost.cost.numpy(),
+                                   np.asarray(ref[1].final_cost.cost),
+                                   rtol=1e-3, atol=1e-4)
+        return
+    assert_parity(ref, got, iter_slack=2 if case == "banded_off" else 1,
+                  **tol)
+    np.testing.assert_allclose(got[1].final_lambda.numpy(),
+                               np.asarray(ref[1].final_lambda), rtol=1e-6)
+    if case == "prior_off_history":
+        assert_history(ref, got, rtol=1e-5, atol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("case", ["prior", "jennrich_sampson"])
+def test_twin_history_matches_pallas_kernel(case, dtype):
+    """tests/test_fused.py:239-300: the per-iteration history of the
+    fused path — errs, deltas2, successes (is_good, through rejections)
+    and num_hist — on the prior and on Jennrich-Sampson."""
+    if case == "prior":
+        opts = _opts(save_history=True)
+        y, inv, x0 = _prior(16, 6, dtype, 13)
+        jd = JPrior(y=jnp.asarray(y), inv_std=jnp.asarray(inv))
+        ref = j_fused(j_prior, opts, jnp.asarray(x0[0]),
+                      jax.tree_util.tree_map(lambda a: a[0], jd),
+                      interpret=True)(jnp.asarray(x0), jd)
+        td = prior_problem_from_numpy(y, inv, device="cpu", dtype=TDT[dtype])
+        got = fused_batched_solver(
+            prior_residual, options_from_reference(opts),
+            torch.from_numpy(x0[0]), PriorProblem(td.y[0], td.inv_std[0]))(
+                torch.from_numpy(x0), td)
+        tol = dict(rtol=1e-5, atol=1e-6)
+    else:
+        opts = _opts(save_history=True, max_iters=20, max_consec_failures=5)
+        x0 = np.random.default_rng(1).uniform(0.1, 0.45, (12, 2)).astype(dtype)
+        ref = j_fused(j_jennrich, opts, jnp.asarray(x0[0]), None,
+                      interpret=True)(jnp.asarray(x0))
+        got = to.batched_optimize(torch.from_numpy(x0),
+                                  jennrich_sampson_residuals,
+                                  options_from_reference(opts))
+        assert int(got[1].num_failures.sum()) > 0
+        # ill-conditioned: the wider tolerances of tests/test_fused.py:118
+        tol = dict(rtol=2e-3, atol=1e-3)
+    assert got[1].errs.shape == (x0.shape[0], opts.max_iters + 1)
+    assert got[1].successes.dtype == torch.bool
+    np.testing.assert_array_equal(got[1].stop_reason.numpy(),
+                                  np.asarray(ref[1].stop_reason))
+    assert_history(ref, got, **tol)
+
+
 def _color_cases():
     rng = np.random.default_rng(0)
     A = rng.normal(size=(10, 8))
@@ -192,9 +322,11 @@ def test_fused_envelope():
     assert not ok(_opts(hessian=dict(check_min_H_diag=1e-3)))
     assert not fused_supported(options_from_reference(_opts()), "acc", x_ex,
                                residual_fn=prior_residual, data_example=d_ex)
-    # not ported into K2 yet: DogLeg, history, multi-color probes
-    assert not ok(_opts(solver_type=jto.DogLeg))
-    assert not ok(_opts(save_history=True))
+    # DogLeg and the history are inside it, as in the JAX envelope
+    assert ok(_opts(solver_type=jto.DogLeg))
+    assert ok(_opts(save_history=True))
+    assert ok(_opts(solver_type=jto.DogLeg, save_history=True))
+    # not ported into K2 yet: multi-color probes
     assert not ok(_opts(), fn=lambda x: x[:-1] - x[1:], data=None,
                   x=torch.zeros(8))
     # mixed parameter dtypes
@@ -208,7 +340,8 @@ def test_fused_envelope():
 
 def test_batched_solver_dispatch_on_cpu():
     """solver="fused" inside the envelope runs the twin; outside it, the
-    batch-native loop with CG semantics — same answers either way."""
+    batch-native loop with CG semantics — same answers either way (a
+    min-H-diag check the prior never trips takes the loop)."""
     y, inv, x0 = _prior(8, 4, np.float64, 1)
     td = prior_problem_from_numpy(y, inv, device="cpu",
                                   dtype=torch.float64)
@@ -218,7 +351,9 @@ def test_batched_solver_dispatch_on_cpu():
                                 data_batch=td)
     loop = to.batched_optimize(
         tx, prior_residual,
-        options_from_reference(_opts(save_history=True)), data_batch=td)
+        options_from_reference(_opts(
+            save_history=True, hessian=dict(check_min_H_diag=1e-30))),
+        data_batch=td)
     assert loop[1].errs.shape == (8, 11) and fused[1].errs.shape == (8, 0)
     np.testing.assert_allclose(fused[0].numpy(), loop[0].numpy(),
                                rtol=1e-12, atol=1e-12)
@@ -294,20 +429,27 @@ def _k2_pairs():
     return pairs
 
 
+@pytest.mark.parametrize("solver", ["lm", "dogleg"])
 @pytest.mark.parametrize("itemsize", [4, 8])
 @pytest.mark.parametrize("case,d", [
     (c, d) for c in ("prior_identity", "prior_none")
     for d in (1, 2, 9, 16, 17, 32, 33, 50, 64, 65, 600)]
     + [("jennrich_sampson", 2)])
-def test_k2_launch_plan(case, d, itemsize):
-    """K2's kernel and geometry from the shapes alone: the register kernel
-    up to max(d, n_res) = 64 on segments that hold every entry, with a
-    pair of (S, E) the kernel is built for; past 64, the warp kernel."""
+def test_k2_launch_plan(case, d, itemsize, solver):
+    """K2's kernel and geometry from the shapes and the solver alone: the
+    register kernel up to max(d, n_res) = 64 on segments that hold every
+    entry, with a pair of (S, E) the kernel is built for; past 64, the warp
+    kernel.  The dogleg instances take the plan of the LM ones."""
     family, n_res, coloring = {
         "prior_identity": (0, d, "identity"), "prior_none": (0, d, None),
         "jennrich_sampson": (1, 10, None)}[case]
     B = 10_007
-    plan = cuda_solver.k2_launch_plan(B, d, n_res, itemsize, family, coloring)
+    code = cuda_solver.SOLVER_CODES[{"lm": to.LevenbergMarquardt,
+                                     "dogleg": to.DogLeg}[solver]]
+    plan = cuda_solver.k2_launch_plan(B, d, n_res, itemsize, family, coloring,
+                                      code)
+    assert plan == cuda_solver.k2_launch_plan(B, d, n_res, itemsize, family,
+                                              coloring, 0)
     m = max(d, n_res)
     assert plan.S * plan.E >= m
     assert plan.S & (plan.S - 1) == 0 and 2 <= plan.S <= 32
@@ -336,7 +478,7 @@ def test_k2_launch_plan_small_batch_and_errors():
     assert plan.path == "segment" and plan.warps == 1 and plan.grid == 1
     for bad in [(3, 50, 50, 2, 0, None), (3, 50, 50, 4, 7, None),
                 (3, 3, 10, 4, 1, None), (3, 2, 10, 4, 1, "identity"),
-                (3, 50, 50, 4, 0, "two colors")]:
+                (3, 50, 50, 4, 0, "two colors"), (3, 50, 50, 4, 0, None, 3)]:
         with pytest.raises(ValueError):
             cuda_solver.k2_launch_plan(*bad)
 
@@ -356,6 +498,12 @@ def test_k2_entry_point_matches_its_declaration():
     enum = re.search(r"enum Path \{([^}]*)\}", hdr).group(1)
     codes = {m[0]: int(m[1]) for m in re.findall(r"kPath(\w+) = (\d+)", enum)}
     assert {k.lower(): v for k, v in codes.items()} == cuda_solver.PATH_CODES
+    enum = re.search(r"enum Solver \{([^}]*)\}", hdr).group(1)
+    codes = {m[0]: int(m[1]) for m in re.findall(r"kSolver(\w+) = (\d+)",
+                                                 enum)}
+    assert codes == {"GN": 0, "LM": 1, "DogLeg": 2}
+    assert {t.name: c for t, c in cuda_solver.SOLVER_CODES.items()} == {
+        "GAUSS_NEWTON": 0, "LEVENBERG_MARQUARDT": 1, "DOGLEG": 2}
     decl = inspect.getsource(_build.load)
     block = decl[decl.index('"tinyopt_solver_f32"'):]
     declared = re.search(r"argtypes = \[([^\]]*)\]", block).group(1)
@@ -368,6 +516,27 @@ def test_k2_entry_point_matches_its_declaration():
         body = re.search(rf"struct {struct} \{{([^}}]*)\}}", hdr).group(1)
         names = re.findall(r"\*?(\w+)\s*[,;]", re.sub(r"//[^\n]*", "", body))
         assert names == [f[0] for f in cls._fields_], struct
+
+
+def test_k2_register_kernels_are_instantiated():
+    """Every register-kernel launcher the entry point can call (type ×
+    dogleg × history) is instantiated in exactly one source of its own,
+    each a translation unit that ``_build`` compiles in parallel."""
+    import glob
+    import re
+    from tinyopt_tpu_torch import _build
+    seen = []
+    for src in glob.glob(f"{_build.CSRC}/solver_seg*.cu"):
+        with open(src) as f:
+            found = re.findall(r"^K2_SEG_INSTANCE\(, (\w+), (\w+), (\w+)\)",
+                               f.read(), re.M)
+        assert len(found) == 1, src
+        seen += found
+    assert sorted(seen) == sorted(
+        (t, dl, h) for t in ("float", "double") for dl in ("false", "true")
+        for h in ("false", "true"))
+    assert all(s in _build.sources() for s in glob.glob(
+        f"{_build.CSRC}/solver_seg*.cu"))
 
 
 def _k2_case(B, d, dtype, seed, kw, dev, nan_at=None):
@@ -387,6 +556,73 @@ def _k2_case(B, d, dtype, seed, kw, dev, nan_at=None):
     assert cuda_solver.fused_solve.launches == before + 1
     ref = cuda_solver.fused_solve_plain(prior_residual, opts, x, data, plan)
     return [(a.cpu(), map_output(lambda v: v.cpu(), o)) for a, o in (ref, got)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("B", [1, 3, 10_007])
+@pytest.mark.parametrize("d", [1, 17, 50, 64, 65])
+def test_k2_dogleg_shapes_on_gpu(dtype, B, d):
+    """K2's dogleg against its twin on the card: the register kernel's
+    segments of 2 to 16 lanes and its largest d, the warp kernel past it,
+    the closed-form and the PCG solves; equal stop reasons."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K2 is a CUDA kernel)")
+    dev = torch.device("cuda")
+    for coloring in ("auto", "off"):
+        kw = dict(solver_type=jto.DogLeg,
+                  hessian=dict(diag_coloring=coloring))
+        ref, got = _k2_case(B, d, dtype, 17 + d, kw, dev)
+        assert_parity(ref, got)
+        np.testing.assert_array_equal(got[1].stop_reason.numpy(),
+                                      ref[1].stop_reason.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("case", ["prior", "prior_dogleg_off", "prior_wide",
+                                  "jennrich_sampson"])
+def test_k2_history_on_gpu(case, dtype):
+    """K2's history rows against the twin's on the card: the register
+    kernel (prior, and the dogleg with PCG), the warp kernel (d = 65) and
+    Jennrich-Sampson through rejections."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K2 is a CUDA kernel)")
+    dev = torch.device("cuda")
+    if case == "jennrich_sampson":
+        x0 = np.random.default_rng(3).uniform(0.1, 0.45, (1000, 2))
+        x = torch.from_numpy(x0.astype(dtype)).to(dev)
+        opts = options_from_reference(_opts(max_iters=20, save_history=True,
+                                             max_consec_failures=5))
+        fn = jennrich_sampson_residuals
+        plan = cuda_solver.fused_plan(opts, "residuals", x[0], residual_fn=fn)
+        got = cuda_solver.fused_solve(fn, opts, x, None, plan)
+        ref = cuda_solver.fused_solve_plain(fn, opts, x, None, plan)
+        ref, got = [(a.cpu(), map_output(lambda v: v.cpu(), o))
+                    for a, o in (ref, got)]
+        assert_parity(ref, got, rtol=2e-3, atol=1e-3, iter_slack=2,
+                      fail_slack=2, grad_rtol=2e-2)
+        tol = dict(rtol=2e-3, atol=1e-3)
+    else:
+        kw = dict(save_history=True)
+        if case == "prior_dogleg_off":
+            kw.update(solver_type=jto.DogLeg,
+                      hessian=dict(diag_coloring="off"))
+        d = 65 if case == "prior_wide" else 50
+        ref, got = _k2_case(2000, d, dtype, 23, kw, dev)
+        assert_parity(ref, got)
+        tol = dict(rtol=1e-5, atol=1e-12)
+    np.testing.assert_array_equal(got[1].stop_reason.numpy(),
+                                  ref[1].stop_reason.numpy())
+    outr, outg = ref[1], got[1]
+    np.testing.assert_array_equal(outg.num_hist.numpy(), outr.num_hist.numpy())
+    np.testing.assert_array_equal(outg.successes.numpy(),
+                                  outr.successes.numpy())
+    for a, b in ((outg.errs, outr.errs), (outg.deltas2, outr.deltas2)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **tol)
+    past = torch.arange(outg.errs.shape[1])[None, :] >= outg.num_hist[:, None]
+    assert bool(torch.all(outg.errs[past] == 0))
+    assert not bool(torch.any(outg.successes[past]))
 
 
 @pytest.mark.cuda
@@ -427,10 +663,12 @@ def test_k2_nan_neighbour_on_gpu(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["lm", "dogleg"])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-def test_k2_jennrich_sampson_spread_on_gpu(dtype):
+def test_k2_jennrich_sampson_spread_on_gpu(dtype, solver):
     """Jennrich-Sampson from starts spread so that the segments of one warp
-    stop at different iterations, against the twin."""
+    stop at different iterations, against the twin; with the dogleg also
+    near the singular minimum, where both Levenberg fallbacks run."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (K2 is a CUDA kernel)")
     dev = torch.device("cuda")
@@ -438,7 +676,10 @@ def test_k2_jennrich_sampson_spread_on_gpu(dtype):
     x0 = rng.uniform(0.1, 0.45, (1000, 2))
     x0[::3] = 0.2578 + rng.uniform(-1e-3, 1e-3, (334, 2))   # near the optimum
     x = torch.from_numpy(x0.astype(dtype)).to(dev)
-    opts = options_from_reference(_opts(max_iters=20, max_consec_failures=5))
+    kw = dict(max_iters=20, max_consec_failures=5)
+    if solver == "dogleg":
+        kw["solver_type"] = jto.DogLeg
+    opts = options_from_reference(_opts(**kw))
     fn = jennrich_sampson_residuals
     plan = cuda_solver.fused_plan(opts, "residuals", x[0], residual_fn=fn)
     got = cuda_solver.fused_solve(fn, opts, x, None, plan)

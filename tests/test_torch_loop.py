@@ -224,12 +224,11 @@ def test_batched_jennrich_sampson_matches_reference(solver, dtype):
 
 
 @pytest.mark.parametrize("opts", [
-    to.Options(solver_type=to.DogLeg),
     to.Options(solver_type=to.SolverType.GRADIENT_DESCENT),
     to.Options(log=to.LogOptions(enable=True)),
     to.Options(stop_callback=lambda e, d, g: False),
     to.Options(max_duration_ms=10.0),
-], ids=["dogleg", "gd", "log", "callback", "timeout"])
+], ids=["gd", "log", "callback", "timeout"])
 def test_unported_options_raise(opts):
     with pytest.raises(NotImplementedError):
         to.optimize(torch.tensor(1.0), sqrt2_residual, opts)

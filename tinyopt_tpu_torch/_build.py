@@ -98,20 +98,21 @@ def build() -> str:
 class SolverParams(ctypes.Structure):
     """Mirror of ``struct SolverParams`` in csrc/solver.cuh."""
     _fields_ = [(n, ctypes.c_int) for n in (
-        "d", "n_res", "family", "fam_m", "is_lm", "coloring",
+        "d", "n_res", "family", "fam_m", "solver", "coloring",
         "max_iters_total", "max_consec_failures", "max_total_failures",
         "cg_iters", "use_quality", "use_squared_norm", "downscale_by_2",
         "normalize")] + [(n, ctypes.c_double) for n in (
             "min_error", "min_rerr_dec", "min_step_norm2", "min_grad_norm2",
             "damping_init", "lam_lo", "lam_hi", "good_factor", "bad_factor",
-            "grad_clipping")]
+            "grad_clipping")] + [("cap", ctypes.c_int)]
 
 
 class SolverIO(ctypes.Structure):
     """Mirror of ``struct SolverIO`` in csrc/solver.cuh (device pointers)."""
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "x0", "data0", "data1", "x", "cost", "rerr", "lam", "g", "stop",
-        "iters", "nfail", "nconsec", "nres", "nhist", "inlier", "duration")]
+        "iters", "nfail", "nconsec", "nres", "nhist", "inlier", "duration",
+        "errs", "deltas2", "succ")]
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,4 +1,4 @@
-// K2: the whole batched LM / GN solve.  This file holds the C entry
+// K2: the whole batched GN / LM / DogLeg solve.  This file holds the C entry
 // points and K2's kernel for max(d, n_res) > 64, one warp per instance with
 // its state in shared memory; csrc/solver_seg.cuh holds the kernel for
 // max(d, n_res) <= 64 (the bench prior, Jennrich-Sampson), state in
@@ -9,10 +9,12 @@
 // linearize at x, g = J'r, diag(J'J) (identity coloring: one jvp of the
 // all-ones probe; otherwise one jvp per tangent dimension), the damped
 // normal equations solved in closed form when the coloring proves H
-// diagonal, else by Jacobi-PCG applying H as J'(J p); the propose /
-// lambda-escalating retry loop, accept / reject, rollback and probe, the LM
-// schedule, the failure budgets and the priority-ordered stop cascade of
-// the JAX kernel (and of the carry_system=False loop, optimizers/loop.py).
+// diagonal, else by Jacobi-PCG applying H as J'(J p); the Powell dogleg
+// from up to three such solves; the propose / lambda-escalating retry
+// loop, accept / reject, rollback and probe, the lambda schedule, the
+// failure budgets, the priority-ordered stop cascade and the optional
+// per-iteration history of the JAX kernel (and of the carry_system=False
+// loop, optimizers/loop.py).
 // The plain twin is ops/cuda_solver.py::fused_solve_plain, with the same
 // op order.
 //
@@ -29,8 +31,12 @@
 // tile-level "any instance active" gates of the TPU kernel (the
 // per-instance results are the same, pallas_solver.py:566-574).  Per-warp
 // state: 14 d + 2 n_res values of shared memory (77 KB at d = 600 in
-// double).  What bounds it: latency, a chain of dependent warp reductions
-// and shared-memory passes an iteration.
+// double); the dogleg keeps its GN and first regularized steps in two of
+// them that the other solvers do not read during a proposal.  The dogleg
+// and the history are branches on the parameters here: this kernel serves
+// max(d, n_res) > 64 only, off the main path.  What bounds it: latency, a
+// chain of dependent warp reductions and shared-memory passes an
+// iteration.
 #include "solver.cuh"
 
 namespace tinyopt {
@@ -63,8 +69,8 @@ __global__ void solver_kernel(const SolverParams p, const SolverIO io,
   const int nr = p.n_res;
   T* x = reinterpret_cast<T*>(smem_raw) + (size_t)w * ws_stride;
   T* best_x = x + d;
-  T* last_dx = best_x + d;
-  T* g = last_dx + d;
+  T* dgn = best_x + d;        // dogleg: the GN step of the proposal
+  T* g = dgn + d;
   T* diagH = g + d;
   T* dx = diagH + d;          // accepted proposal of this iteration
   T* dxn = dx + d;            // proposal of the current try
@@ -74,7 +80,7 @@ __global__ void solver_kernel(const SolverParams p, const SolverIO io,
   T* cz = cr + d;             // PCG preconditioned residual
   T* cp = cz + d;             // PCG direction
   T* chp = cp + d;            // H p
-  T* tv = chp + d;            // tangent probe
+  T* tv = chp + d;            // tangent probe; dogleg: regularized step
   T* r = tv + d;              // residuals (n_res)
   T* jp = r + nr;             // J v (n_res)
 
@@ -84,20 +90,20 @@ __global__ void solver_kernel(const SolverParams p, const SolverIO io,
   const T inf = T(INFINITY);
   const T lam_lo = T(p.lam_lo), lam_hi = T(p.lam_hi);
   const T base_bad = T(p.bad_factor), good_f = T(p.good_factor);
-  const bool is_lm = p.is_lm != 0;
+  const bool is_lm = p.solver == kSolverLM;
+  const bool is_dl = p.solver == kSolverDogLeg;
   const int max_tries = p.max_consec_failures > 0 ? p.max_consec_failures : 255;
 
   const T* x0 = static_cast<const T*>(io.x0) + (size_t)b * d;
   for (int i = lane; i < d; i += 32) {
     x[i] = x0[i];
     best_x[i] = x0[i];
-    last_dx[i] = 0;
     g[i] = 0;
   }
   T best_cost = inf, final_rerr = inf;
   T lam = T(p.damping_init), bad = base_bad;
   int has_last = 0, it = 0, nfail = 0, nconsec = 0, stop = kNone;
-  int best_nres = 0;
+  int best_nres = 0, nhist = 0;
   __syncwarp();
 
   // y = H v = J'(J v) + dampl * v   (v and y are d-vectors)
@@ -110,11 +116,12 @@ __global__ void solver_kernel(const SolverParams p, const SolverIO io,
     __syncwarp();
   };
 
-  // dxn = solve((H + diag(dampl)) dxn = -g); returns all(isfinite(dxn)).
-  auto propose = [&](T lam_try) -> bool {
+  // dxn = solve((H + diag(dampl)) dxn = -g), dampl = damp * lam_eff when
+  // damped, else 0; returns all(isfinite(dxn)).
+  auto solve = [&](bool damped, T lam_eff) -> bool {
     for (int i = lane; i < d; i += 32) {
       const T damp = diagH[i] == T(0) ? T(1) : diagH[i];
-      const T dl = is_lm ? damp * lam_try : T(0);
+      const T dl = damped ? damp * lam_eff : T(0);
       dampl[i] = dl;
       const T dd = diagH[i] + dl;
       dinv[i] = dd > T(0) ? T(1) / dd : T(1);
@@ -154,6 +161,65 @@ __global__ void solver_kernel(const SolverParams p, const SolverIO io,
       rz = rz_new;
       __syncwarp();
     }
+    return warp_all_finite(dxn, d, lane);
+  };
+
+  // The Powell dogleg (the twin's GN step, g'Hg, then solvers/step.
+  // dogleg_core): the GN step in dgn, J'(J g) in chp, the regularized step
+  // in tv, the step in dxn.
+  auto propose_dogleg = [&](T lam_try) -> bool {
+    const T kappa2 = T(1e6);
+    const bool ok_gn = solve(false, T(0));
+    for (int i = lane; i < d; i += 32) dgn[i] = ok_gn ? dxn[i] : T(0);
+    __syncwarp();
+    fam.jvp(b, x, g, jp, lane);
+    __syncwarp();
+    fam.vjp(b, x, jp, chp, lane);
+    __syncwarp();
+    const T gg = warp_dot(g, g, d, lane);
+    const T gHg = warp_dot(g, chp, d, lane);
+    const bool pos_curv = gHg > T(0);
+    DogLegGeometry<T> geo;
+    geo.alpha = pos_curv ? gg / gHg : T(0);
+    T pa = 0, pb = 0;
+    for (int i = lane; i < d; i += 32) {
+      const T sd = (-geo.alpha) * g[i];
+      pa += dgn[i] * dgn[i];
+      pb += sd * sd;
+    }
+    const T n_gn2 = warp_sum(pa), n_sd2 = warp_sum(pb);
+    const bool gn_sane = ok_gn && (!(n_sd2 > T(0)) || n_gn2 <= kappa2 * n_sd2);
+    bool ok_r1 = false, ok_r2 = false;
+    if (!gn_sane) {
+      ok_r1 = solve(true, lam_try);
+      for (int i = lane; i < d; i += 32) tv[i] = dxn[i];
+    } else {
+      for (int i = lane; i < d; i += 32) tv[i] = T(0);
+    }
+    __syncwarp();
+    const T n_r1 = warp_dot(tv, tv, d, lane);
+    const bool r1_sane = ok_r1 && (!(n_sd2 > T(0)) || n_r1 <= kappa2 * n_sd2);
+    if (!gn_sane && !r1_sane) {
+      ok_r2 = solve(true, fmax(lam_try, T(1)));
+      for (int i = lane; i < d; i += 32) tv[i] = dxn[i];
+      __syncwarp();
+    }
+    const bool ok_reg = r1_sane || ok_r2;
+    pa = pb = 0;
+    T pc = 0;
+    for (int i = lane; i < d; i += 32) {
+      const T sd = (-geo.alpha) * g[i];
+      if (!ok_reg) tv[i] = sd;
+      const T dv = dgn[i] - sd;
+      pa += tv[i] * tv[i];
+      pb += dv * dv;
+      pc += sd * dv;
+    }
+    const T n_reg2 = warp_sum(pa), qa0 = warp_sum(pb), qb0 = warp_sum(pc);
+    geo.finish(gn_sane, ok_reg, pos_curv, gg, n_gn2, n_sd2, n_reg2, qa0, qb0,
+               lam_try);
+    for (int i = lane; i < d; i += 32) dxn[i] = geo.entry(dgn[i], g[i], tv[i]);
+    __syncwarp();
     return warp_all_finite(dxn, d, lane);
   };
 
@@ -197,7 +263,7 @@ __global__ void solver_kernel(const SolverParams p, const SolverIO io,
     for (int i = lane; i < d; i += 32) dx[i] = 0;
     __syncwarp();
     while (!ok && !give_up && nc <= max_tries) {
-      const bool ok_new = propose(r_lam);
+      const bool ok_new = is_dl ? propose_dogleg(r_lam) : solve(is_lm, r_lam);
       if (!ok_new) {
         ++nf;
         ++nc;
@@ -207,7 +273,9 @@ __global__ void solver_kernel(const SolverParams p, const SolverIO io,
       if (ok_new)
         for (int i = lane; i < d; i += 32) dx[i] = dxn[i];
       ok = ok_new;
-      if (!ok_new && !gu_new && is_lm) {
+      if (!ok_new && !gu_new && is_dl) {
+        r_lam = clampv(r_lam * base_bad, lam_lo, lam_hi);   // fixed shrink
+      } else if (!ok_new && !gu_new && is_lm) {
         r_lam = clampv(r_lam * r_bad, lam_lo, lam_hi);
         r_bad = r_bad * base_bad;
       }
@@ -231,18 +299,31 @@ __global__ void solver_kernel(const SolverParams p, const SolverIO io,
                            ? (best_cost - err) / best_cost : T(0);
     const bool first_eval = !isfinite(best_cost);
     const bool good = is_good || first_eval;
-    if (is_lm) {
+    if (is_lm || is_dl) {
       if (!early_fail && good && !first_eval) {
-        const T q = p.use_quality ? rel_derr : T(0);
+        // the dogleg ignores the step quality
+        const T q = (p.use_quality && !is_dl) ? rel_derr : T(0);
         const T t = T(2) * q - T(1);
         T s = q != T(0) ? fmax(good_f, T(1) - t * t * t) : good_f;
         if (bad != base_bad) s = s / bad;
         lam = clampv(lam * s, lam_lo, lam_hi);
         bad = base_bad;
+      } else if (!early_fail && !good && is_dl) {
+        lam = clampv(lam * base_bad, lam_lo, lam_hi);
       } else if (!early_fail && !good) {
         lam = clampv(lam * bad, lam_lo, lam_hi);
         bad = bad * base_bad;
       }
+    }
+    if (p.cap > 0 && !early_fail) {
+      // history slot `it`; succ records is_good, not the auto-accept
+      if (lane == 0) {
+        const size_t at = (size_t)b * p.cap + it;
+        static_cast<T*>(io.errs)[at] = err;
+        static_cast<T*>(io.deltas2)[at] = dx_norm2;
+        static_cast<bool*>(io.succ)[at] = is_good;
+      }
+      nhist = it + 1;
     }
     const bool accepted = !early_fail && good;
     const bool rejected = !early_fail && !good;
@@ -287,7 +368,6 @@ __global__ void solver_kernel(const SolverParams p, const SolverIO io,
       const T xb = roll ? best_x[i] : x[i];
       const T xn = xb + (apply ? dx[i] : T(0));
       if (success) best_x[i] = x[i];
-      if (success || probe) last_dx[i] = dx[i];
       x[i] = xn;
     }
     has_last = success ? 1 : (has_last ? 0 : (probe ? 1 : 0));
@@ -305,6 +385,12 @@ __global__ void solver_kernel(const SolverParams p, const SolverIO io,
     xo[i] = x[i];
     go[i] = g[i];
   }
+  const size_t row = (size_t)b * p.cap;
+  for (int j = nhist + lane; j < p.cap; j += 32) {
+    static_cast<T*>(io.errs)[row + j] = T(0);
+    static_cast<T*>(io.deltas2)[row + j] = T(0);
+    static_cast<bool*>(io.succ)[row + j] = false;
+  }
   if (lane == 0) {
     static_cast<T*>(io.cost)[b] = best_cost;
     static_cast<T*>(io.rerr)[b] = final_rerr;
@@ -314,7 +400,7 @@ __global__ void solver_kernel(const SolverParams p, const SolverIO io,
     static_cast<int*>(io.nfail)[b] = nfail;
     static_cast<int*>(io.nconsec)[b] = nconsec;
     static_cast<int*>(io.nres)[b] = best_nres;
-    static_cast<int*>(io.nhist)[b] = 0;
+    static_cast<int*>(io.nhist)[b] = nhist;
     static_cast<float*>(io.inlier)[b] = 1.0f;
     static_cast<float*>(io.duration)[b] = 0.0f;
   }
@@ -352,9 +438,17 @@ int launch_solver(const SolverParams* p, const SolverIO* io, int B, int path,
   if (p->d < 1 || p->n_res < 1 || grid < 1 ||
       (p->family == kJennrichSampson && (p->d != 2 || p->fam_m != p->n_res)))
     return (int)cudaErrorInvalidValue;
+  if (p->solver < kSolverGN || p->solver > kSolverDogLeg || p->cap < 0 ||
+      (p->cap > 0 && p->cap != p->max_iters_total))
+    return (int)cudaErrorInvalidValue;
   if (path == kPathSegment) {
     if (smem != 0) return (int)cudaErrorInvalidValue;
-    return launch_segment<T>(*p, *io, B, S, E, warps, grid, s);
+    const bool dl = p->solver == kSolverDogLeg, hist = p->cap > 0;
+    if (dl)
+      return hist ? launch_segment<T, true, true>(*p, *io, B, S, E, warps, grid, s)
+                  : launch_segment<T, true, false>(*p, *io, B, S, E, warps, grid, s);
+    return hist ? launch_segment<T, false, true>(*p, *io, B, S, E, warps, grid, s)
+                : launch_segment<T, false, false>(*p, *io, B, S, E, warps, grid, s);
   }
   if (path != kPathWarp) return (int)cudaErrorInvalidValue;
   if (p->family == kPrior) {

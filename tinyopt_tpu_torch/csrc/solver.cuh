@@ -9,27 +9,31 @@
 namespace tinyopt {
 
 // The options of one solver (ops/cuda_solver.k2_params builds it once per
-// solver; the batch size arrives with each launch).
+// solver; the batch size arrives with each launch).  solver: enum Solver;
+// cap: slots of each history row (max_iters_total, or 0 without history).
 struct SolverParams {
-  int d, n_res, family, fam_m, is_lm, coloring, max_iters_total,
+  int d, n_res, family, fam_m, solver, coloring, max_iters_total,
       max_consec_failures, max_total_failures, cg_iters, use_quality,
       use_squared_norm, downscale_by_2, normalize;
   double min_error, min_rerr_dec, min_step_norm2, min_grad_norm2,
       damping_init, lam_lo, lam_hi, good_factor, bad_factor, grad_clipping;
+  int cap;
 };
 
 // Device pointers: inputs, then every output field of one call, each
-// written by the kernel (x and g are (B, d), the rest (B,)).  cost, rerr
-// and lam have the solver's type; inlier and duration are float; the
-// others int.
+// written by the kernel (x and g are (B, d), the history rows errs,
+// deltas2 and succ (B, cap), the rest (B,)).  cost, rerr, lam, errs and
+// deltas2 have the solver's type; inlier and duration are float; succ is
+// bool (one byte); the others int.
 struct SolverIO {
   const void* x0;
   const void* data0;
   const void* data1;
   void *x, *cost, *rerr, *lam, *g, *stop, *iters, *nfail, *nconsec, *nres,
-      *nhist, *inlier, *duration;
+      *nhist, *inlier, *duration, *errs, *deltas2, *succ;
 };
 
+enum Solver { kSolverGN = 0, kSolverLM = 1, kSolverDogLeg = 2 };
 enum Family { kPrior = 0, kJennrichSampson = 1 };
 enum Coloring { kColorNone = 0, kColorIdentity = 1 };
 enum Path { kPathWarp = 0, kPathSegment = 1 };
@@ -251,15 +255,86 @@ __device__ __forceinline__ T clampv(T v, T lo, T hi) {
   return fmin(fmax(v, lo), hi);
 }
 
-// The segment kernels' launcher, one instantiation a type
-// (csrc/solver_seg_f32.cu, csrc/solver_seg_f64.cu).
+// max(v, c) and min(v, c) for a constant c, a NaN v kept: the twin's
+// torch.clamp (fmax / fmin would return c).
 template <typename T>
+__device__ __forceinline__ T max_keep_nan(T v, T c) {
+  return (v > c || v != v) ? v : c;
+}
+template <typename T>
+__device__ __forceinline__ T min_keep_nan(T v, T c) {
+  return (v < c || v != v) ? v : c;
+}
+
+// The dogleg step from its pieces (solvers/step.dogleg_core after the
+// three solves, one instance): the scalars of
+// the trust-region geometry, then a per-entry select of the Gauss-Newton
+// step, the radius-clipped regularized step, the clipped gradient or the
+// interpolation between the Cauchy point and the GN step.  Every sum is
+// the caller's, in warp_dot's order; sqrt and division are IEEE.
+template <typename T>
+struct DogLegGeometry {
+  bool use_gn, use_reg, use_bd;
+  T alpha, reg_scale, bd_coef, tau;
+
+  // gg = g'g, gHg = g'Hg, n_gn2 = |dx_gn|^2, n_sd2 = |dx_sd|^2,
+  // n_reg2 = |dx_reg|^2 (dx_reg already the Cauchy point where !ok_reg),
+  // qa0 = |dx_gn - dx_sd|^2, qb0 = dx_sd'(dx_gn - dx_sd).
+  __device__ __forceinline__ void finish(bool gn_sane, bool ok_reg,
+                                         bool pos_curv, T gg, T n_gn2,
+                                         T n_sd2, T n_reg2, T qa0, T qb0,
+                                         T lam) {
+    const T tiny = tiny_v<T>();
+    const bool sd_pos = pos_curv && n_sd2 > T(0);
+    const T ref2 = gn_sane ? n_gn2 : (ok_reg ? n_reg2 : (sd_pos ? n_sd2 : gg));
+    const T radius = sqrt(max_keep_nan(ref2, tiny)) / lam;
+    const T rr = radius * radius;
+    const T bd_len = sd_pos ? min_nan(radius, sqrt(n_sd2)) : radius;
+    bd_coef = gg > T(0) ? -(bd_len / sqrt(max_keep_nan(gg, tiny))) : T(0);
+    reg_scale = min_keep_nan(radius / sqrt(max_keep_nan(n_reg2, tiny)), T(1));
+    const T qa = max_keep_nan(qa0, tiny);
+    const T qb = T(2) * qb0;
+    const T qc = n_sd2 - rr;
+    const T disc = max_keep_nan(qb * qb - T(4) * qa * qc, T(0));
+    tau = min_keep_nan(max_keep_nan((-qb + sqrt(disc)) / (T(2) * qa), T(0)),
+                       T(1));
+    use_gn = gn_sane && n_gn2 <= rr;
+    use_reg = !gn_sane && ok_reg;
+    use_bd = !use_gn && !use_reg && (n_sd2 >= rr || !pos_curv || !gn_sane);
+  }
+
+  // Entry of the step: dx_gn, g, dx_reg (unscaled) and the Cauchy point's
+  // coefficient -alpha give the entry of dx.
+  __device__ __forceinline__ T entry(T gn, T g, T reg) const {
+    const T sd = (-alpha) * g;
+    if (use_gn) return gn;
+    if (use_reg) return reg_scale * reg;
+    if (use_bd) return bd_coef * g;
+    return sd + tau * (gn - sd);
+  }
+
+  // torch.minimum: NaN if either is NaN
+  __device__ __forceinline__ static T min_nan(T a, T b) {
+    return (a != a || a < b) ? a : b;
+  }
+};
+
+// The segment kernels' launcher, one instantiation a type, solver kind
+// and history (csrc/solver_seg*_f32.cu, csrc/solver_seg*_f64.cu).
+template <typename T, bool kDogLeg, bool kHist>
 int launch_segment(const SolverParams& p, const SolverIO& io, int B, int S,
                    int E, int warps, int grid, cudaStream_t stream);
 
-extern template int launch_segment<float>(const SolverParams&, const SolverIO&,
-                                          int, int, int, int, int, cudaStream_t);
-extern template int launch_segment<double>(const SolverParams&, const SolverIO&,
-                                           int, int, int, int, int, cudaStream_t);
+#define K2_SEG_INSTANCE(spec, T, dl, hist)                                   \
+  spec template int launch_segment<T, dl, hist>(                             \
+      const SolverParams&, const SolverIO&, int, int, int, int, int,        \
+      cudaStream_t);
+#define K2_SEG_INSTANCES(spec, T)                                            \
+  K2_SEG_INSTANCE(spec, T, false, false)                                     \
+  K2_SEG_INSTANCE(spec, T, false, true)                                      \
+  K2_SEG_INSTANCE(spec, T, true, false)                                      \
+  K2_SEG_INSTANCE(spec, T, true, true)
+K2_SEG_INSTANCES(extern, float)
+K2_SEG_INSTANCES(extern, double)
 
 }  // namespace tinyopt

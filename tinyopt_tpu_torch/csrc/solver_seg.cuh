@@ -1,5 +1,5 @@
-// K2 for max(d, n_res) <= 64: solver_seg_kernel, the whole LM / GN solve
-// with every per-instance value in registers.
+// K2 for max(d, n_res) <= 64: solver_seg_kernel, the whole GN / LM / DogLeg
+// solve with every per-instance value in registers.
 //
 // Same function as solver_kernel (csrc/solver.cu) and its twin
 // ops/cuda_solver.fused_solve_plain: the same per-instance stop reason,
@@ -39,12 +39,40 @@
 // S and E are template parameters, chosen with the block size by
 // ops/cuda_solver.k2_launch_plan; the identity coloring (closed-form step)
 // and no coloring (per-dim diag sweeps, PCG through J'(J p)) are separate
-// instances, so the closed-form kernel holds no PCG registers.
+// instances, so the closed-form kernel holds no PCG registers.  So are the
+// dogleg (kDogLeg: up to three solves a proposal, GN then damped by lambda
+// then by max(lambda, 1), each damped one while any segment of the warp
+// needs it, and g'Hg by one more J'(J g); the GN and LM kernels keep none
+// of its registers) and the history (kHist: lane 0 of a segment writes
+// slot `it` of its instance's rows each iteration, and the segment writes
+// 0 past num_hist when the instance stops, so the rows need no fill).
 #pragma once
+
+#include <cstddef>
+#include <cstring>
+#include <type_traits>
 
 #include "solver.cuh"
 
 namespace tinyopt {
+
+// The kernel's pointers without the history rows: SolverIO's leading ones.
+// The instances without history take this, the history instances all of
+// SolverIO.  Passed the whole SolverIO (152 bytes), the GN / LM kernels
+// addressed the parameter block through a pointer instead of loading its
+// fields once, which cost the float64 closed-form prior kernel 6 registers
+// and a block an SM (PERF.md); at 128 bytes they compile as before.
+struct SolverIONoHist {
+  const void* x0;
+  const void* data0;
+  const void* data1;
+  void *x, *cost, *rerr, *lam, *g, *stop, *iters, *nfail, *nconsec, *nres,
+      *nhist, *inlier, *duration;
+};
+static_assert(sizeof(SolverIONoHist) == offsetof(SolverIO, errs),
+              "SolverIONoHist must be SolverIO's leading fields");
+template <bool kHist>
+using SegIO = std::conditional_t<kHist, SolverIO, SolverIONoHist>;
 
 // Threads a block of solver_seg_kernel at most (ops/cuda_solver.SEG_WARPS).
 // The launch bound (128 threads, at least 1 block an SM) lets ptxas allot
@@ -54,9 +82,117 @@ namespace tinyopt {
 // (PERF.md).
 constexpr int kSegMaxThreads = 128;
 
-template <typename T, typename Fam, int S, int E, bool kIdentity>
+// The Powell dogleg of one retry for the segment's instance, in the trust
+// radius ref / lam_try: the twin's GN step, g'Hg, then solvers/step.
+// dogleg_core, same operations in the same order.  `solve(damped, lam,
+// out)` is the kernel's damped solve.  Only the kDogLeg instances call it,
+// so the GN / LM instances compile none of it.
+template <typename T, int S, int E, typename Lanes, typename Solve>
+__device__ __forceinline__ bool propose_dogleg(
+    const Lanes& fl, const T (&x)[E], const T (&g)[E], const bool (&vt)[E],
+    unsigned bits, T lam_try, const Solve& solve, T (&dxn)[E]) {
+  const T kappa2 = T(1e6);
+  T gn[E], reg[E], ta[E], tb[E], tc[E];
+  const bool ok_gn = solve(false, T(0), gn);
+  {
+    T jp[E], hg[E];
+    fl.jvp(x, g, jp);
+    fl.vjp(x, jp, hg);
+#pragma unroll
+    for (int k = 0; k < E; ++k) {
+      if (!ok_gn) gn[k] = T(0);
+      ta[k] = g[k] * g[k];
+      tb[k] = g[k] * hg[k];
+    }
+  }
+  T gg = lane_part<S, E>(ta), gHg = lane_part<S, E>(tb);
+#pragma unroll
+  for (int off = S / 2; off > 0; off >>= 1) {
+    const T o1 = __shfl_xor_sync(kFullMask, gg, off);
+    const T o2 = __shfl_xor_sync(kFullMask, gHg, off);
+    gg += o1;
+    gHg += o2;
+  }
+  const bool pos_curv = gHg > T(0);
+  DogLegGeometry<T> geo;
+  geo.alpha = pos_curv ? gg / gHg : T(0);
+#pragma unroll
+  for (int k = 0; k < E; ++k) {
+    const T sd = (-geo.alpha) * g[k];   // Cauchy point
+    ta[k] = gn[k] * gn[k];
+    tb[k] = sd * sd;
+  }
+  T n_gn2 = lane_part<S, E>(ta), n_sd2 = lane_part<S, E>(tb);
+#pragma unroll
+  for (int off = S / 2; off > 0; off >>= 1) {
+    const T o1 = __shfl_xor_sync(kFullMask, n_gn2, off);
+    const T o2 = __shfl_xor_sync(kFullMask, n_sd2, off);
+    n_gn2 += o1;
+    n_sd2 += o2;
+  }
+  // an insane GN step (failed, or kappa times the Cauchy step) gives way to
+  // a Levenberg step, damped by lambda, then by max(lambda, 1); each solve
+  // runs while any segment of the warp needs it, and its result is kept
+  // for the segments that do
+  const bool gn_sane = ok_gn && (!(n_sd2 > T(0)) || n_gn2 <= kappa2 * n_sd2);
+  const bool need = !gn_sane;
+  bool r1_sane = false;
+#pragma unroll
+  for (int k = 0; k < E; ++k) reg[k] = T(0);
+  if (__any_sync(kFullMask, need)) {
+    const bool ok_r1 = solve(true, lam_try, reg) && need;
+#pragma unroll
+    for (int k = 0; k < E; ++k) ta[k] = reg[k] * reg[k];
+    const T n_r1 = seg_sum<S>(lane_part<S, E>(ta));
+    r1_sane = ok_r1 && (!(n_sd2 > T(0)) || n_r1 <= kappa2 * n_sd2);
+  }
+  const bool need2 = need && !r1_sane;
+  bool ok_r2 = false;
+  if (__any_sync(kFullMask, need2)) {
+    T r2[E];
+    ok_r2 = solve(true, fmax(lam_try, T(1)), r2) && need2;
+#pragma unroll
+    for (int k = 0; k < E; ++k) reg[k] = r1_sane ? reg[k] : r2[k];
+  } else {
+#pragma unroll
+    for (int k = 0; k < E; ++k) reg[k] = r1_sane ? reg[k] : T(0);
+  }
+  const bool ok_reg = r1_sane || ok_r2;
+#pragma unroll
+  for (int k = 0; k < E; ++k) {
+    const T sd = (-geo.alpha) * g[k];
+    if (!ok_reg) reg[k] = sd;
+    const T dv = gn[k] - sd;
+    ta[k] = reg[k] * reg[k];
+    tb[k] = dv * dv;
+    tc[k] = sd * dv;
+  }
+  T n_reg2 = lane_part<S, E>(ta), qa0 = lane_part<S, E>(tb),
+    qb0 = lane_part<S, E>(tc);
+#pragma unroll
+  for (int off = S / 2; off > 0; off >>= 1) {
+    const T o1 = __shfl_xor_sync(kFullMask, n_reg2, off);
+    const T o2 = __shfl_xor_sync(kFullMask, qa0, off);
+    const T o3 = __shfl_xor_sync(kFullMask, qb0, off);
+    n_reg2 += o1;
+    qa0 += o2;
+    qb0 += o3;
+  }
+  geo.finish(gn_sane, ok_reg, pos_curv, gg, n_gn2, n_sd2, n_reg2, qa0, qb0,
+             lam_try);
+  bool f = true;
+#pragma unroll
+  for (int k = 0; k < E; ++k) {
+    dxn[k] = geo.entry(gn[k], g[k], reg[k]);
+    f = f && (!vt[k] || isfinite(dxn[k]));
+  }
+  return seg_all(f, bits);
+}
+
+template <typename T, typename Fam, int S, int E, bool kIdentity, bool kDogLeg,
+          bool kHist>
 __global__ void __launch_bounds__(kSegMaxThreads, 1)
-solver_seg_kernel(const SolverParams p, const SolverIO io, const Fam fam,
+solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
                   int B) {
   constexpr int W = 32 / S;   // instances a warp
   const int lane = threadIdx.x & 31;
@@ -75,7 +211,9 @@ solver_seg_kernel(const SolverParams p, const SolverIO io, const Fam fam,
   const T inf = T(INFINITY);
   const T lam_lo = T(p.lam_lo), lam_hi = T(p.lam_hi);
   const T base_bad = T(p.bad_factor), good_f = T(p.good_factor);
-  const bool is_lm = p.is_lm != 0;
+  // a GN / LM instance serves GN and LM only (launch_segment)
+  const bool is_lm = p.solver != kSolverGN;
+  const bool lam_sched = kDogLeg || is_lm;
   const int max_tries = p.max_consec_failures > 0 ? p.max_consec_failures : 255;
 
   bool vt[E];   // entry k is a tangent entry (index < d)
@@ -86,6 +224,7 @@ solver_seg_kernel(const SolverParams p, const SolverIO io, const Fam fam,
   T x[E], best_x[E], g[E], diagH[E];
   T best_cost, final_rerr, lam, bad;
   int has_last, it, nfail, nconsec, stop, best_nres;
+  int nhist = 0;
 
   // Load instance b (a segment past the batch loads the last instance, so
   // every address is valid, and computes nothing that is kept).
@@ -106,16 +245,18 @@ solver_seg_kernel(const SolverParams p, const SolverIO io, const Fam fam,
     lam = T(p.damping_init);
     bad = base_bad;
     has_last = it = nfail = nconsec = best_nres = 0;
+    if constexpr (kHist) nhist = 0;
     stop = kNone;
   };
 
-  // dxn = solve((H + diag(dampl)) dxn = -g); returns all(isfinite(dxn)).
-  auto propose = [&](T lam_try, T (&dxn)[E]) -> bool {
+  // dxn = solve((H + diag(dampl)) dxn = -g), dampl = damp * lam_eff when
+  // damped, else 0; returns all(isfinite(dxn)).
+  auto solve = [&](bool damped, T lam_eff, T (&dxn)[E]) -> bool {
     T dampl[E], dinv[E];
 #pragma unroll
     for (int k = 0; k < E; ++k) {
       const T damp = diagH[k] == T(0) ? T(1) : diagH[k];
-      const T dl = is_lm ? damp * lam_try : T(0);
+      const T dl = damped ? damp * lam_eff : T(0);
       dampl[k] = dl;
       const T dd = diagH[k] + dl;
       dinv[k] = dd > T(0) ? T(1) / dd : T(1);
@@ -223,7 +364,11 @@ solver_seg_kernel(const SolverParams p, const SolverIO io, const Fam fam,
       const bool upd = act && !ok && !give_up && nc <= max_tries;
       if (!__any_sync(kFullMask, upd)) break;
       T dxn[E];
-      const bool ok_new = propose(r_lam, dxn);
+      bool ok_new;
+      if constexpr (kDogLeg)
+        ok_new = propose_dogleg<T, S, E>(fl, x, g, vt, bits, r_lam, solve, dxn);
+      else
+        ok_new = solve(is_lm, r_lam, dxn);
       if (upd) {
         if (!ok_new) {
           ++nf;
@@ -236,9 +381,13 @@ solver_seg_kernel(const SolverParams p, const SolverIO io, const Fam fam,
           for (int k = 0; k < E; ++k) dx[k] = vt[k] ? dxn[k] : T(0);
         }
         ok = ok_new;
-        if (!ok_new && !gu_new && is_lm) {
-          r_lam = clampv(r_lam * r_bad, lam_lo, lam_hi);
-          r_bad = r_bad * base_bad;
+        if (!ok_new && !gu_new && lam_sched) {
+          if constexpr (kDogLeg) {
+            r_lam = clampv(r_lam * base_bad, lam_lo, lam_hi);   // fixed shrink
+          } else {
+            r_lam = clampv(r_lam * r_bad, lam_lo, lam_hi);
+            r_bad = r_bad * base_bad;
+          }
         }
         give_up = give_up || gu_new;
       }
@@ -291,17 +440,35 @@ solver_seg_kernel(const SolverParams p, const SolverIO io, const Fam fam,
                              ? (best_cost - err) / best_cost : T(0);
       const bool first_eval = !isfinite(best_cost);
       const bool good = is_good || first_eval;
-      if (is_lm) {
+      if (lam_sched) {
         if (!early_fail && good && !first_eval) {
-          const T q = p.use_quality ? rel_derr : T(0);
+          // the dogleg ignores the step quality
+          const T q = (p.use_quality && !kDogLeg) ? rel_derr : T(0);
           const T t = T(2) * q - T(1);
           T s = q != T(0) ? fmax(good_f, T(1) - t * t * t) : good_f;
           if (bad != base_bad) s = s / bad;
           lam = clampv(lam * s, lam_lo, lam_hi);
           bad = base_bad;
         } else if (!early_fail && !good) {
-          lam = clampv(lam * bad, lam_lo, lam_hi);
-          bad = bad * base_bad;
+          if constexpr (kDogLeg) {
+            lam = clampv(lam * base_bad, lam_lo, lam_hi);
+          } else {
+            lam = clampv(lam * bad, lam_lo, lam_hi);
+            bad = bad * base_bad;
+          }
+        }
+      }
+      if constexpr (kHist) {
+        // slot `it` of an instance that did not fail early; succ records
+        // is_good, not the auto-accepted good
+        if (!early_fail) {
+          if (sl == 0) {
+            const size_t at = (size_t)b * p.cap + it;
+            static_cast<T*>(io.errs)[at] = err;
+            static_cast<T*>(io.deltas2)[at] = dx_norm2;
+            static_cast<bool*>(io.succ)[at] = is_good;
+          }
+          nhist = it + 1;
         }
       }
       const bool accepted = !early_fail && good;
@@ -368,6 +535,14 @@ solver_seg_kernel(const SolverParams p, const SolverIO io, const Fam fam,
           go[sl + k * S] = it > 0 ? g[k] : T(0);
         }
       }
+      if constexpr (kHist) {
+        const size_t row = (size_t)b * p.cap;
+        for (int j = nhist + sl; j < p.cap; j += S) {
+          static_cast<T*>(io.errs)[row + j] = T(0);
+          static_cast<T*>(io.deltas2)[row + j] = T(0);
+          static_cast<bool*>(io.succ)[row + j] = false;
+        }
+      }
       if (sl == 0) {
         static_cast<T*>(io.cost)[b] = best_cost;
         static_cast<T*>(io.rerr)[b] = final_rerr;
@@ -377,7 +552,7 @@ solver_seg_kernel(const SolverParams p, const SolverIO io, const Fam fam,
         static_cast<int*>(io.nfail)[b] = nfail;
         static_cast<int*>(io.nconsec)[b] = nconsec;
         static_cast<int*>(io.nres)[b] = best_nres;
-        static_cast<int*>(io.nhist)[b] = 0;
+        static_cast<int*>(io.nhist)[b] = kHist ? nhist : 0;
         static_cast<float*>(io.inlier)[b] = 1.0f;
         static_cast<float*>(io.duration)[b] = 0.0f;
       }
@@ -393,15 +568,18 @@ solver_seg_kernel(const SolverParams p, const SolverIO io, const Fam fam,
 // agree).
 #define K2_SEGMENTS(X) X(2) X(4) X(8) X(16) X(32)
 
-template <typename T, typename Fam, bool kIdentity>
+template <typename T, typename Fam, bool kIdentity, bool kDogLeg, bool kHist>
 int launch_seg_family(const SolverParams& p, const SolverIO& io,
                       const Fam& fam, int B, int S, int E, int warps,
                       int grid, cudaStream_t stream) {
-  void (*kern)(const SolverParams, const SolverIO, const Fam, int) = nullptr;
+  void (*kern)(const SolverParams, const SegIO<kHist>, const Fam, int) =
+      nullptr;
   if (E != Fam::kSegE) return (int)cudaErrorInvalidValue;
 #define K2_PICK(s)                                                           \
   if constexpr (s * Fam::kSegE <= 64) {                                      \
-    if (S == s) kern = solver_seg_kernel<T, Fam, s, Fam::kSegE, kIdentity>;  \
+    if (S == s)                                                              \
+      kern = solver_seg_kernel<T, Fam, s, Fam::kSegE, kIdentity, kDogLeg,    \
+                               kHist>;                                       \
   }
   K2_SEGMENTS(K2_PICK)
 #undef K2_PICK
@@ -411,30 +589,38 @@ int launch_seg_family(const SolverParams& p, const SolverIO& io,
                              0, &fit);
   if (e != cudaSuccess) return (int)e;
   if (fit < 1) return (int)cudaErrorInvalidConfiguration;
-  kern<<<grid < fit ? grid : fit, warps * 32, 0, stream>>>(p, io, fam, B);
+  SegIO<kHist> sio;
+  std::memcpy(&sio, &io, sizeof(sio));
+  kern<<<grid < fit ? grid : fit, warps * 32, 0, stream>>>(p, sio, fam, B);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+// The register kernels of one type, solver kind (kDogLeg: the dogleg, else
+// GN / LM) and history (kHist); each combination is compiled in a
+// translation unit of its own (csrc/solver_seg*_f32.cu, *_f64.cu).
+template <typename T, bool kDogLeg, bool kHist>
 int launch_segment(const SolverParams& p, const SolverIO& io, int B, int S,
                    int E, int warps, int grid, cudaStream_t stream) {
   const int m = p.d > p.n_res ? p.d : p.n_res;
   if (S < 2 || S > 32 || (S & (S - 1)) || E < 1 || S * E < m || m > 64 ||
       warps < 1 || warps * 32 > kSegMaxThreads ||
-      (long long)grid * warps * (32 / S) < B)
+      (long long)grid * warps * (32 / S) < B ||
+      kDogLeg != (p.solver == kSolverDogLeg) || kHist != (p.cap > 0))
     return (int)cudaErrorInvalidValue;
   const bool identity = p.coloring == kColorIdentity;
   if (p.family == kPrior) {
     PriorFamily<T> fam{static_cast<const T*>(io.data0),
                        static_cast<const T*>(io.data1), p.d};
     return identity
-        ? launch_seg_family<T, PriorFamily<T>, true>(p, io, fam, B, S, E, warps, grid, stream)
-        : launch_seg_family<T, PriorFamily<T>, false>(p, io, fam, B, S, E, warps, grid, stream);
+        ? launch_seg_family<T, PriorFamily<T>, true, kDogLeg, kHist>(
+              p, io, fam, B, S, E, warps, grid, stream)
+        : launch_seg_family<T, PriorFamily<T>, false, kDogLeg, kHist>(
+              p, io, fam, B, S, E, warps, grid, stream);
   }
   if (p.family == kJennrichSampson && !identity) {
     JenSamFamily<T> fam{p.fam_m};
-    return launch_seg_family<T, JenSamFamily<T>, false>(p, io, fam, B, S, E,
-                                                        warps, grid, stream);
+    return launch_seg_family<T, JenSamFamily<T>, false, kDogLeg, kHist>(
+        p, io, fam, B, S, E, warps, grid, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,8 @@
-// K2's register kernels (csrc/solver_seg.cuh) in double, a translation unit
-// of their own so that nvcc builds them beside the other sources.
+// K2's register kernels (csrc/solver_seg.cuh), GN / LM, in double: a
+// translation unit of their own, so that nvcc builds them beside the
+// other sources.
 #include "solver_seg.cuh"
 
 namespace tinyopt {
-template int launch_segment<double>(const SolverParams&, const SolverIO&, int,
-                                 int, int, int, int, cudaStream_t);
+K2_SEG_INSTANCE(, double, false, false)
 }  // namespace tinyopt

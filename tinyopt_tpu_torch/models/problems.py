@@ -6,7 +6,10 @@ ONE instance over torch tensors (batched by ``torch.func.vmap``):
   * sqrt2 scalar NLLS            (reference: tests/sqrt2.cpp)
   * Gaussian prior (whitened)    (benchmarks/dense.cpp:53-114 — the
                                   headline benchmark, dims 2..50)
-  * Jennrich-Sampson             (tests/optimize_hard.cpp)
+  * the easy and hard suites     (tests/optimize_easy.cpp,
+                                  tests/optimize_hard.cpp): Rosenbrock,
+                                  Powell singular, Beale, Himmelblau,
+                                  Jennrich-Sampson, Wood, Freudenstein-Roth
 
 ``prior_residual`` and ``jennrich_sampson_residuals`` are the residual
 families the K2 CUDA kernel implements by hand (ops/cuda_solver.py).
@@ -14,6 +17,7 @@ families the K2 CUDA kernel implements by hand (ops/cuda_solver.py).
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -55,6 +59,61 @@ def make_prior_batch(batch: int, dims: int, dtype=torch.float32, *,
 
 def prior_residual(x, data: PriorProblem):
     return data.residuals(x)
+
+
+def rosenbrock_residuals(p, a=1.0, b=100.0):
+    """As NLLS residuals: [a − x, √b (y − x²)]."""
+    return torch.stack([a - p[0], math.sqrt(b) * (p[1] - p[0] * p[0])])
+
+
+def powell_singular_residuals(p):
+    """Powell's singular function (4 params, singular Hessian at 0)."""
+    x1, x2, x3, x4 = p
+    return torch.stack([
+        x1 + 10.0 * x2,
+        math.sqrt(5.0) * (x3 - x4),
+        (x2 - 2.0 * x3) ** 2,
+        math.sqrt(10.0) * (x1 - x4) ** 2,
+    ])
+
+
+def beale_residuals(p):
+    x, y = p
+    return torch.stack([
+        1.5 - x + x * y,
+        2.25 - x + x * y * y,
+        2.625 - x + x * y ** 3,
+    ])
+
+
+def himmelblau_residuals(p):
+    x, y = p
+    return torch.stack([x * x + y - 11.0, x + y * y - 7.0])
+
+
+def wood_residuals(p):
+    """Wood's function as 6 residuals, min at (1, 1, 1, 1)
+    (tests/optimize_hard.cpp:112-144)."""
+    x1, x2, x3, x4 = p
+    s10 = math.sqrt(10.0)
+    return torch.stack([
+        10.0 * (x2 - x1 * x1),
+        1.0 - x1,
+        math.sqrt(90.0) * (x4 - x3 * x3),
+        1.0 - x3,
+        s10 * (x2 + x4 - 2.0),
+        (x2 - x4) / s10,
+    ])
+
+
+def freudenstein_roth_residuals(p):
+    """Freudenstein-Roth, global min at (5, 4)
+    (tests/optimize_hard.cpp:155-214)."""
+    x1, x2 = p
+    return torch.stack([
+        x1 - 13.0 + ((5.0 - x2) * x2 - 2.0) * x2,
+        x1 - 29.0 + ((x2 + 1.0) * x2 - 14.0) * x2,
+    ])
 
 
 def jennrich_sampson_residuals(p, m: int = 10):

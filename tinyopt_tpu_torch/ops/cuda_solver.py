@@ -6,7 +6,8 @@ Counterpart of ``tinyopt_tpu/ops/pallas_solver.py`` (``_solver_kernel``,
 ``carry_system=False`` + CG semantics of the optimizer loop with the
 normal matrix never built: g = Jᵀr by one vjp, diag(JᵀJ) by jvps, the
 damped step by Jacobi-PCG applying H as Jᵀ(J p) — or in closed form when
-the coloring proves H diagonal.
+the coloring proves H diagonal — for GN, LM and the Powell dogleg, with
+the per-iteration history when ``save_history`` asks for it.
 
 :func:`fused_solve` dispatches by device.  On the CPU it runs
 :func:`fused_solve_plain`, a batch-native torch version of the same
@@ -35,7 +36,9 @@ from ..diff.auto import instance_residuals, num_residuals
 from ..models.problems import jennrich_sampson_residuals, prior_residual
 from ..options import Options, SolverType
 from ..output import Output
-from ..solvers.lm import lm_bad_step, lm_good_step, lm_init, where_state
+from ..solvers.lm import (lm_bad_step, lm_good_step, lm_init, tr_bad_step,
+                          where_state)
+from ..solvers.step import dogleg_core
 from ..stop_reasons import StopReason
 from ..utils import float_epsilon
 from .coloring import DiagColoring, detect_diag_coloring
@@ -62,6 +65,9 @@ SEG_E = {0: 4, 1: 2}
 SEG_WARPS = 4
 #: The entry point's path codes (``enum Path``, csrc/solver.cuh).
 PATH_CODES = {"warp": 0, "segment": 1}
+#: ``SolverParams.solver`` (``enum Solver``, csrc/solver.cuh).
+SOLVER_CODES = {SolverType.GAUSS_NEWTON: 0, SolverType.LEVENBERG_MARQUARDT: 1,
+                SolverType.DOGLEG: 2}
 
 
 class FusedPlan(NamedTuple):
@@ -78,24 +84,23 @@ def fused_plan(options: Options, mode: str, x_example, n_res: int | None = None,
     when the configuration lies outside its envelope.
 
     The envelope is everything ``tinyopt_tpu``'s ``fused_supported``
-    requires (residuals mode, LM/GN, carry_system=False, no save_last,
-    logging, callbacks, timeout, check_final_cost or min-H-diag check,
-    same-dtype float parameters, a non-empty residual), plus: no history,
-    and a coloring that is the identity or none.  On a CUDA device also a
+    requires (residuals mode, GN/LM/DogLeg, carry_system=False, no
+    save_last, logging, callbacks, timeout, check_final_cost or min-H-diag
+    check, same-dtype float parameters, a non-empty residual), plus a
+    coloring that is the identity or none.  On a CUDA device also a
     registered residual family (``FAMILIES``), float32/float64, and a
     per-instance footprint that fits one warp's shared memory.
     """
     o = options
-    if o.solver_type not in (SolverType.LEVENBERG_MARQUARDT,
-                             SolverType.GAUSS_NEWTON):
-        return None               # DogLeg in K2: ROADMAP Queue 2
+    if o.solver_type not in SOLVER_CODES:
+        return None
     if mode != "residuals":
         return None
     if (o.hessian.save_last or o.hessian.carry_system
             or o.check_final_cost or o.log.enable or o.log.print_failure
             or o.max_duration_ms > 0
             or o.stop_callback is not None or o.stop_callback2 is not None
-            or o.hessian.check_min_H_diag > 0 or o.save_history):
+            or o.hessian.check_min_H_diag > 0):
         return None
     leaves = [torch.as_tensor(l) for l in pytree.tree_leaves(x_example)]
     if not leaves or any(not l.is_floating_point() for l in leaves) \
@@ -157,17 +162,20 @@ class K2Plan(NamedTuple):
 
 @functools.lru_cache(maxsize=256)
 def k2_launch_plan(B: int, d: int, n_res: int, itemsize: int, family: int,
-                   coloring: str | None) -> K2Plan:
-    """Pick K2's kernel and geometry from the shapes alone.
+                   coloring: str | None, solver: int = 1) -> K2Plan:
+    """Pick K2's kernel and geometry from the shapes and the solver alone.
 
     ``family``: the id of ``FAMILIES``; ``coloring``: "identity" (the
-    closed-form step) or ``None`` (per-dim diag sweeps and PCG).
-    max(d, n_res) ≤ 64 takes the register kernel, E = SEG_E[family]
-    entries a lane, on segments of S = the least power of two (2 to 32)
-    with S·E ≥ max(d, n_res).  Larger shapes take the warp kernel, with up
-    to 4 warps a block while their shared memory fits 48 KB."""
+    closed-form step) or ``None`` (per-dim diag sweeps and PCG);
+    ``solver``: a code of ``SOLVER_CODES``.  max(d, n_res) ≤ 64 takes the
+    register kernel, E = SEG_E[family] entries a lane, on segments of S =
+    the least power of two (2 to 32) with S·E ≥ max(d, n_res), for every
+    solver.  Larger shapes take the warp kernel, with up to 4 warps a
+    block while their shared memory fits 48 KB."""
     if itemsize not in (4, 8):
         raise ValueError(f"k2_launch_plan: itemsize {itemsize}")
+    if solver not in SOLVER_CODES.values():
+        raise ValueError(f"k2_launch_plan: solver code {solver}")
     if family not in FAMILIES.values():
         raise ValueError(f"k2_launch_plan: unknown residual family {family}")
     if coloring not in (None, "identity"):
@@ -202,9 +210,9 @@ def k2_params(family: int, opts: Options, plan: FusedPlan):
     return _build.SolverParams(
         d=d, n_res=plan.n_res, family=family,
         fam_m=plan.n_res if family == 1 else 0,
-        is_lm=int(opts.solver_type == SolverType.LEVENBERG_MARQUARDT),
+        solver=SOLVER_CODES[opts.solver_type],
         coloring=int(plan.coloring is not None),
-        max_iters_total=opts.max_iters + 1,
+        max_iters_total=opts.max_iters + 1, cap=history_cap(opts),
         max_consec_failures=opts.max_consec_failures,
         max_total_failures=opts.max_total_failures,
         cg_iters=opts.hessian.cg_iters or d,
@@ -220,21 +228,11 @@ def k2_params(family: int, opts: Options, plan: FusedPlan):
         bad_factor=lm.bad_factor, grad_clipping=opts.grad_clipping)
 
 
-def _output(B, dtype, dev, cost, rerr, stop, it, nfail, nconsec, lam, g,
-            nres) -> Output:
-    return Output(
-        final_cost=Cost(cost=cost, num_residuals=nres,
-                        inlier_ratio=torch.ones((B,), dtype=torch.float32,
-                                                device=dev)),
-        final_rerr_dec=rerr, stop_reason=stop, num_iters=it,
-        num_failures=nfail, num_consec_failures=nconsec,
-        duration_ms=torch.zeros((B,), dtype=torch.float32, device=dev),
-        final_grad=g, final_hessian=None,
-        errs=torch.zeros((B, 0), dtype=dtype, device=dev),
-        deltas2=torch.zeros((B, 0), dtype=dtype, device=dev),
-        successes=torch.zeros((B, 0), dtype=torch.bool, device=dev),
-        num_hist=torch.zeros((B,), dtype=_I32, device=dev),
-        final_lambda=lam)
+def history_cap(opts: Options) -> int:
+    """Slots of the history rows: one an iteration, ``max_iters`` + 1 (the
+    rollback slot; the fused path has no check_final_cost), 0 without
+    ``save_history``."""
+    return opts.max_iters + 1 if opts.save_history else 0
 
 
 def fused_solve_plain(residual_fn, opts: Options, x0: torch.Tensor, data,
@@ -247,11 +245,15 @@ def fused_solve_plain(residual_fn, opts: Options, x0: torch.Tensor, data,
     B, d = x0.shape
     dtype, dev = x0.dtype, x0.device
     n_res, coloring = plan.n_res, plan.coloring
+    is_dl = opts.solver_type == SolverType.DOGLEG
     is_lm = opts.solver_type == SolverType.LEVENBERG_MARQUARDT
+    lam_sched = is_lm or is_dl              # λ-scheduled solvers
+    bad_step = tr_bad_step if is_dl else lm_bad_step
     mcf, mtf = opts.max_consec_failures, opts.max_total_failures
     max_tries = mcf if mcf > 0 else 255
     cg_iters = opts.hessian.cg_iters or d
     max_iters_total = opts.max_iters + 1        # +1 rollback slot
+    cap = history_cap(opts)
     feps = float_epsilon(dtype)
     noise = 8.0 * torch.finfo(dtype).eps
     r1 = instance_residuals(residual_fn, plan.spec, data is not None)
@@ -260,6 +262,9 @@ def fused_solve_plain(residual_fn, opts: Options, x0: torch.Tensor, data,
 
     def col(v):
         return v[:, None]
+
+    def finite(v):
+        return torch.all(torch.isfinite(v), dim=-1)
 
     def linearize_at(x):
         """(r, jvp_fn, vjp_fn) of δ ↦ r(x + δ) at δ = 0."""
@@ -294,20 +299,41 @@ def fused_solve_plain(residual_fn, opts: Options, x0: torch.Tensor, data,
             g = torch.clamp(g, -opts.grad_clipping, opts.grad_clipping)
         return diagH, g, err
 
-    def propose(jvp_fn, vjp_fn, diagH, g, lam):
-        if is_lm:
-            damp = torch.where(diagH == 0, torch.ones_like(diagH), diagH)
-            dampl = damp * col(lam)
-        else:
-            dampl = torch.zeros_like(diagH)
+    def solve(jvp_fn, vjp_fn, diagH, g, dampl):
+        """(H + diag(dampl)) dx = −g: closed form under the identity
+        coloring, else Jacobi-PCG through Jᵀ(J p)."""
         dinv = jacobi_inverse(diagH + dampl)
         if coloring is not None:
             # identity coloring: H diagonal, closed-form damped step
-            dx = -g * dinv
-        else:
-            dx = pcg_core(lambda p: vjp_fn(jvp_fn(p)) + dampl * p, dinv, -g,
-                          cg_iters)
-        return dx, torch.all(torch.isfinite(dx), dim=-1)
+            return -g * dinv
+        return pcg_core(lambda p: vjp_fn(jvp_fn(p)) + dampl * p, dinv, -g,
+                        cg_iters)
+
+    def damping(diagH):
+        return torch.where(diagH == 0, torch.ones_like(diagH), diagH)
+
+    def propose_dogleg(jvp_fn, vjp_fn, diagH, g, lam):
+        """The JAX kernel's rowwise dogleg (pallas_solver.py:361-445): the
+        GN step, gᵀHg by one more Jᵀ(J g), then ``dogleg_core``, whose
+        damped solves run when any instance needs them."""
+        dx_gn = solve(jvp_fn, vjp_fn, diagH, g, torch.zeros_like(diagH))
+        gHg = torch.sum(g * vjp_fn(jvp_fn(g)), dim=-1)
+        damp = damping(diagH)
+
+        def solve_reg(lam_eff):
+            dx = solve(jvp_fn, vjp_fn, diagH, g, damp * col(lam_eff))
+            return dx, finite(dx)
+
+        return dogleg_core(g, lam, dx_gn, finite(dx_gn), gHg, solve_reg)
+
+    def propose(jvp_fn, vjp_fn, diagH, g, lam):
+        """Damped (LM) or undamped (GN) step, or the dogleg."""
+        if is_dl:
+            return propose_dogleg(jvp_fn, vjp_fn, diagH, g, lam)
+        dampl = (damping(diagH) * col(lam) if is_lm
+                 else torch.zeros_like(diagH))
+        dx = solve(jvp_fn, vjp_fn, diagH, g, dampl)
+        return dx, finite(dx)
 
     def full(v, dt=dtype):
         return torch.full((B,), v, dtype=dt, device=dev)
@@ -323,6 +349,11 @@ def fused_solve_plain(residual_fn, opts: Options, x0: torch.Tensor, data,
     g_out = torch.zeros_like(x0)
     has_last = full(False, torch.bool)
     it, nfail, nconsec, stop, best_nres = (full(0, _I32) for _ in range(5))
+    errs = torch.zeros((B, cap), dtype=dtype, device=dev)
+    deltas2 = torch.zeros_like(errs)
+    succ = torch.zeros((B, cap), dtype=torch.bool, device=dev)
+    num_hist = full(0, _I32)
+    slots = torch.arange(cap, device=dev)
 
     while True:
         act = (stop == int(StopReason.NONE)) & (it < max_iters_total)
@@ -343,9 +374,9 @@ def fused_solve_plain(residual_fn, opts: Options, x0: torch.Tensor, data,
             failed = (upd & ~ok_new).to(_I32)
             nf2, nc2 = nf + failed, nc + failed
             gu_new = (~ok_new) & (mcf > 0) & (nc2 >= mcf)
-            if is_lm:
+            if lam_sched:
                 lm_t = where_state(upd & (~ok_new) & (~gu_new),
-                                   lm_bad_step(lm_t, opts), lm_t)
+                                   bad_step(lm_t, opts), lm_t)
             dx = torch.where(col(upd & ok_new), dx_new, dx)
             ok = torch.where(upd, ok_new, ok)
             nf = torch.where(upd, nf2, nf)
@@ -354,7 +385,7 @@ def fused_solve_plain(residual_fn, opts: Options, x0: torch.Tensor, data,
         solved = ok
 
         # --- early failure routing ---
-        err_bad = (~torch.isfinite(err)) | ~torch.all(torch.isfinite(g), -1)
+        err_bad = (~torch.isfinite(err)) | ~finite(g)
         stop_early = torch.where(
             err_bad, code(StopReason.SYSTEM_HAS_NAN_OR_INF),
             torch.where(solved, code(StopReason.NONE),
@@ -372,14 +403,16 @@ def fused_solve_plain(residual_fn, opts: Options, x0: torch.Tensor, data,
                                torch.zeros_like(err))
         first_eval = ~torch.isfinite(best_cost)
         good = is_good | first_eval
-        if is_lm:
-            quality = (rel_derr if opts.use_step_quality_approx
+        if lam_sched:
+            # DogLeg ignores the step quality (a trust radius grows on
+            # every accepted step)
+            quality = (rel_derr if opts.use_step_quality_approx and not is_dl
                        else torch.zeros_like(err))
             apply_good = act & (~early_fail) & good & (~first_eval)
             apply_bad = act & (~early_fail) & (~good)
             lm_t = where_state(
                 apply_good, lm_good_step(lm_t, quality, opts),
-                where_state(apply_bad, lm_bad_step(lm_t, opts), lm_t))
+                where_state(apply_bad, bad_step(lm_t, opts), lm_t))
         accepted = (~early_fail) & good
         rejected = (~early_fail) & (~good)
         rej = rejected.to(_I32)
@@ -414,6 +447,16 @@ def fused_solve_plain(residual_fn, opts: Options, x0: torch.Tensor, data,
                              torch.where(budget_stop != 0, budget_stop,
                                          cascade))
 
+        # --- history: slot `it` of an active instance that did not fail
+        # early; succ records is_good, not the auto-accepted `good` ---
+        if cap:
+            rec = act & (~early_fail)
+            at = col(rec) & (slots[None, :] == col(it))
+            errs = torch.where(at, col(err), errs)
+            deltas2 = torch.where(at, col(dx_norm2), deltas2)
+            succ = torch.where(at, col(is_good), succ)
+            num_hist = torch.where(rec, it + 1, num_hist)
+
         # --- apply / rollback / probe (optimizer.h:266-299) ---
         returned_dx = (~early_fail) & (~budget_fail)
         success = act & accepted & returned_dx
@@ -445,32 +488,44 @@ def fused_solve_plain(residual_fn, opts: Options, x0: torch.Tensor, data,
 
     stop = torch.where(stop == int(StopReason.NONE),
                        code(StopReason.MAX_ITERS), stop)
-    return x, _output(B, dtype, dev, best_cost, final_rerr, stop, it, nfail,
-                      nconsec, lm.lam, g_out, best_nres)
+    return x, Output(
+        final_cost=Cost(cost=best_cost, num_residuals=best_nres,
+                        inlier_ratio=torch.ones((B,), dtype=torch.float32,
+                                                device=dev)),
+        final_rerr_dec=final_rerr, stop_reason=stop, num_iters=it,
+        num_failures=nfail, num_consec_failures=nconsec,
+        duration_ms=torch.zeros((B,), dtype=torch.float32, device=dev),
+        final_grad=g_out, final_hessian=None, errs=errs, deltas2=deltas2,
+        successes=succ, num_hist=num_hist, final_lambda=lm.lam)
 
 
-def _kernel_outputs(B: int, d: int, dtype, dev):
+def _kernel_outputs(B: int, d: int, cap: int, dtype, dev):
     """Every tensor K2 writes, as disjoint views of two new buffers: one of
-    the solver's type (x and g, then cost, rerr, λ) and one of int32 (six
-    counters, then the float32 inlier ratio and duration viewed in its last
-    2·B entries).  Returns (x, Output, the SolverIO output pointers)."""
-    f = torch.empty(B * (2 * d + 3), dtype=dtype, device=dev)
-    i = torch.empty(8 * B, dtype=_I32, device=dev)
+    the solver's type (x and g, then cost, rerr, λ, then the (B, cap)
+    history rows errs and deltas2) and one of int32 (six counters, then
+    the float32 inlier ratio and duration in the next 2·B entries, then
+    the (B, cap) bool successes in the bytes after them).  The kernel
+    writes every entry, history slots past ``num_hist`` as 0 / False.
+    Returns (x, Output, the SolverIO output pointers)."""
+    f = torch.empty(B * (2 * d + 3 + 2 * cap), dtype=dtype, device=dev)
+    i = torch.empty(8 * B + -(-B * cap // 4), dtype=_I32, device=dev)
     x, g = f[:2 * B * d].view(2, B, d)
-    cost, rerr, lam = f[2 * B * d:].view(3, B)
+    cost, rerr, lam = f[2 * B * d:B * (2 * d + 3)].view(3, B)
+    errs, deltas2 = f[B * (2 * d + 3):].view(2, B, cap)
     stop, it, nfail, nconsec, nres, nhist = i[:6 * B].view(6, B)
-    inlier, duration = i[6 * B:].view(torch.float32).view(2, B)
+    inlier, duration = i[6 * B:8 * B].view(torch.float32).view(2, B)
+    succ = i[8 * B:].view(torch.uint8)[:B * cap].view(torch.bool).view(B, cap)
     out = Output(
         final_cost=Cost(cost=cost, num_residuals=nres, inlier_ratio=inlier),
         final_rerr_dec=rerr, stop_reason=stop, num_iters=it,
         num_failures=nfail, num_consec_failures=nconsec,
         duration_ms=duration, final_grad=g, final_hessian=None,
-        errs=x[:, :0], deltas2=g[:, :0],
-        successes=torch.empty((B, 0), dtype=torch.bool, device=dev),
-        num_hist=nhist, final_lambda=lam)
+        errs=errs, deltas2=deltas2, successes=succ, num_hist=nhist,
+        final_lambda=lam)
     ptrs = dict(x=x, cost=cost, rerr=rerr, lam=lam, g=g, stop=stop,
                 iters=it, nfail=nfail, nconsec=nconsec, nres=nres,
-                nhist=nhist, inlier=inlier, duration=duration)
+                nhist=nhist, inlier=inlier, duration=duration, errs=errs,
+                deltas2=deltas2, succ=succ)
     return x, out, {k: v.data_ptr() for k, v in ptrs.items()}
 
 
@@ -489,8 +544,11 @@ def fused_solve_cuda(family: int, opts: Options, x0: torch.Tensor, data,
                          f"{coloring.n_colors} colors")
     B, d = x0.shape
     dtype, dev = x0.dtype, x0.device
+    if params is None:
+        params = k2_params(family, opts, plan)
     kp = k2_launch_plan(B, d, plan.n_res, x0.element_size(), family,
-                        None if coloring is None else "identity")
+                        None if coloring is None else "identity",
+                        params.solver)
     x0 = x0.contiguous()
     data_ptrs = [None, None]
     if family == 0:
@@ -502,12 +560,10 @@ def fused_solve_cuda(family: int, opts: Options, x0: torch.Tensor, data,
         data_ptrs = [y.data_ptr(), inv_std.data_ptr()]
     elif data is not None:
         raise ValueError("K2 Jennrich-Sampson family: x is (B, 2), no data")
-    if params is None:
-        params = k2_params(family, opts, plan)
     if params.d != d or params.family != family:
         raise ValueError(f"K2: parameters for d = {params.d}, family "
                          f"{params.family}; got d = {d}, family {family}")
-    x_out, out, ptrs = _kernel_outputs(B, d, dtype, dev)
+    x_out, out, ptrs = _kernel_outputs(B, d, params.cap, dtype, dev)
     io = _build.SolverIO(x0=x0.data_ptr(), data0=data_ptrs[0],
                          data1=data_ptrs[1], **ptrs)
     lib = _build.load()
@@ -555,9 +611,9 @@ def fused_batched_solver(residual_fn, options: Options, x_example,
     if plan is None:
         raise ValueError(
             "fused_batched_solver: configuration not supported (see "
-            "fused_plan: residuals mode, LM/GN, carry_system=False, no "
-            "save_last/history/logging/callbacks, identity or no coloring; "
-            "on CUDA a registered residual family)")
+            "fused_plan: residuals mode, GN/LM/DogLeg, carry_system=False, "
+            "no save_last/logging/callbacks, identity or no coloring; on "
+            "CUDA a registered residual family)")
 
     family = FAMILIES.get(residual_fn)
     params = None if family is None else k2_params(family, options, plan)

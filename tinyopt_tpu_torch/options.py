@@ -8,7 +8,7 @@ include/tinyopt/optimizers/options.h:18-156), without importing JAX.
 
 Not every option is served by this package yet: the optimizer loop raises
 ``NotImplementedError`` for the ones it does not cover (first-order solver
-types, DogLeg, logging, stop callbacks, timeouts); see ROADMAP.md.
+types, logging, stop callbacks, timeouts); see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -34,12 +34,22 @@ class SolverType(enum.Enum):
 # Short aliases
 LevenbergMarquardt = SolverType.LEVENBERG_MARQUARDT
 GaussNewton = SolverType.GAUSS_NEWTON
+GradientDescent = SolverType.GRADIENT_DESCENT
+SGD = SolverType.SGD
+Adam = SolverType.ADAM
+AdamW = SolverType.ADAMW
+LBFGS = SolverType.LBFGS
 DogLeg = SolverType.DOGLEG
 
 #: Solver types that never build a Hessian (gradient-only loop).
 FIRST_ORDER_TYPES = frozenset({
     SolverType.GRADIENT_DESCENT, SolverType.SGD, SolverType.ADAM,
     SolverType.ADAMW, SolverType.LBFGS})
+
+#: Solver types whose λ rides the schedule of lm.h:123-154: the damping of
+#: LM, the inverse trust radius of DogLeg.
+LAMBDA_SCHEDULED_TYPES = frozenset({
+    SolverType.LEVENBERG_MARQUARDT, SolverType.DOGLEG})
 
 
 @dataclasses.dataclass(frozen=True)

@@ -4,7 +4,9 @@ Counterpart of ``tinyopt_tpu.solvers.lm`` (reference: include/tinyopt/
 solvers/lm.h:123-154), on per-instance (B,) tensors: a good step scales λ
 by good_factor (or the quality rule) and reverts compounded bad factors; a
 bad or failed step scales λ by the current bad factor, which then
-compounds; λ is clamped to ``damping_range``.
+compounds; λ is clamped to ``damping_range``.  DogLeg reads λ as the
+inverse trust radius and shrinks it on rejection by the fixed factor of
+:func:`tr_bad_step`.
 """
 
 from __future__ import annotations
@@ -53,6 +55,15 @@ def lm_bad_step(state: LMState, opts) -> LMState:
 
 def lm_failed_step(state: LMState, opts) -> LMState:
     return lm_bad_step(state, opts)
+
+
+def tr_bad_step(state: LMState, opts) -> LMState:
+    """DogLeg rejection or failed proposal: λ·bad_factor, a fixed shrink of
+    the trust radius with NO compounding (a compounding factor collapses
+    the radius through rejection / rollback pairs; Nocedal & Wright
+    alg. 4.1 shrinks by a fixed factor)."""
+    return LMState(lam=_clamp(state.lam * opts.lm.bad_factor, opts),
+                   bad_factor=state.bad_factor)
 
 
 def where_state(pred: torch.Tensor, a: LMState, b: LMState) -> LMState:
