@@ -3,7 +3,9 @@
 Solves the bench problem (``prior_residual``, 50 dims, 10,000 instances,
 float32, the options of ``bench.py``) with ``batched_solver`` twice —
 ``solver="fused"`` (K2) and ``solver="cg"`` (the batch-native loop with
-K1) — and reports for each, per ``solve`` call on fresh inputs:
+K1) — and the flagship (``models/se3_refinement``, 10,000 poses of 16
+points, float32, ``bench_se3``'s options) through "fused", "cg" and
+"cholesky", and reports for each, per ``solve`` call on fresh inputs:
 
 * ``wall_ms``: host wall time of the call and a ``torch.cuda.synchronize``,
   profiler off;
@@ -52,21 +54,30 @@ def union_us(intervals):
     return total
 
 
-def profile_solver(to, solver, calls, top, dev):
-    from chip_smoke import bench_options
+def profile_solver(to, model, solver, calls, top, dev):
+    from chip_smoke import SE3_K, bench_options, se3_options
     from tinyopt_tpu_torch.models.problems import (make_prior_batch,
                                                    prior_residual)
+    from tinyopt_tpu_torch.models.se3_refinement import (make_se3_refinement,
+                                                         se3_residual)
     from tinyopt_tpu_torch.ops import cuda_cg, cuda_solver
     from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.utils import _pytree as pytree
 
     def inputs(seed):
+        if model == "se3":
+            data, x0, _ = make_se3_refinement(
+                BATCH, SE3_K, dtype=torch.float32, seed=seed, device=dev)
+            return data, x0
         g = torch.Generator(device=dev).manual_seed(seed)
         return make_prior_batch(BATCH, DIMS, torch.float32, generator=g,
                                 device=dev)
 
+    fn, opts = ((se3_residual, se3_options(to, solver)) if model == "se3"
+                else (prior_residual, bench_options(to, solver)))
     data, x0 = inputs(0)
-    solve = to.batched_solver(prior_residual, bench_options(to, solver),
-                              "residuals", x0[0],
+    solve = to.batched_solver(fn, opts, "residuals",
+                              pytree.tree_map(lambda a: a[0], x0),
                               type(data)(*(a[0] for a in data)))
     solve(x0, data)                                   # warm-up, untimed
     torch.cuda.synchronize()
@@ -122,13 +133,13 @@ def profile_solver(to, solver, calls, top, dev):
                                        key=lambda kv: -kv[1][0])][:top]
 
     dev_mean = statistics.fmean(device_ms)
-    rec = {"solver": solver, "calls": calls, "wall_ms": wall,
+    rec = {"model": model, "solver": solver, "calls": calls, "wall_ms": wall,
            "wall_ms_profiled": wall_on, "device_ms": device_ms,
            "device_ms_mean": dev_mean,
            "busy_on": dev_mean / statistics.fmean(wall_on),
            "busy_off": dev_mean / statistics.fmean(wall),
            "launches_profiled": launches, "kernels": kernels}
-    print(f"[{solver}] wall ms (profiler off) {wall}; wall ms (on) "
+    print(f"[{model} {solver}] wall ms (profiler off) {wall}; wall ms (on) "
           f"{wall_on}; device ms {device_ms}; busy share "
           f"{rec['busy_on']:.4f} (on), {rec['busy_off']:.4f} (vs off wall); "
           f"launches {launches}", flush=True)
@@ -159,8 +170,10 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     record = {"nvidia_smi": smi, "torch": torch.__version__,
               "batch": BATCH, "dims": DIMS,
-              "paths": [profile_solver(to, s, args.calls, args.top, dev)
-                        for s in ("fused", "cg")]}
+              "paths": [profile_solver(to, m, s, args.calls, args.top, dev)
+                        for m, s in (("prior", "fused"), ("prior", "cg"),
+                                     ("se3", "fused"), ("se3", "cg"),
+                                     ("se3", "cholesky"))]}
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "profile_main.json"),
               "w") as f:

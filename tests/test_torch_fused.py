@@ -335,7 +335,10 @@ def test_fused_envelope():
                                 "b": torch.zeros(2, dtype=torch.float64)})
     # on the CPU any residual runs the twin: no registered family needed
     assert ok(_opts(), fn=lambda x: 2.0 * (x - 1.0), data=None)
-    assert set(cuda_solver.FAMILIES.values()) == {0, 1}
+    assert {f.id for f in cuda_solver.FAMILIES.values()} == {0, 1, 2}
+    # the repair of ROADMAP Queue 3: print_failure is inside the envelope,
+    # as in the JAX one
+    assert ok(_opts(log=jto.LogOptions(print_failure=True)))
 
 
 def test_batched_solver_dispatch_on_cpu():
@@ -362,6 +365,38 @@ def test_batched_solver_dispatch_on_cpu():
     np.testing.assert_array_equal(fused[1].num_iters.numpy(),
                                   loop[1].num_iters.numpy())
     assert cuda_solver.fused_solve.launches == 0
+
+
+def test_fused_print_failure_matches_pallas_kernel(capsys):
+    """``log.print_failure`` does not take the fused path out of its
+    envelope: the twin gives the x, stop reasons and iterations it gives
+    without it, prints nothing, and matches the JAX fused kernel run with
+    the same option; the loop still raises for it (slice B item 11)."""
+    y, inv, x0 = _prior(8, 3, np.float64, 4)
+    opts = _opts(log=jto.LogOptions(print_failure=True))
+    jd = JPrior(y=jnp.asarray(y), inv_std=jnp.asarray(inv))
+    ref = j_fused(j_prior, opts, jnp.asarray(x0[0]),
+                  jax.tree_util.tree_map(lambda a: a[0], jd),
+                  interpret=True)(jnp.asarray(x0), jd)
+    td = prior_problem_from_numpy(y, inv, device="cpu", dtype=torch.float64)
+    tx = torch.from_numpy(x0)
+    capsys.readouterr()
+    got = to.batched_optimize(tx, prior_residual,
+                              options_from_reference(opts), data_batch=td)
+    plain = to.batched_optimize(tx, prior_residual,
+                                options_from_reference(_opts()),
+                                data_batch=td)
+    assert capsys.readouterr().out == ""
+    assert torch.equal(got[0], plain[0])
+    assert torch.equal(got[1].stop_reason, plain[1].stop_reason)
+    assert torch.equal(got[1].num_iters, plain[1].num_iters)
+    assert_parity(ref, got)
+    np.testing.assert_array_equal(got[1].stop_reason.numpy(),
+                                  np.asarray(ref[1].stop_reason))
+    with pytest.raises(NotImplementedError):
+        to.batched_optimize(tx, prior_residual, options_from_reference(
+            _opts(log=jto.LogOptions(print_failure=True),
+                  hessian=dict(solver="cg"))), data_batch=td)
 
 
 @pytest.mark.cuda
@@ -412,7 +447,7 @@ def test_k2_kernel_matches_twin_on_gpu(case):
 def _k2_pairs():
     """The (S, E) pairs csrc/solver_seg.cuh builds for each family: the
     widths of ``K2_SEGMENTS`` with the family's ``kSegE`` (csrc/solver.cuh),
-    S·E ≤ 64."""
+    (S/2)·E < 64 (every S a plan takes for max(P, d, n_res) ≤ 64)."""
     import re
     from tinyopt_tpu_torch import _build
     with open(f"{_build.CSRC}/solver_seg.cuh") as f:
@@ -422,10 +457,11 @@ def _k2_pairs():
     widths = re.search(r"#define K2_SEGMENTS\(X\)([^\n]*)", seg).group(1)
     widths = [int(w) for w in re.findall(r"X\((\d+)\)", widths)]
     pairs = {}
-    for fam, name in ((0, "PriorFamily"), (1, "JenSamFamily")):
+    for fam, name in ((0, "PriorFamily"), (1, "JenSamFamily"),
+                      (2, "SE3Family")):
         E = int(re.search(rf"struct {name} {{.*?kSegE = (\d+);", hdr,
                           re.S).group(1))
-        pairs[fam] = {(S, E) for S in widths if S * E <= 64}
+        pairs[fam] = {(S, E) for S in widths if (S // 2) * E < 64}
     return pairs
 
 

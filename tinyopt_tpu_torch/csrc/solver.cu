@@ -1,8 +1,9 @@
 // K2: the whole batched GN / LM / DogLeg solve.  This file holds the C entry
-// points and K2's kernel for max(d, n_res) > 64, one warp per instance with
-// its state in shared memory; csrc/solver_seg.cuh holds the kernel for
-// max(d, n_res) <= 64 (the bench prior, Jennrich-Sampson), state in
-// registers.  ops/cuda_solver.k2_launch_plan picks one and its geometry.
+// points and K2's kernel for max(P, d, n_res) > 64, one warp per instance
+// with its state in shared memory; csrc/solver_seg.cuh holds the kernel
+// for max(P, d, n_res) <= 64 (the bench prior, Jennrich-Sampson, SE3 pose
+// refinement up to 21 points), state in registers.
+// ops/cuda_solver.k2_launch_plan picks one and its geometry.
 //
 // Replaces the TPU kernel tinyopt_tpu/ops/pallas_solver.py::_solver_kernel
 // (launched by fused_batched_solver).  Per instance, x0 -> converged x:
@@ -21,8 +22,12 @@
 // CUDA has no automatic differentiation, so the kernels are templated on a
 // residual FAMILY that provides residual / jvp / vjp as device functions
 // written by hand (csrc/solver.cuh): PriorFamily (models/problems.
-// prior_residual, r = (x - y) * inv_std) and JenSamFamily
-// (jennrich_sampson_residuals, r_i = 2 + 2i - exp(i x1) - exp(i x2)).
+// prior_residual, r = (x - y) * inv_std), JenSamFamily
+// (jennrich_sampson_residuals, r_i = 2 + 2i - exp(i x1) - exp(i x2)) and
+// SE3Family (models/se3_refinement.se3_residual, r_k = R p_k + t - q_k on
+// an SE3 pose: P = 7 stored values, a tangent of D = 6, the jvp and vjp of
+// d -> r(x (+) d) at 0, and the retraction that applies a step: the JAX
+// kernel's manifold branch, ret_flat).
 //
 // solver_kernel's layout: lanes stride over the d tangent entries and the
 // n_res residual rows; dot products are __shfl_xor_sync butterflies, so
@@ -30,8 +35,8 @@
 // warp-uniform.  Each warp runs its own outer loop, which replaces the
 // tile-level "any instance active" gates of the TPU kernel (the
 // per-instance results are the same, pallas_solver.py:566-574).  Per-warp
-// state: 14 d + 2 n_res values of shared memory (77 KB at d = 600 in
-// double); the dogleg keeps its GN and first regularized steps in two of
+// state: 2 P + 12 d + 2 n_res values of shared memory (14 d + 2 n_res
+// when P = d: 77 KB at d = 600 in double); the dogleg keeps its GN and first regularized steps in two of
 // them that the other solvers do not read during a proposal.  The dogleg
 // and the history are branches on the parameters here: this kernel serves
 // max(d, n_res) > 64 only, off the main path.  What bounds it: latency, a
@@ -66,10 +71,11 @@ __global__ void solver_kernel(const SolverParams p, const SolverIO io,
   if (b >= B) return;         // whole warp: b is warp-uniform
 
   const int d = p.d;
+  const int P = param_width<Fam>(d);   // values of x
   const int nr = p.n_res;
   T* x = reinterpret_cast<T*>(smem_raw) + (size_t)w * ws_stride;
-  T* best_x = x + d;
-  T* dgn = best_x + d;        // dogleg: the GN step of the proposal
+  T* best_x = x + P;
+  T* dgn = best_x + P;        // dogleg: the GN step of the proposal
   T* g = dgn + d;
   T* diagH = g + d;
   T* dx = diagH + d;          // accepted proposal of this iteration
@@ -94,11 +100,19 @@ __global__ void solver_kernel(const SolverParams p, const SolverIO io,
   const bool is_dl = p.solver == kSolverDogLeg;
   const int max_tries = p.max_consec_failures > 0 ? p.max_consec_failures : 255;
 
-  const T* x0 = static_cast<const T*>(io.x0) + (size_t)b * d;
-  for (int i = lane; i < d; i += 32) {
-    x[i] = x0[i];
-    best_x[i] = x0[i];
-    g[i] = 0;
+  const T* x0 = static_cast<const T*>(io.x0) + (size_t)b * P;
+  if constexpr (Fam::kManifold) {
+    for (int i = lane; i < P; i += 32) {
+      x[i] = x0[i];
+      best_x[i] = x0[i];
+    }
+    for (int i = lane; i < d; i += 32) g[i] = 0;
+  } else {
+    for (int i = lane; i < d; i += 32) {
+      x[i] = x0[i];
+      best_x[i] = x0[i];
+      g[i] = 0;
+    }
   }
   T best_cost = inf, final_rerr = inf;
   T lam = T(p.damping_init), bad = base_bad;
@@ -364,11 +378,27 @@ __global__ void solver_kernel(const SolverParams p, const SolverIO io,
     const bool roll = !success && has_last;
     const bool apply = (success || probe) && cascade == kNone &&
                        it + 1 < p.max_iters_total;
-    for (int i = lane; i < d; i += 32) {
-      const T xb = roll ? best_x[i] : x[i];
-      const T xn = xb + (apply ? dx[i] : T(0));
-      if (success) best_x[i] = x[i];
-      x[i] = xn;
+    if constexpr (Fam::kManifold) {
+      // x (+) dx from the rollback point (dx = 0 where no step applies),
+      // every lane the same, then written by the first P lanes
+      T xb[Fam::kP], dd[Fam::kD], xn[Fam::kP];
+      for (int i = 0; i < Fam::kP; ++i) xb[i] = roll ? best_x[i] : x[i];
+      for (int i = 0; i < Fam::kD; ++i) dd[i] = apply ? dx[i] : T(0);
+      fam.retract(xb, dd, xn);
+      __syncwarp();
+      for (int i = 0; i < Fam::kP; ++i) {
+        if (lane == i) {
+          if (success) best_x[i] = x[i];
+          x[i] = xn[i];
+        }
+      }
+    } else {
+      for (int i = lane; i < d; i += 32) {
+        const T xb = roll ? best_x[i] : x[i];
+        const T xn = xb + (apply ? dx[i] : T(0));
+        if (success) best_x[i] = x[i];
+        x[i] = xn;
+      }
     }
     has_last = success ? 1 : (has_last ? 0 : (probe ? 1 : 0));
     ++it;
@@ -379,11 +409,16 @@ __global__ void solver_kernel(const SolverParams p, const SolverIO io,
   }
 
   if (stop == kNone) stop = kMaxIters;
-  T* xo = static_cast<T*>(io.x) + (size_t)b * d;
+  T* xo = static_cast<T*>(io.x) + (size_t)b * P;
   T* go = static_cast<T*>(io.g) + (size_t)b * d;
-  for (int i = lane; i < d; i += 32) {
-    xo[i] = x[i];
-    go[i] = g[i];
+  if constexpr (Fam::kManifold) {
+    for (int i = lane; i < P; i += 32) xo[i] = x[i];
+    for (int i = lane; i < d; i += 32) go[i] = g[i];
+  } else {
+    for (int i = lane; i < d; i += 32) {
+      xo[i] = x[i];
+      go[i] = g[i];
+    }
   }
   const size_t row = (size_t)b * p.cap;
   for (int j = nhist + lane; j < p.cap; j += 32) {
@@ -406,12 +441,12 @@ __global__ void solver_kernel(const SolverParams p, const SolverIO io,
   }
 }
 
-// One warp per instance, `warps` a block, smem = warps * (14 d + 2 n_res)
-// values (ops/cuda_solver.k2_launch_plan).
+// One warp per instance, `warps` a block, smem = warps * (2 P + 12 d +
+// 2 n_res) values (ops/cuda_solver.k2_launch_plan, warp_values).
 template <typename T, typename Fam>
 int launch_warp(const SolverParams& p, const SolverIO& io, const Fam& fam,
                 int B, int warps, int grid, int smem, cudaStream_t stream) {
-  const int ws_stride = 14 * p.d + 2 * p.n_res;
+  const int ws_stride = 2 * param_width<Fam>(p.d) + 12 * p.d + 2 * p.n_res;
   const long long need = (long long)warps * ws_stride * sizeof(T);
   if (warps < 1 || warps > 32 || smem < need || (size_t)smem > kMaxSmem ||
       (long long)grid * warps < B)
@@ -436,7 +471,10 @@ int launch_solver(const SolverParams* p, const SolverIO* io, int B, int path,
   if (B <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (p->d < 1 || p->n_res < 1 || grid < 1 ||
-      (p->family == kJennrichSampson && (p->d != 2 || p->fam_m != p->n_res)))
+      (p->family == kJennrichSampson && (p->d != 2 || p->fam_m != p->n_res)) ||
+      (p->family == kSE3 && (p->d != SE3Family<T>::kD || p->fam_m < 1 ||
+                             p->n_res != 3 * p->fam_m ||
+                             p->coloring != kColorNone)))
     return (int)cudaErrorInvalidValue;
   if (p->solver < kSolverGN || p->solver > kSolverDogLeg || p->cap < 0 ||
       (p->cap > 0 && p->cap != p->max_iters_total))
@@ -458,6 +496,11 @@ int launch_solver(const SolverParams* p, const SolverIO* io, int B, int path,
   }
   if (p->family == kJennrichSampson) {
     JenSamFamily<T> fam{p->fam_m};
+    return launch_warp<T>(*p, *io, fam, B, warps, grid, smem, s);
+  }
+  if (p->family == kSE3) {
+    SE3Family<T> fam{static_cast<const T*>(io->data0),
+                     static_cast<const T*>(io->data1), p->fam_m};
     return launch_warp<T>(*p, *io, fam, B, warps, grid, smem, s);
   }
   return (int)cudaErrorInvalidValue;

@@ -1,7 +1,10 @@
 // K2's parameters, outputs and residual families, shared by its two
 // kernels: solver_kernel (csrc/solver.cu, state in shared memory, any d)
 // and solver_seg_kernel (csrc/solver_seg.cuh, state in registers,
-// max(d, n_res) <= 64).
+// max(P, d, n_res) <= 64).  A family's kManifold says whether its
+// parameters are Euclidean (x and the tangent both d wide, x + dx) or a
+// manifold with kP stored values, a tangent of kD and a retraction of its
+// own (the SE3 family: 7 and 6).
 #pragma once
 
 #include "common.cuh"
@@ -21,7 +24,7 @@ struct SolverParams {
 };
 
 // Device pointers: inputs, then every output field of one call, each
-// written by the kernel (x and g are (B, d), the history rows errs,
+// written by the kernel (x is (B, P), g (B, d), the history rows errs,
 // deltas2 and succ (B, cap), the rest (B,)).  cost, rerr, lam, errs and
 // deltas2 have the solver's type; inlier and duration are float; succ is
 // bool (one byte); the others int.
@@ -34,7 +37,7 @@ struct SolverIO {
 };
 
 enum Solver { kSolverGN = 0, kSolverLM = 1, kSolverDogLeg = 2 };
-enum Family { kPrior = 0, kJennrichSampson = 1 };
+enum Family { kPrior = 0, kJennrichSampson = 1, kSE3 = 2 };
 enum Coloring { kColorNone = 0, kColorIdentity = 1 };
 enum Path { kPathWarp = 0, kPathSegment = 1 };
 enum Stop {
@@ -44,24 +47,26 @@ enum Stop {
 };
 
 // Sums over a segment of S lanes (S a power of two, segments aligned to
-// multiples of S), lane sl holding entries sl + k*S, k < E, S*E <= 64.
-// They add in the order of solver_kernel's warp_dot, which the twin's
-// reductions match bit for bit on an H100 (PERF.md): slot l < 32
+// multiples of S), lane sl holding entries sl + k*S, k < E.  Where
+// S*E <= 64 they add in the order of solver_kernel's warp_dot, which the
+// twin's reductions match bit for bit on an H100 (PERF.md): slot l < 32
 // holds 0 + t_l + t_{l+32}, then xor butterflies over the 32 slots with
-// offsets 16 down to 1.  lane_part takes the steps whose offset is at
-// least S, which pair entries of one lane; seg_sum the others, shuffles
-// inside the segment, after which every lane of the segment holds the
-// bit-identical total (each pairwise add is commutative) and no value has
-// crossed into another segment.
+// offsets 16 down to 1.  (A segment of more entries, the SE3 family's
+// 32 x 3, adds each further entry into its slot after those two.)
+// lane_part takes the steps whose offset is at least S, which pair entries
+// of one lane; seg_sum the others, shuffles inside the segment, after
+// which every lane of the segment holds the bit-identical total (each
+// pairwise add is commutative) and no value has crossed into another
+// segment.
 template <int S, int E, typename T>
 __device__ __forceinline__ T lane_part(const T (&t)[E]) {
   constexpr int R = 32 / S;   // slots below 32 a lane holds
-  static_assert(S * E <= 64, "a segment holds at most 64 entries");
   T u[R];
 #pragma unroll
   for (int k = 0; k < R; ++k) {
     u[k] = k < E ? T(0) + t[k] : T(0);
-    if (k + R < E) u[k] = u[k] + t[k + R];
+#pragma unroll
+    for (int j = k + R; j < E; j += R) u[k] = u[k] + t[j];
   }
 #pragma unroll
   for (int off = 16; off >= S; off >>= 1) {
@@ -94,6 +99,7 @@ struct PriorFamily {
   // an entry, so few lanes an instance and more instances a warp (timed
   // fastest of S x E = 32 x 2, 16 x 4 and 8 x 8 at d = 50, PERF.md).
   static constexpr int kSegE = 4;
+  static constexpr bool kManifold = false;
 
   // Shared-memory form (solver_kernel): lanes stride over the vectors.
   __device__ int n_res() const { return d; }
@@ -157,6 +163,7 @@ struct JenSamFamily {
   // more lanes (timed fastest of S x E = 16 x 1, 8 x 2 and 4 x 4 at m = 10,
   // PERF.md).
   static constexpr int kSegE = 2;
+  static constexpr bool kManifold = false;
 
   __device__ int n_res() const { return m; }
   __device__ void residual(int b, const T* x, T* r, int lane) const {
@@ -249,6 +256,273 @@ struct JenSamFamily {
     }
   };
 };
+
+// SE(3) arithmetic of the SE3 family, in the op order of the port's
+// manifolds/so3.py and se3.py (each product and sum rounded as torch's
+// elementwise ops round it; sums of three as ((a + b) + c)).
+template <typename T>
+__device__ __forceinline__ void cross3(const T* a, const T* b, T* out) {
+  out[0] = a[1] * b[2] - a[2] * b[1];
+  out[1] = a[2] * b[0] - a[0] * b[2];
+  out[2] = a[0] * b[1] - a[1] * b[0];
+}
+
+// SO3.apply: t = 2 (qv x p); p + qw t + qv x t
+template <typename T>
+__device__ __forceinline__ void quat_apply(const T* q, const T* p, T* out) {
+  T c[3], t[3], c2[3];
+  cross3(q + 1, p, c);
+#pragma unroll
+  for (int j = 0; j < 3; ++j) t[j] = T(2) * c[j];
+  cross3(q + 1, t, c2);
+#pragma unroll
+  for (int j = 0; j < 3; ++j) out[j] = (p[j] + q[0] * t[j]) + c2[j];
+}
+
+// so3._qmul
+template <typename T>
+__device__ __forceinline__ void quat_mul(const T* a, const T* b, T* out) {
+  out[0] = a[0] * b[0] - a[1] * b[1] - a[2] * b[2] - a[3] * b[3];
+  out[1] = a[0] * b[1] + a[1] * b[0] + a[2] * b[3] - a[3] * b[2];
+  out[2] = a[0] * b[2] - a[1] * b[3] + a[2] * b[0] + a[3] * b[1];
+  out[3] = a[0] * b[3] + a[1] * b[2] - a[2] * b[1] + a[3] * b[0];
+}
+
+// R(q) as SO3.matrix builds it, row-major: the same linear map as
+// quat_apply, which the tangent products apply 2 and 8 times an iteration
+template <typename T>
+__device__ __forceinline__ void quat_matrix(const T* q, T* R) {
+  const T w = q[0], x = q[1], y = q[2], z = q[3];
+  R[0] = T(1) - T(2) * (y * y + z * z);
+  R[1] = T(2) * (x * y - w * z);
+  R[2] = T(2) * (x * z + w * y);
+  R[3] = T(2) * (x * y + w * z);
+  R[4] = T(1) - T(2) * (x * x + z * z);
+  R[5] = T(2) * (y * z - w * x);
+  R[6] = T(2) * (x * z - w * y);
+  R[7] = T(2) * (y * z + w * x);
+  R[8] = T(1) - T(2) * (x * x + y * y);
+}
+
+// The retraction T (+) d = T exp(d), d = (rho, omega) (se3._se3_retract):
+// q <- q (x) exp_q(omega), t <- R(q) V(omega) rho + t, with so3._exp_quat's
+// and se23._V_apply's Taylor branches where theta^2 < sqrt(eps) (the
+// dtype-aware so3._small); the quaternion is not renormalized.
+template <typename T>
+__device__ __forceinline__ void se3_retract(const T* q, const T* t,
+                                            const T* d, T* qn, T* tn) {
+  const T* rho = d;
+  const T* om = d + 3;
+  const T theta2 = (om[0] * om[0] + om[1] * om[1]) + om[2] * om[2];
+  const bool small = theta2 < T(sqrt((double)eps_v<T>()));
+  const T th = sqrt(small ? T(1) : theta2);
+  const T half = T(0.5) * th;
+  const T k = small ? T(0.5) - theta2 / T(48) : sin(half) / th;
+  const T qd[4] = {small ? T(1) - theta2 / T(8) : cos(half), k * om[0],
+                   k * om[1], k * om[2]};
+  const T a = small ? T(0.5) - theta2 / T(24)
+                    : (T(1) - cos(th)) / (small ? T(1) : theta2);
+  const T bv = small ? T(1.0 / 6.0) - theta2 / T(120)
+                     : (th - sin(th)) / (small ? T(1) : theta2 * th);
+  T wx[3], wwx[3], v[3], rv[3];
+  cross3(om, rho, wx);
+  cross3(om, wx, wwx);
+#pragma unroll
+  for (int j = 0; j < 3; ++j) v[j] = (rho[j] + a * wx[j]) + bv * wwx[j];
+  quat_mul(q, qd, qn);
+  quat_apply(q, v, rv);
+#pragma unroll
+  for (int j = 0; j < 3; ++j) tn[j] = rv[j] + t[j];
+}
+
+// The value at index i of the small array v (0 past N), by selects, so v
+// stays in registers.
+template <int N, typename T>
+__device__ __forceinline__ T pick(const T (&v)[N], int i) {
+  T r = T(0);
+#pragma unroll
+  for (int j = 0; j < N; ++j) r = i == j ? v[j] : r;
+  return r;
+}
+
+// SE(3) pose refinement (models/se3_refinement.se3_residual), K points:
+// x = (q, t), q = wxyz (P = 7), tangent d = (rho, omega) (D = 6),
+//   r_k = R(q) p_k + t - qhat_k   (3 residuals a point, n_res = 3K)
+//   (J v)_k = R (rho + omega x p_k)        the jvp of d -> r(x (+) d) at 0
+//   J'u = (sum_k w_k, sum_k p_k x w_k),  w_k = R' u_k
+// and the retraction se3_retract.  The kernels are not bit-equal to the
+// twin here (it differentiates the quaternion formulas with torch.func;
+// these are the closed forms of the same maps): PERF.md states the
+// tolerances they are held to.
+template <typename T>
+struct SE3Family {
+  const T* points;    // (B, K, 3)
+  const T* targets;   // (B, K, 3)
+  int K;
+  // One point a lane: its three residuals are the lane's entries.
+  static constexpr int kSegE = 3;
+  static constexpr bool kManifold = true;
+  static constexpr int kP = 7, kD = 6;
+
+  // Shared-memory form (solver_kernel): lanes stride over the points; x
+  // and the tangent vectors are read from shared memory.
+  __device__ int n_res() const { return 3 * K; }
+  __device__ void residual(int b, const T* x, T* r, int lane) const {
+    for (int j = lane; j < K; j += 32) {
+      const size_t o = ((size_t)b * K + j) * 3;
+      T a[3];
+      quat_apply(x, points + o, a);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) r[3 * j + c] = (a[c] + x[4 + c]) - targets[o + c];
+    }
+  }
+  __device__ void jvp(int b, const T* x, const T* v, T* out, int lane) const {
+    T R[9];
+    quat_matrix(x, R);
+    for (int j = lane; j < K; j += 32) {
+      const T* p = points + ((size_t)b * K + j) * 3;
+      T u[3];
+      cross3(v + 3, p, u);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) u[c] = v[c] + u[c];
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        out[3 * j + c] = (R[3 * c] * u[0] + R[3 * c + 1] * u[1]) + R[3 * c + 2] * u[2];
+    }
+  }
+  __device__ void vjp(int b, const T* x, const T* q, T* out, int lane) const {
+    T R[9], s[6] = {0, 0, 0, 0, 0, 0};
+    quat_matrix(x, R);
+    for (int j = lane; j < K; j += 32) {
+      const T* p = points + ((size_t)b * K + j) * 3;
+      const T* u = q + 3 * j;
+      T w[3], pw[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) w[c] = (R[c] * u[0] + R[3 + c] * u[1]) + R[6 + c] * u[2];
+      cross3(p, w, pw);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        s[c] += w[c];
+        s[3 + c] += pw[c];
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 6; ++c) s[c] = warp_sum(s[c]);
+    if (lane == 0) {
+#pragma unroll
+      for (int c = 0; c < 6; ++c) out[c] = s[c];
+    }
+  }
+  // xn = x (+) d, every lane the same (x: 7 values, d: 6)
+  __device__ void retract(const T* x, const T* d, T* xn) const {
+    se3_retract(x, x + 4, d, xn, xn + 4);
+  }
+
+  // Register form (solver_seg_kernel, S >= K): lane sl holds point sl (its
+  // point, target and three residuals; 0 past K).  Every lane of the
+  // segment holds the pose and R(q), gathered by shuffles from the
+  // parameter layout (entry i on lane i % S, slot i / S) when the kernel
+  // linearizes; residual, jvp and vjp use that pose.
+  template <int S, int E>
+  struct Lanes {
+    static_assert(E == 3, "one point a lane: its three residuals");
+    T p[3], qh[3];
+    T q[4], t[3], R[9];
+    int sl;
+    bool has_;   // the lane holds a point (sl < K)
+
+    // entry i of a vector in the parameter / tangent layout
+    template <int I>
+    __device__ __forceinline__ static T entry(const T (&v)[E]) {
+      if constexpr (I / S < E)
+        return __shfl_sync(kFullMask, v[I / S], I % S, S);
+      else
+        return T(0);   // no plan takes a segment this narrow
+    }
+    __device__ __forceinline__ void start(const SE3Family& f, int b, int sl_) {
+      sl = sl_;
+      const bool has = sl < f.K;
+      const size_t o = ((size_t)b * f.K + (has ? sl : f.K - 1)) * 3;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const T pv = f.points[o + c], tv = f.targets[o + c];
+        p[c] = has ? pv : T(0);
+        qh[c] = has ? tv : T(0);
+      }
+      has_ = has;
+    }
+    __device__ __forceinline__ void linearize(const T (&x)[E]) {
+      q[0] = entry<0>(x);
+      q[1] = entry<1>(x);
+      q[2] = entry<2>(x);
+      q[3] = entry<3>(x);
+      t[0] = entry<4>(x);
+      t[1] = entry<5>(x);
+      t[2] = entry<6>(x);
+      quat_matrix(q, R);
+    }
+    __device__ __forceinline__ void residual(const T (&)[E], T (&r)[E]) const {
+      T a[3];
+      quat_apply(q, p, a);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) r[c] = has_ ? (a[c] + t[c]) - qh[c] : T(0);
+    }
+    __device__ __forceinline__ void jvp(const T (&)[E], const T (&v)[E],
+                                        T (&out)[E]) const {
+      const T d[6] = {entry<0>(v), entry<1>(v), entry<2>(v),
+                      entry<3>(v), entry<4>(v), entry<5>(v)};
+      T u[3];
+      cross3(d + 3, p, u);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) u[c] = d[c] + u[c];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const T o = (R[3 * c] * u[0] + R[3 * c + 1] * u[1]) + R[3 * c + 2] * u[2];
+        out[c] = has_ ? o : T(0);
+      }
+    }
+    __device__ __forceinline__ void vjp(const T (&)[E], const T (&u)[E],
+                                        T (&out)[E]) const {
+      T s[6];
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        s[c] = (R[c] * u[0] + R[3 + c] * u[1]) + R[6 + c] * u[2];
+      cross3(p, s, s + 3);
+#pragma unroll
+      for (int off = S / 2; off > 0; off >>= 1) {
+        T o[6];
+#pragma unroll
+        for (int c = 0; c < 6; ++c) o[c] = __shfl_xor_sync(kFullMask, s[c], off);
+#pragma unroll
+        for (int c = 0; c < 6; ++c) s[c] += o[c];
+      }
+#pragma unroll
+      for (int k = 0; k < E; ++k) out[k] = pick<6>(s, sl + k * S);
+    }
+    // xn = xb (+) d in the parameter layout, every lane of the segment
+    __device__ __forceinline__ void retract(const T (&xb)[E], const T (&d)[E],
+                                            T (&xn)[E]) const {
+      const T xv[7] = {entry<0>(xb), entry<1>(xb), entry<2>(xb), entry<3>(xb),
+                       entry<4>(xb), entry<5>(xb), entry<6>(xb)};
+      const T dv[6] = {entry<0>(d), entry<1>(d), entry<2>(d),
+                       entry<3>(d), entry<4>(d), entry<5>(d)};
+      T nv[7];
+      se3_retract(xv, xv + 4, dv, nv, nv + 4);
+#pragma unroll
+      for (int k = 0; k < E; ++k) xn[k] = pick<7>(nv, sl + k * S);
+    }
+  };
+};
+
+// Values of the flat parameters x of an instance: d for a Euclidean family,
+// Fam::kP for a manifold one.
+template <typename Fam>
+__host__ __device__ __forceinline__ int param_width(int d) {
+  if constexpr (Fam::kManifold)
+    return Fam::kP;
+  else
+    return d;
+}
 
 template <typename T>
 __device__ __forceinline__ T clampv(T v, T lo, T hi) {

@@ -1,5 +1,5 @@
-// K2 for max(d, n_res) <= 64: solver_seg_kernel, the whole GN / LM / DogLeg
-// solve with every per-instance value in registers.
+// K2 for max(P, d, n_res) <= 64: solver_seg_kernel, the whole GN / LM /
+// DogLeg solve with every per-instance value in registers.
 //
 // Same function as solver_kernel (csrc/solver.cu) and its twin
 // ops/cuda_solver.fused_solve_plain: the same per-instance stop reason,
@@ -46,6 +46,15 @@
 // of its registers) and the history (kHist: lane 0 of a segment writes
 // slot `it` of its instance's rows each iteration, and the segment writes
 // 0 past num_hist when the instance stops, so the rows need no fill).
+//
+// A manifold family (Fam::kManifold, the SE3 family) holds x as P stored
+// values in the same entry layout (entry i on lane i % S, slot i / S) and
+// its tangent vectors as D entries; the kernel calls its linearize(x) at
+// the top of each iteration, and applies a step by its retraction, which
+// shuffles inside the segment, so every lane of the warp runs it (after
+// the per-segment accept logic) and a segment keeps the result where its
+// instance is active.  The Euclidean families compile to the code they
+// had: x + dx, no such calls.
 #pragma once
 
 #include <cstddef>
@@ -204,6 +213,7 @@ solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
   int b = (blockIdx.x * warps + (threadIdx.x >> 5)) * W + seg;
 
   const int d = p.d;
+  const int P = param_width<Fam>(d);
   const int nr = p.n_res;
   const T tiny = tiny_v<T>();
   const T feps = float_epsilon_v<T>();
@@ -217,8 +227,12 @@ solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
   const int max_tries = p.max_consec_failures > 0 ? p.max_consec_failures : 255;
 
   bool vt[E];   // entry k is a tangent entry (index < d)
+  bool vx[E];   // entry k is a parameter entry (index < P; vt when P = d)
 #pragma unroll
-  for (int k = 0; k < E; ++k) vt[k] = sl + k * S < d;
+  for (int k = 0; k < E; ++k) {
+    vt[k] = sl + k * S < d;
+    vx[k] = sl + k * S < P;
+  }
 
   typename Fam::template Lanes<S, E> fl;
   T x[E], best_x[E], g[E], diagH[E];
@@ -231,12 +245,12 @@ solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
   auto start = [&]() {
     const int bl = b < B ? b : B - 1;
     fl.start(fam, bl, sl);
-    const T* x0 = static_cast<const T*>(io.x0) + (size_t)bl * d;
+    const T* x0 = static_cast<const T*>(io.x0) + (size_t)bl * P;
 #pragma unroll
     for (int k = 0; k < E; ++k) {
       const int i = sl + k * S;
-      const T v = x0[i < d ? i : d - 1];
-      x[k] = vt[k] ? v : T(0);
+      const T v = x0[i < P ? i : P - 1];
+      x[k] = vx[k] ? v : T(0);
       best_x[k] = x[k];
       g[k] = T(0);
     }
@@ -314,6 +328,7 @@ solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
     const bool act = b < B && it < p.max_iters_total;
 
     // ---- linearize at x: g, diag(H), and this lane's part of r'r ----
+    if constexpr (Fam::kManifold) fl.linearize(x);
     T e_part;
     {
       T r[E], rr[E];
@@ -418,6 +433,7 @@ solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
     }
     const bool g_ok = seg_all(g_fin, bits);
 
+    bool m_roll = false, m_apply = false, m_success = false;
     if (act) {
       T err = e_part;
       if (!p.use_squared_norm) err = sqrt(err);
@@ -510,12 +526,18 @@ solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
       const bool roll = !success && has_last;
       const bool apply = (success || probe) && cascade == kNone &&
                          it + 1 < p.max_iters_total;
+      if constexpr (Fam::kManifold) {
+        m_roll = roll;
+        m_apply = apply;
+        m_success = success;
+      } else {
 #pragma unroll
-      for (int k = 0; k < E; ++k) {
-        const T xb = roll ? best_x[k] : x[k];
-        const T xn = xb + (apply ? dx[k] : T(0));
-        if (success) best_x[k] = x[k];
-        x[k] = xn;
+        for (int k = 0; k < E; ++k) {
+          const T xb = roll ? best_x[k] : x[k];
+          const T xn = xb + (apply ? dx[k] : T(0));
+          if (success) best_x[k] = x[k];
+          x[k] = xn;
+        }
       }
       has_last = success ? 1 : (has_last ? 0 : (probe ? 1 : 0));
       ++it;
@@ -523,17 +545,34 @@ solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
       nconsec = nconsec_new;
       stop = stop_new;
     }
+    if constexpr (Fam::kManifold) {
+      // x (+) dx from the rollback point, dx = 0 where no step applies (the
+      // twin retracts every instance so); every lane of the warp runs the
+      // retraction, a segment keeps it where its instance is active
+      T xb[E], dd[E], xn[E];
+#pragma unroll
+      for (int k = 0; k < E; ++k) {
+        xb[k] = m_roll ? best_x[k] : x[k];
+        dd[k] = m_apply ? dx[k] : T(0);
+      }
+      fl.retract(xb, dd, xn);
+      if (act) {
+#pragma unroll
+        for (int k = 0; k < E; ++k) {
+          if (m_success) best_x[k] = x[k];
+          x[k] = xn[k];
+        }
+      }
+    }
 
     // ---- a stopped instance is written out; its segment starts the next ----
     if (b < B && !(stop == kNone && it < p.max_iters_total)) {
-      T* xo = static_cast<T*>(io.x) + (size_t)b * d;
+      T* xo = static_cast<T*>(io.x) + (size_t)b * P;
       T* go = static_cast<T*>(io.g) + (size_t)b * d;
 #pragma unroll
       for (int k = 0; k < E; ++k) {
-        if (vt[k]) {
-          xo[sl + k * S] = x[k];
-          go[sl + k * S] = it > 0 ? g[k] : T(0);
-        }
+        if (vx[k]) xo[sl + k * S] = x[k];
+        if (vt[k]) go[sl + k * S] = it > 0 ? g[k] : T(0);
       }
       if constexpr (kHist) {
         const size_t row = (size_t)b * p.cap;
@@ -563,9 +602,10 @@ solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
 }
 
 // The segment widths K2 is built for, each family with its own entries a
-// lane (Fam::kSegE), where S * kSegE <= 64: every plan ops/cuda_solver.
-// k2_launch_plan can choose (tests/test_torch_fused.py checks the two
-// agree).
+// lane (Fam::kSegE), where (S / 2) * kSegE < 64: every plan ops/
+// cuda_solver.k2_launch_plan can choose, the least S with S * kSegE >=
+// max(P, d, n_res) for max(P, d, n_res) <= 64 (tests/test_torch_fused.py
+// checks the two agree).
 #define K2_SEGMENTS(X) X(2) X(4) X(8) X(16) X(32)
 
 template <typename T, typename Fam, bool kIdentity, bool kDogLeg, bool kHist>
@@ -576,7 +616,7 @@ int launch_seg_family(const SolverParams& p, const SolverIO& io,
       nullptr;
   if (E != Fam::kSegE) return (int)cudaErrorInvalidValue;
 #define K2_PICK(s)                                                           \
-  if constexpr (s * Fam::kSegE <= 64) {                                      \
+  if constexpr ((s / 2) * Fam::kSegE < 64) {                                 \
     if (S == s)                                                              \
       kern = solver_seg_kernel<T, Fam, s, Fam::kSegE, kIdentity, kDogLeg,    \
                                kHist>;                                       \
@@ -601,7 +641,9 @@ int launch_seg_family(const SolverParams& p, const SolverIO& io,
 template <typename T, bool kDogLeg, bool kHist>
 int launch_segment(const SolverParams& p, const SolverIO& io, int B, int S,
                    int E, int warps, int grid, cudaStream_t stream) {
-  const int m = p.d > p.n_res ? p.d : p.n_res;
+  const int P = p.family == kSE3 ? SE3Family<T>::kP : p.d;
+  const int dm = P > p.d ? P : p.d;
+  const int m = dm > p.n_res ? dm : p.n_res;
   if (S < 2 || S > 32 || (S & (S - 1)) || E < 1 || S * E < m || m > 64 ||
       warps < 1 || warps * 32 > kSegMaxThreads ||
       (long long)grid * warps * (32 / S) < B ||
@@ -620,6 +662,12 @@ int launch_segment(const SolverParams& p, const SolverIO& io, int B, int S,
   if (p.family == kJennrichSampson && !identity) {
     JenSamFamily<T> fam{p.fam_m};
     return launch_seg_family<T, JenSamFamily<T>, false, kDogLeg, kHist>(
+        p, io, fam, B, S, E, warps, grid, stream);
+  }
+  if (p.family == kSE3 && !identity) {
+    SE3Family<T> fam{static_cast<const T*>(io.data0),
+                     static_cast<const T*>(io.data1), p.fam_m};
+    return launch_seg_family<T, SE3Family<T>, false, kDogLeg, kHist>(
         p, io, fam, B, S, E, warps, grid, stream);
   }
   return (int)cudaErrorInvalidValue;

@@ -1,11 +1,13 @@
 """Automatic differentiation of residual functions (``torch.func``).
 
 Counterpart of ``tinyopt_tpu.diff.auto``: the residual function of ONE
-instance is differentiated on its (Euclidean) tangent space with
-``torch.func.jacfwd`` and mapped over the leading instance axis with
+instance is differentiated on its tangent space, as δ ↦ r(x ⊞ δ) at δ = 0
+(``manifold.retract_flat``: ``x + δ`` for Euclidean parameters), with
+``torch.func.jacfwd``, and mapped over the leading instance axis with
 ``torch.func.vmap``.  ``make_nlls_system`` returns batched
 ``accumulate(x) -> (H, g, Cost)`` and ``evaluate(x) -> Cost`` closures over
-flat (B, d) parameters for the optimizer loop.
+flat (B, P) parameters for the optimizer loop; H is (B, D, D) and g
+(B, D).
 """
 
 from __future__ import annotations
@@ -28,21 +30,25 @@ def flatten_residuals(res) -> torch.Tensor:
 
 def residual_jacobian(residual_fn, x, spec: mf.TangentSpec | None = None):
     """(residuals, J) of ``residual_fn`` at one instance ``x``, with J of
-    shape (num_residuals, tangent_dims) — ``diff::CalculateJac``."""
+    shape (num_residuals, tangent_dims) the Jacobian of δ ↦ r(x ⊞ δ) at
+    δ = 0 — ``diff::CalculateJac``."""
     if spec is None:
         spec = mf.tangent_spec(x)
     xv = mf.flatten_batch(pytree.tree_map(lambda a: a[None], x), spec)[0]
 
     def r_of_delta(delta):
-        r = flatten_residuals(residual_fn(mf.unflatten(xv + delta, spec)))
+        r = flatten_residuals(residual_fn(
+            mf.unflatten(mf.retract_flat(xv, delta, spec), spec)))
         return r, r
 
-    J, r = torch.func.jacfwd(r_of_delta, has_aux=True)(torch.zeros_like(xv))
+    J, r = torch.func.jacfwd(r_of_delta, has_aux=True)(
+        torch.zeros((spec.dims,), dtype=xv.dtype, device=xv.device))
     return r, J
 
 
 def instance_residuals(residual_fn, spec: mf.TangentSpec, has_data: bool):
-    """``r(xv[, data]) -> (n_res,)`` of one instance on flat parameters."""
+    """``r(xv[, data]) -> (n_res,)`` of one instance on flat parameters
+    (P,)."""
     if has_data:
         def r1(xv, data):
             return flatten_residuals(
@@ -65,9 +71,10 @@ def make_nlls_system(residual_fn, x_example, spec: mf.TangentSpec,
                      data_batch=None, data_example=None):
     """Batched (accumulate, evaluate, n_res) for the NLLS path.
 
-    accumulate(x) -> (H, g, Cost) with H = JᵀJ (B, d, d), g = JᵀR (B, d)
+    accumulate(x) -> (H, g, Cost) with H = JᵀJ (B, D, D), g = JᵀR (B, D)
     and cost = ‖r‖² (reference: diff/optimize_autodiff.h:149-164), for flat
-    parameters x (B, d).  evaluate(x) computes the cost only.  With
+    parameters x (B, P), J the tangent Jacobian of δ ↦ r(x ⊞ δ) at
+    δ = 0.  evaluate(x) computes the cost only.  With
     ``data_batch``, ``residual_fn(x, data)`` receives each instance's data.
     """
     has_data = data_batch is not None
@@ -75,7 +82,7 @@ def make_nlls_system(residual_fn, x_example, spec: mf.TangentSpec,
     r1 = instance_residuals(residual_fn, spec, has_data)
 
     def r_aux(delta, xv, *data):
-        r = r1(xv + delta, *data)
+        r = r1(mf.retract_flat(xv, delta, spec), *data)
         return r, r
 
     jac = torch.func.vmap(torch.func.jacfwd(r_aux, has_aux=True))
@@ -83,7 +90,9 @@ def make_nlls_system(residual_fn, x_example, spec: mf.TangentSpec,
     extra = (data_batch,) if has_data else ()
 
     def accumulate(x):
-        J, r = jac(torch.zeros_like(x), x, *extra)
+        zero = torch.zeros((x.shape[0], spec.dims), dtype=x.dtype,
+                           device=x.device)
+        J, r = jac(zero, x, *extra)
         g = torch.matmul(J.mT, r[..., None])[..., 0]
         H = torch.matmul(J.mT, J)
         return H, g, Cost.make(torch.sum(r * r, dim=-1), n_res)

@@ -2,9 +2,11 @@
 
 ``options_from_reference`` copies any ``tinyopt_tpu.Options`` (or any
 dataclass with its fields) into this package's ``Options``, nested option
-groups and the solver-type enum included.  ``prior_problem_from_numpy``
-builds the port's ``PriorProblem`` from host arrays, e.g. the ones a JAX
-``PriorProblem`` holds after ``np.asarray``.
+groups and the solver-type enum included.  ``prior_problem_from_numpy``,
+``so3_from_numpy``, ``se3_from_numpy`` and
+``se3_refinement_data_from_numpy`` build the port's problems and poses
+from host arrays, e.g. the ones a JAX ``PriorProblem``, ``SO3`` or ``SE3``
+holds after ``np.asarray``.
 """
 
 from __future__ import annotations
@@ -16,7 +18,9 @@ import numpy as np
 import torch
 
 from . import options as _opt
+from .manifolds import SE3, SO3
 from .models.problems import PriorProblem
+from .models.se3_refinement import SE3RefinementData
 
 _NESTED = {
     "hessian": _opt.HessianOptions, "cost": _opt.CostScalingOptions,
@@ -56,3 +60,27 @@ def prior_problem_from_numpy(y, inv_std, device="cuda",
         y=torch.as_tensor(np.asarray(y), dtype=dtype, device=device),
         inv_std=torch.as_tensor(np.asarray(inv_std), dtype=dtype,
                                 device=device))
+
+
+def _tensor(a, device, dtype):
+    return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+
+def so3_from_numpy(wxyz, device="cuda", dtype=torch.float32) -> SO3:
+    """``SO3`` on ``device`` from host quaternions (..., 4), scalar first."""
+    return SO3(_tensor(wxyz, device, dtype))
+
+
+def se3_from_numpy(wxyz, translation, device="cuda",
+                   dtype=torch.float32) -> SE3:
+    """``SE3`` on ``device`` from host quaternions (..., 4) and
+    translations (..., 3)."""
+    return SE3(so3_from_numpy(wxyz, device, dtype),
+               _tensor(translation, device, dtype))
+
+
+def se3_refinement_data_from_numpy(points, targets, device="cuda",
+                                   dtype=torch.float32) -> SE3RefinementData:
+    """``SE3RefinementData`` on ``device`` from host arrays (..., K, 3)."""
+    return SE3RefinementData(points=_tensor(points, device, dtype),
+                             targets=_tensor(targets, device, dtype))

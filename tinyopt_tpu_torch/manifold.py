@@ -1,83 +1,254 @@
-"""Parameters as a tensor or a dict/tuple of tensors — Euclidean case.
+"""Parameters as pytrees of tensors, with a manifold (retraction) registry.
 
-Counterpart of ``tinyopt_tpu.manifold`` for Euclidean leaves: the tangent
-space of a parameter pytree is the concatenation of its flattened leaves
-(pytree order), and the retraction is ``x + δ``.  Internally the optimizer
-loop and the fused path keep parameters FLAT, as a (B, d) tensor with a
-leading instance axis, and unflatten only to call the user's residual
-function and to return the result.  Registered manifold types (SO3/SE3/…)
-are not ported yet (ROADMAP, slice B).
+Counterpart of ``tinyopt_tpu.manifold``.  Any pytree of tensors is a valid
+parameter block: tensors are Euclidean leaves (tangent dimension = size,
+retraction = addition); types registered here with a :class:`Manifold`
+(``manifolds.SO3``, ``SE3``, ``SE23``) are atomic leaves whose tangent
+dimension differs from their count of stored values.  The tangent vector
+concatenates the leaf tangents in pytree order.
+
+The optimizer loop and the fused path keep parameters FLAT, as a (B, P)
+tensor of stored values (every tensor of the pytree flattened, in pytree
+order: 7 a pose for SE3, quaternion then translation), and steps and
+gradients as (B, D) tangent vectors (6 a pose).  :func:`retract_flat`
+maps the two: ``x + δ`` when every leaf is Euclidean (P = D), the
+registered retraction of each manifold leaf otherwise.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import torch
 from torch.utils import _pytree as pytree
 
 
+class Manifold(NamedTuple):
+    """Retraction + tangent-dimension spec for one registered type.
+
+    dims(x) -> int                   static tangent dimension of the leaf
+    retract(x, delta) -> x'          x ⊞ delta, delta of shape (..., dims)
+    local(x, y) -> delta (optional)  y ⊟ x
+    """
+
+    dims: Callable[[Any], int]
+    retract: Callable[[Any, torch.Tensor], Any]
+    local: Callable[[Any, Any], torch.Tensor] | None = None
+
+
+_REGISTRY: dict[type, Manifold] = {}
+
+
+def register_manifold(cls: type, manifold: Manifold) -> None:
+    """Register a manifold implementation for a (pytree-registered) type."""
+    _REGISTRY[cls] = manifold
+
+
+def manifold_for(x) -> Manifold | None:
+    return _REGISTRY.get(type(x))
+
+
+def _is_manifold_leaf(x) -> bool:
+    return type(x) in _REGISTRY
+
+
+def _leaf_dims(leaf) -> int:
+    m = manifold_for(leaf)
+    if m is not None:
+        return int(m.dims(leaf))
+    return int(torch.as_tensor(leaf).numel())
+
+
+def _leaves(x):
+    return pytree.tree_flatten(x, is_leaf=_is_manifold_leaf)
+
+
+class Block(NamedTuple):
+    """One manifold-level leaf of a parameter pytree in the flat layouts."""
+    manifold: Manifold | None   # None: a Euclidean tensor
+    treedef: Any                # the leaf's own tensor-level treedef
+    shapes: tuple               # shapes of its tensors (one instance)
+    p_offset: int               # offset of its stored values in the (P,) vector
+    p_size: int
+    t_offset: int               # offset of its tangent in the (D,) vector
+    t_dims: int
+
+
 class TangentSpec(NamedTuple):
-    """Static description of one instance's parameter pytree."""
+    """Static description of ONE instance's parameter pytree: the flat
+    parameter vector (``params`` = P stored values, per tensor ``shapes``)
+    and its tangent (``dims`` = D; per manifold-level leaf ``leaf_dims``
+    and ``offsets``, as the JAX package's ``TangentSpec``)."""
 
-    treedef: Any
-    shapes: tuple             # per-leaf shape (one instance)
-    sizes: tuple              # per-leaf number of scalars
-    offsets: tuple            # per-leaf offset into the flat vector
-    dims: int                 # total tangent dimension
+    treedef: Any              # tensor-level treedef (rebuilds manifold leaves)
+    shapes: tuple             # per-tensor shape
+    params: int               # P: stored values
+    leaf_dims: tuple          # per manifold-level leaf tangent dimension
+    offsets: tuple            # per manifold-level leaf tangent offset
+    dims: int                 # D: tangent dimension
     dtype: torch.dtype        # promoted floating dtype over leaves
-
-
-def as_pytree(x):
-    """Canonicalize user input: Python scalars/lists -> tensors.
-
-    Python ints are promoted to floats (an integer starting point is meant
-    as a real-valued parameter)."""
-    def conv(v):
-        if isinstance(v, torch.Tensor):
-            return v
-        if isinstance(v, int) and not isinstance(v, bool):
-            v = float(v)
-        return torch.as_tensor(v)
-    return pytree.tree_map(conv, x)
+    blocks: tuple             # per manifold-level leaf: a Block
+    has_manifold: bool
 
 
 def tangent_spec(x) -> TangentSpec:
-    """The (static) tangent layout of ONE instance's parameter pytree."""
-    leaves, treedef = pytree.tree_flatten(x)
-    shapes = tuple(tuple(torch.as_tensor(l).shape) for l in leaves)
+    """The (static) parameter and tangent layout of ONE instance's pytree."""
+    mleaves, _ = _leaves(x)
+    tensors, treedef = pytree.tree_flatten(x)
+    tensors = [torch.as_tensor(t) for t in tensors]
+    shapes = tuple(tuple(t.shape) for t in tensors)
     sizes = tuple(math.prod(s) for s in shapes)
-    offsets = tuple(sum(sizes[:i]) for i in range(len(sizes)))
-    dtype = torch.get_default_dtype()
-    if leaves:
-        dtype = torch.as_tensor(leaves[0]).dtype
-        for l in leaves[1:]:
-            dtype = torch.promote_types(dtype, torch.as_tensor(l).dtype)
-    dims = int(sum(sizes))
+    blocks, leaf_dims, offsets, dtypes = [], [], [], []
+    i = p_off = t_off = 0
+    for leaf in mleaves:
+        sub, sub_def = pytree.tree_flatten(leaf)
+        n = len(sub)
+        p_size = sum(sizes[i:i + n])
+        td = _leaf_dims(leaf)
+        m = manifold_for(leaf)
+        blocks.append(Block(m, sub_def, shapes[i:i + n], p_off, p_size,
+                            t_off, td))
+        leaf_dims.append(td)
+        offsets.append(t_off)
+        subs = [t.dtype for t in tensors[i:i + n]]
+        if m is not None:
+            # only a manifold leaf's floating storage defines the dtype
+            subs = [dt for dt in subs if dt.is_floating_point] or subs
+        dtypes.extend(subs)
+        i, p_off, t_off = i + n, p_off + p_size, t_off + td
+    dtype = dtypes[0] if dtypes else torch.get_default_dtype()
+    for dt in dtypes[1:]:
+        dtype = torch.promote_types(dtype, dt)
+    dims = int(t_off)
     if dims > 0 and not dtype.is_floating_point:
         raise ValueError(
             f"parameters must be floating point, got dtype {dtype}; cast "
             "your initial values (e.g. torch.as_tensor(x, dtype="
             "torch.float32))")
-    return TangentSpec(treedef, shapes, sizes, offsets, dims, dtype)
+    return TangentSpec(treedef, shapes, int(p_off),
+                       tuple(leaf_dims), tuple(offsets), dims, dtype,
+                       tuple(blocks), any(b.manifold for b in blocks))
 
 
 def flatten_batch(xb, spec: TangentSpec) -> torch.Tensor:
-    """Batched pytree (leading instance axis on every leaf) -> (B, d)."""
+    """Batched pytree (leading instance axis on every tensor) -> (B, P)."""
     leaves = pytree.tree_leaves(xb)
     cols = [torch.reshape(l, (l.shape[0], -1)).to(spec.dtype) for l in leaves]
     return cols[0] if len(cols) == 1 else torch.cat(cols, dim=-1)
 
 
-def unflatten(v: torch.Tensor, spec: TangentSpec):
-    """Flat (..., d) -> pytree whose leaves have shape (..., *leaf_shape)."""
+def _unflatten(v, treedef, shapes):
     lead = tuple(v.shape[:-1])
-    leaves = [torch.reshape(v[..., o:o + n], lead + s)
-              for s, n, o in zip(spec.shapes, spec.sizes, spec.offsets)]
-    return pytree.tree_unflatten(leaves, spec.treedef)
+    leaves, o = [], 0
+    for s in shapes:
+        n = math.prod(s)
+        leaves.append(torch.reshape(v[..., o:o + n], lead + s))
+        o += n
+    return pytree.tree_unflatten(leaves, treedef)
 
 
-def retract(x: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
-    """Euclidean retraction ``x ⊞ δ`` on flat parameters."""
-    return x + delta
+def unflatten(v: torch.Tensor, spec: TangentSpec):
+    """Flat (..., P) -> pytree whose tensors have shape (..., *shape)."""
+    return _unflatten(v, spec.treedef, spec.shapes)
+
+
+def retract_flat(x: torch.Tensor, delta: torch.Tensor,
+                 spec: TangentSpec) -> torch.Tensor:
+    """``x ⊞ δ`` on flat parameters: x (..., P), δ (..., D) -> (..., P).
+
+    Euclidean leaves add; each manifold leaf is rebuilt from its slice of
+    ``x`` and retracted by its registered map (the JAX package's
+    ``mf.retract``, and the fused kernel's ``ret_flat``)."""
+    if not spec.has_manifold:
+        return x + delta
+    lead = tuple(x.shape[:-1])
+    parts = []
+    for blk in spec.blocks:
+        xs = x[..., blk.p_offset:blk.p_offset + blk.p_size]
+        ds = delta[..., blk.t_offset:blk.t_offset + blk.t_dims]
+        if blk.manifold is None:
+            parts.append(xs + ds)
+            continue
+        new = blk.manifold.retract(_unflatten(xs, blk.treedef, blk.shapes),
+                                   ds.to(xs.dtype))
+        parts.extend(torch.reshape(a, lead + (-1,))
+                     for a in pytree.tree_leaves(new))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+
+
+def retract(x, delta: torch.Tensor, spec: TangentSpec | None = None):
+    """Manifold retraction ``x ⊞ delta`` over a full parameter pytree;
+    ``delta`` is the flat tangent vector (D,)."""
+    if spec is None:
+        spec = tangent_spec(x)
+    leaves, treedef = _leaves(x)
+    new_leaves = []
+    for leaf, d, off in zip(leaves, spec.leaf_dims, spec.offsets):
+        sl = delta[off:off + d]
+        m = manifold_for(leaf)
+        if m is not None:
+            new_leaves.append(m.retract(leaf, sl))
+        else:
+            arr = torch.as_tensor(leaf)
+            new_leaves.append(arr + sl.reshape(arr.shape).to(arr.dtype))
+    return pytree.tree_unflatten(new_leaves, treedef)
+
+
+def local(x, y, spec: TangentSpec | None = None) -> torch.Tensor:
+    """Inverse retraction ``y ⊟ x`` as a flat tangent vector."""
+    if spec is None:
+        spec = tangent_spec(x)
+    xl, xdef = _leaves(x)
+    yl, ydef = _leaves(y)
+    if xdef != ydef:
+        raise ValueError(
+            f"local(x, y): mismatched pytree structures {xdef} vs {ydef}")
+    parts = []
+    for lx, ly in zip(xl, yl):
+        m = manifold_for(lx)
+        if m is not None:
+            if m.local is None:
+                raise NotImplementedError(
+                    f"Manifold for {type(lx).__name__} has no local() map")
+            parts.append(torch.reshape(m.local(lx, ly), (-1,)))
+        else:
+            parts.append(torch.reshape(torch.as_tensor(ly)
+                                       - torch.as_tensor(lx), (-1,)))
+    if not parts:
+        return torch.zeros((0,), dtype=spec.dtype)
+    return torch.cat([p.to(spec.dtype) for p in parts])
+
+
+def zero_tangent(x, spec: TangentSpec | None = None) -> torch.Tensor:
+    if spec is None:
+        spec = tangent_spec(x)
+    device = None
+    tensors = pytree.tree_leaves(x)
+    if tensors:
+        device = torch.as_tensor(tensors[0]).device
+    return torch.zeros((spec.dims,), dtype=spec.dtype, device=device)
+
+
+def as_pytree(x):
+    """Canonicalize user input: Python scalars/lists -> tensors, manifold
+    leaves kept as they are.
+
+    Python ints are promoted to floats (an integer starting point is meant
+    as a real-valued parameter)."""
+    def conv(v):
+        if _is_manifold_leaf(v) or isinstance(v, torch.Tensor):
+            return v
+        if isinstance(v, int) and not isinstance(v, bool):
+            v = float(v)
+        return torch.as_tensor(v)
+    return pytree.tree_map(conv, x, is_leaf=_is_manifold_leaf)
+
+
+def flatten_values(x) -> torch.Tensor:
+    """Flatten the *values* (not tangents) of a pytree into one vector."""
+    arrs = [torch.reshape(torch.as_tensor(a), (-1,))
+            for a in pytree.tree_leaves(x)]
+    if not arrs:
+        return torch.zeros((0,))
+    return torch.cat(arrs)

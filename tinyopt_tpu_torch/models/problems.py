@@ -11,8 +11,9 @@ ONE instance over torch tensors (batched by ``torch.func.vmap``):
                                   Powell singular, Beale, Himmelblau,
                                   Jennrich-Sampson, Wood, Freudenstein-Roth
 
-``prior_residual`` and ``jennrich_sampson_residuals`` are the residual
-families the K2 CUDA kernel implements by hand (ops/cuda_solver.py).
+``prior_residual`` and ``jennrich_sampson_residuals`` are residual
+families the K2 CUDA kernel implements by hand; this module registers them
+with ops/cuda_solver.py.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from ..ops import cuda_solver
 
 
 def sqrt2_residual(x):
@@ -121,3 +124,9 @@ def jennrich_sampson_residuals(p, m: int = 10):
     x1, x2 = p[0], p[1]
     i = torch.arange(1, m + 1, device=p.device).to(p.dtype)
     return 2.0 + 2.0 * i - (torch.exp(i * x1) + torch.exp(i * x2))
+
+
+cuda_solver.register_family(prior_residual, 0)
+cuda_solver.register_family(
+    jennrich_sampson_residuals, 1,
+    accepts=lambda x_example, spec, data_example: spec.dims == 2)

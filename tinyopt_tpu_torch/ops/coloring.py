@@ -55,8 +55,9 @@ def probe_structure(residual_fn, x_example, data_example, spec,
                     n_res: int, dims: int, *, n_probes: int = 3
                     ) -> np.ndarray | None:
     """The (n_res, dims) tangent-Jacobian nonzero STRUCTURE of one
-    instance, OR-ed over a few deterministic pseudo-random points, or
-    ``None`` when the Jacobian is non-finite or cannot be traced."""
+    instance (of δ ↦ r(x ⊞ δ), through the retraction), OR-ed over a few
+    deterministic pseudo-random points, or ``None`` when the Jacobian is
+    non-finite or cannot be traced."""
     x_example = pytree.tree_map(lambda a: torch.as_tensor(a).detach().cpu(),
                                 x_example)
     if data_example is not None:
@@ -82,13 +83,15 @@ def probe_structure(residual_fn, x_example, data_example, spec,
             xk, data_k = xv, data_example
         else:
             delta = rng.uniform(-0.5, 0.5, (dims,))
-            xk = xv + torch.as_tensor(delta, dtype=spec.dtype)
+            xk = mf.retract_flat(xv, torch.as_tensor(delta, dtype=spec.dtype),
+                                 spec)
             data_k = (None if data_example is None else
                       pytree.tree_map(lambda a: perturb(a, rng), data_example))
         extra = (data_k,) if has_data else ()
         try:
-            J = torch.func.jacfwd(lambda dd: r1(xk + dd, *extra))(
-                torch.zeros_like(xk))
+            J = torch.func.jacfwd(
+                lambda dd: r1(mf.retract_flat(xk, dd, spec), *extra))(
+                    torch.zeros((dims,), dtype=xk.dtype))
         except (RuntimeError, TypeError, ValueError, NotImplementedError):
             return None     # untraceable residual: no coloring
         J = J.detach().numpy()

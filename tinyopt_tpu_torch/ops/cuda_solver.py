@@ -7,14 +7,20 @@ Counterpart of ``tinyopt_tpu/ops/pallas_solver.py`` (``_solver_kernel``,
 normal matrix never built: g = Jᵀr by one vjp, diag(JᵀJ) by jvps, the
 damped step by Jacobi-PCG applying H as Jᵀ(J p) — or in closed form when
 the coloring proves H diagonal — for GN, LM and the Powell dogleg, with
-the per-iteration history when ``save_history`` asks for it.
+the per-iteration history when ``save_history`` asks for it.  J is the
+tangent Jacobian of δ ↦ r(x ⊞ δ) at δ = 0, and an accepted step is
+applied through the same retraction (the JAX kernel's ``ret_flat``): the
+parameters are flat (B, P), the steps and gradients (B, D), P ≠ D on a
+manifold (7 and 6 for an SE3 pose).
 
 :func:`fused_solve` dispatches by device.  On the CPU it runs
 :func:`fused_solve_plain`, a batch-native torch version of the same
 algorithm with the kernel's op order, differentiating ANY residual with
 ``torch.func``.  On a CUDA device it launches K2, which has no automatic
-differentiation: the residual must be one of the hand-written families of
-``FAMILIES`` (prior_residual, jennrich_sampson_residuals).  It never falls
+differentiation: the residual must have a hand-written family, which the
+module defining it registers (:func:`register_family`; the models'
+prior_residual, jennrich_sampson_residuals and se3_residual, the last on
+an SE3 pose, whose family holds the retraction too).  It never falls
 back: a configuration the kernel does not cover raises, and
 :func:`fused_plan` (behind :func:`fused_supported`) decides before any
 launch.  Which of K2's two kernels runs, and how, is decided here from the
@@ -25,7 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 from torch.utils import _pytree as pytree
@@ -33,7 +39,6 @@ from torch.utils import _pytree as pytree
 from .. import manifold as mf
 from ..cost import Cost
 from ..diff.auto import instance_residuals, num_residuals
-from ..models.problems import jennrich_sampson_residuals, prior_residual
 from ..options import Options, SolverType
 from ..output import Output
 from ..solvers.lm import (lm_bad_step, lm_good_step, lm_init, tr_bad_step,
@@ -46,12 +51,25 @@ from .linalg import jacobi_inverse, pcg_core
 
 _I32 = torch.int32
 
-#: Residual functions with a hand-written device family in csrc/solver.cu,
-#: mapped to the family id of ``enum Family`` there.
-FAMILIES = {prior_residual: 0, jennrich_sampson_residuals: 1}
+
+class Family(NamedTuple):
+    """A residual function's hand-written device family in csrc/solver.cuh:
+    its id in ``enum Family`` there, and ``accepts(x_example, spec,
+    data_example)``, whether the family takes such an instance (``None``:
+    every instance)."""
+    id: int
+    accepts: Callable | None = None
+
+
+#: Residual functions with a hand-written device family, filled by
+#: :func:`register_family` from the modules that define them.
+FAMILIES: dict = {}
+#: The SE3 family's parameter and tangent widths (one pose).
+SE3_P, SE3_D = 7, 6
 
 #: Per-warp shared-memory budget of K2's warp kernel (one warp per
-#: instance needs 14·d + 2·n_res values; a block may use at most 227 KB).
+#: instance needs 2·P + 12·D + 2·n_res values, :func:`warp_values`; a
+#: block may use at most 227 KB).
 _MAX_SMEM = 232448
 #: Shared memory a block may use without opting in (csrc/common.cuh).
 _DEFAULT_SMEM = 48 * 1024
@@ -60,7 +78,7 @@ SEG_MAX = 64
 #: Entries of each vector a lane of the register kernel holds, by family
 #: (``kSegE`` of the family in csrc/solver.cuh): a segment is the least
 #: power of two of lanes, 2 to 32, that holds max(d, n_res).
-SEG_E = {0: 4, 1: 2}
+SEG_E = {0: 4, 1: 2, 2: 3}
 #: Warps a block of the register kernel.
 SEG_WARPS = 4
 #: The entry point's path codes (``enum Path``, csrc/solver.cuh).
@@ -78,6 +96,23 @@ class FusedPlan(NamedTuple):
     coloring: DiagColoring | None     # identity structure, or None
 
 
+def warp_values(P: int, d: int, n_res: int) -> int:
+    """Values of shared memory a warp of K2's warp kernel holds for one
+    instance: x and best_x (P each), twelve tangent vectors (D each) and
+    two residual vectors."""
+    return 2 * P + 12 * d + 2 * n_res
+
+
+def register_family(residual_fn, family: int, accepts=None) -> None:
+    """Let K2 solve ``residual_fn`` on the card with its hand-written
+    family ``family`` (an id of ``enum Family``, csrc/solver.cuh), on the
+    instances for which ``accepts(x_example, spec, data_example)`` holds
+    (every instance when ``None``)."""
+    if family not in SEG_E:
+        raise ValueError(f"register_family: K2 has no family {family}")
+    FAMILIES[residual_fn] = Family(family, accepts)
+
+
 def fused_plan(options: Options, mode: str, x_example, n_res: int | None = None,
                *, residual_fn, data_example=None) -> FusedPlan | None:
     """The fused path's plan on the device of ``x_example``, or ``None``
@@ -86,9 +121,12 @@ def fused_plan(options: Options, mode: str, x_example, n_res: int | None = None,
     The envelope is everything ``tinyopt_tpu``'s ``fused_supported``
     requires (residuals mode, GN/LM/DogLeg, carry_system=False, no
     save_last, logging, callbacks, timeout, check_final_cost or min-H-diag
-    check, same-dtype float parameters, a non-empty residual), plus a
-    coloring that is the identity or none.  On a CUDA device also a
-    registered residual family (``FAMILIES``), float32/float64, and a
+    check, same-dtype float parameters — registered manifold leaves
+    included —, a non-empty residual), plus a coloring that is the
+    identity or none.  ``log.print_failure`` is inside it, as in the JAX
+    envelope: the fused path prints nothing.  On a CUDA device also a
+    registered residual family (:func:`register_family`) that accepts the
+    instance, float32/float64, and a
     per-instance footprint that fits one warp's shared memory.
     """
     o = options
@@ -97,7 +135,7 @@ def fused_plan(options: Options, mode: str, x_example, n_res: int | None = None,
     if mode != "residuals":
         return None
     if (o.hessian.save_last or o.hessian.carry_system
-            or o.check_final_cost or o.log.enable or o.log.print_failure
+            or o.check_final_cost or o.log.enable
             or o.max_duration_ms > 0
             or o.stop_callback is not None or o.stop_callback2 is not None
             or o.hessian.check_min_H_diag > 0):
@@ -111,17 +149,19 @@ def fused_plan(options: Options, mode: str, x_example, n_res: int | None = None,
     if spec.dims == 0 or device not in ("cpu", "cuda"):
         return None
     if device == "cuda":
-        if FAMILIES.get(residual_fn) is None \
-                or spec.dtype not in (torch.float32, torch.float64):
+        fam = FAMILIES.get(residual_fn)
+        if fam is None or spec.dtype not in (torch.float32, torch.float64):
             return None
-        if FAMILIES[residual_fn] == 1 and spec.dims != 2:
+        if fam.accepts is not None and not fam.accepts(x_example, spec,
+                                                       data_example):
             return None
     if n_res is None:
         n_res = num_residuals(residual_fn, x_example, data_example)
     if n_res == 0:
         return None
     itemsize = torch.empty((), dtype=spec.dtype).element_size()
-    if device == "cuda" and (14 * spec.dims + 2 * n_res) * itemsize > _MAX_SMEM:
+    if device == "cuda" and warp_values(spec.params, spec.dims,
+                                        n_res) * itemsize > _MAX_SMEM:
         return None
     coloring = None
     if o.hessian.diag_coloring == "auto":
@@ -162,28 +202,39 @@ class K2Plan(NamedTuple):
 
 @functools.lru_cache(maxsize=256)
 def k2_launch_plan(B: int, d: int, n_res: int, itemsize: int, family: int,
-                   coloring: str | None, solver: int = 1) -> K2Plan:
+                   coloring: str | None, solver: int = 1,
+                   P: int | None = None) -> K2Plan:
     """Pick K2's kernel and geometry from the shapes and the solver alone.
 
-    ``family``: the id of ``FAMILIES``; ``coloring``: "identity" (the
+    ``d``: the tangent width D (steps, g); ``P``: the width of the flat
+    parameters (``None``: d, Euclidean; 7 for the SE3 family, whose D is
+    6); ``family``: an id of ``enum Family``; ``coloring``: "identity" (the
     closed-form step) or ``None`` (per-dim diag sweeps and PCG);
-    ``solver``: a code of ``SOLVER_CODES``.  max(d, n_res) ≤ 64 takes the
-    register kernel, E = SEG_E[family] entries a lane, on segments of S =
-    the least power of two (2 to 32) with S·E ≥ max(d, n_res), for every
-    solver.  Larger shapes take the warp kernel, with up to 4 warps a
+    ``solver``: a code of ``SOLVER_CODES``.  max(P, D, n_res) ≤ 64 takes
+    the register kernel, E = SEG_E[family] entries a lane, on segments of
+    S = the least power of two (2 to 32) with S·E ≥ max(P, D, n_res), for
+    every solver.  Larger shapes take the warp kernel, with up to 4 warps a
     block while their shared memory fits 48 KB."""
+    P = d if P is None else P
     if itemsize not in (4, 8):
         raise ValueError(f"k2_launch_plan: itemsize {itemsize}")
     if solver not in SOLVER_CODES.values():
         raise ValueError(f"k2_launch_plan: solver code {solver}")
-    if family not in FAMILIES.values():
+    if family not in SEG_E:
         raise ValueError(f"k2_launch_plan: unknown residual family {family}")
     if coloring not in (None, "identity"):
         raise ValueError(f"k2_launch_plan: coloring {coloring!r}")
     if family == 1 and (d != 2 or coloring is not None):
         raise ValueError("k2_launch_plan: Jennrich-Sampson has d = 2 and no "
                          "diagonal coloring")
-    m = max(d, n_res)
+    if family == 2 and ((P, d) != (SE3_P, SE3_D) or n_res % 3
+                        or coloring is not None):
+        raise ValueError("k2_launch_plan: the SE3 family has P = 7, D = 6, "
+                         "3 residuals a point and no diagonal coloring")
+    if family != 2 and P != d:
+        raise ValueError(f"k2_launch_plan: family {family} is Euclidean, "
+                         f"P = D; got P = {P}, D = {d}")
+    m = max(P, d, n_res)
     if m <= SEG_MAX:
         E = SEG_E[family]
         S = 2
@@ -193,7 +244,7 @@ def k2_launch_plan(B: int, d: int, n_res: int, itemsize: int, family: int,
         warps = max(1, min(SEG_WARPS, -(-B // per_warp)))
         return K2Plan("segment", S, E, warps,
                       max(1, -(-B // (warps * per_warp))), 0)
-    per_warp = (14 * d + 2 * n_res) * itemsize
+    per_warp = warp_values(P, d, n_res) * itemsize
     warps = 4
     while warps > 1 and warps * per_warp > _DEFAULT_SMEM:
         warps //= 2
@@ -209,7 +260,7 @@ def k2_params(family: int, opts: Options, plan: FusedPlan):
     d = plan.spec.dims
     return _build.SolverParams(
         d=d, n_res=plan.n_res, family=family,
-        fam_m=plan.n_res if family == 1 else 0,
+        fam_m={1: plan.n_res, 2: plan.n_res // 3}.get(family, 0),
         solver=SOLVER_CODES[opts.solver_type],
         coloring=int(plan.coloring is not None),
         max_iters_total=opts.max_iters + 1, cap=history_cap(opts),
@@ -237,12 +288,17 @@ def history_cap(opts: Options) -> int:
 
 def fused_solve_plain(residual_fn, opts: Options, x0: torch.Tensor, data,
                       plan: FusedPlan):
-    """The plain twin of K2 on flat parameters ``x0`` (B, d).
+    """The plain twin of K2 on flat parameters ``x0`` (B, P).
 
     Batch-native: per-instance (B,) state, active instances updated by
     selects, the retry loop running while any instance retries — the
-    per-instance results of the kernel's one-warp-per-instance loop."""
-    B, d = x0.shape
+    per-instance results of the kernel's one-warp-per-instance loop.  Any
+    residual and any registered manifold: it linearizes δ ↦ r(x ⊞ δ) at
+    δ = 0 with ``torch.func`` and retracts accepted steps through
+    ``plan.spec`` (the JAX kernel's ``ret_flat``)."""
+    B = x0.shape[0]
+    spec = plan.spec
+    d = spec.dims
     dtype, dev = x0.dtype, x0.device
     n_res, coloring = plan.n_res, plan.coloring
     is_dl = opts.solver_type == SolverType.DOGLEG
@@ -256,9 +312,10 @@ def fused_solve_plain(residual_fn, opts: Options, x0: torch.Tensor, data,
     cap = history_cap(opts)
     feps = float_epsilon(dtype)
     noise = 8.0 * torch.finfo(dtype).eps
-    r1 = instance_residuals(residual_fn, plan.spec, data is not None)
+    r1 = instance_residuals(residual_fn, spec, data is not None)
     extra = () if data is None else (data,)
-    G = torch.func.vmap(lambda xv, dv, *dd: r1(xv + dv, *dd))
+    G = torch.func.vmap(
+        lambda xv, dv, *dd: r1(mf.retract_flat(xv, dv, spec), *dd))
 
     def col(v):
         return v[:, None]
@@ -267,8 +324,8 @@ def fused_solve_plain(residual_fn, opts: Options, x0: torch.Tensor, data,
         return torch.all(torch.isfinite(v), dim=-1)
 
     def linearize_at(x):
-        """(r, jvp_fn, vjp_fn) of δ ↦ r(x + δ) at δ = 0."""
-        zero = torch.zeros_like(x)
+        """(r, jvp_fn, vjp_fn) of δ ↦ r(x ⊞ δ) at δ = 0."""
+        zero = torch.zeros((B, d), dtype=dtype, device=dev)
 
         def Gx(dm):
             return G(x, dm, *extra)
@@ -345,8 +402,8 @@ def fused_solve_plain(residual_fn, opts: Options, x0: torch.Tensor, data,
     x, best_x = x0.clone(), x0.clone()
     best_cost, final_rerr = full(float("inf")), full(float("inf"))
     lm = lm_init(opts, dtype, B, dev)
-    last_dx = torch.zeros_like(x0)
-    g_out = torch.zeros_like(x0)
+    last_dx = torch.zeros((B, d), dtype=dtype, device=dev)
+    g_out = torch.zeros_like(last_dx)
     has_last = full(False, torch.bool)
     it, nfail, nconsec, stop, best_nres = (full(0, _I32) for _ in range(5))
     errs = torch.zeros((B, cap), dtype=dtype, device=dev)
@@ -363,7 +420,7 @@ def fused_solve_plain(residual_fn, opts: Options, x0: torch.Tensor, data,
         diagH, g, err = accumulate(r_lin, jvp_fn, vjp_fn)
 
         # --- propose, retry with λ escalation (optimizer.h:356-399) ---
-        dx = torch.zeros_like(x)
+        dx = torch.zeros_like(g)
         ok, give_up = full(False, torch.bool), full(False, torch.bool)
         lm_t, nf, nc = lm, nfail, nconsec
         while True:
@@ -467,7 +524,7 @@ def fused_solve_plain(residual_fn, opts: Options, x0: torch.Tensor, data,
         applied = torch.where(col((success | probe) & (cascade == 0)
                                   & (it + 1 < max_iters_total)),
                               dx, torch.zeros_like(dx))
-        x_new = x_base + applied
+        x_new = mf.retract_flat(x_base, applied, spec)
         best_x = torch.where(col(success), x, best_x)
         last_dx = torch.where(col(success | probe), dx, last_dx)
         has_last_n = torch.where(success, torch.ones_like(has_last),
@@ -499,19 +556,20 @@ def fused_solve_plain(residual_fn, opts: Options, x0: torch.Tensor, data,
         successes=succ, num_hist=num_hist, final_lambda=lm.lam)
 
 
-def _kernel_outputs(B: int, d: int, cap: int, dtype, dev):
+def _kernel_outputs(B: int, P: int, d: int, cap: int, dtype, dev):
     """Every tensor K2 writes, as disjoint views of two new buffers: one of
-    the solver's type (x and g, then cost, rerr, λ, then the (B, cap)
-    history rows errs and deltas2) and one of int32 (six counters, then
-    the float32 inlier ratio and duration in the next 2·B entries, then
-    the (B, cap) bool successes in the bytes after them).  The kernel
-    writes every entry, history slots past ``num_hist`` as 0 / False.
-    Returns (x, Output, the SolverIO output pointers)."""
-    f = torch.empty(B * (2 * d + 3 + 2 * cap), dtype=dtype, device=dev)
+    the solver's type (x (B, P) and g (B, D), then cost, rerr, λ, then the
+    (B, cap) history rows errs and deltas2) and one of int32 (six
+    counters, then the float32 inlier ratio and duration in the next 2·B
+    entries, then the (B, cap) bool successes in the bytes after them).
+    The kernel writes every entry, history slots past ``num_hist`` as 0 /
+    False.  Returns (x, Output, the SolverIO output pointers)."""
+    f = torch.empty(B * (P + d + 3 + 2 * cap), dtype=dtype, device=dev)
     i = torch.empty(8 * B + -(-B * cap // 4), dtype=_I32, device=dev)
-    x, g = f[:2 * B * d].view(2, B, d)
-    cost, rerr, lam = f[2 * B * d:B * (2 * d + 3)].view(3, B)
-    errs, deltas2 = f[B * (2 * d + 3):].view(2, B, cap)
+    x = f[:B * P].view(B, P)
+    g = f[B * P:B * (P + d)].view(B, d)
+    cost, rerr, lam = f[B * (P + d):B * (P + d + 3)].view(3, B)
+    errs, deltas2 = f[B * (P + d + 3):].view(2, B, cap)
     stop, it, nfail, nconsec, nres, nhist = i[:6 * B].view(6, B)
     inlier, duration = i[6 * B:8 * B].view(torch.float32).view(2, B)
     succ = i[8 * B:].view(torch.uint8)[:B * cap].view(torch.bool).view(B, cap)
@@ -529,9 +587,31 @@ def _kernel_outputs(B: int, d: int, cap: int, dtype, dev):
     return x, out, {k: v.data_ptr() for k, v in ptrs.items()}
 
 
+def _family_data(family: int, data, B: int, P: int, dtype, dev) -> tuple:
+    """K2's data tensors of a family, from the batch's data: the prior's y
+    and inv_std (B, d); the SE3 family's points and targets (B, K, 3);
+    none for Jennrich-Sampson."""
+    if family == 1:
+        if data is not None:
+            raise ValueError("K2 Jennrich-Sampson family: x is (B, 2), no data")
+        return ()
+    if family == 0:
+        ts = tuple(t.to(dtype).contiguous() for t in (data.y, data.inv_std))
+        want = (B, P)
+    else:
+        ts = tuple(t.to(dtype).contiguous()
+                   for t in (data.points, data.targets))
+        want = (B, ts[0].shape[1] if ts[0].dim() == 3 else -1, 3)
+    for t in ts:
+        if tuple(t.shape) != want or t.device != dev:
+            raise ValueError(f"K2 family {family}: data must be {want} on "
+                             f"{dev}; got {tuple(t.shape)} on {t.device}")
+    return ts
+
+
 def fused_solve_cuda(family: int, opts: Options, x0: torch.Tensor, data,
                      plan: FusedPlan, params=None):
-    """Launch K2 on flat parameters ``x0`` (B, d), a CUDA tensor, as
+    """Launch K2 on flat parameters ``x0`` (B, P), a CUDA tensor, as
     :func:`k2_launch_plan` of the shapes says.  ``params``: the solver's
     :func:`k2_params` (built here when not given)."""
     from .. import _build
@@ -542,28 +622,24 @@ def fused_solve_cuda(family: int, opts: Options, x0: torch.Tensor, data,
     if coloring is not None and not coloring.identity:
         raise ValueError("K2 covers the identity coloring or none; got "
                          f"{coloring.n_colors} colors")
-    B, d = x0.shape
+    B, P = x0.shape
+    d = plan.spec.dims
     dtype, dev = x0.dtype, x0.device
+    if P != plan.spec.params:
+        raise ValueError(f"K2: x0 is (B, {P}), the plan's parameters "
+                         f"(B, {plan.spec.params})")
     if params is None:
         params = k2_params(family, opts, plan)
     kp = k2_launch_plan(B, d, plan.n_res, x0.element_size(), family,
                         None if coloring is None else "identity",
-                        params.solver)
+                        params.solver, P)
     x0 = x0.contiguous()
-    data_ptrs = [None, None]
-    if family == 0:
-        y, inv_std = (t.to(dtype).contiguous() for t in (data.y, data.inv_std))
-        for t in (y, inv_std):
-            if t.shape != (B, d) or t.device != dev:
-                raise ValueError("K2 prior family: y and inv_std must be "
-                                 f"({B}, {d}) on {dev}")
-        data_ptrs = [y.data_ptr(), inv_std.data_ptr()]
-    elif data is not None:
-        raise ValueError("K2 Jennrich-Sampson family: x is (B, 2), no data")
+    data_ts = _family_data(family, data, B, P, dtype, dev)
+    data_ptrs = [t.data_ptr() for t in data_ts] + [None] * (2 - len(data_ts))
     if params.d != d or params.family != family:
         raise ValueError(f"K2: parameters for d = {params.d}, family "
                          f"{params.family}; got d = {d}, family {family}")
-    x_out, out, ptrs = _kernel_outputs(B, d, params.cap, dtype, dev)
+    x_out, out, ptrs = _kernel_outputs(B, P, d, params.cap, dtype, dev)
     io = _build.SolverIO(x0=x0.data_ptr(), data0=data_ptrs[0],
                          data1=data_ptrs[1], **ptrs)
     lib = _build.load()
@@ -580,7 +656,7 @@ def fused_solve_cuda(family: int, opts: Options, x0: torch.Tensor, data,
 
 def fused_solve(residual_fn, opts: Options, x0: torch.Tensor, data,
                 plan: FusedPlan, params=None):
-    """The fused whole solve on flat ``x0`` (B, d): the plain twin for a
+    """The fused whole solve on flat ``x0`` (B, P): the plain twin for a
     CPU tensor, K2 for a CUDA tensor (counted in ``fused_solve.launches``;
     ``params``: the solver's :func:`k2_params`, else built for the call).
     """
@@ -591,9 +667,8 @@ def fused_solve(residual_fn, opts: Options, x0: torch.Tensor, data,
     if residual_fn not in FAMILIES:
         raise ValueError(
             "fused_solve: K2 has no device family for this residual "
-            "function (registered: prior_residual, "
-            "jennrich_sampson_residuals); check fused_plan first")
-    return fused_solve_cuda(FAMILIES[residual_fn], opts, x0, data, plan,
+            "function (register_family); check fused_plan first")
+    return fused_solve_cuda(FAMILIES[residual_fn].id, opts, x0, data, plan,
                             params)
 
 
@@ -616,7 +691,8 @@ def fused_batched_solver(residual_fn, options: Options, x_example,
             "CUDA a registered residual family)")
 
     family = FAMILIES.get(residual_fn)
-    params = None if family is None else k2_params(family, options, plan)
+    params = None if family is None else k2_params(family.id, options,
+                                                   plan)
 
     def solve(x0_batch, data_batch=None):
         x0 = mf.flatten_batch(x0_batch, plan.spec)

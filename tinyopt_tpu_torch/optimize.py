@@ -50,8 +50,9 @@ def build_batch_solver(fn: Callable, options: Options, mode: str, x_example,
                        data_example=None) -> Callable:
     """``solve(x0_batch[, data_batch]) -> (x_opt_batch, Output)`` through the
     batch-native loop.  ``fn(x)`` (or ``fn(x, data)``) is the residual
-    function of ONE instance; every leaf of ``x0_batch`` and ``data_batch``
-    has a leading instance axis."""
+    function of ONE instance; every tensor of ``x0_batch`` (manifold
+    leaves included: a batched ``SE3`` holds (B, 4) and (B, 3)) and of
+    ``data_batch`` has a leading instance axis."""
     check_loop_supported(options)
     x_example = mf.as_pytree(x_example)
     _resolve_mode(fn, mode, x_example, data_example)
@@ -69,7 +70,7 @@ def build_batch_solver(fn: Callable, options: Options, mode: str, x_example,
             return x0_batch, out
         acc, ev, _ = make_nlls_system(fn, x_example, spec, data_batch,
                                       data_example)
-        x, out = optimize_from_acc(x0, acc, ev, options)
+        x, out = optimize_from_acc(x0, acc, ev, options, spec)
         return mf.unflatten(x, spec), out
 
     return solve
@@ -91,8 +92,12 @@ def build_solver(fn: Callable, options: Options, mode: str,
 
 def optimize(x, fn: Callable, options: Options | None = None, *,
              mode: str = "auto"):
-    """Optimize ``x`` (a tensor or a dict/tuple of tensors) to minimize
-    the residual function ``fn``. Returns ``(x_opt, Output)``."""
+    """Optimize ``x`` (a tensor, a manifold element such as
+    ``manifolds.SE3``, or a dict/tuple of them) to minimize the residual
+    function ``fn``. Returns ``(x_opt, Output)``.
+
+        T, out = optimize(SE3.identity(), lambda T: (prior_inv @ T).log())
+    """
     options = options or Options()
     x = mf.as_pytree(x)
     t0 = time.perf_counter()

@@ -8,7 +8,9 @@ for a leading instance axis directly, with exactly the semantics vmap gives
 the JAX loop:
 
   * every per-instance scalar is a (B,) tensor, the parameters a flat
-    (B, d) tensor (Euclidean: the retraction is ``x + δ``);
+    (B, P) tensor and the steps and gradients (B, D) tangent vectors; an
+    accepted step is applied through the retraction of each leaf
+    (``manifold.retract_flat``: ``x + δ`` for Euclidean leaves);
   * the loop runs while ANY instance is active; an instance whose stop
     reason is set (or whose iteration budget is spent) is frozen — its
     new state is computed and discarded by a select, as vmap does;
@@ -110,13 +112,15 @@ def optimize_from_acc(
     accumulate: Callable[[torch.Tensor], tuple],
     evaluate: Callable[[torch.Tensor], Cost],
     options: Options,
+    spec: mf.TangentSpec,
 ):
-    """Run the full loop on flat parameters ``x0`` (B, d).
+    """Run the full loop on flat parameters ``x0`` (B, P).
 
     ``accumulate(x) -> (H, g, Cost)`` builds the batched normal equations
-    and ``evaluate(x) -> Cost`` the cost only (the Rebuild(false) path of
-    ``carry_system=True``).  Returns ``(x_opt, Output)`` with a leading
-    instance axis on every field.
+    (H (B, D, D), g (B, D)) and ``evaluate(x) -> Cost`` the cost only (the
+    Rebuild(false) path of ``carry_system=True``).  ``spec``: the
+    parameters' layout, whose retraction applies the steps.  Returns
+    ``(x_opt, Output)`` with a leading instance axis on every field.
     """
     opts = options
     check_loop_supported(opts)
@@ -126,7 +130,8 @@ def optimize_from_acc(
             "hessian.carry_system=False cannot save the final Hessian; "
             "set hessian.save_last=False as well")
 
-    B, d = x0.shape
+    B = x0.shape[0]
+    d = spec.dims
     dtype, dev = x0.dtype, x0.device
     max_iters_total = opts.max_iters + 1 + (1 if opts.check_final_cost else 0)
     cap = max_iters_total if opts.save_history else 0
@@ -318,7 +323,7 @@ def optimize_from_acc(
         next_is_last = (it + 2) >= max_iters_total
         applied = _where((success | probe) & (cascade == 0) & ~is_last, dx,
                          torch.zeros_like(dx))
-        x_n = mf.retract(x_base, applied)
+        x_n = mf.retract_flat(x_base, applied, spec)
         best_x_n = _where(success, x, best_x)
         last_dx_n = _where(success | probe, dx, last_dx)
         has_last_n = torch.where(success, torch.ones_like(has_last),
