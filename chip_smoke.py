@@ -6,14 +6,23 @@ flagship's 10k x 6 x 6; K2 for GN / LM, the dogleg and the history, also
 at the edges of its launch plans, printed per shape, and beside an
 instance whose data is NaN; K2's SE3 family, the retraction branch, at
 10k x 16 in float32 and float64 with LM and the dogleg, at K = 24, small
-batches and beside a NaN instance), drives the paths — ``batched_optimize``
+batches and beside a NaN instance; K2's multi-color branch, Curtis-Powell-
+Reid probes, on Powell's singular function and Wood's at 10,000 perturbed
+standard starts, float32 and float64, LM and the dogleg, bit for bit
+against the twin and against K2 with the coloring off, at B = 1, 3, 257
+and beside a NaN start), drives the paths — ``batched_optimize``
 on the 50-dim Gaussian-prior bench problem at 10,000 instances through the
 fused solver (K2) and the "cg" solver (K1), with LM and with the dogleg,
-and the fused LM with the history; then the flagship, batched SE(3) pose
+and the fused LM with the history; Powell's and Wood's 10,000 starts
+through the fused solver (K2's multi-color branch); then the flagship, batched SE(3) pose
 refinement at 10,000 instances of 16 points, through "fused", "cg" and
-"cholesky" — each with the launch counts set to 0 just before it and read
-just after, and checks what comes out (the flagship's poses against the
-true ones).  Every phase that fails raises, so the script
+"cholesky"; then robust curve fits, 10,000 curves of 60 points with 25 %
+outliers, by least squares, Huber and Geman-McClure whitening and Huber by
+finite differences, through "cg" (the loop and K1) — each with the launch
+counts set to 0 just before it and read just after, and checks what comes
+out (the flagship's poses against the true ones, the curves' costs
+against float64 solves and their fits against the true curve).  Every
+phase that fails raises, so the script
 exits non-zero; without a CUDA device it exits non-zero before printing
 any result.
 
@@ -27,8 +36,12 @@ the kernel reaches (float32, and float64 as ``*_f64``; K2's time on
 Jennrich-Sampson 4096 x 2 as ``js_ms``, its dogleg as ``dl_ms``,
 ``dl_ms_f64`` and ``dl_js_ms``, LM with the history as ``hist_ms``, the
 SE3 family as ``se3_ms``, ``se3_ms_f64``, ``se3_dl_ms``..., with its
-bound, bytes or operations, as ``se3_bound_ms``; K1 at d = 6 as
-``d6_ms``);
+bound, bytes or operations, as ``se3_bound_ms``; the multi-color branch
+as ``mc_powell_ms``, ``mc_wood_dl_ms_f64``, ``mc_powell_off_ms``...,
+with its twin's time, bound and share, and the solves/s of its path
+through ``batched_optimize`` as ``mc_powell_path_solves_per_s``...; K1 at
+d = 6 as ``d6_ms`` and its
+launches on the curve fits as ``curve_launches``);
 the card's name and power limit; and last ``{"ok": true, "device":
 {...}}``.  The full record is also written to
 ``chiprun_out/chip_smoke.json``.
@@ -159,6 +172,57 @@ def k2_se3_bound(out, opts, n_points, itemsize, dogleg=False):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# The least arithmetic an iteration of one instance of Powell's singular
+# function and of Wood's needs (flops; a multiply and an add count one
+# each), whatever way a kernel computes it: the residuals (11 and 17), the
+# Jacobian's 8 and 10 non-zeros (10 and 12), g = J'r over them (16, 20),
+# the 4 x 4 J'J from the rows' 2 or 1 non-zeros (24, 28), the cost (8,
+# 12), the damping (8), a Cholesky solve of the 4 x 4 system (75) and the
+# step (4); the dogleg adds g'Hg, the step norms and the blend (70).
+MC_MIN_FLOPS = dict(powell=156, wood=176, dogleg=70)
+MC_STARTS = {"powell": (3.0, -1.0, 0.0, 1.0),
+             "wood": (-3.0, -1.0, -3.0, -1.0)}
+
+
+def mc_bound(out, name, itemsize, dogleg=False):
+    """Least time in ms of K2's solve of this run's Powell or Wood
+    instances, and what sets it: the bytes (x0 in; x, g and 8 scalars an
+    instance out) over the memory rate, or the least operations
+    (``MC_MIN_FLOPS`` over each instance's ``num_iters``) over the peak
+    rate, whichever is larger."""
+    B = out.num_iters.shape[0]
+    per_iter = MC_MIN_FLOPS[name] + (MC_MIN_FLOPS["dogleg"] if dogleg else 0)
+    ops = float(out.num_iters.double().sum()) * per_iter
+    t_ops = ops / PEAK_FLOPS[itemsize] * 1e3
+    t_bytes = (4 + 4 + 4 + 8) * B * itemsize / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def timed(fn):
+    """(fn(), device ms of the one call, host synchronized)."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+def mc_check(ref, got, what):
+    """K2's Powell and Wood families against the twin: bit for bit in x,
+    stop reasons and iterations (the closed-form jvp and vjp take
+    torch.func's products and sums in its order, csrc/solver.cuh), in
+    float32 and float64."""
+    (xr, outr), (xg, outg) = ref, got
+    torch.testing.assert_close(xg, xr, rtol=0, atol=0, equal_nan=True,
+                               msg=what)
+    assert torch.equal(outg.stop_reason, outr.stop_reason), what
+    assert torch.equal(outg.num_iters, outr.num_iters), what
+    assert torch.equal(outg.num_failures, outr.num_failures), what
+
+
 def pose_errors(to, x, true_pose):
     """Largest rotation angle (rad) and translation error (units) of the
     poses ``x`` against ``true_pose``."""
@@ -234,9 +298,12 @@ def main() -> int:
     from torch.utils import _pytree as pytree
     import tinyopt_tpu_torch as to
     from tinyopt_tpu_torch import _build
+    from tinyopt_tpu_torch.models import curve_fit
     from tinyopt_tpu_torch.models.problems import (jennrich_sampson_residuals,
                                                    make_prior_batch,
-                                                   prior_residual)
+                                                   powell_singular_residuals,
+                                                   prior_residual,
+                                                   wood_residuals)
     from tinyopt_tpu_torch.models.se3_refinement import (make_se3_refinement,
                                                          se3_residual)
     from tinyopt_tpu_torch.ops import cuda_cg, cuda_solver
@@ -660,6 +727,116 @@ def main() -> int:
             f"{stops[5].item()}, its neighbours {stops[:8].tolist()}, max "
             f"|x_k - x_twin| = {err:.3e}")
 
+    # ---- 4c. K2's multi-color branch (Curtis-Powell-Reid probes, 2 colors)
+    # on the hard suite's coupled problems, Powell singular and Wood:
+    # 10,000 perturbed standard starts, max_iters=200, no failure budget,
+    # float32 and float64, LM and the dogleg; each held against the twin
+    # bit for bit, and K2 with coloring "auto" against K2 with "off" (a jvp
+    # a dimension) bit for bit; timed both ways; B = 1, 3, 257 and a NaN
+    # start beside the others ----
+    def mc_options(solver_type, coloring="auto"):
+        return to.Options(
+            max_iters=200, max_consec_failures=0, solver_type=solver_type,
+            hessian=to.HessianOptions(solver="fused", save_last=False,
+                                      carry_system=False,
+                                      diag_coloring=coloring))
+
+    mc_fns = {"powell": powell_singular_residuals, "wood": wood_residuals}
+
+    def mc_starts(name, B, dtype, nan_at=None):
+        x0 = (torch.tensor(MC_STARTS[name], dtype=dtype, device=dev)
+              + 0.1 * torch.randn((B, 4), generator=gen, dtype=dtype,
+                                  device=dev))
+        if nan_at is not None:
+            x0[nan_at] = float("nan")
+        return x0
+
+    def mc_kernel(name, opts, x0):
+        """K2 on ``x0`` with a plan, parameters and color tables built
+        once, as ``fused_batched_solver`` builds them."""
+        fn = mc_fns[name]
+        plan = cuda_solver.fused_plan(opts, "residuals", x0[0],
+                                      residual_fn=fn)
+        assert plan is not None, f"{name} outside the fused envelope"
+        assert (plan.coloring is None) == (
+            opts.hessian.diag_coloring == "off"), name
+        params = cuda_solver.k2_params(cuda_solver.FAMILIES[fn].id, opts,
+                                       plan)
+        tables = (None if plan.coloring is None else
+                  cuda_solver.color_tables(plan.coloring, x0.dtype, dev))
+        kern = lambda: cuda_solver.fused_solve(  # noqa: E731
+            fn, opts, x0, None, plan, params, tables)
+        plain = lambda: cuda_solver.fused_solve_plain(  # noqa: E731
+            fn, opts, x0, None, plan)
+        kp = cuda_solver.k2_launch_plan(
+            x0.shape[0], 4, plan.n_res, x0.element_size(),
+            cuda_solver.FAMILIES[fn].id,
+            cuda_solver.coloring_kind(plan.coloring), params.solver)
+        return kern, plain, (f"{kp.path} S={kp.S} E={kp.E} warps="
+                             f"{kp.warps} grid<={kp.grid}")
+
+    mc_twins = {}      # each cell's starts and twin result, for phase 5b
+    for dtype in (torch.float32, torch.float64):
+        tag = "" if dtype == torch.float32 else "_f64"
+        for name in ("powell", "wood"):
+            for sname, st in (("", to.LevenbergMarquardt),
+                              ("_dl", to.DogLeg)):
+                x0 = mc_starts(name, BATCH, dtype)
+                key = f"mc_{name}{sname}"
+                kern, plain, kplan = mc_kernel(name, mc_options(st), x0)
+                got = kern()
+                ref, k2[f"{key}_plain_ms{tag}"] = timed(plain)
+                what = f"K2 multi-color {name}{sname} {dtype}"
+                mc_check(ref, got, what)
+                mc_twins[key + tag] = (x0, ref)
+                kern_off, _, _ = mc_kernel(name, mc_options(st, "off"), x0)
+                off = kern_off()
+                mc_check(off, got, what + " auto vs off")
+                k2[f"{key}_ms{tag}"] = gpu_ms(kern, n=3)
+                k2[f"{key}_off_ms{tag}"] = gpu_ms(kern_off, n=3)
+                out = got[1]
+                (k2[f"{key}_bound_ms{tag}"],
+                 k2[f"{key}_bound_by{tag}"]) = mc_bound(
+                    out, name, x0.element_size(), bool(sname))
+                k2[f"{key}_share{tag}"] = (k2[f"{key}_bound_ms{tag}"]
+                                           / k2[f"{key}_ms{tag}"])
+                k2[f"{key}_mean_iters{tag}"] = (
+                    out.num_iters.float().mean().item())
+                stops = torch.bincount(out.stop_reason.clamp(min=0)).tolist()
+                assert bool(torch.all(out.succeeded())), what
+                log(f"[K2] multi-color {name}{sname} {BATCH}x4 {dtype} "
+                    f"({kplan}): bit-equal to the twin and to coloring off; "
+                    f"iterations mean {k2[f'{key}_mean_iters{tag}']:.2f} max "
+                    f"{out.num_iters.max().item()}, stops {stops}; kernel "
+                    f"{k2[f'{key}_ms{tag}']:.4f} ms, off "
+                    f"{k2[f'{key}_off_ms{tag}']:.4f} ms, twin "
+                    f"{k2[f'{key}_plain_ms{tag}']:.1f} ms; bound "
+                    f"{k2[f'{key}_bound_ms{tag}']:.5f} ms "
+                    f"({k2[f'{key}_bound_by{tag}']}), share "
+                    f"{k2[f'{key}_share{tag}']:.4f}")
+    # small batches and a NaN start beside its warp's other instances
+    for B, name, st, dtype, nan_at in (
+            (1, "powell", to.LevenbergMarquardt, torch.float32, None),
+            (3, "wood", to.DogLeg, torch.float64, None),
+            (257, "powell", to.DogLeg, torch.float32, None),
+            (257, "wood", to.LevenbergMarquardt, torch.float64, None),
+            (64, "wood", to.LevenbergMarquardt, torch.float32, 5),
+            (64, "powell", to.DogLeg, torch.float64, 5)):
+        x0 = mc_starts(name, B, dtype, nan_at)
+        kern, plain, kplan = mc_kernel(name, mc_options(st), x0)
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        what = f"K2 multi-color {name} {st.name} {B}x4 {dtype}"
+        mc_check(ref, got, what)
+        stops = got[1].stop_reason
+        if nan_at is not None:
+            assert stops[nan_at].item() == int(
+                to.StopReason.SYSTEM_HAS_NAN_OR_INF), what
+            assert bool(torch.all(torch.cat([stops[:nan_at],
+                                             stops[nan_at + 1:]]) > 0)), what
+        log(f"[K2] {what[3:]} ({kplan}){' NaN at 5' if nan_at else ''}: "
+            f"bit-equal to the twin, stops {stops[:8].tolist()}")
+
     # ---- 5. the paths: the main path (LM, fused and cg), then the dogleg
     # through both and the fused LM with the history; the launch counts are
     # set to 0 just before each path and read just after ----
@@ -723,6 +900,42 @@ def main() -> int:
             f"({REPS} reps x {BATCH} over {sum(times):.3f} ms; median rep "
             f"{rec['median_ms']:.3f} ms), conv {rec['conv']:.4f}, mean iters "
             f"{rec['mean_iters']:.3f}, ms {times}")
+
+    # ---- 5b. the multi-color paths: batched_optimize on Powell singular
+    # and Wood (solver="fused", the hard suite's 2-color coloring) on phase
+    # 4c's 10,000 starts, float32 and float64, LM and the dogleg — one K2
+    # launch and no K1 each, the launch counts set to 0 just before and
+    # read just after, held bit for bit against phase 4c's twin result;
+    # then solves/s of a batched_solver built once, over REPS calls on
+    # fresh starts (host work included) ----
+    record["mc_paths"] = {}
+    for key, (x0, ref) in mc_twins.items():
+        name = key.split("_")[1]
+        st = to.DogLeg if "_dl" in key else to.LevenbergMarquardt
+        opts = mc_options(st)
+        cuda_cg.cg_solve.launches = 0
+        cuda_solver.fused_solve.launches = 0
+        got = to.batched_optimize(x0, mc_fns[name], opts)
+        torch.cuda.synchronize()
+        n = path_launches[key] = {"K1": cuda_cg.cg_solve.launches,
+                                  "K2": cuda_solver.fused_solve.launches}
+        assert n == {"K1": 0, "K2": 1}, f"{key}: launches {n}"
+        mc_check(ref, got, f"{key} through batched_optimize")
+        assert bool(torch.all(got[1].succeeded())), key
+        solve = to.batched_solver(mc_fns[name], opts, "residuals", x0[0])
+        solve(x0)                              # warm-up call, untimed
+        times = []
+        for rep in range(REPS):
+            x_rep = mc_starts(name, BATCH, x0.dtype)
+            _, ms = timed(lambda: solve(x_rep))
+            times.append(ms)
+        sps = REPS * BATCH / (sum(times) / 1e3)
+        base = key.replace("_f64", "")
+        k2[f"{base}_path_solves_per_s{key[len(base):]}"] = sps
+        record["mc_paths"][key] = {"launches": n, "ms": times,
+                                   "solves_per_s": sps}
+        log(f"[main] {key}: launches {n}, bit-equal to the twin; {sps:.1f} "
+            f"solves/s ({REPS} reps x {BATCH}, ms {times})")
 
     # ---- 6. the flagship path: batched SE(3) pose refinement (models/
     # se3_refinement, 10k instances of 16 points, float32) with bench_se3's
@@ -825,6 +1038,111 @@ def main() -> int:
             f"{rec['median_ms']:.3f} ms), conv {rec['conv']:.4f}, mean iters "
             f"{rec['mean_iters']:.3f}, ms {times}")
 
+    # ---- 7. robust curve fits (examples/robust_curve_fit.py's model:
+    # y = a exp(b t), 60 points a curve, 25 % gross outliers), 10,000
+    # curves made on the card, float32, through the "cg" solver: the loop
+    # with K1 at d = 2 (no K2 family exists for these residuals) — least
+    # squares, Huber- and Geman-McClure-whitened residuals (the latter
+    # from the Huber fit, as the example starts it), and the Huber fit by
+    # finite differences (mode="numdiff"); the launch counts set to 0 just
+    # before each path and read just after ----
+    CurveData = curve_fit.CurveData
+
+    def curve_options(solver="cg"):
+        return to.Options(max_iters=100, max_consec_failures=0,
+                          hessian=to.HessianOptions(solver=solver))
+
+    curve_paths = {
+        "curve_ls_cg": (curve_fit.exp_residuals, "auto", None),
+        "curve_huber_cg": (curve_fit.huber_residuals, "auto", None),
+        "curve_gm_cg": (curve_fit.geman_mcclure_residuals, "auto",
+                        "curve_huber_cg"),
+        "curve_huber_numdiff_cg": (curve_fit.huber_residuals, "numdiff",
+                                   None),
+    }
+    cdata, cx0 = curve_fit.make_curve_batch(BATCH, seed=5, device=dev)
+    c64 = CurveData(*(a.double() for a in cdata))
+    true_ab = torch.tensor(curve_fit.TRUE_AB, device=dev)
+    record["curves"], fits, fits64 = {}, {}, {}
+    for name, (fn, mode, start) in curve_paths.items():
+        x_start = cx0 if start is None else fits[start][0]
+        x_start64 = cx0.double() if start is None else fits64[start]
+        cuda_cg.cg_solve.launches = 0
+        cuda_solver.fused_solve.launches = 0
+        x, out = to.batched_optimize(x_start, fn, curve_options(),
+                                     data_batch=cdata, mode=mode)
+        torch.cuda.synchronize()
+        n = path_launches[name] = {"K1": cuda_cg.cg_solve.launches,
+                                   "K2": cuda_solver.fused_solve.launches}
+        log(f"[curves] {name}: launches {n}")
+        assert n["K1"] > 0 and n["K2"] == 0, f"{name}: launches {n}"
+        assert out.num_diff_used == (mode == "numdiff"), name
+        fits[name] = (x, out)
+        # the float64 least cost of each curve: the same function from the
+        # same start, float64, through "cholesky"
+        x64, out64 = to.batched_optimize(
+            x_start64, fn, curve_options("cholesky"), data_batch=c64,
+            mode="residuals" if mode == "auto" else mode)
+        fits64[name] = x64
+        assert x.shape == (BATCH, 2) and bool(torch.all(torch.isfinite(x)))
+        assert bool(torch.all(out.succeeded())), name
+        assert bool(torch.all(out64.succeeded())), name + " float64"
+        # limit 1e-5: float32 costs of 60 residuals round to ~1e-7 of the
+        # float64 least cost (3e-7 at most in a CPU rehearsal of 300 curves)
+        gap = ((out.final_cost.cost.double() - out64.final_cost.cost)
+               / out64.final_cost.cost).abs().max().item()
+        assert gap < 1e-5, f"{name}: cost {gap} from the float64 solve"
+        err = (x - true_ab).abs().sum(dim=-1)
+        stops = torch.bincount(out.stop_reason.clamp(min=0)).tolist()
+        record["curves"][name] = {
+            "conv": out.converged().float().mean().item(),
+            "mean_iters": out.num_iters.float().mean().item(),
+            "max_iters": out.num_iters.max().item(), "stops": stops,
+            "max_cost_gap_to_f64": gap,
+            "median_ab_err": err.median().item()}
+        log(f"[curves] {name}: conv {record['curves'][name]['conv']:.4f} "
+            f"(stops {stops}), iterations mean "
+            f"{record['curves'][name]['mean_iters']:.2f} max "
+            f"{record['curves'][name]['max_iters']}, largest cost gap to "
+            f"the float64 solve {gap:.3e} (relative), median "
+            f"|a - 1.7| + |b - 0.8| {err.median().item():.4f}")
+    # the robust fits recover (1.7, 0.8) better than least squares on most
+    # curves (limit 0.9; all 300 in the CPU rehearsal)
+    err_ls = (fits["curve_ls_cg"][0] - true_ab).abs().sum(dim=-1)
+    for name in ("curve_huber_cg", "curve_gm_cg"):
+        share = ((fits[name][0] - true_ab).abs().sum(dim=-1)
+                 < err_ls).float().mean().item()
+        record["curves"][name]["share_better_than_ls"] = share
+        log(f"[curves] {name}: nearer (1.7, 0.8) than least squares on "
+            f"{share:.4f} of the curves")
+        assert share > 0.9, f"{name}: better than least squares on {share}"
+    # numdiff against automatic differentiation, limit 2e-3: float32
+    # central differences at h = 1e-4 carry eps / h ~ 1e-3 relative
+    # rounding in J (7.3e-4 in the CPU rehearsal)
+    nd_gap = (fits["curve_huber_numdiff_cg"][0]
+              - fits["curve_huber_cg"][0]).abs().max().item()
+    record["curves"]["numdiff_vs_ad_max_abs"] = nd_gap
+    log(f"[curves] Huber by numdiff against automatic differentiation: "
+        f"max |x_nd - x_ad| = {nd_gap:.3e}")
+    assert nd_gap < 2e-3, f"numdiff x {nd_gap} from automatic differentiation"
+    for name, (fn, mode, start) in curve_paths.items():
+        solve = to.batched_solver(fn, curve_options(), mode, cx0[0],
+                                  CurveData(cdata.t[0], cdata.y[0]))
+        times = []
+        for rep in range(2):
+            d_rep, x_rep = curve_fit.make_curve_batch(BATCH, seed=2000 + rep,
+                                                      device=dev)
+            if start is not None:      # the Huber fit of this rep's curves
+                x_rep, _ = to.batched_optimize(
+                    x_rep, curve_fit.huber_residuals, curve_options(),
+                    data_batch=d_rep)
+            (_, out), ms = timed(lambda: solve(x_rep, d_rep))
+            times.append(ms)
+        rec = record["curves"][name]
+        rec.update(ms=times, solves_per_s=2 * BATCH / (sum(times) / 1e3))
+        log(f"[curves] {name}: {rec['solves_per_s']:.1f} solves/s (2 reps x "
+            f"{BATCH}, ms {times})")
+
     kernels = [
         {"name": "K1 cg_warp_kernel", "route": "cuda",
          "source": "tinyopt_tpu_torch/csrc/cg.cu",
@@ -843,7 +1161,9 @@ def main() -> int:
          "d6_ms": k1["d6_ms"], "d6_ms_f64": k1["d6_ms_f64"],
          "d6_plain_ms": k1["d6_plain_ms"], "d6_bound_ms": k1["d6_bound_ms"],
          "d6_bound_by": k1["d6_bound_by"], "d6_share": k1["d6_share"],
-         "d6_share_f64": k1["d6_share_f64"]},
+         "d6_share_f64": k1["d6_share_f64"],
+         "curve_launches": {p: n["K1"] for p, n in path_launches.items()
+                            if p.startswith("curve_")}},
         {"name": "K2 solver_seg_kernel", "route": "cuda",
          "source": "tinyopt_tpu_torch/csrc/solver_seg.cuh",
          "replaces": "tinyopt_tpu/ops/pallas_solver.py:150",
@@ -886,7 +1206,8 @@ def main() -> int:
          "se3_dl_share": k2["se3_dl_share"],
          "se3_iter0_ms": k2["se3_iter0_ms"],
          "se3_iter0_ms_f64": k2["se3_iter0_ms_f64"],
-         "se3_dl_share_f64": k2["se3_dl_share_f64"]},
+         "se3_dl_share_f64": k2["se3_dl_share_f64"],
+         **{k: v for k, v in k2.items() if k.startswith("mc_")}},
     ]
     record.update(k1=k1, k2=k2, kernels=kernels)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

@@ -196,6 +196,9 @@ def test_method_namespaces():
     for name in ("gd", "sgd", "adam", "adamw", "lbfgs"):
         with pytest.raises(NotImplementedError):
             getattr(to, name).optimize(torch.tensor(1.0), tp.sqrt2_residual)
-    with pytest.raises(NotImplementedError):
-        to.dogleg.optimize(torch.tensor([1.0]), lambda x: torch.sum(x ** 2),
-                           mode="cost_grad")
+    # an unknown mode raises the JAX package's ValueError, as does a
+    # scalar cost for the dogleg (tinyopt_tpu/optimize.py:147-152)
+    for mode in ("cost_grad", "cost"):
+        with pytest.raises(ValueError):
+            to.dogleg.optimize(torch.tensor([1.0]),
+                               lambda x: torch.sum(x ** 2), mode=mode)

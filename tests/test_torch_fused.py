@@ -326,16 +326,16 @@ def test_fused_envelope():
     assert ok(_opts(solver_type=jto.DogLeg))
     assert ok(_opts(save_history=True))
     assert ok(_opts(solver_type=jto.DogLeg, save_history=True))
-    # not ported into K2 yet: multi-color probes
-    assert not ok(_opts(), fn=lambda x: x[:-1] - x[1:], data=None,
-                  x=torch.zeros(8))
+    # multi-color probes: any coloring runs the twin on the CPU
+    assert ok(_opts(), fn=lambda x: x[:-1] - x[1:], data=None,
+              x=torch.zeros(8))
     # mixed parameter dtypes
     assert not ok(_opts(), fn=lambda x: torch.cat([x["a"], x["b"]]),
                   data=None, x={"a": torch.zeros(2),
                                 "b": torch.zeros(2, dtype=torch.float64)})
     # on the CPU any residual runs the twin: no registered family needed
     assert ok(_opts(), fn=lambda x: 2.0 * (x - 1.0), data=None)
-    assert {f.id for f in cuda_solver.FAMILIES.values()} == {0, 1, 2}
+    assert {f.id for f in cuda_solver.FAMILIES.values()} == {0, 1, 2, 3, 4}
     # the repair of ROADMAP Queue 3: print_failure is inside the envelope,
     # as in the JAX one
     assert ok(_opts(log=jto.LogOptions(print_failure=True)))
@@ -447,7 +447,8 @@ def test_k2_kernel_matches_twin_on_gpu(case):
 def _k2_pairs():
     """The (S, E) pairs csrc/solver_seg.cuh builds for each family: the
     widths of ``K2_SEGMENTS`` with the family's ``kSegE`` (csrc/solver.cuh),
-    (S/2)·E < 64 (every S a plan takes for max(P, d, n_res) ≤ 64)."""
+    S = 2 or (S/2)·E < kMaxM (every S a plan takes for max(P, d, n_res) ≤
+    the family's largest, kMaxM ≤ 64)."""
     import re
     from tinyopt_tpu_torch import _build
     with open(f"{_build.CSRC}/solver_seg.cuh") as f:
@@ -458,10 +459,14 @@ def _k2_pairs():
     widths = [int(w) for w in re.findall(r"X\((\d+)\)", widths)]
     pairs = {}
     for fam, name in ((0, "PriorFamily"), (1, "JenSamFamily"),
-                      (2, "SE3Family")):
-        E = int(re.search(rf"struct {name} {{.*?kSegE = (\d+);", hdr,
-                          re.S).group(1))
-        pairs[fam] = {(S, E) for S in widths if (S // 2) * E < 64}
+                      (2, "SE3Family"), (3, "PowellFamily"),
+                      (4, "WoodFamily")):
+        body = re.search(rf"struct {name} {{.*?kMaxM = \d+;", hdr,
+                         re.S).group(0)
+        E = int(re.search(r"kSegE = (\d+);", body).group(1))
+        max_m = int(re.search(r"kMaxM = (\d+);", body).group(1))
+        pairs[fam] = {(S, E) for S in widths
+                      if S == 2 or (S // 2) * E < max_m}
     return pairs
 
 
@@ -470,7 +475,8 @@ def _k2_pairs():
 @pytest.mark.parametrize("case,d", [
     (c, d) for c in ("prior_identity", "prior_none")
     for d in (1, 2, 9, 16, 17, 32, 33, 50, 64, 65, 600)]
-    + [("jennrich_sampson", 2)])
+    + [("jennrich_sampson", 2), ("powell_multi", 4), ("powell_none", 4),
+       ("wood_multi", 4), ("wood_none", 4)])
 def test_k2_launch_plan(case, d, itemsize, solver):
     """K2's kernel and geometry from the shapes and the solver alone: the
     register kernel up to max(d, n_res) = 64 on segments that hold every
@@ -478,7 +484,9 @@ def test_k2_launch_plan(case, d, itemsize, solver):
     kernel.  The dogleg instances take the plan of the LM ones."""
     family, n_res, coloring = {
         "prior_identity": (0, d, "identity"), "prior_none": (0, d, None),
-        "jennrich_sampson": (1, 10, None)}[case]
+        "jennrich_sampson": (1, 10, None), "powell_multi": (3, 4, "multi"),
+        "powell_none": (3, 4, None), "wood_multi": (4, 6, "multi"),
+        "wood_none": (4, 6, None)}[case]
     B = 10_007
     code = cuda_solver.SOLVER_CODES[{"lm": to.LevenbergMarquardt,
                                      "dogleg": to.DogLeg}[solver]]
@@ -514,9 +522,39 @@ def test_k2_launch_plan_small_batch_and_errors():
     assert plan.path == "segment" and plan.warps == 1 and plan.grid == 1
     for bad in [(3, 50, 50, 2, 0, None), (3, 50, 50, 4, 7, None),
                 (3, 3, 10, 4, 1, None), (3, 2, 10, 4, 1, "identity"),
-                (3, 50, 50, 4, 0, "two colors"), (3, 50, 50, 4, 0, None, 3)]:
+                (3, 50, 50, 4, 0, "two colors"), (3, 50, 50, 4, 0, None, 3),
+                # families of fixed shape, colorings a family is not
+                # built for, and the warp kernel's missing multi-color
+                # branch
+                (3, 5, 4, 4, 3, "multi"), (3, 4, 4, 4, 4, "multi"),
+                (3, 4, 4, 4, 3, "identity"), (3, 50, 50, 4, 0, "multi"),
+                (3, 2, 10, 4, 1, "multi")]:
         with pytest.raises(ValueError):
             cuda_solver.k2_launch_plan(*bad)
+
+
+def test_k2_supports_is_the_launch_plans_envelope():
+    """``k2_supports`` decides the shapes and colorings ``fused_plan``
+    admits on the card, and ``k2_launch_plan`` plans exactly those; an id
+    that is no family of K2's raises."""
+    for args, ok in [((0, 50, 50, "identity"), True), ((0, 600, 600, None), True),
+                     ((0, 50, 50, "multi"), False), ((1, 2, 10, None), True),
+                     ((1, 3, 10, None), False), ((1, 2, 10, "identity"), False),
+                     ((2, 6, 12, None, 7), True), ((2, 6, 13, None, 7), False),
+                     ((2, 6, 12, "identity", 7), False), ((3, 4, 4, "multi"), True),
+                     ((3, 4, 4, None), True), ((3, 5, 4, "multi"), False),
+                     ((3, 4, 4, "identity"), False), ((4, 4, 6, "multi"), True),
+                     ((4, 4, 4, "multi"), False), ((0, 50, 50, None, 51), False)]:
+        assert cuda_solver.k2_supports(*args) is ok, args
+        if ok:
+            cuda_solver.k2_launch_plan(3, *args[1:3], 4, args[0], *args[3:4],
+                                       1, *args[4:])
+        else:
+            with pytest.raises(ValueError, match="not built for"):
+                cuda_solver.k2_launch_plan(3, *args[1:3], 4, args[0],
+                                           *args[3:4], 1, *args[4:])
+    with pytest.raises(ValueError, match="unknown residual family"):
+        cuda_solver.k2_supports(7, 4, 4, None)
 
 
 def test_k2_entry_point_matches_its_declaration():
@@ -546,7 +584,7 @@ def test_k2_entry_point_matches_its_declaration():
     n_declared = declared.count(",") + 1
     for name in ("tinyopt_solver_f32", "tinyopt_solver_f64"):
         params = re.search(rf'extern "C" int {name}\(([^)]*)\)', src).group(1)
-        assert params.count(",") + 1 == n_declared == 10, name
+        assert params.count(",") + 1 == n_declared == 12, name
     for struct, cls in (("SolverParams", _build.SolverParams),
                         ("SolverIO", _build.SolverIO)):
         body = re.search(rf"struct {struct} \{{([^}}]*)\}}", hdr).group(1)

@@ -4,13 +4,16 @@ The JAX package ``tinyopt_tpu`` is the reference; this package mirrors its
 module paths and solves the same problems with torch tensors, and its two
 TPU kernels are hand-written CUDA kernels for Hopper (``csrc/``): K1, the
 batched Jacobi-PCG (``ops/cuda_cg.py``), and K2, the whole batched
-GN / LM / DogLeg solve (``ops/cuda_solver.py``).  It never imports JAX.
+GN / LM / DogLeg solve (``ops/cuda_solver.py``).  ``losses`` holds the
+norms and robust M-estimators, ``diff`` the automatic and numerical
+differentiation and the gradient checker.  It never imports JAX.
 
     import torch, tinyopt_tpu_torch as to
     x, out = to.optimize(torch.tensor(1.0), lambda x: x * x - 2)
     x, out = to.dogleg.optimize(torch.tensor([-1.2, 1.0]), fn)
 """
 
+from . import diff, losses
 from .cost import Cost
 from .optimize import build_solver, optimize
 from .options import (LBFGS, SGD, Adam, AdamW, CostScalingOptions, DogLeg,
@@ -39,6 +42,7 @@ __all__ = [
     "GradientDescent", "HessianOptions", "LBFGS", "LMOptions",
     "LevenbergMarquardt", "LogOptions", "Options", "Output", "SGD",
     "SolverType", "StopReason", "adam", "adamw", "batched_optimize",
-    "batched_solver", "build_solver", "dogleg", "gd", "gn", "lbfgs", "lm",
+    "batched_solver", "build_solver", "diff", "dogleg", "gd", "gn", "lbfgs",
+    "lm", "losses",
     "nlls", "optimize", "sgd", "stop_reason_description", "unconstrained",
 ]

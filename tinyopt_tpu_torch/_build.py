@@ -104,7 +104,8 @@ class SolverParams(ctypes.Structure):
         "normalize")] + [(n, ctypes.c_double) for n in (
             "min_error", "min_rerr_dec", "min_step_norm2", "min_grad_norm2",
             "damping_init", "lam_lo", "lam_hi", "good_factor", "bad_factor",
-            "grad_clipping")] + [("cap", ctypes.c_int)]
+            "grad_clipping")] + [("cap", ctypes.c_int),
+                                 ("n_colors", ctypes.c_int)]
 
 
 class SolverIO(ctypes.Structure):
@@ -128,11 +129,12 @@ def load() -> ctypes.CDLL:
         fn.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp]
         fn.restype = ci
     for name in ("tinyopt_solver_f32", "tinyopt_solver_f64"):
-        # params, io, B, then ops.cuda_solver.K2Plan's path, S, E, warps,
-        # grid, smem_bytes, then the stream
+        # params, io, the multi-color probes and recovery (or null), B,
+        # then ops.cuda_solver.K2Plan's path, S, E, warps, grid,
+        # smem_bytes, then the stream
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(SolverParams), ctypes.POINTER(SolverIO),
-                       ci, ci, ci, ci, ci, ci, ci, vp]
+                       vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
         fn.restype = ci
     lib.tinyopt_cuda_error_string.argtypes = [ci]
     lib.tinyopt_cuda_error_string.restype = ctypes.c_char_p

@@ -20,7 +20,17 @@ struct SolverParams {
       use_squared_norm, downscale_by_2, normalize;
   double min_error, min_rerr_dec, min_step_norm2, min_grad_norm2,
       damping_init, lam_lo, lam_hi, good_factor, bad_factor, grad_clipping;
-  int cap;
+  int cap, n_colors;
+};
+
+// The multi-color coloring's constants (kColorMulti), device arrays of the
+// solver's type built once a solver (ops/cuda_solver.color_tables):
+// probes (n_colors, d), row c the tangent of color c, and recovery
+// (n_colors * n_res, d), diag(H)_j = sum over rows (c, i), ascending, of
+// (J probe_c)_i^2 * recovery[c * n_res + i][j].
+struct ColorTables {
+  const void* probes;
+  const void* recovery;
 };
 
 // Device pointers: inputs, then every output field of one call, each
@@ -37,8 +47,12 @@ struct SolverIO {
 };
 
 enum Solver { kSolverGN = 0, kSolverLM = 1, kSolverDogLeg = 2 };
-enum Family { kPrior = 0, kJennrichSampson = 1, kSE3 = 2 };
-enum Coloring { kColorNone = 0, kColorIdentity = 1 };
+enum Family { kPrior = 0, kJennrichSampson = 1, kSE3 = 2, kPowell = 3, kWood = 4 };
+// kColorNone: one jvp a tangent dimension for diag(H), then Jacobi-PCG;
+// kColorIdentity: J diagonal, one jvp of the all-ones probe and the
+// closed-form step; kColorMulti: Curtis-Powell-Reid probes, one jvp a
+// color and the recovery sum (ColorTables), closed form when one color.
+enum Coloring { kColorNone = 0, kColorIdentity = 1, kColorMulti = 2 };
 enum Path { kPathWarp = 0, kPathSegment = 1 };
 enum Stop {
   kSolverFailed = -3, kNanOrInf = -2, kNone = 0, kMinError = 1,
@@ -99,6 +113,7 @@ struct PriorFamily {
   // an entry, so few lanes an instance and more instances a warp (timed
   // fastest of S x E = 32 x 2, 16 x 4 and 8 x 8 at d = 50, PERF.md).
   static constexpr int kSegE = 4;
+  static constexpr int kMaxM = 64;
   static constexpr bool kManifold = false;
 
   // Shared-memory form (solver_kernel): lanes stride over the vectors.
@@ -163,6 +178,7 @@ struct JenSamFamily {
   // more lanes (timed fastest of S x E = 16 x 1, 8 x 2 and 4 x 4 at m = 10,
   // PERF.md).
   static constexpr int kSegE = 2;
+  static constexpr int kMaxM = 64;
   static constexpr bool kManifold = false;
 
   __device__ int n_res() const { return m; }
@@ -257,6 +273,199 @@ struct JenSamFamily {
   };
 };
 
+// The value at index i of the small array v (0 past N), by selects, so v
+// stays in registers.
+template <int N, typename T>
+__device__ __forceinline__ T pick(const T (&v)[N], int i) {
+  T r = T(0);
+#pragma unroll
+  for (int j = 0; j < N; ++j) r = i == j ? v[j] : r;
+  return r;
+}
+
+// Entry I of a vector in the register kernel's layout (entry i on lane
+// i % S of the segment, slot i / S), on every lane of the segment.
+template <int I, int S, int E, typename T>
+__device__ __forceinline__ T seg_entry(const T (&v)[E]) {
+  if constexpr (I / S < E)
+    return __shfl_sync(kFullMask, v[I / S], I % S, S);
+  else
+    return T(0);
+}
+
+// Powell's singular function (models/problems.powell_singular_residuals),
+// 4 parameters and 4 residuals:
+//   r = (x1 + 10 x2, s5 (x3 - x4), u^2, s10 w^2),  u = x2 - 2 x3, w = x1 - x4
+// with s5 = sqrt(5), s10 = sqrt(10) rounded to T.  The jvp and vjp are the
+// closed forms of the polynomials, each product and sum in the order
+// torch.func's rules take them (the twin's; every gradient entry is a sum
+// of two terms), so on the same x they equal the twin's bit for bit.
+template <typename T>
+struct PowellFamily {
+  // Every lane computes all four values from the gathered x: 2 x 2 is the
+  // least segment (S >= 2), 16 instances a warp.
+  static constexpr int kSegE = 2;
+  static constexpr int kMaxM = 4;
+  static constexpr bool kManifold = false;
+
+  __device__ static void rows(const T* x, T* r) {
+    const T s5 = T(2.23606797749979), s10 = T(3.1622776601683795);
+    const T u = x[1] - T(2) * x[2], w = x[0] - x[3];
+    r[0] = x[0] + T(10) * x[1];
+    r[1] = s5 * (x[2] - x[3]);
+    r[2] = u * u;
+    r[3] = s10 * (w * w);
+  }
+  __device__ static void jvp_rows(const T* x, const T* p, T* o) {
+    const T s5 = T(2.23606797749979), s10 = T(3.1622776601683795);
+    const T u = x[1] - T(2) * x[2], w = x[0] - x[3];
+    o[0] = p[0] + p[1] * T(10);
+    o[1] = (p[2] - p[3]) * s5;
+    o[2] = (p[1] - p[2] * T(2)) * (T(2) * u);
+    o[3] = ((p[0] - p[3]) * (T(2) * w)) * s10;
+  }
+  __device__ static void vjp_rows(const T* x, const T* q, T* o) {
+    const T s5 = T(2.23606797749979), s10 = T(3.1622776601683795);
+    const T u = x[1] - T(2) * x[2], w = x[0] - x[3];
+    const T a1 = q[1] * s5, a2 = q[2] * (T(2) * u), a3 = (q[3] * s10) * (T(2) * w);
+    o[0] = q[0] + a3;
+    o[1] = q[0] * T(10) + a2;
+    o[2] = a1 + (-a2) * T(2);
+    o[3] = (-a1) + (-a3);
+  }
+
+  // Register form only (the fixed shape never takes solver_kernel): x, the
+  // probes and the residual vectors gathered from the segment by shuffles;
+  // each lane keeps its own entries (0 past 4).
+  template <int S, int E>
+  struct Lanes {
+    int sl;
+    __device__ __forceinline__ void start(const PowellFamily&, int, int sl_) { sl = sl_; }
+    __device__ __forceinline__ static void gather(const T (&v)[E], T* g) {
+      g[0] = seg_entry<0, S>(v);
+      g[1] = seg_entry<1, S>(v);
+      g[2] = seg_entry<2, S>(v);
+      g[3] = seg_entry<3, S>(v);
+    }
+    __device__ __forceinline__ void keep(const T (&v)[4], T (&out)[E]) const {
+#pragma unroll
+      for (int k = 0; k < E; ++k) out[k] = pick<4>(v, sl + k * S);
+    }
+    __device__ __forceinline__ void residual(const T (&x)[E], T (&r)[E]) const {
+      T xv[4], v[4];
+      gather(x, xv);
+      rows(xv, v);
+      keep(v, r);
+    }
+    __device__ __forceinline__ void jvp(const T (&x)[E], const T (&p)[E],
+                                        T (&out)[E]) const {
+      T xv[4], pv[4], v[4];
+      gather(x, xv);
+      gather(p, pv);
+      jvp_rows(xv, pv, v);
+      keep(v, out);
+    }
+    __device__ __forceinline__ void vjp(const T (&x)[E], const T (&q)[E],
+                                        T (&out)[E]) const {
+      T xv[4], qv[4], v[4];
+      gather(x, xv);
+      gather(q, qv);
+      vjp_rows(xv, qv, v);
+      keep(v, out);
+    }
+  };
+};
+
+// Wood's function as 6 residuals (models/problems.wood_residuals), 4
+// parameters:
+//   r = (10 (x2 - x1^2), 1 - x1, s90 (x4 - x3^2), 1 - x3,
+//        s10 ((x2 + x4) - 2), (x2 - x4) / s10)
+// Closed-form jvp and vjp in torch.func's order, as PowellFamily; three
+// gradient entries are sums of three terms, added as torch's autograd
+// accumulates them: ((-q1) + a) + a for x1, (b4 + b5) + b0 for x2.  A
+// division by s10 is a product with T(1) / s10, as torch's CUDA kernels
+// divide by a scalar (on the CPU torch divides: the twin there differs in
+// the last bit of r5 and its products).
+template <typename T>
+struct WoodFamily {
+  // 2 lanes x 3 entries hold the 6 residuals; tangent entries 4 and 5 are 0.
+  static constexpr int kSegE = 3;
+  static constexpr int kMaxM = 6;
+  static constexpr bool kManifold = false;
+
+  __device__ static void rows(const T* x, T* r) {
+    const T s90 = T(9.486832980505138), s10 = T(3.1622776601683795);
+    r[0] = T(10) * (x[1] - x[0] * x[0]);
+    r[1] = T(1) - x[0];
+    r[2] = s90 * (x[3] - x[2] * x[2]);
+    r[3] = T(1) - x[2];
+    r[4] = s10 * ((x[1] + x[3]) - T(2));
+    r[5] = (x[1] - x[3]) * (T(1) / s10);
+  }
+  __device__ static void jvp_rows(const T* x, const T* p, T* o) {
+    const T s90 = T(9.486832980505138), s10 = T(3.1622776601683795);
+    o[0] = (p[1] - T(2) * (p[0] * x[0])) * T(10);
+    o[1] = -p[0];
+    o[2] = (p[3] - T(2) * (p[2] * x[2])) * s90;
+    o[3] = -p[2];
+    o[4] = (p[1] + p[3]) * s10;
+    o[5] = (p[1] - p[3]) * (T(1) / s10);
+  }
+  __device__ static void vjp_rows(const T* x, const T* q, T* o) {
+    const T s90 = T(9.486832980505138), s10 = T(3.1622776601683795);
+    const T b0 = q[0] * T(10), b2 = q[2] * s90, b4 = q[4] * s10,
+            b5 = q[5] * (T(1) / s10);
+    const T a1 = (-b0) * x[0], a3 = (-b2) * x[2];
+    o[0] = ((-q[1]) + a1) + a1;
+    o[1] = (b4 + b5) + b0;
+    o[2] = ((-q[3]) + a3) + a3;
+    o[3] = (b4 + (-b5)) + b2;
+  }
+
+  // Register form only, as PowellFamily.
+  template <int S, int E>
+  struct Lanes {
+    int sl;
+    __device__ __forceinline__ void start(const WoodFamily&, int, int sl_) { sl = sl_; }
+    __device__ __forceinline__ static void gather4(const T (&v)[E], T* g) {
+      g[0] = seg_entry<0, S>(v);
+      g[1] = seg_entry<1, S>(v);
+      g[2] = seg_entry<2, S>(v);
+      g[3] = seg_entry<3, S>(v);
+    }
+    __device__ __forceinline__ void residual(const T (&x)[E], T (&r)[E]) const {
+      T xv[4], v[6];
+      gather4(x, xv);
+      rows(xv, v);
+#pragma unroll
+      for (int k = 0; k < E; ++k) r[k] = pick<6>(v, sl + k * S);
+    }
+    __device__ __forceinline__ void jvp(const T (&x)[E], const T (&p)[E],
+                                        T (&out)[E]) const {
+      T xv[4], pv[4], v[6];
+      gather4(x, xv);
+      gather4(p, pv);
+      jvp_rows(xv, pv, v);
+#pragma unroll
+      for (int k = 0; k < E; ++k) out[k] = pick<6>(v, sl + k * S);
+    }
+    __device__ __forceinline__ void vjp(const T (&x)[E], const T (&q)[E],
+                                        T (&out)[E]) const {
+      T xv[4], qv[6], v[4];
+      gather4(x, xv);
+      qv[0] = seg_entry<0, S>(q);
+      qv[1] = seg_entry<1, S>(q);
+      qv[2] = seg_entry<2, S>(q);
+      qv[3] = seg_entry<3, S>(q);
+      qv[4] = seg_entry<4, S>(q);
+      qv[5] = seg_entry<5, S>(q);
+      vjp_rows(xv, qv, v);
+#pragma unroll
+      for (int k = 0; k < E; ++k) out[k] = pick<4>(v, sl + k * S);
+    }
+  };
+};
+
 // SE(3) arithmetic of the SE3 family, in the op order of the port's
 // manifolds/so3.py and se3.py (each product and sum rounded as torch's
 // elementwise ops round it; sums of three as ((a + b) + c)).
@@ -335,16 +544,6 @@ __device__ __forceinline__ void se3_retract(const T* q, const T* t,
   for (int j = 0; j < 3; ++j) tn[j] = rv[j] + t[j];
 }
 
-// The value at index i of the small array v (0 past N), by selects, so v
-// stays in registers.
-template <int N, typename T>
-__device__ __forceinline__ T pick(const T (&v)[N], int i) {
-  T r = T(0);
-#pragma unroll
-  for (int j = 0; j < N; ++j) r = i == j ? v[j] : r;
-  return r;
-}
-
 // SE(3) pose refinement (models/se3_refinement.se3_residual), K points:
 // x = (q, t), q = wxyz (P = 7), tangent d = (rho, omega) (D = 6),
 //   r_k = R(q) p_k + t - qhat_k   (3 residuals a point, n_res = 3K)
@@ -361,6 +560,7 @@ struct SE3Family {
   int K;
   // One point a lane: its three residuals are the lane's entries.
   static constexpr int kSegE = 3;
+  static constexpr int kMaxM = 64;
   static constexpr bool kManifold = true;
   static constexpr int kP = 7, kD = 6;
 
@@ -596,13 +796,14 @@ struct DogLegGeometry {
 // The segment kernels' launcher, one instantiation a type, solver kind
 // and history (csrc/solver_seg*_f32.cu, csrc/solver_seg*_f64.cu).
 template <typename T, bool kDogLeg, bool kHist>
-int launch_segment(const SolverParams& p, const SolverIO& io, int B, int S,
-                   int E, int warps, int grid, cudaStream_t stream);
+int launch_segment(const SolverParams& p, const SolverIO& io,
+                   const ColorTables& tables, int B, int S, int E, int warps,
+                   int grid, cudaStream_t stream);
 
 #define K2_SEG_INSTANCE(spec, T, dl, hist)                                   \
   spec template int launch_segment<T, dl, hist>(                             \
-      const SolverParams&, const SolverIO&, int, int, int, int, int,        \
-      cudaStream_t);
+      const SolverParams&, const SolverIO&, const ColorTables&, int, int,    \
+      int, int, int, cudaStream_t);
 #define K2_SEG_INSTANCES(spec, T)                                            \
   K2_SEG_INSTANCE(spec, T, false, false)                                     \
   K2_SEG_INSTANCE(spec, T, false, true)                                      \

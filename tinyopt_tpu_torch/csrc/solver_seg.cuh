@@ -37,9 +37,14 @@
 //   without waiting for the other segments of its warp.
 //
 // S and E are template parameters, chosen with the block size by
-// ops/cuda_solver.k2_launch_plan; the identity coloring (closed-form step)
-// and no coloring (per-dim diag sweeps, PCG through J'(J p)) are separate
-// instances, so the closed-form kernel holds no PCG registers.  So are the
+// ops/cuda_solver.k2_launch_plan; the identity coloring (closed-form step),
+// no coloring (per-dim diag sweeps, PCG through J'(J p)) and the
+// multi-color coloring (kColorMulti: a jvp of each color's probe row and
+// the recovery sum, the JAX kernel's pallas_solver.py:269-279; PCG, or the
+// closed form when one color) are separate instances, so the closed-form
+// kernel holds no PCG registers and only the multi-color one takes the
+// coloring's tables (the probes and the recovery, read through the
+// read-only cache).  So are the
 // dogleg (kDogLeg: up to three solves a proposal, GN then damped by lambda
 // then by max(lambda, 1), each damped one while any segment of the warp
 // needs it, and g'Hg by one more J'(J g); the GN and LM kernels keep none
@@ -82,6 +87,13 @@ static_assert(sizeof(SolverIONoHist) == offsetof(SolverIO, errs),
               "SolverIONoHist must be SolverIO's leading fields");
 template <bool kHist>
 using SegIO = std::conditional_t<kHist, SolverIO, SolverIONoHist>;
+
+// The coloring's constants, a kernel parameter of the multi-color instances
+// only: the others take an empty struct and compile as before.
+struct NoColorTables {};
+template <int kColor>
+using SegColor =
+    std::conditional_t<kColor == kColorMulti, ColorTables, NoColorTables>;
 
 // Threads a block of solver_seg_kernel at most (ops/cuda_solver.SEG_WARPS).
 // The launch bound (128 threads, at least 1 block an SM) lets ptxas allot
@@ -198,11 +210,11 @@ __device__ __forceinline__ bool propose_dogleg(
   return seg_all(f, bits);
 }
 
-template <typename T, typename Fam, int S, int E, bool kIdentity, bool kDogLeg,
+template <typename T, typename Fam, int S, int E, int kColor, bool kDogLeg,
           bool kHist>
 __global__ void __launch_bounds__(kSegMaxThreads, 1)
 solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
-                  int B) {
+                  int B, const SegColor<kColor> ct) {
   constexpr int W = 32 / S;   // instances a warp
   const int lane = threadIdx.x & 31;
   const int sl = lane & (S - 1);
@@ -275,9 +287,10 @@ solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
       const T dd = diagH[k] + dl;
       dinv[k] = dd > T(0) ? T(1) / dd : T(1);
     }
-    if constexpr (kIdentity) {
-      // One color: H = J'J is exactly diagonal, the damped system solves
-      // in closed form (the JAX kernel's n_colors == 1 branch).
+    if (kColor == kColorIdentity || (kColor == kColorMulti && p.n_colors == 1)) {
+      // One color (the identity, or one probe and its recovery): H = J'J is
+      // exactly diagonal, the damped system solves in closed form (the JAX
+      // kernel's n_colors == 1 branch).
 #pragma unroll
       for (int k = 0; k < E; ++k) dxn[k] = (-g[k]) * dinv[k];
     } else {
@@ -338,13 +351,55 @@ solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
       e_part = lane_part<S, E>(rr);
       fl.vjp(x, r, g);
     }
-    if constexpr (kIdentity) {
+    if constexpr (kColor == kColorIdentity) {
       T ones[E], jp[E];
 #pragma unroll
       for (int k = 0; k < E; ++k) ones[k] = vt[k] ? T(1) : T(0);
       fl.jvp(x, ones, jp);
 #pragma unroll
       for (int k = 0; k < E; ++k) diagH[k] = vt[k] ? jp[k] * jp[k] : T(0);
+    } else if constexpr (kColor == kColorMulti) {
+      // Curtis-Powell-Reid: a jvp of each color's probe row, the squares,
+      // then diag_j = sum over the recovery's rows (c, i) in ascending
+      // order of sq_i * recovery[c * n_res + i][j], the twin's sum; sq_i
+      // reaches the segment from lane i % S by a shuffle.  The tables are
+      // read through the read-only cache, the same few hundred bytes for
+      // every instance.
+      const T* probes = static_cast<const T*>(ct.probes);
+      const T* rec = static_cast<const T*>(ct.recovery);
+      int jc[E];   // this lane's tangent entries, clamped to valid columns
+#pragma unroll
+      for (int k = 0; k < E; ++k) {
+        diagH[k] = T(0);
+        jc[k] = vt[k] ? sl + k * S : 0;
+      }
+      for (int c = 0; c < p.n_colors; ++c) {
+        T pv[E], jp[E];
+#pragma unroll
+        for (int k = 0; k < E; ++k) {
+          const T v = __ldg(probes + (size_t)c * d + jc[k]);
+          pv[k] = vt[k] ? v : T(0);
+        }
+        fl.jvp(x, pv, jp);
+#pragma unroll
+        for (int k = 0; k < E; ++k) jp[k] = jp[k] * jp[k];
+#pragma unroll
+        for (int kk = 0; kk < E; ++kk) {
+#pragma unroll
+          for (int s = 0; s < S; ++s) {
+            const int i = s + kk * S;   // ascending: kk outer, s inner
+            if (i < nr) {
+              const T sq = __shfl_sync(kFullMask, jp[kk], s, S);
+              const T* row = rec + ((size_t)c * nr + i) * d;
+#pragma unroll
+              for (int k = 0; k < E; ++k) {
+                const T rv = __ldg(row + jc[k]);
+                if (vt[k]) diagH[k] = diagH[k] + sq * rv;
+              }
+            }
+          }
+        }
+      }
     } else {
 #pragma unroll
       for (int k = 0; k < E; ++k) {
@@ -608,17 +663,17 @@ solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
 // checks the two agree).
 #define K2_SEGMENTS(X) X(2) X(4) X(8) X(16) X(32)
 
-template <typename T, typename Fam, bool kIdentity, bool kDogLeg, bool kHist>
+template <typename T, typename Fam, int kColor, bool kDogLeg, bool kHist>
 int launch_seg_family(const SolverParams& p, const SolverIO& io,
-                      const Fam& fam, int B, int S, int E, int warps,
-                      int grid, cudaStream_t stream) {
-  void (*kern)(const SolverParams, const SegIO<kHist>, const Fam, int) =
-      nullptr;
+                      const Fam& fam, const ColorTables& tables, int B, int S,
+                      int E, int warps, int grid, cudaStream_t stream) {
+  void (*kern)(const SolverParams, const SegIO<kHist>, const Fam, int,
+               const SegColor<kColor>) = nullptr;
   if (E != Fam::kSegE) return (int)cudaErrorInvalidValue;
 #define K2_PICK(s)                                                           \
-  if constexpr ((s / 2) * Fam::kSegE < 64) {                                 \
+  if constexpr (s == 2 || (s / 2) * Fam::kSegE < Fam::kMaxM) {               \
     if (S == s)                                                              \
-      kern = solver_seg_kernel<T, Fam, s, Fam::kSegE, kIdentity, kDogLeg,    \
+      kern = solver_seg_kernel<T, Fam, s, Fam::kSegE, kColor, kDogLeg,       \
                                kHist>;                                       \
   }
   K2_SEGMENTS(K2_PICK)
@@ -631,7 +686,14 @@ int launch_seg_family(const SolverParams& p, const SolverIO& io,
   if (fit < 1) return (int)cudaErrorInvalidConfiguration;
   SegIO<kHist> sio;
   std::memcpy(&sio, &io, sizeof(sio));
-  kern<<<grid < fit ? grid : fit, warps * 32, 0, stream>>>(p, sio, fam, B);
+  SegColor<kColor> ct{};
+  if constexpr (kColor == kColorMulti) {
+    if (tables.probes == nullptr || tables.recovery == nullptr ||
+        p.n_colors < 1)
+      return (int)cudaErrorInvalidValue;
+    ct = tables;
+  }
+  kern<<<grid < fit ? grid : fit, warps * 32, 0, stream>>>(p, sio, fam, B, ct);
   return (int)cudaGetLastError();
 }
 
@@ -639,8 +701,9 @@ int launch_seg_family(const SolverParams& p, const SolverIO& io,
 // GN / LM) and history (kHist); each combination is compiled in a
 // translation unit of its own (csrc/solver_seg*_f32.cu, *_f64.cu).
 template <typename T, bool kDogLeg, bool kHist>
-int launch_segment(const SolverParams& p, const SolverIO& io, int B, int S,
-                   int E, int warps, int grid, cudaStream_t stream) {
+int launch_segment(const SolverParams& p, const SolverIO& io,
+                   const ColorTables& tables, int B, int S, int E, int warps,
+                   int grid, cudaStream_t stream) {
   const int P = p.family == kSE3 ? SE3Family<T>::kP : p.d;
   const int dm = P > p.d ? P : p.d;
   const int m = dm > p.n_res ? dm : p.n_res;
@@ -649,26 +712,43 @@ int launch_segment(const SolverParams& p, const SolverIO& io, int B, int S,
       (long long)grid * warps * (32 / S) < B ||
       kDogLeg != (p.solver == kSolverDogLeg) || kHist != (p.cap > 0))
     return (int)cudaErrorInvalidValue;
-  const bool identity = p.coloring == kColorIdentity;
-  if (p.family == kPrior) {
+  // the colorings each family is built for (ops/cuda_solver.SEG_COLORINGS)
+  const int col = p.coloring;
+  if (p.family == kPrior && col != kColorMulti) {
     PriorFamily<T> fam{static_cast<const T*>(io.data0),
                        static_cast<const T*>(io.data1), p.d};
-    return identity
-        ? launch_seg_family<T, PriorFamily<T>, true, kDogLeg, kHist>(
-              p, io, fam, B, S, E, warps, grid, stream)
-        : launch_seg_family<T, PriorFamily<T>, false, kDogLeg, kHist>(
-              p, io, fam, B, S, E, warps, grid, stream);
+    return col == kColorIdentity
+        ? launch_seg_family<T, PriorFamily<T>, kColorIdentity, kDogLeg, kHist>(
+              p, io, fam, tables, B, S, E, warps, grid, stream)
+        : launch_seg_family<T, PriorFamily<T>, kColorNone, kDogLeg, kHist>(
+              p, io, fam, tables, B, S, E, warps, grid, stream);
   }
-  if (p.family == kJennrichSampson && !identity) {
+  if (p.family == kJennrichSampson && col == kColorNone) {
     JenSamFamily<T> fam{p.fam_m};
-    return launch_seg_family<T, JenSamFamily<T>, false, kDogLeg, kHist>(
-        p, io, fam, B, S, E, warps, grid, stream);
+    return launch_seg_family<T, JenSamFamily<T>, kColorNone, kDogLeg, kHist>(
+        p, io, fam, tables, B, S, E, warps, grid, stream);
   }
-  if (p.family == kSE3 && !identity) {
+  if (p.family == kSE3 && col == kColorNone) {
     SE3Family<T> fam{static_cast<const T*>(io.data0),
                      static_cast<const T*>(io.data1), p.fam_m};
-    return launch_seg_family<T, SE3Family<T>, false, kDogLeg, kHist>(
-        p, io, fam, B, S, E, warps, grid, stream);
+    return launch_seg_family<T, SE3Family<T>, kColorNone, kDogLeg, kHist>(
+        p, io, fam, tables, B, S, E, warps, grid, stream);
+  }
+  if (p.family == kPowell && col != kColorIdentity) {
+    PowellFamily<T> fam{};
+    return col == kColorMulti
+        ? launch_seg_family<T, PowellFamily<T>, kColorMulti, kDogLeg, kHist>(
+              p, io, fam, tables, B, S, E, warps, grid, stream)
+        : launch_seg_family<T, PowellFamily<T>, kColorNone, kDogLeg, kHist>(
+              p, io, fam, tables, B, S, E, warps, grid, stream);
+  }
+  if (p.family == kWood && col != kColorIdentity) {
+    WoodFamily<T> fam{};
+    return col == kColorMulti
+        ? launch_seg_family<T, WoodFamily<T>, kColorMulti, kDogLeg, kHist>(
+              p, io, fam, tables, B, S, E, warps, grid, stream)
+        : launch_seg_family<T, WoodFamily<T>, kColorNone, kDogLeg, kHist>(
+              p, io, fam, tables, B, S, E, warps, grid, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -7,7 +7,8 @@ instance is differentiated on its tangent space, as δ ↦ r(x ⊞ δ) at δ = 0
 ``torch.func.vmap``.  ``make_nlls_system`` returns batched
 ``accumulate(x) -> (H, g, Cost)`` and ``evaluate(x) -> Cost`` closures over
 flat (B, P) parameters for the optimizer loop; H is (B, D, D) and g
-(B, D).
+(B, D).  ``make_acc_system`` wraps a user's manual accumulation function
+of one instance the same way.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ def residual_jacobian(residual_fn, x, spec: mf.TangentSpec | None = None):
 
     J, r = torch.func.jacfwd(r_of_delta, has_aux=True)(
         torch.zeros((spec.dims,), dtype=xv.dtype, device=xv.device))
-    return r, J
+    return r, J.to(r.dtype)     # see make_nlls_system
 
 
 def instance_residuals(residual_fn, spec: mf.TangentSpec, has_data: bool):
@@ -93,6 +94,10 @@ def make_nlls_system(residual_fn, x_example, spec: mf.TangentSpec,
         zero = torch.zeros((x.shape[0], spec.dims), dtype=x.dtype,
                            device=x.device)
         J, r = jac(zero, x, *extra)
+        # torch.func's forward mode gives a float64 tangent to a 0-d float32
+        # tensor times a Python float (``x1 + 10.0 * x2`` of an unpacked
+        # x), so J is cast to the parameters' type
+        J = J.to(x.dtype)
         g = torch.matmul(J.mT, r[..., None])[..., 0]
         H = torch.matmul(J.mT, J)
         return H, g, Cost.make(torch.sum(r * r, dim=-1), n_res)
@@ -102,3 +107,66 @@ def make_nlls_system(residual_fn, x_example, spec: mf.TangentSpec,
         return Cost.make(torch.sum(r * r, dim=-1), n_res)
 
     return accumulate, evaluate, n_res
+
+
+def _as_cost(c) -> Cost:
+    """A manual accumulation function's cost slot (a scalar, a (cost,
+    num_residuals[, inlier_ratio]) tuple, or a Cost) as a Cost."""
+    if isinstance(c, Cost):
+        return c
+    if isinstance(c, (tuple, list)):
+        if len(c) in (2, 3):
+            return Cost.make(torch.as_tensor(c[0]).reshape(()), *c[1:])
+        raise ValueError(f"Cannot interpret cost tuple of length {len(c)}")
+    return Cost.make(torch.as_tensor(c).reshape(()), 1)
+
+
+def make_acc_system(acc_fn, x_example, spec: mf.TangentSpec,
+                    first_order: bool, H_is_full: bool = True,
+                    data_batch=None):
+    """Batched (accumulate, evaluate, None) of a manual accumulation
+    function of one instance, ``acc_fn(x[, data]) -> (cost_like, grad)``
+    (first-order) or ``(cost_like, grad, H)`` — the functional form of the
+    reference's ``Cost acc(x, grad&, H&)`` (optimizers/optimizer.h:114-131,
+    docs/API.md:37-57), mapped over the batch with ``torch.func.vmap``.
+    ``cost_like`` is a scalar, a (cost, num_residuals) pair or a Cost.
+
+    With ``H_is_full=False`` the function may fill only the upper triangle
+    of H: the strict lower part is ignored and rebuilt from it
+    (gn.h:139-145, docs/API.md:170).
+    """
+    has_data = data_batch is not None
+    extra = (data_batch,) if has_data else ()
+
+    def one(xv, *data):
+        out = acc_fn(mf.unflatten(xv, spec), *data)
+        if not isinstance(out, (tuple, list)) or len(out) < 2:
+            raise ValueError(
+                "Manual acc function must return (cost, grad[, H]); got "
+                f"{type(out)}")
+        c = _as_cost(out[0])
+        g = torch.as_tensor(out[1]).reshape(-1).to(spec.dtype)
+        if first_order:
+            return c.cost, c.num_residuals, c.inlier_ratio, g
+        if len(out) < 3:
+            raise ValueError("GN/LM require the acc function to also return "
+                             "H (reference: optimize.h:40-76)")
+        return (c.cost, c.num_residuals, c.inlier_ratio, g,
+                torch.as_tensor(out[2]).to(spec.dtype))
+
+    batched = torch.func.vmap(one)
+
+    def accumulate(x):
+        outs = batched(x, *extra)
+        cost = Cost(*outs[:3])
+        if first_order:
+            return None, outs[3], cost
+        H = outs[4]
+        if not H_is_full:
+            H = torch.triu(H) + torch.triu(H, 1).mT
+        return H, outs[3], cost
+
+    def evaluate(x):
+        return accumulate(x)[2]
+
+    return accumulate, evaluate, None

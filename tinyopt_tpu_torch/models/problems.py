@@ -11,9 +11,12 @@ ONE instance over torch tensors (batched by ``torch.func.vmap``):
                                   Powell singular, Beale, Himmelblau,
                                   Jennrich-Sampson, Wood, Freudenstein-Roth
 
-``prior_residual`` and ``jennrich_sampson_residuals`` are residual
-families the K2 CUDA kernel implements by hand; this module registers them
-with ops/cuda_solver.py.
+``prior_residual``, ``jennrich_sampson_residuals``,
+``powell_singular_residuals`` and ``wood_residuals`` are residual families
+the K2 CUDA kernel implements by hand; this module registers them with
+ops/cuda_solver.py.  The scalar costs (``rosenbrock_cost``,
+``plateau_cost``, ``easom_cost``) are the easy suite's first-order
+problems.
 """
 
 from __future__ import annotations
@@ -67,6 +70,24 @@ def prior_residual(x, data: PriorProblem):
 def rosenbrock_residuals(p, a=1.0, b=100.0):
     """As NLLS residuals: [a − x, √b (y − x²)]."""
     return torch.stack([a - p[0], math.sqrt(b) * (p[1] - p[0] * p[0])])
+
+
+def rosenbrock_cost(p, a=1.0, b=100.0):
+    return (a - p[0]) ** 2 + b * (p[1] - p[0] ** 2) ** 2
+
+
+def plateau_cost(p, eps=1e-2):
+    """Flat plateau with a shallow quadratic well."""
+    return torch.sum(torch.tanh(p * p) + eps * p * p)
+
+
+def easom_cost(p):
+    """Easom: 1 − cos(x)cos(y)e^{−((x−π)²+(y−π)²)}, global min at (π, π)
+    on a near-flat plateau (tests/optimize_easy.cpp:90-143)."""
+    dx = p[0] - math.pi
+    dy = p[1] - math.pi
+    return 1.0 - torch.cos(p[0]) * torch.cos(p[1]) * torch.exp(
+        -(dx * dx + dy * dy))
 
 
 def powell_singular_residuals(p):
@@ -130,3 +151,12 @@ cuda_solver.register_family(prior_residual, 0)
 cuda_solver.register_family(
     jennrich_sampson_residuals, 1,
     accepts=lambda x_example, spec, data_example: spec.dims == 2)
+
+
+def _four_params(x_example, spec, data_example):
+    return spec.dims == 4 and spec.params == 4
+
+
+cuda_solver.register_family(powell_singular_residuals, 3,
+                            accepts=_four_params)
+cuda_solver.register_family(wood_residuals, 4, accepts=_four_params)

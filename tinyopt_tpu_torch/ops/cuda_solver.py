@@ -19,8 +19,13 @@ algorithm with the kernel's op order, differentiating ANY residual with
 ``torch.func``.  On a CUDA device it launches K2, which has no automatic
 differentiation: the residual must have a hand-written family, which the
 module defining it registers (:func:`register_family`; the models'
-prior_residual, jennrich_sampson_residuals and se3_residual, the last on
-an SE3 pose, whose family holds the retraction too).  It never falls
+prior_residual, jennrich_sampson_residuals, powell_singular_residuals,
+wood_residuals and se3_residual, the last on an SE3 pose, whose family
+holds the retraction too).  diag(JᵀJ) comes from the coloring the
+example's Jacobian structure admits (ops/coloring.py): one jvp of the
+all-ones probe for the identity, one jvp a color and the recovery sum for
+Curtis–Powell–Reid probes (Powell's and Wood's 2 colors), else one jvp a
+tangent dimension; one color makes the step closed form.  It never falls
 back: a configuration the kernel does not cover raises, and
 :func:`fused_plan` (behind :func:`fused_supported`) decides before any
 launch.  Which of K2's two kernels runs, and how, is decided here from the
@@ -78,7 +83,18 @@ SEG_MAX = 64
 #: Entries of each vector a lane of the register kernel holds, by family
 #: (``kSegE`` of the family in csrc/solver.cuh): a segment is the least
 #: power of two of lanes, 2 to 32, that holds max(d, n_res).
-SEG_E = {0: 4, 1: 2, 2: 3}
+SEG_E = {0: 4, 1: 2, 2: 3, 3: 2, 4: 3}
+#: The colorings K2's register kernel is built for, by family (the
+#: ``launch_segment`` dispatch in csrc/solver_seg.cuh): "identity" (one
+#: probe, closed form), "multi" (Curtis–Powell–Reid probes) or ``None``
+#: (a jvp a dimension, PCG).  The warp kernel takes ``None`` and
+#: "identity".
+SEG_COLORINGS = {0: (None, "identity"), 1: (None,), 2: (None,),
+                 3: (None, "multi"), 4: (None, "multi")}
+#: (d, n_res) of the families of fixed shape: Powell's and Wood's.
+FIXED_SHAPES = {3: (4, 4), 4: (4, 6)}
+#: ``SolverParams.coloring`` (``enum Coloring``, csrc/solver.cuh).
+COLORING_CODES = {None: 0, "identity": 1, "multi": 2}
 #: Warps a block of the register kernel.
 SEG_WARPS = 4
 #: The entry point's path codes (``enum Path``, csrc/solver.cuh).
@@ -93,7 +109,15 @@ class FusedPlan(NamedTuple):
     the residual count and the diag(JᵀJ) coloring of the example."""
     spec: mf.TangentSpec
     n_res: int
-    coloring: DiagColoring | None     # identity structure, or None
+    coloring: DiagColoring | None
+
+
+def coloring_kind(coloring: DiagColoring | None) -> str | None:
+    """K2's name of a coloring: "identity", "multi" (any other coloring,
+    one color included) or ``None``."""
+    if coloring is None:
+        return None
+    return "identity" if coloring.identity else "multi"
 
 
 def warp_values(P: int, d: int, n_res: int) -> int:
@@ -122,12 +146,13 @@ def fused_plan(options: Options, mode: str, x_example, n_res: int | None = None,
     requires (residuals mode, GN/LM/DogLeg, carry_system=False, no
     save_last, logging, callbacks, timeout, check_final_cost or min-H-diag
     check, same-dtype float parameters — registered manifold leaves
-    included —, a non-empty residual), plus a coloring that is the
-    identity or none.  ``log.print_failure`` is inside it, as in the JAX
-    envelope: the fused path prints nothing.  On a CUDA device also a
-    registered residual family (:func:`register_family`) that accepts the
-    instance, float32/float64, and a
-    per-instance footprint that fits one warp's shared memory.
+    included —, a non-empty residual), with any coloring
+    ``detect_diag_coloring`` returns.  ``log.print_failure`` is inside it,
+    as in the JAX envelope: the fused path prints nothing.  On a CUDA
+    device also a registered residual family (:func:`register_family`)
+    that accepts the instance, float32/float64, a per-instance footprint
+    that fits one warp's shared memory, and a shape and coloring K2 is
+    built for (:func:`k2_supports`).
     """
     o = options
     if o.solver_type not in SOLVER_CODES:
@@ -167,8 +192,10 @@ def fused_plan(options: Options, mode: str, x_example, n_res: int | None = None,
     if o.hessian.diag_coloring == "auto":
         coloring = detect_diag_coloring(residual_fn, x_example, data_example,
                                         spec, n_res, spec.dims, spec.dtype)
-    if coloring is not None and not coloring.identity:
-        return None               # multi-color CPR probes: ROADMAP Queue 2
+    if device == "cuda" and not k2_supports(fam.id, spec.dims, n_res,
+                                            coloring_kind(coloring),
+                                            spec.params):
+        return None
     return FusedPlan(spec, n_res, coloring)
 
 
@@ -200,6 +227,29 @@ class K2Plan(NamedTuple):
     smem_bytes: int
 
 
+def k2_supports(family: int, d: int, n_res: int, coloring: str | None,
+                P: int | None = None) -> bool:
+    """Whether K2 is built for ``family`` at these widths with this
+    coloring (K2's envelope; arguments as :func:`k2_launch_plan`'s): a
+    coloring of the family's (``SEG_COLORINGS``), its shape (``FIXED_SHAPES``;
+    Jennrich–Sampson d = 2; SE3 P = 7, D = 6 and 3 residuals a point; P = D
+    for a Euclidean family), and no multi-color coloring past the register
+    kernel (the warp kernel has no multi-color branch, ROADMAP Queue 2,
+    K2-a).  An id that is no family of K2's raises."""
+    P = d if P is None else P
+    if family not in SEG_E:
+        raise ValueError(f"k2_supports: unknown residual family {family}")
+    if coloring not in SEG_COLORINGS[family]:
+        return False
+    if family in FIXED_SHAPES and (d, n_res) != FIXED_SHAPES[family]:
+        return False
+    if family == 1 and d != 2:
+        return False
+    if family == 2:
+        return (P, d) == (SE3_P, SE3_D) and n_res % 3 == 0
+    return P == d and (coloring != "multi" or max(d, n_res) <= SEG_MAX)
+
+
 @functools.lru_cache(maxsize=256)
 def k2_launch_plan(B: int, d: int, n_res: int, itemsize: int, family: int,
                    coloring: str | None, solver: int = 1,
@@ -209,31 +259,23 @@ def k2_launch_plan(B: int, d: int, n_res: int, itemsize: int, family: int,
     ``d``: the tangent width D (steps, g); ``P``: the width of the flat
     parameters (``None``: d, Euclidean; 7 for the SE3 family, whose D is
     6); ``family``: an id of ``enum Family``; ``coloring``: "identity" (the
-    closed-form step) or ``None`` (per-dim diag sweeps and PCG);
-    ``solver``: a code of ``SOLVER_CODES``.  max(P, D, n_res) ≤ 64 takes
-    the register kernel, E = SEG_E[family] entries a lane, on segments of
-    S = the least power of two (2 to 32) with S·E ≥ max(P, D, n_res), for
-    every solver.  Larger shapes take the warp kernel, with up to 4 warps a
-    block while their shared memory fits 48 KB."""
+    closed-form step), "multi" (Curtis–Powell–Reid probes) or ``None``
+    (per-dim diag sweeps and PCG); ``solver``: a code of ``SOLVER_CODES``.
+    Raises for a configuration outside :func:`k2_supports`.
+    max(P, D, n_res) ≤ 64 takes the register kernel, E = SEG_E[family]
+    entries a lane, on segments of S = the least power of two (2 to 32)
+    with S·E ≥ max(P, D, n_res), for every solver.  Larger shapes take the
+    warp kernel, with up to 4 warps a block while their shared memory fits
+    48 KB; it has no multi-color branch (ROADMAP Queue 2, K2-a)."""
     P = d if P is None else P
     if itemsize not in (4, 8):
         raise ValueError(f"k2_launch_plan: itemsize {itemsize}")
     if solver not in SOLVER_CODES.values():
         raise ValueError(f"k2_launch_plan: solver code {solver}")
-    if family not in SEG_E:
-        raise ValueError(f"k2_launch_plan: unknown residual family {family}")
-    if coloring not in (None, "identity"):
-        raise ValueError(f"k2_launch_plan: coloring {coloring!r}")
-    if family == 1 and (d != 2 or coloring is not None):
-        raise ValueError("k2_launch_plan: Jennrich-Sampson has d = 2 and no "
-                         "diagonal coloring")
-    if family == 2 and ((P, d) != (SE3_P, SE3_D) or n_res % 3
-                        or coloring is not None):
-        raise ValueError("k2_launch_plan: the SE3 family has P = 7, D = 6, "
-                         "3 residuals a point and no diagonal coloring")
-    if family != 2 and P != d:
-        raise ValueError(f"k2_launch_plan: family {family} is Euclidean, "
-                         f"P = D; got P = {P}, D = {d}")
+    if not k2_supports(family, d, n_res, coloring, P):
+        raise ValueError(f"k2_launch_plan: K2 is not built for family "
+                         f"{family} at (P, D, n_res) = ({P}, {d}, {n_res}) "
+                         f"with coloring {coloring!r}")
     m = max(P, d, n_res)
     if m <= SEG_MAX:
         E = SEG_E[family]
@@ -262,7 +304,8 @@ def k2_params(family: int, opts: Options, plan: FusedPlan):
         d=d, n_res=plan.n_res, family=family,
         fam_m={1: plan.n_res, 2: plan.n_res // 3}.get(family, 0),
         solver=SOLVER_CODES[opts.solver_type],
-        coloring=int(plan.coloring is not None),
+        coloring=COLORING_CODES[coloring_kind(plan.coloring)],
+        n_colors=0 if plan.coloring is None else plan.coloring.n_colors,
         max_iters_total=opts.max_iters + 1, cap=history_cap(opts),
         max_consec_failures=opts.max_consec_failures,
         max_total_failures=opts.max_total_failures,
@@ -277,6 +320,14 @@ def k2_params(family: int, opts: Options, plan: FusedPlan):
         damping_init=lm.damping_init, lam_lo=lm.damping_range[0],
         lam_hi=lm.damping_range[1], good_factor=lm.good_factor,
         bad_factor=lm.bad_factor, grad_clipping=opts.grad_clipping)
+
+
+def color_tables(coloring: DiagColoring, dtype, device):
+    """The coloring's probes (C, D) and recovery (C·n_res, D) as tensors
+    of the solver's type on ``device``: K2's multi-color inputs and the
+    twin's constants."""
+    return tuple(torch.as_tensor(a, dtype=dtype, device=device).contiguous()
+                 for a in (coloring.probes, coloring.recovery))
 
 
 def history_cap(opts: Options) -> int:
@@ -312,6 +363,9 @@ def fused_solve_plain(residual_fn, opts: Options, x0: torch.Tensor, data,
     cap = history_cap(opts)
     feps = float_epsilon(dtype)
     noise = 8.0 * torch.finfo(dtype).eps
+    closed_form = coloring is not None and coloring.n_colors == 1
+    if coloring is not None and not coloring.identity:
+        probes, recovery = color_tables(coloring, dtype, dev)
     r1 = instance_residuals(residual_fn, spec, data is not None)
     extra = () if data is None else (data,)
     G = torch.func.vmap(
@@ -335,9 +389,21 @@ def fused_solve_plain(residual_fn, opts: Options, x0: torch.Tensor, data,
 
     def accumulate(r, jvp_fn, vjp_fn):
         g = vjp_fn(r)
-        if coloring is not None:
+        if coloring is not None and coloring.identity:
             Jp = jvp_fn(torch.ones((B, d), dtype=dtype, device=dev))
             diagH = (Jp * Jp)[:, :d]
+        elif coloring is not None:
+            # Curtis-Powell-Reid: one jvp of each color's probe row, the
+            # squares, then diag_j = sum over the recovery's rows, in
+            # ascending order, of sq_row * recovery[row, j] (the JAX
+            # kernel's one exact contraction, written out as the kernel
+            # adds it)
+            diagH = torch.zeros((B, d), dtype=dtype, device=dev)
+            for c in range(coloring.n_colors):
+                Jp = jvp_fn(probes[c:c + 1].expand(B, d))
+                sq = Jp * Jp
+                for i in range(n_res):
+                    diagH = diagH + sq[:, i:i + 1] * recovery[c * n_res + i]
         else:
             diagH = torch.zeros((B, d), dtype=dtype, device=dev)
             for j in range(d):
@@ -357,11 +423,11 @@ def fused_solve_plain(residual_fn, opts: Options, x0: torch.Tensor, data,
         return diagH, g, err
 
     def solve(jvp_fn, vjp_fn, diagH, g, dampl):
-        """(H + diag(dampl)) dx = −g: closed form under the identity
-        coloring, else Jacobi-PCG through Jᵀ(J p)."""
+        """(H + diag(dampl)) dx = −g: closed form when the coloring has
+        one color, else Jacobi-PCG through Jᵀ(J p)."""
         dinv = jacobi_inverse(diagH + dampl)
-        if coloring is not None:
-            # identity coloring: H diagonal, closed-form damped step
+        if closed_form:
+            # one color: H = JᵀJ diagonal, the closed-form damped step
             return -g * dinv
         return pcg_core(lambda p: vjp_fn(jvp_fn(p)) + dampl * p, dinv, -g,
                         cg_iters)
@@ -590,10 +656,10 @@ def _kernel_outputs(B: int, P: int, d: int, cap: int, dtype, dev):
 def _family_data(family: int, data, B: int, P: int, dtype, dev) -> tuple:
     """K2's data tensors of a family, from the batch's data: the prior's y
     and inv_std (B, d); the SE3 family's points and targets (B, K, 3);
-    none for Jennrich-Sampson."""
-    if family == 1:
+    none for Jennrich-Sampson, Powell and Wood."""
+    if family in (1, 3, 4):
         if data is not None:
-            raise ValueError("K2 Jennrich-Sampson family: x is (B, 2), no data")
+            raise ValueError(f"K2 family {family}: x is (B, d), no data")
         return ()
     if family == 0:
         ts = tuple(t.to(dtype).contiguous() for t in (data.y, data.inv_std))
@@ -610,18 +676,16 @@ def _family_data(family: int, data, B: int, P: int, dtype, dev) -> tuple:
 
 
 def fused_solve_cuda(family: int, opts: Options, x0: torch.Tensor, data,
-                     plan: FusedPlan, params=None):
+                     plan: FusedPlan, params=None, tables=None):
     """Launch K2 on flat parameters ``x0`` (B, P), a CUDA tensor, as
     :func:`k2_launch_plan` of the shapes says.  ``params``: the solver's
-    :func:`k2_params` (built here when not given)."""
+    :func:`k2_params`; ``tables``: a multi-color plan's
+    :func:`color_tables` on the device (each built here when not given)."""
     from .. import _build
 
     if x0.dtype not in (torch.float32, torch.float64) or x0.dim() != 2:
         raise ValueError(f"K2: unsupported x0 {x0.dtype} {tuple(x0.shape)}")
-    coloring = plan.coloring
-    if coloring is not None and not coloring.identity:
-        raise ValueError("K2 covers the identity coloring or none; got "
-                         f"{coloring.n_colors} colors")
+    kind = coloring_kind(plan.coloring)
     B, P = x0.shape
     d = plan.spec.dims
     dtype, dev = x0.dtype, x0.device
@@ -630,9 +694,19 @@ def fused_solve_cuda(family: int, opts: Options, x0: torch.Tensor, data,
                          f"(B, {plan.spec.params})")
     if params is None:
         params = k2_params(family, opts, plan)
-    kp = k2_launch_plan(B, d, plan.n_res, x0.element_size(), family,
-                        None if coloring is None else "identity",
+    kp = k2_launch_plan(B, d, plan.n_res, x0.element_size(), family, kind,
                         params.solver, P)
+    table_ptrs = (None, None)
+    if kind == "multi":
+        if tables is None:
+            tables = color_tables(plan.coloring, dtype, dev)
+        C, n = plan.coloring.n_colors, plan.n_res
+        if any(t.dtype != dtype or t.device != dev or not t.is_contiguous()
+               for t in tables) or tuple(tables[0].shape) != (C, d) \
+                or tuple(tables[1].shape) != (C * n, d):
+            raise ValueError(f"K2: color tables must be ({C}, {d}) and "
+                             f"({C * n}, {d}) {dtype} on {dev}")
+        table_ptrs = tuple(t.data_ptr() for t in tables)
     x0 = x0.contiguous()
     data_ts = _family_data(family, data, B, P, dtype, dev)
     data_ptrs = [t.data_ptr() for t in data_ts] + [None] * (2 - len(data_ts))
@@ -646,7 +720,7 @@ def fused_solve_cuda(family: int, opts: Options, x0: torch.Tensor, data,
     fn = lib.tinyopt_solver_f32 if dtype == torch.float32 \
         else lib.tinyopt_solver_f64
     with torch.cuda.device(dev):
-        err = fn(ctypes.byref(params), ctypes.byref(io), B,
+        err = fn(ctypes.byref(params), ctypes.byref(io), *table_ptrs, B,
                  PATH_CODES[kp.path], kp.S, kp.E, kp.warps, kp.grid,
                  kp.smem_bytes, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "K2 solver kernel")
@@ -655,11 +729,11 @@ def fused_solve_cuda(family: int, opts: Options, x0: torch.Tensor, data,
 
 
 def fused_solve(residual_fn, opts: Options, x0: torch.Tensor, data,
-                plan: FusedPlan, params=None):
+                plan: FusedPlan, params=None, tables=None):
     """The fused whole solve on flat ``x0`` (B, P): the plain twin for a
     CPU tensor, K2 for a CUDA tensor (counted in ``fused_solve.launches``;
-    ``params``: the solver's :func:`k2_params`, else built for the call).
-    """
+    ``params``: the solver's :func:`k2_params`, ``tables``: its
+    :func:`color_tables`, else each built for the call)."""
     if x0.device.type == "cpu":
         return fused_solve_plain(residual_fn, opts, x0, data, plan)
     if x0.device.type != "cuda":
@@ -669,7 +743,7 @@ def fused_solve(residual_fn, opts: Options, x0: torch.Tensor, data,
             "fused_solve: K2 has no device family for this residual "
             "function (register_family); check fused_plan first")
     return fused_solve_cuda(FAMILIES[residual_fn].id, opts, x0, data, plan,
-                            params)
+                            params, tables)
 
 
 #: Number of K2 launches in this process (reset freely by callers).
@@ -687,17 +761,22 @@ def fused_batched_solver(residual_fn, options: Options, x_example,
         raise ValueError(
             "fused_batched_solver: configuration not supported (see "
             "fused_plan: residuals mode, GN/LM/DogLeg, carry_system=False, "
-            "no save_last/logging/callbacks, identity or no coloring; on "
-            "CUDA a registered residual family)")
+            "no save_last/logging/callbacks; on CUDA a registered residual "
+            "family built for the coloring)")
 
     family = FAMILIES.get(residual_fn)
     params = None if family is None else k2_params(family.id, options,
                                                    plan)
+    # a multi-color plan's tables, uploaded once a solver
+    tables = None
+    leaf = pytree.tree_leaves(x_example)[0]
+    if coloring_kind(plan.coloring) == "multi" and leaf.device.type == "cuda":
+        tables = color_tables(plan.coloring, plan.spec.dtype, leaf.device)
 
     def solve(x0_batch, data_batch=None):
         x0 = mf.flatten_batch(x0_batch, plan.spec)
         x, out = fused_solve(residual_fn, options, x0, data_batch, plan,
-                             params)
+                             params, tables)
         return mf.unflatten(x, plan.spec), out
 
     return solve

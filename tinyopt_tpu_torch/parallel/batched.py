@@ -15,7 +15,7 @@ from typing import Callable
 
 from torch.utils import _pytree as pytree
 
-from ..optimize import _resolve_mode, build_batch_solver
+from ..optimize import build_batch_solver, resolve_mode
 from ..options import Options
 
 
@@ -23,17 +23,22 @@ def batched_solver(fn: Callable, options: Options, mode: str, x_example,
                    data_example=None) -> Callable:
     """``solve(x_batch[, data_batch]) -> (x_opt_batch, Output_batch)``.
 
-    ``fn`` is the residual function of one instance; with
-    ``data_example``, ``fn(x, data)`` receives per-instance data."""
+    ``fn`` is the residual (or manual accumulation) function of one
+    instance; with ``data_example``, ``fn(x, data)`` receives per-instance
+    data.  ``mode``: "auto", "residuals", "numdiff" or "acc"
+    (``optimize.resolve_mode``; a residual function ``torch.func`` cannot
+    differentiate runs "numdiff", outside the fused envelope)."""
     if options.hessian.solver == "fused":
         from ..ops.cuda_solver import fused_batched_solver, fused_plan
-        plan = fused_plan(options, _resolve_mode(fn, mode, x_example,
-                                                 data_example),
-                          x_example, residual_fn=fn,
+        mode, num_diff_used = resolve_mode(fn, options, mode, x_example,
+                                           data_example)
+        plan = fused_plan(options, mode, x_example, residual_fn=fn,
                           data_example=data_example)
         if plan is not None:
             return fused_batched_solver(fn, options, x_example, data_example,
                                         plan=plan)
+        return build_batch_solver(fn, options, mode, x_example, data_example,
+                                  num_diff_used=num_diff_used)
     return build_batch_solver(fn, options, mode, x_example, data_example)
 
 
