@@ -287,6 +287,562 @@ def assert_parity(ref, got, *, rtol, atol, iter_slack=1, fail_slack=0,
     return (xg - xr).abs().max().item()
 
 
+# ---- phases 8-12: the first-order solvers, segments, covariance, multi-
+# start, implicit differentiation and the log lines (slice B item 11) ----
+
+MLP_HIDDEN, MLP_POINTS = 16, 64
+
+
+def mlp_problem(B, dtype, dev, seed):
+    """10,000-style independent regressions of examples/nn_training.py's
+    1-16-1 tanh MLP: 49 parameters a curve as a dict with sorted keys
+    (b1, b2, w1, w2), each on its own 64 points y = sin(a x) + 0.05 noise,
+    x in [-2, 2], a ~ U(1, 3) and the starts ~ N(0, 0.5²), from ``seed``.
+    Returns (params0, y (B, 64), the cost of one instance)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xs = torch.linspace(-2, 2, MLP_POINTS, dtype=dtype, device=dev)
+    a = 1.0 + 2.0 * torch.rand((B,), generator=g, dtype=dtype, device=dev)
+    y = torch.sin(a[:, None] * xs) + 0.05 * torch.randn(
+        (B, MLP_POINTS), generator=g, dtype=dtype, device=dev)
+
+    def s(*shape):
+        return 0.5 * torch.randn((B,) + shape, generator=g, dtype=dtype,
+                                 device=dev)
+    p0 = {"b1": s(MLP_HIDDEN), "b2": s(1), "w1": s(MLP_HIDDEN, 1),
+          "w2": s(1, MLP_HIDDEN)}
+
+    def mse(p, yi):
+        xv = torch.linspace(-2, 2, MLP_POINTS, dtype=yi.dtype,
+                            device=yi.device)
+        h = torch.tanh(p["w1"] @ xv[None, :] + p["b1"][:, None])
+        return torch.mean(((p["w2"] @ h + p["b2"][:, None])[0] - yi) ** 2)
+    return p0, y, mse
+
+
+def mlp_runs(to):
+    """examples/nn_training.py:58-71's options, plus AdamW (weight decay
+    1e-4) and GD with Barzilai-Borwein rates."""
+    return {
+        "gd": to.Options(solver_type=to.GradientDescent, max_iters=500,
+                         max_consec_failures=0, gd=to.GDOptions(lr=0.05)),
+        "gd_bb": to.Options(solver_type=to.GradientDescent, max_iters=500,
+                            max_consec_failures=0,
+                            gd=to.GDOptions(lr=0.05, adaptive="bb")),
+        "sgd": to.Options(solver_type=to.SGD, max_iters=500,
+                          max_consec_failures=0,
+                          sgd=to.SGDOptions(lr=0.02, momentum=0.9)),
+        "adam": to.Options(solver_type=to.Adam, max_iters=500,
+                           max_consec_failures=0,
+                           adam=to.AdamOptions(lr=0.05)),
+        "adamw": to.Options(solver_type=to.AdamW, max_iters=500,
+                            max_consec_failures=0,
+                            adam=to.AdamOptions(lr=0.05, weight_decay=1e-4)),
+        "lbfgs": to.Options(solver_type=to.LBFGS, max_iters=500,
+                            max_consec_failures=30,
+                            lbfgs=to.LBFGSOptions(memory=10)),
+    }
+
+
+# Card against CPU on the same float64 curves.  The sums of the card's
+# kernels and the CPU's run in other orders, and over 500 iterations of a
+# nonconvex fit the rounding can grow: Barzilai-Borwein rates and L-BFGS
+# curvature pairs amplify it (on an H100 80GB HBM3, 700 W, the card
+# against itself from starts scaled by 1 + 1e-15, the probe, parted 244
+# and 256 of 256 curves, first 1e-9 apart at iterations 38 and 28 at the
+# earliest; card against CPU: 38 and 28 as well; GD and SGD parted none,
+# Adam and AdamW 3, the earliest at iteration 224).  So:
+# - every curve, every solver: the cost of each iteration (the errs row)
+#   within 1e-9 relative of the CPU's through iteration FO_HORIZON - 1,
+#   just under the earliest 1e-9 divergence the probe showed (28);
+# - where the probe parts few curves (at most FO_PROBE_FEW), the curves
+#   whose final costs differ by more than FO_COST_RTOL or whose stop
+#   reasons differ number at most the probe's count + FO_PARTED_SLACK;
+#   where it parts most (BB, L-BFGS) each curve's end is chaos, and the
+#   median final MSE is held within FO_MEDIAN_RTOL of the CPU's instead
+#   (readings 0.37 % and 0.30 %);
+# - every curve a success on both sides.
+FO_COST_RTOL = 1e-6
+FO_HORIZON = 25
+FO_PROBE_FEW = 12
+FO_PARTED_SLACK = 5
+FO_MEDIAN_RTOL = 0.05
+
+
+def fo_parted(card, cpu):
+    """(indices of the parted instances, each instance's first iteration
+    whose cost differs by more than 1e-9 relative, or -1)."""
+    (_, oc), (_, op) = card, cpu
+    cc, cp = oc.final_cost.cost.cpu(), op.final_cost.cost.cpu()
+    gap = ((cc - cp).abs() / cp.abs().clamp(min=1e-300))
+    parted = ((gap > FO_COST_RTOL)
+              | (oc.stop_reason.cpu() != op.stop_reason.cpu()))
+    idx = torch.nonzero(parted).flatten().tolist()
+    ec, ep = oc.errs.cpu(), op.errs.cpu()
+    apart = (ec - ep).abs() > 1e-9 * ep.abs()
+    first = torch.where(apart.any(dim=1),
+                        apart.to(torch.int8).argmax(dim=1), -1)
+    return idx, first
+
+
+def earliest(first):
+    """The earliest first-apart iteration over the curves, or -1."""
+    hit = first[first >= 0]
+    return int(hit.min()) if len(hit) else -1
+
+
+def phase8(to, dev, record, path_launches, cuda_cg, cuda_solver):
+    """First-order solvers at full width: 10,000 MLP regressions (float32)
+    with six solvers, then the bench problem in cost mode with Adam and
+    L-BFGS; no TPU kernel is on these paths (as in the JAX package: the
+    first-order proposals are elementwise passes), so each path's launch
+    counts must read 0."""
+    from tinyopt_tpu_torch.models.problems import make_prior_batch
+    p0, y, mse = mlp_problem(BATCH, torch.float32, dev, seed=8)
+    runs = mlp_runs(to)
+    rec = record["first_order"] = {}
+    # the float64 hold: the first 256 curves, on the card and on the CPU
+    n64 = 256
+    p64 = {k: v[:n64].double() for k, v in p0.items()}
+    y64 = y[:n64].double()
+    # untimed warm-up: the first call of the vmapped gradient pays
+    # one-time work, which would count against the first solver timed
+    to.batched_optimize(p0, mse, runs["gd"].replace(max_iters=2),
+                        data_batch=y, mode="cost")
+    for name, opts in runs.items():
+        key = f"fo_mlp_{name}"
+        cuda_cg.cg_solve.launches = 0
+        cuda_solver.fused_solve.launches = 0
+        (p, out), ms = timed(lambda: to.batched_optimize(
+            p0, mse, opts, data_batch=y, mode="cost"))
+        n = path_launches[key] = {"K1": cuda_cg.cg_solve.launches,
+                                  "K2": cuda_solver.fused_solve.launches}
+        assert n == {"K1": 0, "K2": 0}, f"{key}: launches {n}"
+        assert all(bool(torch.all(torch.isfinite(v))) for v in p.values())
+        assert bool(torch.all(out.succeeded())), key
+        stops = torch.bincount(out.stop_reason.clamp(min=0),
+                               minlength=8).tolist()
+        card = to.batched_optimize(p64, mse, opts, data_batch=y64,
+                                   mode="cost")
+        cpu = to.batched_optimize({k: v.cpu() for k, v in p64.items()}, mse,
+                                  opts, data_batch=y64.cpu(), mode="cost")
+        probe = to.batched_optimize(
+            {k: v * (1 + 1e-15) for k, v in p64.items()}, mse, opts,
+            data_batch=y64, mode="cost")
+        idx, first = fo_parted(card, cpu)
+        idx_p, first_p = fo_parted(card, probe)
+        few = len(idx_p) <= FO_PROBE_FEW
+        limit = len(idx_p) + FO_PARTED_SLACK
+        med = [o.final_cost.cost.median().item()
+               for o in (card[1], cpu[1], probe[1])]
+        med_gap = abs(med[0] - med[1]) / med[1]
+        r = rec[name] = {
+            "ms": ms, "solves_per_s": BATCH / (ms / 1e3),
+            "mean_iters": out.num_iters.float().mean().item(),
+            "stops": stops,
+            "median_mse": out.final_cost.cost.median().item(),
+            "f64_parted": idx,
+            "f64_first_apart": earliest(first),
+            "f64_probe_parted": len(idx_p),
+            "f64_probe_first_apart": earliest(first_p),
+            "f64_max_cost_gap": (
+                (card[1].final_cost.cost.cpu() - cpu[1].final_cost.cost).abs()
+                / cpu[1].final_cost.cost).max().item(),
+            "f64_median_mse": med, "f64_median_gap": med_gap}
+        held = (f"parted {len(idx)} (limit {limit})" if few else
+                f"parted {len(idx)} (no count limit: the probe parts most), "
+                f"median MSE gap {med_gap:.3e} (limit {FO_MEDIAN_RTOL})")
+        log(f"[first-order] MLP {name}: {r['solves_per_s']:.1f} solves/s "
+            f"({BATCH} curves, {ms:.1f} ms), mean iters "
+            f"{r['mean_iters']:.2f}, stops {stops}, median final MSE "
+            f"{r['median_mse']:.4e}; float64 card vs CPU on "
+            f"{y64.shape[0]} curves: largest cost gap "
+            f"{r['f64_max_cost_gap']:.3e}, {held}; first 1e-9 apart at "
+            f"iteration {r['f64_first_apart']} (held >= {FO_HORIZON}; -1 "
+            f"never); the 1 + 1e-15 probe parted {len(idx_p)}, first apart "
+            f"at {r['f64_probe_first_apart']}; median MSE card / CPU / "
+            f"probe {med[0]:.4e} / {med[1]:.4e} / {med[2]:.4e}")
+        assert bool(torch.all((first < 0) | (first >= FO_HORIZON))), \
+            f"{key}: a curve apart before iteration {FO_HORIZON}"
+        if few:
+            assert len(idx) <= limit, f"{key}: {len(idx)} curves parted"
+        else:
+            assert med_gap <= FO_MEDIAN_RTOL, f"{key}: median gap {med_gap}"
+        assert bool(torch.all(card[1].succeeded())) and bool(
+            torch.all(cpu[1].succeeded())), key
+    # the bench problem in cost mode: Σ of squared whitened residuals, its
+    # minimum x = y exactly
+    data, x0 = make_prior_batch(BATCH, DIMS, torch.float32, seed=9,
+                                device=dev)
+
+    def prior_cost(x, d):
+        r = (x - d.y) * d.inv_std
+        return torch.sum(r * r)
+    prior_runs = {
+        "adam": to.Options(solver_type=to.Adam, max_iters=1000,
+                           max_consec_failures=0,
+                           adam=to.AdamOptions(lr=0.05)),
+        "lbfgs": to.Options(solver_type=to.LBFGS, max_iters=500,
+                            max_consec_failures=30,
+                            lbfgs=to.LBFGSOptions(memory=10)),
+    }
+    for name, opts in prior_runs.items():
+        key = f"fo_prior_{name}"
+        cuda_cg.cg_solve.launches = 0
+        cuda_solver.fused_solve.launches = 0
+        (x, out), ms = timed(lambda: to.batched_optimize(
+            x0, prior_cost, opts, data_batch=data, mode="cost"))
+        n = path_launches[key] = {"K1": cuda_cg.cg_solve.launches,
+                                  "K2": cuda_solver.fused_solve.launches}
+        assert n == {"K1": 0, "K2": 0}, f"{key}: launches {n}"
+        gap = (x - data.y).abs().max().item()
+        stops = torch.bincount(out.stop_reason.clamp(min=0),
+                               minlength=8).tolist()
+        rec[f"prior_{name}"] = {
+            "ms": ms, "solves_per_s": BATCH / (ms / 1e3),
+            "mean_iters": out.num_iters.float().mean().item(),
+            "stops": stops, "max_abs_x_minus_y": gap}
+        log(f"[first-order] prior-50 cost mode {name}: "
+            f"{BATCH / (ms / 1e3):.1f} solves/s ({ms:.1f} ms), mean iters "
+            f"{out.num_iters.float().mean().item():.2f}, stops {stops}, "
+            f"max|x - y| = {gap:.3e}")
+        assert bool(torch.all(out.succeeded())), key
+        assert gap < 1e-4, f"{key}: max|x - y| = {gap}"
+
+
+def assert_same_solve(a, b, what):
+    """Bit for bit: x, stop reasons, iteration counts and the history."""
+    (xa, oa), (xb, ob) = a, b
+    assert torch.equal(xa, xb), f"{what}: x"
+    for k in ("stop_reason", "num_iters", "num_hist", "errs", "deltas2",
+              "successes"):
+        assert torch.equal(getattr(oa, k), getattr(ob, k)), f"{what}: {k}"
+
+
+def phase9(to, dev, record, path_launches, cuda_cg, cuda_solver):
+    """Segments, a checkpoint and the timeout loop on the main path:
+    prior-50 / 10k / f32, LM through "cg" (K1 each iteration)."""
+    import tempfile
+
+    from tinyopt_tpu_torch import checkpoint as ck
+    from tinyopt_tpu_torch.models.problems import (make_prior_batch,
+                                                   prior_residual)
+    data, x0 = make_prior_batch(BATCH, DIMS, torch.float32, seed=10,
+                                device=dev)
+    d_ex = type(data)(*(a[0] for a in data))
+    opts = bench_options(to, "cg", save_history=True)
+    rec = record["segments"] = {}
+    ref = to.batched_optimize(x0, prior_residual, opts, data_batch=data)
+    seg = ck.segment_solver(prior_residual, opts, x0[0],
+                            iters_per_segment=2, data_example=d_ex)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "segment.pt")
+        seen = []
+
+        def round_trip_once(st):
+            seen.append(1)
+            if len(seen) > 1:
+                return st
+            ck.save_state(path, st)
+            return ck.load_state(path, seg.abstract_state(x0))
+
+        cuda_cg.cg_solve.launches = 0
+        cuda_solver.fused_solve.launches = 0
+        x, out, _ = seg.run(x0, data, on_segment=round_trip_once)
+        torch.cuda.synchronize()
+        n = path_launches["segments_cg"] = {
+            "K1": cuda_cg.cg_solve.launches,
+            "K2": cuda_solver.fused_solve.launches}
+    assert n["K1"] > 0 and n["K2"] == 0, f"segments: launches {n}"
+    assert len(seen) >= 2, "segments: fewer than two segments"
+    assert_same_solve((x, out), ref, "segments with a checkpoint")
+    assert bool(torch.all(out.succeeded()))
+    # segment overhead: the same segments against one solve, both after
+    # the calls above (no first-call work in either)
+    count = []
+    (_, seg_ms) = timed(lambda: seg.run(
+        x0, data, on_segment=lambda st: count.append(1) or st))
+    (_, ref_ms) = timed(lambda: to.batched_optimize(
+        x0, prior_residual, opts, data_batch=data))
+    rec.update(launches=n, segments=len(count), ms=seg_ms,
+               unsegmented_ms=ref_ms,
+               overhead_ms_per_segment=(seg_ms - ref_ms) / len(count),
+               mean_iters=out.num_iters.float().mean().item())
+    log(f"[segments] prior-50 / 10k / f32 cg, 2 iterations a segment: "
+        f"launches {n}; x, stop reasons, iterations and history equal "
+        f"(torch.equal) to one solve, through a save_state / load_state "
+        f"after the first segment; {len(count)} segments {seg_ms:.2f} ms "
+        f"against {ref_ms:.2f} ms unsegmented: overhead "
+        f"{rec['overhead_ms_per_segment']:.3f} ms a segment")
+    # the Stepper: 3 steps + the rollback slot against max_iters=3
+    o3 = opts.replace(max_iters=3)
+    ref3 = to.batched_optimize(x0, prior_residual, o3, data_batch=data)
+    st = to.stepper(prior_residual, o3, x0[0], data_example=d_ex)
+    _, out_s, state = st.step(x0, data_batch=data)
+    iters = out_s.num_iters.clone()
+    for _ in range(o3.max_iters):
+        _, out_s, state = st.step(state=state, data_batch=data)
+        iters += out_s.num_iters
+    running = out_s.stop_reason == int(to.StopReason.MAX_ITERS)
+    xs = torch.where(running[:, None], state.best_x, state.x)
+    assert torch.equal(xs, ref3[0]), "Stepper: x"
+    assert torch.equal(out_s.stop_reason, ref3[1].stop_reason), "Stepper"
+    assert torch.equal(iters, ref3[1].num_iters), "Stepper: iterations"
+    log("[segments] Stepper: 4 steps equal a solve with max_iters=3 "
+        "(x, stop reasons, iterations)")
+    # the timeout loop on one bench instance
+    d0 = type(data)(*(a[0] for a in data))
+
+    def one(x):
+        return prior_residual(x, d0)
+    o1 = bench_options(to, "cg")
+    plain = to.optimize(x0[0], one, o1)
+    tiny = to.optimize(x0[0], one, o1.replace(max_duration_ms=1e-6))
+    assert int(tiny[1].stop_reason) == int(to.StopReason.TIMED_OUT)
+    assert int(tiny[1].num_iters) == 1 and torch.equal(tiny[0], x0[0]), \
+        "timeout: x is the best point after one iteration"
+    generous = to.optimize(x0[0], one, o1.replace(max_duration_ms=1e6))
+    assert torch.equal(generous[0], plain[0]), "timeout: generous budget"
+    assert int(generous[1].stop_reason) == int(plain[1].stop_reason)
+    assert int(generous[1].num_iters) == int(plain[1].num_iters)
+    rec["timeout_ms"] = float(generous[1].duration_ms)
+    log(f"[segments] timeout: max_duration_ms=1e-6 stops TIMED_OUT after 1 "
+        f"iteration at the best point; max_duration_ms=1e6 equals the "
+        f"plain solve ({int(plain[1].num_iters)} iterations, "
+        f"{float(generous[1].duration_ms):.2f} ms host-stepped against "
+        f"{float(plain[1].duration_ms):.2f} ms)")
+
+
+def phase10(to, dev, record, path_launches, cuda_cg, cuda_solver):
+    """Covariance on the flagship: 10,000 SE3 poses x 16 points, f32."""
+    from tinyopt_tpu_torch.models.se3_refinement import (make_se3_refinement,
+                                                         se3_residual)
+    sdata, sx0, _ = make_se3_refinement(BATCH, SE3_K, dtype=torch.float32,
+                                        seed=3, device=dev)
+    rec = record["covariance"] = {}
+    chol = se3_options(to, "cholesky", hessian=to.HessianOptions(
+        solver="cholesky", save_last=True, carry_system=True))
+    cuda_cg.cg_solve.launches = 0
+    cuda_solver.fused_solve.launches = 0
+    xc, outc = to.batched_optimize(sx0, se3_residual, chol, data_batch=sdata)
+    torch.cuda.synchronize()
+    path_launches["cov_cholesky"] = {"K1": cuda_cg.cg_solve.launches,
+                                     "K2": cuda_solver.fused_solve.launches}
+    outc.covariance()                  # untimed: the solver's first call
+    C, cov_ms = timed(lambda: outc.covariance())
+    cuda_cg.cg_solve.launches = 0
+    cuda_solver.fused_solve.launches = 0
+    xf, outf = to.batched_optimize(sx0, se3_residual, se3_options(to),
+                                   data_batch=sdata)
+    torch.cuda.synchronize()
+    n = path_launches["cov_fused"] = {"K1": cuda_cg.cg_solve.launches,
+                                      "K2": cuda_solver.fused_solve.launches}
+    assert n == {"K1": 0, "K2": 1}, f"covariance, fused: launches {n}"
+    to.covariance_at(se3_residual, xf, data_batch=sdata)      # untimed
+    Cf, at_ms = timed(lambda: to.covariance_at(se3_residual, xf,
+                                               data_batch=sdata))
+    assert C.shape == Cf.shape == (BATCH, 6, 6)
+    s64 = type(sdata)(*(a.double() for a in sdata))
+    ref_c = to.covariance_at(se3_residual, pytree_double(xc), data_batch=s64)
+    ref_f = to.covariance_at(se3_residual, pytree_double(xf), data_batch=s64)
+
+    def rel(a, b):
+        return ((a.double() - b).abs().amax(dim=(-2, -1))
+                / b.abs().amax(dim=(-2, -1))).max().item()
+    # limit 1e-3 relative to each instance's largest entry: H⁻¹ of a 6 x 6
+    # JᵀJ in float32 (16 points, poses' lever arms ~1) and, between the two
+    # solves, poses apart by their stopping tolerance
+    gaps = {"cholesky_vs_f64": rel(C, ref_c),
+            "at_fused_vs_f64": rel(Cf, ref_f),
+            "cholesky_vs_at_fused": rel(C, Cf.double())}
+    for k, v in gaps.items():
+        assert v < 1e-3, f"covariance {k}: {v}"
+    Cr = outc.covariance(rescaled=True)
+    scale = (outc.final_cost.cost ** 2 / (3 * SE3_K - 6))[:, None, None]
+    torch.testing.assert_close(Cr, C * scale, rtol=1e-6, atol=0)
+    rec.update(gaps, covariance_ms=cov_ms, covariance_at_ms=at_ms,
+               launches=n)
+    log(f"[covariance] SE3 {SE3_CELL} f32: Output.covariance() (cholesky, "
+        f"save_last) {cov_ms:.3f} ms, covariance_at at the fused (K2) "
+        f"result {at_ms:.3f} ms; largest gap relative to an instance's "
+        f"largest entry: {gaps}; rescaled = cost²/(48 - 6) x covariance")
+
+
+def pytree_double(x):
+    from torch.utils import _pytree as pytree
+    return pytree.tree_map(lambda a: a.double(), x)
+
+
+POWELL_F32_FLOOR = 1e-13
+
+
+def phase11(to, dev, record, path_launches, cuda_cg, cuda_solver):
+    """multi_start_optimize (Powell from 10,000 starts through "cg": the
+    loop and K1) and implicit_solver (1,000 weighted linear fits, float64,
+    through "cg")."""
+    from tinyopt_tpu_torch.models.problems import powell_singular_residuals
+    rec = record["multi_start"] = {}
+    g = torch.Generator(device=dev).manual_seed(11)
+    starts = (torch.tensor(MC_STARTS["powell"], device=dev)
+              + 2.0 * torch.randn((BATCH, 4), generator=g, device=dev))
+    opts = to.Options(max_iters=200, max_consec_failures=0,
+                      hessian=to.HessianOptions(solver="cg"))
+    cuda_cg.cg_solve.launches = 0
+    cuda_solver.fused_solve.launches = 0
+    (xb, ob, outs), ms = timed(lambda: to.multi_start_optimize(
+        starts, powell_singular_residuals, opts))
+    n = path_launches["multi_start_cg"] = {
+        "K1": cuda_cg.cg_solve.launches,
+        "K2": cuda_solver.fused_solve.launches}
+    assert n["K1"] > 0 and n["K2"] == 0, f"multi-start: launches {n}"
+    # the twin: the same starts through the same loop on the CPU, where
+    # cg_solve runs K1's plain twin
+    _, ob_t, outs_t = to.multi_start_optimize(starts.cpu(),
+                                              powell_singular_residuals, opts)
+    best, best_t = float(ob.final_cost.cost), float(ob_t.final_cost.cost)
+    rec.update(ms=ms, starts_per_s=BATCH / (ms / 1e3), best_cost=best,
+               twin_best_cost=best_t, launches=n,
+               succeeded=outs.succeeded().float().mean().item())
+    log(f"[multi-start] Powell, {BATCH} starts through cg: "
+        f"{BATCH / (ms / 1e3):.1f} starts/s ({ms:.1f} ms), launches {n}; "
+        f"best cost {best:.3e} (the twin's on the CPU {best_t:.3e}), "
+        f"succeeded {rec['succeeded']:.4f}")
+    # the selection: the lowest cost of the successful starts
+    assert best == float(torch.where(
+        outs.succeeded(), outs.final_cost.cost,
+        torch.full_like(outs.final_cost.cost, float("inf"))).min())
+    # Powell's singular point is approached linearly, and a float32 solve
+    # stops where the residuals' rounding rules (this phase's two bests
+    # 1.7e-14 and 7.4e-15 on an H100 80GB HBM3, 700 W): below 1e-13 either
+    # best is rounding
+    assert best <= max(best_t, POWELL_F32_FLOOR), \
+        "multi-start best above the twin's"
+
+    # implicit differentiation: 1,000 weighted linear fits, float64
+    B, m, dd = 1000, 12, 3
+    g = torch.Generator(device=dev).manual_seed(12)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, dtype=torch.float64,
+                           device=dev)
+    A, b, target, logw = rnd(B, m, dd), rnd(B, m), rnd(B, dd), 0.3 * rnd(B, m)
+
+    def residual(x, th):
+        Ai, bi, lw = th
+        return torch.exp(lw) * (Ai @ x - bi)
+
+    iopts = to.Options(hessian=to.HessianOptions(solver="cg"))
+
+    def make_solve(device):
+        return to.implicit_solver(residual, iopts,
+                                  x_example=torch.zeros(
+                                      dd, device=device, dtype=torch.float64),
+                                  batched=True)
+
+    def grad_of(solve, device):
+        lw = logw.to(device).clone().requires_grad_(True)
+        th = (A.to(device), b.to(device), lw)
+        x = solve(th, torch.zeros(B, dd, dtype=torch.float64, device=device))
+        torch.sum((x - target.to(device)) ** 2).backward()
+        return lw.grad
+
+    def losses(solve, lwv, device):
+        with torch.no_grad():
+            xv = solve((A.to(device), b.to(device), lwv),
+                       torch.zeros(B, dd, dtype=torch.float64, device=device))
+        return torch.sum((xv - target.to(device)) ** 2, dim=-1)
+
+    # the solver is built at its first call (one AD probe of an instance)
+    # and reused after: that call is untimed, the timed one solves and
+    # differentiates
+    solve = make_solve(dev)
+    grad_of(solve, dev)
+    cuda_cg.cg_solve.launches = 0
+    cuda_solver.fused_solve.launches = 0
+    grad, ms = timed(lambda: grad_of(solve, dev))
+    n = path_launches["implicit_cg"] = {
+        "K1": cuda_cg.cg_solve.launches,
+        "K2": cuda_solver.fused_solve.launches}
+    assert n["K1"] > 0 and n["K2"] == 0, f"implicit: launches {n}"
+    eps = 1e-5
+    fd = torch.stack([
+        (losses(solve, logw + eps * e, dev)
+         - losses(solve, logw - eps * e, dev)) / (2 * eps)
+        for e in torch.eye(m, dtype=torch.float64, device=dev)], dim=-1)
+    grad_cpu = grad_of(make_solve("cpu"), "cpu")
+    scale = grad.abs().max().item()
+    fd_gap = (grad - fd).abs().max().item() / scale
+    cpu_gap = (grad.cpu() - grad_cpu).abs().max().item() / scale
+    record["implicit"] = {"ms": ms, "fd_rel_gap": fd_gap,
+                          "cpu_rel_gap": cpu_gap, "launches": n}
+    log(f"[implicit] {B} weighted linear fits (12 x 3), float64, cg: "
+        f"solve and gradient {ms:.1f} ms (solver built before), launches "
+        f"{n}; gradient against central differences {fd_gap:.3e}, against "
+        f"the CPU's {cpu_gap:.3e} (relative to max|g|)")
+    assert fd_gap < 1e-5 and cpu_gap < 1e-5, "implicit gradient"
+
+
+def phase12(to, dev, record, path_launches, cuda_cg, cuda_solver):
+    """The log and failure lines of a 3-instance LM solve (float64, cg; the
+    third instance's data NaN) on the card against the same solve on the
+    CPU, and a stop callback stopping both at the same iteration."""
+    import contextlib
+    import io
+    import re
+
+    from tinyopt_tpu_torch.models.problems import (make_prior_batch,
+                                                   prior_residual)
+    data, x0 = make_prior_batch(3, 4, torch.float64, seed=13, device="cpu")
+    data.y[2, 0] = float("nan")
+    opts = to.Options(max_iters=8, log=to.LogOptions(enable=True,
+                                                     print_failure=True),
+                      hessian=to.HessianOptions(solver="cg"))
+    num = re.compile(r"[-+]?\d+\.?\d*(?:e[-+]?\d+)?|nan|inf")
+
+    def run(device, o):
+        buf = io.StringIO()
+        d = type(data)(*(a.to(device) for a in data))
+        with contextlib.redirect_stdout(buf):
+            x, out = to.batched_optimize(x0.to(device), prior_residual, o,
+                                         data_batch=d)
+        return buf.getvalue().splitlines(), out
+
+    cuda_cg.cg_solve.launches = 0
+    cuda_solver.fused_solve.launches = 0
+    lines, out = run(dev, opts)
+    n = path_launches["log_cg"] = {"K1": cuda_cg.cg_solve.launches,
+                                   "K2": cuda_solver.fused_solve.launches}
+    assert n["K1"] > 0, f"log: launches {n}"
+    lines_cpu, out_cpu = run("cpu", opts)
+    assert len(lines) == len(lines_cpu) > 3, (len(lines), len(lines_cpu))
+    assert sum(l.startswith("FAILURE") for l in lines) == 1
+    for a, c in zip(lines, lines_cpu):
+        assert num.sub("#", a) == num.sub("#", c), (a, c)
+        va = [float(v) for v in num.findall(a)]
+        vc = [float(v) for v in num.findall(c)]
+        # printed to 2-4 significant digits: a last-digit flip is rounding
+        assert all(abs(p - q) <= 1e-3 * max(abs(p), abs(q)) + 1e-300
+                   or (p != p and q != q) for p, q in zip(va, vc)), (a, c)
+    assert torch.equal(out.stop_reason.cpu(), out_cpu.stop_reason)
+    # a stop callback: USER_STOPPED at the same iteration on both
+    cb = to.Options(max_iters=20, hessian=to.HessianOptions(solver="cg"),
+                    min_rerr_dec=0.0,
+                    stop_callback=lambda e, dx2, g2: e < 1e-6)
+    d2, x2 = make_prior_batch(3, 4, torch.float64, seed=14, device="cpu")
+    got = to.batched_optimize(x2.to(dev), prior_residual, cb,
+                              data_batch=type(d2)(*(a.to(dev) for a in d2)))
+    ref = to.batched_optimize(x2, prior_residual, cb, data_batch=d2)
+    assert bool((got[1].stop_reason == int(to.StopReason.USER_STOPPED)).all())
+    assert torch.equal(got[1].stop_reason.cpu(), ref[1].stop_reason)
+    assert torch.equal(got[1].num_iters.cpu(), ref[1].num_iters)
+    record["log"] = {"lines": len(lines), "launches": n,
+                     "callback_iters": got[1].num_iters.tolist()}
+    for line in lines:
+        log(f"[log] {line}")
+    log(f"[log] {len(lines)} lines on the card, the CPU's count and fields; "
+        f"stop_callback: USER_STOPPED at iterations "
+        f"{got[1].num_iters.tolist()} on both")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -423,28 +979,33 @@ def main() -> int:
         log(f"[K1] {B}x{d}x{d} float64 iters=20: max err {err:.3e}")
         assert err <= 1e-11 * max(1.0, xt.abs().max().item()), "K1 large d"
 
-    # K1 on the flagship's cg path: 10k systems of d = 6, cg_iters 0 -> 6
-    # iterations (the tangent dimension)
-    for dtype in (torch.float32, torch.float64):
-        H, b = spd(BATCH, 6, dtype)
-        xk = cuda_cg.cg_solve(H, b, 6)
-        xt = solve_psd_cg(H, b, 6)
+    # K1 on the flagship's cg path (10k systems of d = 6) and on the curve
+    # fits' (d = 2): cg_iters 0, so d iterations (the tangent dimension)
+    for d, dtype in ((6, torch.float32), (6, torch.float64),
+                     (2, torch.float32), (2, torch.float64)):
+        H, b = spd(BATCH, d, dtype)
+        xk = cuda_cg.cg_solve(H, b, d)
+        xt = solve_psd_cg(H, b, d)
         err = (xk - xt).abs().max().item()
         scale = xt.abs().max().item()
-        assert err <= k1_tol[dtype] * max(1.0, scale), "K1 at d = 6"
+        assert err <= k1_tol[dtype] * max(1.0, scale), f"K1 at d = {d}"
         tag = "" if dtype == torch.float32 else "_f64"
-        k1[f"d6_ms{tag}"] = gpu_ms(lambda: cuda_cg.cg_solve(H, b, 6), n=20)
-        k1[f"d6_plain_ms{tag}"] = gpu_ms(lambda: solve_psd_cg(H, b, 6), n=5)
-        k1[f"d6_bound_ms{tag}"], k1[f"d6_bound_by{tag}"] = k1_bound(
-            BATCH, 6, 6, H.element_size())
-        k1[f"d6_share{tag}"] = k1[f"d6_bound_ms{tag}"] / k1[f"d6_ms{tag}"]
-        k1[f"d6_max_abs_err{tag}"] = err
-        log(f"[K1] {BATCH}x6x6 {dtype} iters=6 "
-            f"({cuda_cg.k1_launch_plan(BATCH, 6, H.element_size(), H.data_ptr())}"
+        k1[f"d{d}_ms{tag}"] = gpu_ms(lambda: cuda_cg.cg_solve(H, b, d), n=20)
+        k1[f"d{d}_plain_ms{tag}"] = gpu_ms(lambda: solve_psd_cg(H, b, d), n=5)
+        k1[f"d{d}_bound_ms{tag}"], k1[f"d{d}_bound_by{tag}"] = k1_bound(
+            BATCH, d, d, H.element_size())
+        k1[f"d{d}_share{tag}"] = (k1[f"d{d}_bound_ms{tag}"]
+                                  / k1[f"d{d}_ms{tag}"])
+        k1[f"d{d}_max_abs_err{tag}"] = err
+        plan = cuda_cg.k1_launch_plan(BATCH, d, H.element_size(),
+                                      H.data_ptr())
+        log(f"[K1] {BATCH}x{d}x{d} {dtype} iters={d} ({plan}"
             f"): max|x_k - x_twin| = {err:.3e} (max|x| {scale:.3e}); kernel "
-            f"{k1[f'd6_ms{tag}']:.4f} ms, twin {k1[f'd6_plain_ms{tag}']:.4f} "
-            f"ms; bound {k1[f'd6_bound_ms{tag}']:.4f} ms "
-            f"({k1[f'd6_bound_by{tag}']}), share {k1[f'd6_share{tag}']:.3f}")
+            f"{k1[f'd{d}_ms{tag}']:.4f} ms, twin "
+            f"{k1[f'd{d}_plain_ms{tag}']:.4f} ms; bound "
+            f"{k1[f'd{d}_bound_ms{tag}']:.4f} ms "
+            f"({k1[f'd{d}_bound_by{tag}']}), share "
+            f"{k1[f'd{d}_share{tag}']:.3f}")
 
     # ---- 4. K2 against its twin ----
     def k2_pair(fn, opts, x0, data=None):
@@ -1143,6 +1704,9 @@ def main() -> int:
         log(f"[curves] {name}: {rec['solves_per_s']:.1f} solves/s (2 reps x "
             f"{BATCH}, ms {times})")
 
+    for phase in (phase8, phase9, phase10, phase11, phase12):
+        phase(to, dev, record, path_launches, cuda_cg, cuda_solver)
+
     kernels = [
         {"name": "K1 cg_warp_kernel", "route": "cuda",
          "source": "tinyopt_tpu_torch/csrc/cg.cu",
@@ -1162,6 +1726,10 @@ def main() -> int:
          "d6_plain_ms": k1["d6_plain_ms"], "d6_bound_ms": k1["d6_bound_ms"],
          "d6_bound_by": k1["d6_bound_by"], "d6_share": k1["d6_share"],
          "d6_share_f64": k1["d6_share_f64"],
+         "d2_ms": k1["d2_ms"], "d2_ms_f64": k1["d2_ms_f64"],
+         "d2_plain_ms": k1["d2_plain_ms"], "d2_bound_ms": k1["d2_bound_ms"],
+         "d2_bound_by": k1["d2_bound_by"], "d2_share": k1["d2_share"],
+         "d2_share_f64": k1["d2_share_f64"],
          "curve_launches": {p: n["K1"] for p, n in path_launches.items()
                             if p.startswith("curve_")}},
         {"name": "K2 solver_seg_kernel", "route": "cuda",

@@ -110,8 +110,12 @@ def test_port_never_imports_jax():
         "opts = to.Options(save_history=False, hessian=to.HessianOptions("
         "solver='fused', carry_system=False, save_last=False))\n"
         "to.batched_optimize(x0, prior_residual, opts, data_batch=data)\n"
+        "import tinyopt_tpu_torch.models.nn\n"
+        "to.lbfgs.optimize(torch.zeros(2),"
+        " lambda x: torch.sum((x - 1) ** 2))\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules"
         " if m.startswith('jax'))\n"
+        "assert 'tinyopt_tpu' not in sys.modules\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

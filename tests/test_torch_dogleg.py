@@ -181,8 +181,8 @@ def test_batched_dogleg_prior_matches_reference(solver, dtype):
 
 
 def test_method_namespaces():
-    """``tinyopt_tpu._methods``'s eight namespaces; the first-order ones
-    exist and raise until their solvers are ported."""
+    """``tinyopt_tpu._methods``'s eight namespaces, the first-order ones
+    held to the JAX package's solves."""
     for name in ("lm", "gn", "gd", "sgd", "adam", "adamw", "lbfgs",
                  "dogleg"):
         assert getattr(to, name).solver_type.name \
@@ -193,9 +193,17 @@ def test_method_namespaces():
     x, out = to.dogleg.optimize(torch.tensor(1.0, dtype=torch.float64),
                                 tp.sqrt2_residual)
     assert bool(out.converged()) and abs(float(x) - 2 ** 0.5) < 1e-6
+    # the first-order namespaces solve as the JAX package's do (a 0-d
+    # residual is a scalar cost for them: minimize x² − 2)
     for name in ("gd", "sgd", "adam", "adamw", "lbfgs"):
-        with pytest.raises(NotImplementedError):
-            getattr(to, name).optimize(torch.tensor(1.0), tp.sqrt2_residual)
+        xr, outr = getattr(jto, name).optimize(jnp.asarray(1.0),
+                                               jp.sqrt2_residual)
+        x, out = getattr(to, name).optimize(
+            torch.tensor(1.0, dtype=torch.float64), tp.sqrt2_residual)
+        np.testing.assert_allclose(float(x), float(xr), rtol=1e-10,
+                                   atol=1e-12, err_msg=name)
+        assert int(out.num_iters) == int(outr.num_iters), name
+        assert int(out.stop_reason) == int(outr.stop_reason), name
     # an unknown mode raises the JAX package's ValueError, as does a
     # scalar cost for the dogleg (tinyopt_tpu/optimize.py:147-152)
     for mode in ("cost_grad", "cost"):

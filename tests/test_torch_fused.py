@@ -16,6 +16,7 @@ from tinyopt_tpu.models.problems import \
 from tinyopt_tpu.models.problems import prior_residual as j_prior
 from tinyopt_tpu.ops.coloring import detect_diag_coloring as j_detect
 from tinyopt_tpu.ops.pallas_solver import fused_batched_solver as j_fused
+from tinyopt_tpu.parallel.batched import batched_solver as j_batched_solver
 
 import tinyopt_tpu_torch as to
 from tinyopt_tpu_torch import manifold as mf
@@ -371,7 +372,7 @@ def test_fused_print_failure_matches_pallas_kernel(capsys):
     """``log.print_failure`` does not take the fused path out of its
     envelope: the twin gives the x, stop reasons and iterations it gives
     without it, prints nothing, and matches the JAX fused kernel run with
-    the same option; the loop still raises for it (slice B item 11)."""
+    the same option; the cg loop serves it as the JAX loop does."""
     y, inv, x0 = _prior(8, 3, np.float64, 4)
     opts = _opts(log=jto.LogOptions(print_failure=True))
     jd = JPrior(y=jnp.asarray(y), inv_std=jnp.asarray(inv))
@@ -393,10 +394,23 @@ def test_fused_print_failure_matches_pallas_kernel(capsys):
     assert_parity(ref, got)
     np.testing.assert_array_equal(got[1].stop_reason.numpy(),
                                   np.asarray(ref[1].stop_reason))
-    with pytest.raises(NotImplementedError):
-        to.batched_optimize(tx, prior_residual, options_from_reference(
-            _opts(log=jto.LogOptions(print_failure=True),
-                  hessian=dict(solver="cg"))), data_batch=td)
+    # the cg loop serves print_failure: the JAX loop's result, and no line
+    # where no instance fails (the JAX loop under vmap prints a line for
+    # every instance: its lax.cond is a select there)
+    opts_cg = _opts(log=jto.LogOptions(print_failure=True),
+                    hessian=dict(solver="cg"))
+    ref_cg = jax.jit(j_batched_solver(
+        j_prior, opts_cg, "residuals", jnp.asarray(x0[0]),
+        jax.tree_util.tree_map(lambda a: a[0], jd)))(jnp.asarray(x0), jd)
+    jax.effects_barrier()
+    capsys.readouterr()
+    got_cg = to.batched_optimize(tx, prior_residual,
+                                 options_from_reference(opts_cg),
+                                 data_batch=td)
+    assert capsys.readouterr().out == ""
+    assert_parity(ref_cg, got_cg)
+    np.testing.assert_array_equal(got_cg[1].stop_reason.numpy(),
+                                  np.asarray(ref_cg[1].stop_reason))
 
 
 @pytest.mark.cuda

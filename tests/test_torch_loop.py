@@ -223,15 +223,46 @@ def test_batched_jennrich_sampson_matches_reference(solver, dtype):
     assert int(got[1].num_failures.sum()) > 0
 
 
-@pytest.mark.parametrize("opts", [
-    to.Options(solver_type=to.SolverType.GRADIENT_DESCENT),
-    to.Options(log=to.LogOptions(enable=True)),
-    to.Options(stop_callback=lambda e, d, g: False),
-    to.Options(max_duration_ms=10.0),
+def _probe_jax_callbacks(capsys):
+    """Run the JAX loop's one-time host-callback probe (it prints a line
+    of its own) and drop what it printed."""
+    from tinyopt_tpu.optimizers.loop import _callbacks_supported
+    assert _callbacks_supported()
+    jax.effects_barrier()
+    capsys.readouterr()
+
+
+@pytest.mark.parametrize("kw", [
+    dict(solver_type=jto.GradientDescent),
+    dict(log=jto.LogOptions(enable=True)),
+    dict(stop_callback=lambda e, d, g: e < 1e-3),
+    dict(max_duration_ms=1e-9),
 ], ids=["gd", "log", "callback", "timeout"])
-def test_unported_options_raise(opts):
-    with pytest.raises(NotImplementedError):
-        to.optimize(torch.tensor(1.0), sqrt2_residual, opts)
+def test_unported_options_raise(kw, capsys):
+    """Options the loop once refused now give the JAX package's result on
+    sqrt2: GD in cost mode, the log lines (the same text), a stop
+    callback (USER_STOPPED at the same iteration) and a budget far below
+    one iteration (TIMED_OUT after the first, at its best point)."""
+    opts = jto.Options(**kw)
+    _probe_jax_callbacks(capsys)
+    xr, outr = jto.optimize(jnp.asarray(1.0), j_sqrt2, opts)
+    jax.effects_barrier()
+    ref_text = capsys.readouterr().out
+    x, out = to.optimize(torch.tensor(1.0, dtype=torch.float64),
+                         sqrt2_residual, options_from_reference(opts))
+    assert capsys.readouterr().out == ref_text
+    np.testing.assert_allclose(float(x), float(xr), rtol=1e-12)
+    assert int(out.stop_reason) == int(outr.stop_reason)
+    assert int(out.num_iters) == int(outr.num_iters)
+    np.testing.assert_allclose(out.errs_list, outr.errs_list, rtol=1e-9,
+                               atol=1e-15)
+    if "log" in kw:
+        assert ref_text.count("\n") == int(outr.num_iters) == 5
+    if "stop_callback" in kw:
+        assert int(out.stop_reason) == int(to.StopReason.USER_STOPPED)
+    if "max_duration_ms" in kw:
+        assert int(out.stop_reason) == int(to.StopReason.TIMED_OUT)
+        assert int(out.num_iters) == 1 and float(x) == 1.0
 
 
 _ZERO = dict(min_error=0, min_rerr_dec=0, min_step_norm2=0, min_grad_norm2=0)
@@ -305,3 +336,145 @@ def test_batch_of_one_and_start_sweep_match_single_solves():
     xs, outs = to.batched_optimize(starts, sqrt2_residual, opts)
     assert bool(torch.all(outs.converged()))
     assert float(torch.max(torch.abs(xs - 2 ** 0.5))) < 1e-5
+
+
+def _jax_lines(capsys, run):
+    _probe_jax_callbacks(capsys)
+    res = run()
+    jax.effects_barrier()
+    return res, capsys.readouterr().out.splitlines()
+
+
+_LOG_VARIANTS = {
+    "x_dx": dict(print_x=True, print_dx=True),
+    "inliers_sigma": dict(print_inliers=True, print_max_stdev=True, e="E"),
+    "emoji": dict(print_emoji=True),
+    "tau": dict(print_t=True),
+    "jacobian": dict(print_J_jet=True),
+}
+
+
+@pytest.mark.parametrize("variant", list(_LOG_VARIANTS))
+def test_log_options_match_reference(variant, capsys):
+    """One instance: the port prints the JAX package's lines, character
+    for character (τ, a host clock, is compared by its presence)."""
+    import re
+    y = np.array([0.3, -0.7, 1.1])
+    s = np.array([2.0, 1.0, 0.5])
+    opts = jto.Options(log=jto.LogOptions(enable=True,
+                                          **_LOG_VARIANTS[variant]))
+    (xr, outr), ref = _jax_lines(capsys, lambda: jto.optimize(
+        jnp.asarray([1.0, 2.0, 3.0]),
+        lambda x: jnp.sin(x - jnp.asarray(y)) * jnp.asarray(s), opts))
+    x, out = to.optimize(torch.tensor([1.0, 2.0, 3.0], dtype=torch.float64),
+                         lambda x: torch.sin(x - torch.from_numpy(y))
+                         * torch.from_numpy(s), options_from_reference(opts))
+    got = capsys.readouterr().out.splitlines()
+    assert int(out.num_iters) == int(outr.num_iters)
+    if variant == "tau":
+        tau = re.compile(r" τ:[0-9.]+$")
+        assert all(tau.search(l) for l in got + ref)
+        got = [tau.sub("", l) for l in got]
+        ref = [tau.sub("", l) for l in ref]
+    if variant in ("x_dx", "jacobian"):
+        # printed arrays: a zero's sign (XLA's -0. where torch gives 0.)
+        # shifts numpy's alignment; compare the text without spaces and
+        # the numbers as numbers (-0.0 == 0.0)
+        num = re.compile(r"[-+]?\d+\.?\d*(?:e[-+]?\d+)?")
+
+        def fields(lines):
+            return [(num.sub("#", l).replace(" ", ""),
+                     [float(v) for v in num.findall(l)]) for l in lines]
+        got, ref = fields(got), fields(ref)
+    assert got == ref
+    if variant != "jacobian":
+        assert len(got) == int(out.num_iters)
+
+
+def test_log_lines_batched_match_vmap(capsys):
+    """A batch of 3: the port prints, each iteration, one line per ACTIVE
+    instance in instance order; the JAX loop under vmap prints one for
+    every instance, stopped ones included (their frozen state evaluated
+    again).  Removing those, the texts are equal."""
+    y, inv, x0 = _prior_inputs(3, 2, np.float64, 5)
+    x0[1] = y[1]                                   # stops at once
+    opts = _opts(jto.LevenbergMarquardt, "cholesky", max_iters=8,
+                 min_rerr_dec=0.0, min_error=1e-20,
+                 log=jto.LogOptions(enable=True))
+    jd = JPrior(y=jnp.asarray(y), inv_std=jnp.asarray(inv))
+    solve = jax.jit(j_batched_solver(
+        j_prior, opts, "residuals", jnp.asarray(x0[0]),
+        jax.tree_util.tree_map(lambda a: a[0], jd)))
+    (xr, outr), ref = _jax_lines(capsys, lambda: solve(jnp.asarray(x0), jd))
+    got_x, got_out = to.batched_optimize(
+        torch.from_numpy(x0), prior_residual, options_from_reference(opts),
+        data_batch=prior_problem_from_numpy(y, inv, device="cpu",
+                                            dtype=torch.float64))
+    got = capsys.readouterr().out.splitlines()
+    iters = np.asarray(outr.num_iters)
+    assert len(set(iters.tolist())) > 1
+    active = [line for i, line in enumerate(ref)
+              if i // 3 < iters[i % 3]]
+    assert got == active
+    assert len(got) == int(got_out.num_iters.sum())
+
+
+def test_print_failure_matches_reference(capsys):
+    """A residual that turns NaN after the first accepted step: one
+    FAILURE line, the JAX package's, then SYSTEM_HAS_NAN_OR_INF."""
+    opts = jto.Options(log=jto.LogOptions(print_failure=True))
+    (xr, outr), ref = _jax_lines(capsys, lambda: jto.optimize(
+        jnp.asarray(1.0), lambda x: jnp.where(x > 1.2, jnp.nan, x * x - 2.0),
+        opts))
+    x, out = to.optimize(
+        torch.tensor(1.0, dtype=torch.float64),
+        lambda x: torch.where(x > 1.2, torch.full_like(x, float("nan")),
+                              x * x - 2.0), options_from_reference(opts))
+    got = capsys.readouterr().out.splitlines()
+    assert got == ref and len(got) == 1 and got[0].startswith("FAILURE #1")
+    assert int(out.stop_reason) == int(outr.stop_reason) \
+        == int(to.StopReason.SYSTEM_HAS_NAN_OR_INF)
+    assert float(x) == float(xr)
+
+
+@pytest.mark.parametrize("which", ["stop_callback", "stop_callback2"])
+def test_stop_callbacks_match_reference(which):
+    """A per-instance callback, vmapped over the batch with torch.func as
+    the JAX loop's is under vmap: USER_STOPPED at the same iteration, per
+    instance."""
+    if which == "stop_callback":
+        cb = lambda e, d, g: e < 1e-2                     # noqa: E731
+    else:
+        cb = lambda e, dx, g: (g * g).sum() < 1e-1        # noqa: E731
+    opts = _opts(jto.LevenbergMarquardt, "cholesky", max_iters=20,
+                 min_rerr_dec=0.0, **{which: cb})
+    ref, got = _run_prior(opts, B=6, d=4, seed=9)
+    assert_parity(ref, got)
+    np.testing.assert_array_equal(got[1].stop_reason.numpy(),
+                                  np.asarray(ref[1].stop_reason))
+    assert bool((got[1].stop_reason
+                 == int(to.StopReason.USER_STOPPED)).all())
+
+
+@pytest.mark.cuda
+def test_log_lines_on_gpu(capsys):
+    """The log and failure lines of a batch on the card: the CPU's count
+    and text (float64, "cg" through K1; the third instance's data NaN)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K1 is a CUDA kernel)")
+    y, inv, x0 = _prior_inputs(3, 4, np.float64, 21)
+    y[2, 0] = np.nan
+    opts = to.Options(max_iters=8, hessian=to.HessianOptions(solver="cg"),
+                      log=to.LogOptions(enable=True, print_failure=True))
+
+    def run(device):
+        to.batched_optimize(torch.from_numpy(x0).to(device), prior_residual,
+                            opts, data_batch=prior_problem_from_numpy(
+                                y, inv, device=device, dtype=torch.float64))
+        return capsys.readouterr().out.splitlines()
+
+    capsys.readouterr()
+    gpu, cpu = run("cuda"), run("cpu")
+    assert len(gpu) == len(cpu) > 3
+    assert sum(l.startswith("FAILURE") for l in gpu) == 1
+    assert [l.split(" ")[0] for l in gpu] == [l.split(" ")[0] for l in cpu]

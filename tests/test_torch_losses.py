@@ -525,9 +525,17 @@ def test_mode_dispatch():
                         2) == "acc"
     assert _detect_mode(lambda v: (v.sum(), v, torch.eye(3)), x, opts,
                         2) == "residuals"
-    with pytest.raises(NotImplementedError):
-        to.optimize(x, lambda v: (v.sum(), v), to.Options(
-            solver_type=to.SolverType.GRADIENT_DESCENT))
+    # GD on a 2-element manual accumulation (cost, grad) solves as the JAX
+    # package's does
+    jo = jto.Options(solver_type=jto.GradientDescent)
+    xr, outr = jto.optimize(jnp.asarray([1.0, 2.0]), lambda v: (v.sum(), v),
+                            jo)
+    xg, outg = to.optimize(x, lambda v: (v.sum(), v),
+                           options_from_reference(jo))
+    np.testing.assert_allclose(xg.numpy(), np.asarray(xr), rtol=1e-12)
+    assert int(outg.num_iters) == int(outr.num_iters)
+    assert int(outg.stop_reason) == int(outr.stop_reason)
+    np.testing.assert_allclose(outg.errs_list, outr.errs_list, rtol=1e-12)
 
 
 @pytest.mark.parametrize("name", ["rosenbrock_cost", "plateau_cost",

@@ -6,22 +6,31 @@ TPU kernels are hand-written CUDA kernels for Hopper (``csrc/``): K1, the
 batched Jacobi-PCG (``ops/cuda_cg.py``), and K2, the whole batched
 GN / LM / DogLeg solve (``ops/cuda_solver.py``).  ``losses`` holds the
 norms and robust M-estimators, ``diff`` the automatic and numerical
-differentiation and the gradient checker.  It never imports JAX.
+differentiation and the gradient checker; the first-order solvers, the
+segmented solve (``checkpoint``), covariance recovery and implicit
+differentiation (``implicit``) run on the same loop.  It never imports
+JAX.
 
     import torch, tinyopt_tpu_torch as to
     x, out = to.optimize(torch.tensor(1.0), lambda x: x * x - 2)
     x, out = to.dogleg.optimize(torch.tensor([-1.2, 1.0]), fn)
+    x, out = to.adam.optimize(x0, lambda x: torch.sum((x - 1) ** 2))
 """
 
-from . import diff, losses
+from . import checkpoint, diff, implicit, losses
+from .checkpoint import Stepper, stepper
 from .cost import Cost
-from .optimize import build_solver, optimize
-from .options import (LBFGS, SGD, Adam, AdamW, CostScalingOptions, DogLeg,
-                      GaussNewton, GradientDescent, HessianOptions,
+from .implicit import implicit_solver
+from .optimize import (Optimize, build_solver, covariance_at,
+                       multi_start_optimize, optimize)
+from .options import (LBFGS, SGD, Adam, AdamOptions, AdamW,
+                      CostScalingOptions, DogLeg, GaussNewton, GDOptions,
+                      GradientDescent, HessianOptions, LBFGSOptions,
                       LevenbergMarquardt, LMOptions, LogOptions, Options,
-                      SolverType)
+                      SGDOptions, SolverType)
 from .output import Output
 from .parallel.batched import batched_optimize, batched_solver
+from .profiling import dispatch_floor, profile_iterations
 from .stop_reasons import StopReason, stop_reason_description
 
 # Namespace products mirroring the reference (optimizers/{nlls,unconstrained}.h)
@@ -38,11 +47,14 @@ nlls = _m.lm
 unconstrained = _m.gd
 
 __all__ = [
-    "Adam", "AdamW", "Cost", "CostScalingOptions", "DogLeg", "GaussNewton",
-    "GradientDescent", "HessianOptions", "LBFGS", "LMOptions",
-    "LevenbergMarquardt", "LogOptions", "Options", "Output", "SGD",
-    "SolverType", "StopReason", "adam", "adamw", "batched_optimize",
-    "batched_solver", "build_solver", "diff", "dogleg", "gd", "gn", "lbfgs",
-    "lm", "losses",
-    "nlls", "optimize", "sgd", "stop_reason_description", "unconstrained",
+    "Adam", "AdamOptions", "AdamW", "Cost", "CostScalingOptions", "DogLeg",
+    "GDOptions", "GaussNewton", "GradientDescent", "HessianOptions",
+    "LBFGS", "LBFGSOptions", "LMOptions", "LevenbergMarquardt", "LogOptions",
+    "Optimize", "Options", "Output", "SGD", "SGDOptions", "SolverType",
+    "StopReason", "Stepper", "adam", "adamw", "batched_optimize",
+    "batched_solver", "build_solver", "checkpoint", "covariance_at", "diff",
+    "dispatch_floor", "dogleg", "gd", "gn", "implicit", "implicit_solver",
+    "lbfgs", "lm", "losses", "multi_start_optimize", "nlls", "optimize",
+    "profile_iterations", "sgd", "stepper", "stop_reason_description",
+    "unconstrained",
 ]

@@ -3,9 +3,9 @@
 Counterpart of ``tinyopt_tpu._methods``, mirroring the reference namespace
 products ``tinyopt::lm/gn/gd::Optimizer`` and the aliases ``nlls`` (= lm)
 and ``unconstrained`` (= gd) (reference: include/tinyopt/optimizers/
-{lm,gn,gd,nlls,unconstrained}.h).  The first-order namespaces exist; their
-solvers are not ported yet, so calling them raises ``NotImplementedError``
-(optimizers/loop.check_loop_supported).
+{lm,gn,gd,nlls,unconstrained}.h); the first-order namespaces (``gd``,
+``sgd``, ``adam``, ``adamw``, ``lbfgs``) run ``solvers/first_order.py``
+in the same loop.
 """
 
 from __future__ import annotations

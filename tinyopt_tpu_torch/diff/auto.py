@@ -8,7 +8,8 @@ instance is differentiated on its tangent space, as δ ↦ r(x ⊞ δ) at δ = 0
 ``accumulate(x) -> (H, g, Cost)`` and ``evaluate(x) -> Cost`` closures over
 flat (B, P) parameters for the optimizer loop; H is (B, D, D) and g
 (B, D).  ``make_acc_system`` wraps a user's manual accumulation function
-of one instance the same way.
+of one instance the same way, and ``make_cost_system`` a scalar cost (the
+first-order solvers), differentiated in reverse mode.
 """
 
 from __future__ import annotations
@@ -69,7 +70,7 @@ def num_residuals(residual_fn, x_example, data_example=None) -> int:
 
 
 def make_nlls_system(residual_fn, x_example, spec: mf.TangentSpec,
-                     data_batch=None, data_example=None):
+                     data_batch=None, data_example=None, print_J=False):
     """Batched (accumulate, evaluate, n_res) for the NLLS path.
 
     accumulate(x) -> (H, g, Cost) with H = JᵀJ (B, D, D), g = JᵀR (B, D)
@@ -77,6 +78,8 @@ def make_nlls_system(residual_fn, x_example, spec: mf.TangentSpec,
     parameters x (B, P), J the tangent Jacobian of δ ↦ r(x ⊞ δ) at
     δ = 0.  evaluate(x) computes the cost only.  With
     ``data_batch``, ``residual_fn(x, data)`` receives each instance's data.
+    ``print_J=True`` prints each instance's J on every accumulation
+    (``options.log.print_J_jet``, reference optimize_autodiff.h:158-161).
     """
     has_data = data_batch is not None
     n_res = num_residuals(residual_fn, x_example, data_example)
@@ -98,6 +101,9 @@ def make_nlls_system(residual_fn, x_example, spec: mf.TangentSpec,
         # tensor times a Python float (``x1 + 10.0 * x2`` of an unpacked
         # x), so J is cast to the parameters' type
         J = J.to(x.dtype)
+        if print_J:
+            for Jb in J.detach().cpu().numpy():
+                print(f"J:{Jb}", flush=True)
         g = torch.matmul(J.mT, r[..., None])[..., 0]
         H = torch.matmul(J.mT, J)
         return H, g, Cost.make(torch.sum(r * r, dim=-1), n_res)
@@ -107,6 +113,51 @@ def make_nlls_system(residual_fn, x_example, spec: mf.TangentSpec,
         return Cost.make(torch.sum(r * r, dim=-1), n_res)
 
     return accumulate, evaluate, n_res
+
+
+def make_cost_system(cost_fn, x_example, spec: mf.TangentSpec,
+                     data_batch=None, data_example=None):
+    """Batched (accumulate, evaluate, n_res=1) of a scalar cost of one
+    instance, for the first-order solvers.
+
+    accumulate(x) -> (None, g, Cost): the gradient of δ ↦ c(x ⊞ δ) at
+    δ = 0 by reverse mode (``torch.func.grad`` under ``torch.func.vmap``;
+    one pass whatever the dimension), for flat parameters x (B, P).  A
+    cost function whose output is not a scalar raises ``ValueError``, as
+    in ``tinyopt_tpu.diff.auto.make_cost_system``."""
+    out = (cost_fn(x_example) if data_example is None
+           else cost_fn(x_example, data_example))
+    leaves = pytree.tree_leaves(out)
+    if leaves and any(torch.as_tensor(l).numel() != 1 for l in leaves):
+        shapes = [tuple(torch.as_tensor(l).shape) for l in leaves]
+        raise ValueError(
+            "GradientDescent / first-order optimization requires a scalar "
+            "cost function (reference: optimize.h:59-72); got non-scalar "
+            f"output {shapes}. Use LM/GN for residual vectors.")
+    has_data = data_batch is not None
+    extra = (data_batch,) if has_data else ()
+
+    def c1(xv, *data):
+        return flatten_residuals(
+            cost_fn(mf.unflatten(xv, spec), *data)).reshape(())
+
+    def c_of_delta(delta, xv, *data):
+        c = c1(mf.retract_flat(xv, delta, spec), *data)
+        return c, c
+
+    grad = torch.func.vmap(torch.func.grad(c_of_delta, has_aux=True))
+    value = torch.func.vmap(c1)
+
+    def accumulate(x):
+        zero = torch.zeros((x.shape[0], spec.dims), dtype=x.dtype,
+                           device=x.device)
+        g, c = grad(zero, x, *extra)
+        return None, g.to(spec.dtype), Cost.make(c, 1)
+
+    def evaluate(x):
+        return Cost.make(value(x, *extra), 1)
+
+    return accumulate, evaluate, 1
 
 
 def _as_cost(c) -> Cost:

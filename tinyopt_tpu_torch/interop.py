@@ -6,7 +6,8 @@ groups and the solver-type enum included.  ``prior_problem_from_numpy``,
 ``so3_from_numpy``, ``se3_from_numpy`` and
 ``se3_refinement_data_from_numpy`` build the port's problems and poses
 from host arrays, e.g. the ones a JAX ``PriorProblem``, ``SO3`` or ``SE3``
-holds after ``np.asarray``.
+holds after ``np.asarray``; ``perceptron_from_numpy`` the perceptron's
+parameter dict (``models/nn.py``).
 """
 
 from __future__ import annotations
@@ -60,6 +61,14 @@ def prior_problem_from_numpy(y, inv_std, device="cuda",
         y=torch.as_tensor(np.asarray(y), dtype=dtype, device=device),
         inv_std=torch.as_tensor(np.asarray(inv_std), dtype=dtype,
                                 device=device))
+
+
+def perceptron_from_numpy(params, device="cuda",
+                          dtype=torch.float32) -> dict:
+    """The perceptron's parameters ``{"W", "b"}`` (inserted in sorted key
+    order, the JAX package's layout) on ``device`` from a mapping of host
+    arrays, e.g. ``tinyopt_tpu.models.nn.init_perceptron``'s."""
+    return {k: _tensor(params[k], device, dtype) for k in sorted(params)}
 
 
 def _tensor(a, device, dtype):

@@ -177,6 +177,29 @@ def retract_flat(x: torch.Tensor, delta: torch.Tensor,
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
 
 
+def local_flat(x: torch.Tensor, y: torch.Tensor,
+               spec: TangentSpec) -> torch.Tensor:
+    """``y ⊟ x`` on flat parameters: x, y (..., P) -> δ (..., D), the
+    inverse of :func:`retract_flat` (``y − x`` when every leaf is
+    Euclidean)."""
+    if not spec.has_manifold:
+        return y - x
+    parts = []
+    for blk in spec.blocks:
+        xs = x[..., blk.p_offset:blk.p_offset + blk.p_size]
+        ys = y[..., blk.p_offset:blk.p_offset + blk.p_size]
+        if blk.manifold is None:
+            parts.append(ys - xs)
+            continue
+        if blk.manifold.local is None:
+            raise NotImplementedError("a registered manifold without a "
+                                      "local() map")
+        parts.append(blk.manifold.local(
+            _unflatten(xs, blk.treedef, blk.shapes),
+            _unflatten(ys, blk.treedef, blk.shapes)).to(x.dtype))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+
+
 def retract(x, delta: torch.Tensor, spec: TangentSpec | None = None):
     """Manifold retraction ``x ⊞ delta`` over a full parameter pytree;
     ``delta`` is the flat tangent vector (D,)."""

@@ -46,11 +46,10 @@ from ..cost import Cost
 from ..diff.auto import instance_residuals, num_residuals
 from ..options import Options, SolverType
 from ..output import Output
-from ..solvers.lm import (lm_bad_step, lm_good_step, lm_init, tr_bad_step,
-                          where_state)
+from ..solvers.lm import lm_bad_step, lm_good_step, lm_init, tr_bad_step
 from ..solvers.step import dogleg_core
 from ..stop_reasons import StopReason
-from ..utils import float_epsilon
+from ..utils import float_epsilon, where_tree
 from .coloring import DiagColoring, detect_diag_coloring
 from .linalg import jacobi_inverse, pcg_core
 
@@ -498,7 +497,7 @@ def fused_solve_plain(residual_fn, opts: Options, x0: torch.Tensor, data,
             nf2, nc2 = nf + failed, nc + failed
             gu_new = (~ok_new) & (mcf > 0) & (nc2 >= mcf)
             if lam_sched:
-                lm_t = where_state(upd & (~ok_new) & (~gu_new),
+                lm_t = where_tree(upd & (~ok_new) & (~gu_new),
                                    bad_step(lm_t, opts), lm_t)
             dx = torch.where(col(upd & ok_new), dx_new, dx)
             ok = torch.where(upd, ok_new, ok)
@@ -533,9 +532,9 @@ def fused_solve_plain(residual_fn, opts: Options, x0: torch.Tensor, data,
                        else torch.zeros_like(err))
             apply_good = act & (~early_fail) & good & (~first_eval)
             apply_bad = act & (~early_fail) & (~good)
-            lm_t = where_state(
+            lm_t = where_tree(
                 apply_good, lm_good_step(lm_t, quality, opts),
-                where_state(apply_bad, bad_step(lm_t, opts), lm_t))
+                where_tree(apply_bad, bad_step(lm_t, opts), lm_t))
         accepted = (~early_fail) & good
         rejected = (~early_fail) & (~good)
         rej = rejected.to(_I32)
@@ -601,7 +600,7 @@ def fused_solve_plain(residual_fn, opts: Options, x0: torch.Tensor, data,
         best_cost = torch.where(act & accepted, err, best_cost)
         best_nres = torch.where(act & accepted, full(n_res, _I32), best_nres)
         final_rerr = torch.where(act & accepted, rel_derr, final_rerr)
-        lm = where_state(act, lm_t, lm)
+        lm = where_tree(act, lm_t, lm)
         has_last = torch.where(act, has_last_n, has_last)
         it = torch.where(act, it + 1, it)
         nfail = torch.where(act, nfail_n, nfail)

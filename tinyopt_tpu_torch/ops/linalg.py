@@ -102,3 +102,28 @@ def solve_psd_cg(H: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor:
 
     dinv = jacobi_inverse(torch.diagonal(H, dim1=-2, dim2=-1))
     return pcg_core(mv, dinv, b, iters)
+
+
+def inv_cov(H: torch.Tensor) -> torch.Tensor:
+    """Covariance = H⁻¹ (reference: math.h:88-189), batched over H's
+    leading axes; NaN or Inf entries where H is singular."""
+    d = H.shape[-1]
+    eye = torch.eye(d, dtype=H.dtype, device=H.device).expand(H.shape)
+    return torch.linalg.solve_ex(H, eye)[0]
+
+
+def cov_rescale(cost: torch.Tensor, num_residuals: torch.Tensor,
+                dims: int) -> torch.Tensor:
+    """Overdetermined-covariance rescale factor (reference output.h:80-93):
+    ``cost² / (num_residuals − dims)`` where num_residuals > dims, else 1.
+    Shared by ``Output.covariance(rescaled=True)`` and ``covariance_at``."""
+    c = torch.as_tensor(cost)
+    n = torch.as_tensor(num_residuals, device=c.device)
+    return torch.where(n > dims,
+                       c * c / torch.clamp(n - dims, min=1).to(c.dtype),
+                       torch.ones_like(c))
+
+
+def max_std_dev(H: torch.Tensor) -> torch.Tensor:
+    """√(max coefficient of H⁻¹) (reference: solvers/gn.h:177-183)."""
+    return torch.sqrt(torch.amax(inv_cov(H), dim=(-2, -1)))

@@ -5,10 +5,6 @@ Frozen (hashable) dataclasses with exactly the fields and defaults of
 include/tinyopt/optimizers/options.h:18-156), without importing JAX.
 ``tinyopt_tpu_torch.interop.options_from_reference`` copies a JAX-package
 ``Options`` into this one field by field.
-
-Not every option is served by this package yet: the optimizer loop raises
-``NotImplementedError`` for the ones it does not cover (first-order solver
-types, logging, stop callbacks, timeouts); see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -45,6 +41,19 @@ DogLeg = SolverType.DOGLEG
 FIRST_ORDER_TYPES = frozenset({
     SolverType.GRADIENT_DESCENT, SolverType.SGD, SolverType.ADAM,
     SolverType.ADAMW, SolverType.LBFGS})
+
+#: First-order types with per-solve optimizer state in the loop.
+STATEFUL_FO_TYPES = frozenset({
+    SolverType.SGD, SolverType.ADAM, SolverType.ADAMW, SolverType.LBFGS})
+
+
+def is_stateful_fo(options: "Options") -> bool:
+    """Whether the loop carries first-order optimizer state for these
+    options (momentum, moments, curvature pairs, or GD's adaptive rate)."""
+    return (options.solver_type in STATEFUL_FO_TYPES
+            or (options.solver_type == SolverType.GRADIENT_DESCENT
+                and options.gd.adaptive != "off"))
+
 
 #: Solver types whose λ rides the schedule of lm.h:123-154: the damping of
 #: LM, the inverse trust radius of DogLeg.

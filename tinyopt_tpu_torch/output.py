@@ -12,6 +12,7 @@ import dataclasses
 import torch
 
 from .cost import Cost
+from .ops.linalg import cov_rescale, inv_cov
 from .stop_reasons import StopReason, stop_reason_description
 
 
@@ -37,6 +38,10 @@ class Output:
     #: last LM damping factor λ
     final_lambda: torch.Tensor | None = None
     num_diff_used: bool = False
+    #: Whether requested log lines were dropped.  Always False here: the
+    #: loop prints from the host, which drops no line (the JAX package sets
+    #: it where its backend rejects host callbacks).
+    log_dropped: bool = False
 
     def succeeded(self) -> torch.Tensor:
         """Stop reason is not a failure (>= kNone)."""
@@ -46,6 +51,34 @@ class Output:
         """Stop reason in [kMinError, kMaxIters)."""
         return (self.stop_reason >= int(StopReason.MIN_ERROR)) & (
             self.stop_reason < int(StopReason.MAX_ITERS))
+
+    Succeeded = succeeded
+    Converged = converged
+
+    def covariance(self, rescaled: bool = False):
+        """Covariance ≈ H⁻¹ of the final (un-damped) Hessian, batched over
+        the instance axis.
+
+        With ``rescaled=True`` and an overdetermined system
+        (num_residuals > dims), scales by ``final_cost² / (#res − dims)``
+        as the reference does (output.h:80-93).  Returns None if no
+        Hessian was saved; entries are NaN or Inf where H is singular."""
+        H = self.final_hessian
+        if H is None:
+            return None
+        if not isinstance(H, torch.Tensor):
+            raise NotImplementedError(
+                "the covariance of a BlockDiag Hessian is not ported yet "
+                "(ROADMAP Queue 1, slice C item 13)")
+        d = H.shape[-1]
+        cov = inv_cov(H)
+        if rescaled:
+            scale = cov_rescale(self.final_cost.cost,
+                                self.final_cost.num_residuals, d)
+            cov = cov * scale.to(cov.dtype)[..., None, None]
+        return cov
+
+    Covariance = covariance
 
     def stop_reason_description(self, options=None) -> str:
         return stop_reason_description(

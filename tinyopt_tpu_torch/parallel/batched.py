@@ -23,11 +23,12 @@ def batched_solver(fn: Callable, options: Options, mode: str, x_example,
                    data_example=None) -> Callable:
     """``solve(x_batch[, data_batch]) -> (x_opt_batch, Output_batch)``.
 
-    ``fn`` is the residual (or manual accumulation) function of one
-    instance; with ``data_example``, ``fn(x, data)`` receives per-instance
-    data.  ``mode``: "auto", "residuals", "numdiff" or "acc"
-    (``optimize.resolve_mode``; a residual function ``torch.func`` cannot
-    differentiate runs "numdiff", outside the fused envelope)."""
+    ``fn`` is the residual, scalar cost (first-order types) or manual
+    accumulation function of one instance; with ``data_example``,
+    ``fn(x, data)`` receives per-instance data.  ``mode``: "auto",
+    "residuals", "numdiff", "cost" or "acc" (``optimize.resolve_mode``; a
+    residual function ``torch.func`` cannot differentiate runs "numdiff",
+    outside the fused envelope, as are the first-order types)."""
     if options.hessian.solver == "fused":
         from ..ops.cuda_solver import fused_batched_solver, fused_plan
         mode, num_diff_used = resolve_mode(fn, options, mode, x_example,

@@ -65,6 +65,3 @@ def tr_bad_step(state: LMState, opts) -> LMState:
     return LMState(lam=_clamp(state.lam * opts.lm.bad_factor, opts),
                    bad_factor=state.bad_factor)
 
-
-def where_state(pred: torch.Tensor, a: LMState, b: LMState) -> LMState:
-    return LMState(*(torch.where(pred, u, v) for u, v in zip(a, b)))

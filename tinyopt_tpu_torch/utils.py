@@ -1,4 +1,5 @@
-"""Small shared helpers: the FloatEpsilon policy and tic/toc timing.
+"""Small shared helpers: the FloatEpsilon policy, per-instance selects and
+tic/toc timing.
 
 Counterpart of ``tinyopt_tpu.utils`` (reference: include/tinyopt/time.h and
 math.h:297-301) for torch dtypes.
@@ -9,6 +10,7 @@ from __future__ import annotations
 import time
 
 import torch
+from torch.utils import _pytree as pytree
 
 
 def float_epsilon(dtype) -> float:
@@ -16,6 +18,19 @@ def float_epsilon(dtype) -> float:
     64-bit floats, 1e-4 for narrower.  Shared by the accept/reject
     rel_derr zeroing of the loop, the fused twin and the K2 kernel."""
     return 1e-7 if torch.empty((), dtype=dtype).element_size() >= 8 else 1e-4
+
+
+def where_instance(pred: torch.Tensor, a: torch.Tensor,
+                   b: torch.Tensor) -> torch.Tensor:
+    """Per-instance select: ``pred`` (B,) broadcast over trailing axes."""
+    return torch.where(pred.reshape(pred.shape + (1,) * (a.dim() - 1)), a, b)
+
+
+def where_tree(pred: torch.Tensor, a, b):
+    """:func:`where_instance` over matching pytrees (an LMState, a loop
+    carry, a first-order state); ``None`` leaves stay None."""
+    return pytree.tree_map(
+        lambda u, v: None if u is None else where_instance(pred, u, v), a, b)
 
 
 def tic() -> float:
