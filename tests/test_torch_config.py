@@ -111,6 +111,13 @@ def test_port_never_imports_jax():
         "solver='fused', carry_system=False, save_last=False))\n"
         "to.batched_optimize(x0, prior_residual, opts, data_batch=data)\n"
         "import tinyopt_tpu_torch.models.nn\n"
+        "from tinyopt_tpu_torch.models.icp import icp, make_icp_problem\n"
+        "from tinyopt_tpu_torch.manifolds import SEn3\n"
+        "p = make_icp_problem(2, 16, 20, device='cpu')\n"
+        "icp(p.src, p.dst, n_outer=2)\n"
+        "to.sparse_optimize(torch.ones(3), lambda x: x * x - 2)\n"
+        "to.matfree_optimize(torch.ones(3), lambda x: x * x - 2)\n"
+        "to.block_optimize(torch.ones(3, 1), lambda x: x * x - 2)\n"
         "to.lbfgs.optimize(torch.zeros(2),"
         " lambda x: torch.sum((x - 1) ** 2))\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules"

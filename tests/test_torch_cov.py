@@ -143,9 +143,24 @@ def test_no_saved_hessian_and_block_hessian():
     _, out = to.optimize(torch.zeros(3, dtype=torch.float64),
                          lambda x: (x - _t(Y)) / _t(STDEVS), o)
     assert out.covariance() is None
-    out.final_hessian = object()        # a BlockDiag H: slice C item 13
-    with pytest.raises(NotImplementedError, match="item 13"):
-        out.covariance()
+    # a BlockDiag H: its covariance is blockwise, densified as the JAX
+    # package's (output.py:83-96); the rescale takes d = n
+    # (two instances of one 3 × 3 block)
+    out.final_hessian = to.BlockDiag(
+        _t(np.diag(1.0 / STDEVS ** 2)).expand(2, 1, 3, 3))
+    out.final_cost.num_residuals = torch.tensor(9, dtype=torch.int32)
+    jH = jto.BlockDiag(jnp.asarray(np.diag(1.0 / STDEVS ** 2))[None])
+    jout = jto.Output(final_cost=jto.Cost.make(out.final_cost.cost, 9),
+                      final_rerr_dec=0.0, stop_reason=0, num_iters=0,
+                      num_failures=0, num_consec_failures=0,
+                      duration_ms=0.0, final_grad=None, final_hessian=jH,
+                      errs=None, deltas2=None, successes=None, num_hist=0)
+    for rescaled in (False, True):
+        C = out.covariance(rescaled=rescaled)
+        assert C.shape == (2, 3, 3)
+        np.testing.assert_allclose(
+            C[1].numpy(), np.asarray(jout.covariance(rescaled=rescaled)),
+            rtol=1e-12)
 
 
 def test_covariance_at_matches_saved_hessian_covariance():

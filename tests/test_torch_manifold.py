@@ -1,5 +1,5 @@
-"""The manifolds of tinyopt_tpu_torch (SO3, SE23, SE3, the registry and the
-flat layouts) against the JAX package's, on the same inputs made with
+"""The manifolds of tinyopt_tpu_torch (SO3, SE23, SE3, SEn3, the registry and
+the flat layouts) against the JAX package's, on the same inputs made with
 numpy, in float64."""
 
 import jax
@@ -7,15 +7,21 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils import _pytree as pytree
 
+import tinyopt_tpu as jto
 from tinyopt_tpu import manifold as jmf
 from tinyopt_tpu.manifolds import SE3 as JSE3
 from tinyopt_tpu.manifolds import SE23 as JSE23
+from tinyopt_tpu.manifolds import SEn3 as JSEn3
 from tinyopt_tpu.manifolds import SO3 as JSO3
 
+import tinyopt_tpu_torch as to
 from tinyopt_tpu_torch import manifold as mf
-from tinyopt_tpu_torch.interop import se3_from_numpy, so3_from_numpy
-from tinyopt_tpu_torch.manifolds import SE3, SE23, SO3
+from tinyopt_tpu_torch.interop import (options_from_reference,
+                                       se3_from_numpy, sen3_from_numpy,
+                                       so3_from_numpy)
+from tinyopt_tpu_torch.manifolds import SE3, SE23, SO3, SEn3
 
 torch.set_num_threads(1)
 
@@ -170,3 +176,98 @@ def test_retraction_jvp_at_zero_matches_reference():
         _, tv = torch.func.vjp(lambda d: mf.retract_flat(flat, d, spec),
                                torch.zeros(6, dtype=torch.float64))
         _close(tv(_t(u))[0], jv(jnp.asarray(u))[0])
+
+
+# ---- SEn3 (tests/test_se3.py:199, class TestSEn3) ----
+
+class TestSEn3:
+    """Generic SEn3⟨n⟩ against the JAX package's ``manifolds.SEn3``."""
+
+    def test_exp_log_match_reference_various_n(self):
+        rng = np.random.default_rng(3)
+        for n in (1, 2, 3, 4):
+            d = rng.uniform(-1.0, 1.0, (3, 3 * (n + 1)))
+            d[0, -3:] = 0.0                   # θ = 0: the Taylor branch
+            jX, tX = JSEn3.exp(jnp.asarray(d)), SEn3.exp(_t(d))
+            _close(tX.rotation.wxyz, jX.rotation.wxyz)
+            _close(tX.vectors, jX.vectors)
+            _close(tX.log(), jX.log(), rtol=1e-10, atol=1e-12)
+            _close(tX.log(), d, rtol=1e-10, atol=1e-10)
+
+    def test_matches_se23(self):
+        """SEn3 with n = 2 is SE23 with [ν, ρ] stacked into .vectors."""
+        d = _t(np.linspace(-0.7, 0.7, 9))
+        a, b = SEn3.exp(d), SE23.exp(d)
+        _close(a.rotation.wxyz, b.rotation.wxyz)
+        _close(a.vectors[..., 0, :], b.velocity)
+        _close(a.vectors[..., 1, :], b.position)
+
+    def test_inverse_compose_retract_match_reference(self):
+        rng = np.random.default_rng(5)
+        d = rng.uniform(-0.5, 0.5, (4, 12))             # a batch of SEn3<3>
+        e = rng.uniform(-0.5, 0.5, (4, 12))
+        jX, tX = JSEn3.exp(jnp.asarray(d)), SEn3.exp(_t(d))
+        jY, tY = JSEn3.exp(jnp.asarray(e)), SEn3.exp(_t(e))
+        _close((tX @ tX.inverse()).log(), np.zeros((4, 12)), atol=1e-12)
+        _close((tX.inverse() @ tY).log(), (jX.inverse() @ jY).log(),
+               rtol=1e-10, atol=1e-12)
+        x1 = SEn3(SO3(tX.rotation.wxyz[0]), tX.vectors[0])
+        jx1 = JSEn3(JSO3(jX.rotation.wxyz[0]), jX.vectors[0])
+        tr = mf.retract(x1, _t(e[0]))
+        jr = jmf.retract(jx1, jnp.asarray(e[0]))
+        _close(tr.rotation.wxyz, jr.rotation.wxyz)
+        _close(tr.vectors, jr.vectors)
+        _close(mf.local(x1, tr), jmf.local(jx1, jr), rtol=1e-10, atol=1e-12)
+
+    def test_tangent_dims_and_interop(self):
+        assert mf.tangent_spec(SEn3.identity(3)).dims == 12
+        assert mf.tangent_spec(SEn3.identity(3)).params == 13
+        assert mf.tangent_spec(SEn3.identity(1, batch=(5,))).dims == 30
+        jX = JSEn3.exp(jnp.asarray(np.linspace(-0.3, 0.3, 12)))
+        tX = sen3_from_numpy(np.asarray(jX.rotation.wxyz),
+                             np.asarray(jX.vectors), device="cpu",
+                             dtype=torch.float64)
+        _close(tX.log(), jX.log(), rtol=1e-10, atol=1e-12)
+
+    @pytest.mark.parametrize("method", ["lm", "dogleg"])
+    def test_prior_solve_n3_matches_reference(self, method):
+        """An SEn3⟨3⟩ prior solve through ``optimize`` of both packages."""
+        opts = jto.Options(solver_type={"lm": jto.LevenbergMarquardt,
+                                        "dogleg": jto.DogLeg}[method])
+        rng = np.random.default_rng(11)
+        jprior = JSEn3.exp(jnp.asarray(rng.uniform(-0.8, 0.8, 12)))
+        xr, outr = jto.optimize(JSEn3.identity(3, jnp.float64),
+                                lambda x: (jprior @ x).log(), opts)
+        prior = sen3_from_numpy(np.asarray(jprior.rotation.wxyz),
+                                np.asarray(jprior.vectors), device="cpu",
+                                dtype=torch.float64)
+        x, out = to.optimize(SEn3.identity(3, torch.float64),
+                             lambda x: (prior @ x).log(),
+                             options_from_reference(opts))
+        assert bool(out.converged()) and bool(outr.converged())
+        assert abs(int(out.num_iters) - int(outr.num_iters)) <= 1
+        _close(x.rotation.wxyz, xr.rotation.wxyz, rtol=1e-5, atol=1e-9)
+        _close(x.vectors, xr.vectors, rtol=1e-5, atol=1e-9)
+        assert float(torch.linalg.norm((x @ prior).log())) < 1e-5
+
+
+@pytest.mark.cuda
+def test_sen3_prior_batch_on_gpu():
+    """chip_smoke.py phase 15 in small: a batch of SEn3⟨3⟩ prior solves on
+    the card against the same solves on the CPU (float64)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(12)
+    prior = SEn3.exp(_t(rng.uniform(-0.8, 0.8, (64, 12))))
+
+    def res(x, p):
+        return (p @ x).log()
+
+    x0 = SEn3.identity(3, torch.float64, (64,))
+    got = to.batched_optimize(
+        pytree.tree_map(lambda a: a.cuda(), x0), res, to.Options(),
+        data_batch=pytree.tree_map(lambda a: a.cuda(), prior))
+    ref = to.batched_optimize(x0, res, to.Options(), data_batch=prior)
+    torch.testing.assert_close(got[0].vectors.cpu(), ref[0].vectors,
+                               rtol=1e-9, atol=1e-12)
+    assert torch.equal(got[1].num_iters.cpu(), ref[1].num_iters)

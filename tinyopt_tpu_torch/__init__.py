@@ -8,8 +8,10 @@ GN / LM / DogLeg solve (``ops/cuda_solver.py``).  ``losses`` holds the
 norms and robust M-estimators, ``diff`` the automatic and numerical
 differentiation and the gradient checker; the first-order solvers, the
 segmented solve (``checkpoint``), covariance recovery and implicit
-differentiation (``implicit``) run on the same loop.  It never imports
-JAX.
+differentiation (``implicit``) run on the same loop, and so do the
+block-diagonal, general-sparse and matrix-free solves of ``sparse``
+(``block_optimize``, ``sparse_optimize``, ``matfree_optimize``).  It
+never imports JAX.
 
     import torch, tinyopt_tpu_torch as to
     x, out = to.optimize(torch.tensor(1.0), lambda x: x * x - 2)
@@ -17,7 +19,7 @@ JAX.
     x, out = to.adam.optimize(x0, lambda x: torch.sum((x - 1) ** 2))
 """
 
-from . import checkpoint, diff, implicit, losses
+from . import checkpoint, diff, implicit, losses, sparse
 from .checkpoint import Stepper, stepper
 from .cost import Cost
 from .implicit import implicit_solver
@@ -28,9 +30,12 @@ from .options import (LBFGS, SGD, Adam, AdamOptions, AdamW,
                       GradientDescent, HessianOptions, LBFGSOptions,
                       LevenbergMarquardt, LMOptions, LogOptions, Options,
                       SGDOptions, SolverType)
+from .ops.block import BlockDiag
+from .ops.sparse_sym import SparseSym
 from .output import Output
 from .parallel.batched import batched_optimize, batched_solver
 from .profiling import dispatch_floor, profile_iterations
+from .sparse import block_optimize, matfree_optimize, sparse_optimize
 from .stop_reasons import StopReason, stop_reason_description
 
 # Namespace products mirroring the reference (optimizers/{nlls,unconstrained}.h)
@@ -47,14 +52,15 @@ nlls = _m.lm
 unconstrained = _m.gd
 
 __all__ = [
-    "Adam", "AdamOptions", "AdamW", "Cost", "CostScalingOptions", "DogLeg",
+    "Adam", "AdamOptions", "AdamW", "BlockDiag", "Cost", "CostScalingOptions", "DogLeg",
     "GDOptions", "GaussNewton", "GradientDescent", "HessianOptions",
     "LBFGS", "LBFGSOptions", "LMOptions", "LevenbergMarquardt", "LogOptions",
     "Optimize", "Options", "Output", "SGD", "SGDOptions", "SolverType",
-    "StopReason", "Stepper", "adam", "adamw", "batched_optimize",
-    "batched_solver", "build_solver", "checkpoint", "covariance_at", "diff",
-    "dispatch_floor", "dogleg", "gd", "gn", "implicit", "implicit_solver",
-    "lbfgs", "lm", "losses", "multi_start_optimize", "nlls", "optimize",
-    "profile_iterations", "sgd", "stepper", "stop_reason_description",
-    "unconstrained",
+    "SparseSym", "StopReason", "Stepper", "adam", "adamw",
+    "batched_optimize", "batched_solver", "block_optimize", "build_solver",
+    "checkpoint", "covariance_at", "diff", "dispatch_floor", "dogleg", "gd",
+    "gn", "implicit", "implicit_solver", "lbfgs", "lm", "losses",
+    "matfree_optimize", "multi_start_optimize", "nlls", "optimize",
+    "profile_iterations", "sgd", "sparse", "sparse_optimize", "stepper",
+    "stop_reason_description", "unconstrained",
 ]

@@ -99,7 +99,8 @@ class SegmentSolver:
         k = self._iters_per_segment
         return init_carry(mf.flatten_batch(xb, spec),
                           self.options.replace(max_iters=k), spec,
-                          cap=k if self.options.save_history else 0)
+                          cap=k if self.options.save_history else 0,
+                          dense_H=True)
 
     def run(self, x0, data_batch=None, *, max_segments: int | None = None,
             on_segment: Callable[[Carry], Carry] | None = None):

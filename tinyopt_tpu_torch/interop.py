@@ -3,11 +3,12 @@
 ``options_from_reference`` copies any ``tinyopt_tpu.Options`` (or any
 dataclass with its fields) into this package's ``Options``, nested option
 groups and the solver-type enum included.  ``prior_problem_from_numpy``,
-``so3_from_numpy``, ``se3_from_numpy`` and
-``se3_refinement_data_from_numpy`` build the port's problems and poses
-from host arrays, e.g. the ones a JAX ``PriorProblem``, ``SO3`` or ``SE3``
-holds after ``np.asarray``; ``perceptron_from_numpy`` the perceptron's
-parameter dict (``models/nn.py``).
+``so3_from_numpy``, ``se3_from_numpy``, ``sen3_from_numpy``,
+``se3_refinement_data_from_numpy`` and ``icp_problem_from_numpy`` build
+the port's problems and poses from host arrays, e.g. the ones a JAX
+``PriorProblem``, ``SO3``, ``SE3``, ``SEn3`` or ``ICPProblem`` holds after
+``np.asarray``; ``perceptron_from_numpy`` the perceptron's parameter dict
+(``models/nn.py``).
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ import numpy as np
 import torch
 
 from . import options as _opt
-from .manifolds import SE3, SO3
+from .manifolds import SE3, SO3, SEn3
+from .models.icp import ICPProblem
 from .models.problems import PriorProblem
 from .models.se3_refinement import SE3RefinementData
 
@@ -93,3 +95,22 @@ def se3_refinement_data_from_numpy(points, targets, device="cuda",
     """``SE3RefinementData`` on ``device`` from host arrays (..., K, 3)."""
     return SE3RefinementData(points=_tensor(points, device, dtype),
                              targets=_tensor(targets, device, dtype))
+
+
+def sen3_from_numpy(wxyz, vectors, device="cuda",
+                    dtype=torch.float32) -> SEn3:
+    """``SEn3`` on ``device`` from host quaternions (..., 4) and
+    translational parts (..., n, 3)."""
+    return SEn3(so3_from_numpy(wxyz, device, dtype),
+                _tensor(vectors, device, dtype))
+
+
+def icp_problem_from_numpy(src, dst, true_wxyz, true_translation,
+                           device="cuda", dtype=torch.float32) -> ICPProblem:
+    """``ICPProblem`` on ``device`` from host clouds src (..., N, 3), dst
+    (..., M, 3) and the true pose's quaternion (..., 4) and translation
+    (..., 3), e.g. a JAX ``make_icp_problem``'s."""
+    return ICPProblem(src=_tensor(src, device, dtype),
+                      dst=_tensor(dst, device, dtype),
+                      true_pose=se3_from_numpy(true_wxyz, true_translation,
+                                               device, dtype))

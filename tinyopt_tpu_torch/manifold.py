@@ -3,7 +3,7 @@
 Counterpart of ``tinyopt_tpu.manifold``.  Any pytree of tensors is a valid
 parameter block: tensors are Euclidean leaves (tangent dimension = size,
 retraction = addition); types registered here with a :class:`Manifold`
-(``manifolds.SO3``, ``SE3``, ``SE23``) are atomic leaves whose tangent
+(``manifolds.SO3``, ``SE3``, ``SE23``, ``SEn3``) are atomic leaves whose tangent
 dimension differs from their count of stored values.  The tangent vector
 concatenates the leaf tangents in pytree order.
 

@@ -1,8 +1,9 @@
 """Registered manifold parameter types (counterpart of
-``tinyopt_tpu.manifolds``; SEn3 is not ported yet, ROADMAP Queue 1 item 9)."""
+``tinyopt_tpu.manifolds``)."""
 
 from .se23 import SE23
 from .se3 import SE3
+from .sen3 import SEn3
 from .so3 import SO3
 
-__all__ = ["SO3", "SE3", "SE23"]
+__all__ = ["SO3", "SE3", "SE23", "SEn3"]

@@ -4,6 +4,7 @@ Counterparts of ``tinyopt_tpu.models.problems`` as residual functions of
 ONE instance over torch tensors (batched by ``torch.func.vmap``):
 
   * sqrt2 scalar NLLS            (reference: tests/sqrt2.cpp)
+  * the sparse diagonal problem  (benchmarks/sparse.cpp)
   * Gaussian prior (whitened)    (benchmarks/dense.cpp:53-114 — the
                                   headline benchmark, dims 2..50)
   * the easy and hard suites     (tests/optimize_easy.cpp,
@@ -65,6 +66,13 @@ def make_prior_batch(batch: int, dims: int, dtype=torch.float32, *,
 
 def prior_residual(x, data: PriorProblem):
     return data.residuals(x)
+
+
+def sparse_diag_residual(x):
+    """Independent per-coordinate problem (benchmarks/sparse.cpp): block-
+    diagonal JᵀJ.  r_i = x_i² − i."""
+    targets = torch.arange(1, x.shape[0] + 1, device=x.device).to(x.dtype)
+    return x * x - targets
 
 
 def rosenbrock_residuals(p, a=1.0, b=100.0):

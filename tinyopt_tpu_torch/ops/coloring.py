@@ -38,7 +38,10 @@ def _greedy_color(structure: np.ndarray) -> np.ndarray:
     """Greedy distance-1 coloring of columns under row-support conflicts,
     largest support first."""
     n, d = structure.shape
-    conflict = (structure.T.astype(np.int64) @ structure.astype(np.int64)) > 0
+    # a float product (BLAS) of nonnegative counts: > 0 exactly where the
+    # integer one is
+    s = structure.astype(np.float64)
+    conflict = (s.T @ s) > 0
     order = np.argsort(-structure.sum(axis=0), kind="stable")
     colors = np.full(d, -1, dtype=np.int64)
     for j in order:

@@ -71,8 +71,12 @@ class Carry:
                                   #: or () — learns from every evaluation
     best_x: torch.Tensor          #: (B, P) last accepted point (the exact
                                   #: rollback target)
-    H: torch.Tensor | None        #: (B, D, D) un-damped JᵀJ, None without
-                                  #: carry_system or for first-order types
+    H: Any                        #: un-damped JᵀJ in the representation
+                                  #: accumulate builds: (B, D, D), a
+                                  #: BlockDiag, SparseSym or LinPoint
+                                  #: (sparse.py); None without
+                                  #: carry_system, for first-order types
+                                  #: and before the first build
     g: torch.Tensor               #: (B, D) gradient JᵀR
     lm: LMState                   #: λ and the compounding bad factor
     best_cost: torch.Tensor       #: last accepted cost (inf before)
@@ -99,11 +103,13 @@ pytree.register_pytree_node(
     lambda values, _: Carry(*values))
 
 
-def _solve_with_retries(H, g, lm: LMState, nf0, nc0, extra_ok, active, opts):
+def _solve_with_retries(H, g, lm: LMState, nf0, nc0, extra_ok, active, opts,
+                        propose=propose_step):
     """Propose, and on failure escalate λ and retry (optimizer.h:356-399),
     for every active instance that has not solved or given up yet.  A
     failed LM proposal takes the compounding bad step, a failed DogLeg
-    proposal the fixed shrink of :func:`tr_bad_step`, GN and GD none."""
+    proposal the fixed shrink of :func:`tr_bad_step`, GN and GD none.
+    ``propose(H, g, λ, opts) -> (dx, ok)`` proposes for the whole batch."""
     mcf = opts.max_consec_failures
     max_tries = mcf if mcf > 0 else 255
     if opts.solver_type == SolverType.DOGLEG:
@@ -120,7 +126,7 @@ def _solve_with_retries(H, g, lm: LMState, nf0, nc0, extra_ok, active, opts):
         cond = (~ok) & (~give_up) & (nc <= max_tries) & active
         if not bool(cond.any()):
             break
-        dx_new, ok_new = propose_step(H, g, lm.lam, opts)
+        dx_new, ok_new = propose(H, g, lm.lam, opts)
         ok_new = ok_new & extra_ok
         fail = (~ok_new).to(_I32)
         nf2, nc2 = nf + fail, nc + fail
@@ -199,12 +205,18 @@ class _LogPrinter:
 
 
 def init_carry(x0: torch.Tensor, opts: Options, spec: mf.TangentSpec,
-               warm_start=None, cap: int = 0) -> Carry:
+               warm_start=None, cap: int = 0, dense_H: bool = False) -> Carry:
     """The loop's state before the first iteration, for flat parameters
     ``x0`` (B, P), with history rows of ``cap`` slots;
     ``warm_start=(g0[, H0])`` seeds the normal equations (the reference's
     ``InitWith``, optimizer.h:46-55): the first iteration then evaluates
-    the cost only."""
+    the cost only.
+
+    The carried Hessian is None until the first build makes it (the JAX
+    package takes its representation from ``eval_shape``; nothing of size
+    d² is allocated for a sparse or matrix-free system).  A warm start
+    without H0, and ``dense_H=True`` (a template for a dense system's
+    state), give zeros (B, d, d)."""
     first_order = opts.solver_type in FIRST_ORDER_TYPES
     carry_H = (not first_order) and opts.hessian.carry_system
     B, d = x0.shape[0], spec.dims
@@ -216,7 +228,8 @@ def init_carry(x0: torch.Tensor, opts: Options, spec: mf.TangentSpec,
     def full(v, dt=dtype):
         return torch.full((B,), v, dtype=dt, device=dev)
 
-    H0 = zeros(d, d) if carry_H else None
+    H0 = zeros(d, d) if carry_H and (dense_H or warm_start is not None) \
+        else None
     g0 = zeros(d)
     if warm_start is not None:
         g0 = torch.as_tensor(warm_start[0], dtype=dtype,
@@ -246,6 +259,7 @@ def optimize_from_acc(
     options: Options,
     spec: mf.TangentSpec,
     *,
+    propose: Callable = propose_step,
     warm_start: tuple | None = None,
     segment_state: Carry | None = None,
     return_state: bool = False,
@@ -255,6 +269,12 @@ def optimize_from_acc(
     ``accumulate(x) -> (H, g, Cost)`` builds the batched normal equations
     (H (B, D, D), or None for the first-order types; g (B, D)) and
     ``evaluate(x) -> Cost`` the cost only (the Rebuild(false) path).
+    H may be any pytree the ``propose(H, g, λ, opts) -> (dx, ok)``
+    function understands: besides a dense tensor, a ``BlockDiag`` or a
+    ``SparseSym`` (``propose_step``), or a custom representation with its
+    own ``propose`` (the matrix-free ``LinPoint`` of ``sparse.py``); the
+    loop selects it per instance leaf by leaf, and ``final_hessian`` holds
+    it.
     ``spec``: the parameters' layout, whose retraction applies the steps.
     ``warm_start=(g0[, H0])``: see :func:`init_carry`.  Returns
     ``(x_opt, Output)`` with a leading instance axis on every field.
@@ -345,7 +365,8 @@ def optimize_from_acc(
                     *(torch.where(c.rebuild, a, b) for a, b in
                       zip((cost.cost, cost.num_residuals, cost.inlier_ratio),
                           (ce.cost, ce.num_residuals, ce.inlier_ratio))))
-            Hc = None if first_order else where_instance(c.rebuild, Hn, c.H)
+            Hc = (Hn if first_order or c.H is None
+                  else where_tree(c.rebuild, Hn, c.H))
             gc = where_instance(c.rebuild, gn, c.g)
         else:
             Hc, gc, cost = build(c.x)
@@ -354,7 +375,9 @@ def optimize_from_acc(
 
         # --- Build validity (lm.h:83-88): min |H[i,i]| check ---
         if (not first_order) and opts.hessian.check_min_H_diag > 0:
-            diag_ok = torch.all(torch.abs(torch.diagonal(Hc, dim1=-2, dim2=-1))
+            diag = (torch.diagonal(Hc, dim1=-2, dim2=-1)
+                    if isinstance(Hc, torch.Tensor) else Hc.diagonal())
+            diag_ok = torch.all(torch.abs(diag)
                                 >= opts.hessian.check_min_H_diag, dim=-1)
         else:
             diag_ok = torch.ones_like(active)
@@ -373,7 +396,7 @@ def optimize_from_acc(
             fo_new = c.fo
             dx, solved, lm_state, rs_nf, rs_nc = _solve_with_retries(
                 Hc, gc, c.lm, c.num_failures, c.num_consec, diag_ok, active,
-                opts)
+                opts, propose)
 
         # --- Early failure routing (optimizer.h:364-409) ---
         err_bad = (torch.isnan(err) | torch.isinf(err)
@@ -514,7 +537,7 @@ def optimize_from_acc(
                           gn=torch.sqrt(grad_norm2),
                           il=1.0 / torch.clamp(lm_state.lam, min=1e-30),
                           x=x_new, dx=dx, inl=cost.inlier_ratio)
-                if log.sigma and Hc is not None:
+                if log.sigma and isinstance(Hc, torch.Tensor):
                     kw["sd"] = max_std_dev(Hc)
                 log.lines(active, first_eval, kw)
 
@@ -536,8 +559,11 @@ def optimize_from_acc(
         active = (c.stop == _NONE) & (c.it < max_iters_total)
         if not bool(active.any()):
             break
+        new = body(c, active)
+        if c.H is None and new.H is not None:
+            c.H = pytree.tree_map(torch.zeros_like, new.H)
         # commit the new state for active instances only
-        c = where_tree(active, body(c, active), c)
+        c = where_tree(active, new, c)
 
     stop = torch.where(c.stop == _NONE,
                        torch.full_like(c.stop, int(StopReason.MAX_ITERS)),

@@ -8,8 +8,10 @@ capacity ``max_iters + 1 (+1)`` with a valid-prefix counter ``num_hist``.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
+from torch.utils import _pytree as pytree
 
 from .cost import Cost
 from .ops.linalg import cov_rescale, inv_cov
@@ -28,7 +30,9 @@ class Output:
     duration_ms: torch.Tensor          #: float32, host wall time of optimize()
 
     final_grad: torch.Tensor | None    #: last gradient (JᵀR), post-clipping
-    final_hessian: torch.Tensor | None  #: last un-damped JᵀJ (if save_last)
+    #: last un-damped JᵀJ (if save_last): a dense tensor, a ``BlockDiag``
+    #: or a ``SparseSym``
+    final_hessian: Any
 
     errs: torch.Tensor                 #: (..., capacity) per-iteration cost
     deltas2: torch.Tensor              #: (..., capacity) per-iteration |δx|²
@@ -57,7 +61,9 @@ class Output:
 
     def covariance(self, rescaled: bool = False):
         """Covariance ≈ H⁻¹ of the final (un-damped) Hessian, batched over
-        the instance axis.
+        the instance axis: (..., n, n), dense also for a ``BlockDiag``
+        (blockwise inverse) or a ``SparseSym`` (dense inverse with the
+        diagonal-shift retry), as in the JAX package.
 
         With ``rescaled=True`` and an overdetermined system
         (num_residuals > dims), scales by ``final_cost² / (#res − dims)``
@@ -66,12 +72,9 @@ class Output:
         H = self.final_hessian
         if H is None:
             return None
-        if not isinstance(H, torch.Tensor):
-            raise NotImplementedError(
-                "the covariance of a BlockDiag Hessian is not ported yet "
-                "(ROADMAP Queue 1, slice C item 13)")
         d = H.shape[-1]
-        cov = inv_cov(H)
+        cov = inv_cov(H) if isinstance(H, torch.Tensor) else \
+            H.inv().to_dense()
         if rescaled:
             scale = cov_rescale(self.final_cost.cost,
                                 self.final_cost.num_residuals, d)
@@ -111,7 +114,11 @@ def map_output(fn, out: Output) -> Output:
     """Apply ``fn`` to every tensor field of ``out`` (e.g. squeeze a batch
     of one)."""
     def f(v):
-        return fn(v) if isinstance(v, torch.Tensor) else v
+        if isinstance(v, torch.Tensor):
+            return fn(v)
+        if dataclasses.is_dataclass(v):     # a BlockDiag or SparseSym
+            return pytree.tree_map(fn, v)
+        return v
     cost = Cost(*(f(getattr(out.final_cost, k.name))
                   for k in dataclasses.fields(Cost)))
     kw = {k.name: f(getattr(out, k.name)) for k in dataclasses.fields(Output)

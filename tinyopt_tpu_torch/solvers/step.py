@@ -1,9 +1,11 @@
-"""Step proposal for GN / LM / DogLeg on dense batched normal equations.
+"""Step proposal for GN / LM / DogLeg on batched normal equations.
 
 Counterpart of ``tinyopt_tpu.solvers.step.propose_step`` (reference:
 include/tinyopt/solvers/gn.h:150-171, gd.h:131-134 for fixed-rate GD),
-for the dense (B, d, d) Hessian with the "cholesky" and the "cg"/"fused"
-solvers.  "cg" goes through
+for every Hessian representation: the dense (B, d, d) tensor with the
+"cholesky" and the "cg"/"fused" solvers, a :class:`~..ops.block.BlockDiag`
+(batched block Cholesky) and a :class:`~..ops.sparse_sym.SparseSym`
+(Jacobi-PCG to ``cg_iters``).  Dense "cg" goes through
 ``ops.cuda_cg.cg_solve``: the K1 kernel on a CUDA device, its plain twin on
 the CPU.
 """
@@ -12,8 +14,10 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.block import BlockDiag
 from ..ops.cuda_cg import cg_solve
 from ..ops.linalg import damp_diagonal, solve_psd
+from ..ops.sparse_sym import SparseSym
 from ..options import SolverType
 
 
@@ -104,15 +108,25 @@ def dogleg_core(g, lam, dx_gn, ok_gn, gHg, solve_reg):
     return dx, torch.all(torch.isfinite(dx), dim=-1)
 
 
-def _dogleg_step(H: torch.Tensor, g: torch.Tensor, lam: torch.Tensor, opts):
-    """Powell dogleg inside the trust radius ``ref/λ`` for dense batched
-    ``H`` (``tinyopt_tpu.solvers.step._dogleg_step``): the GN step and up
-    to two damped steps by Cholesky ("cholesky") or by ``cg_solve`` — K1
-    on a CUDA device — ("cg", "fused"); gᵀHg by a batched matmul."""
-    if not isinstance(H, torch.Tensor):
-        raise NotImplementedError(
-            "BlockDiag / SparseSym Hessians are not ported yet (ROADMAP "
-            "Queue 1, slice C item 13)")
+def _dogleg_step(H, g: torch.Tensor, lam: torch.Tensor, opts):
+    """Powell dogleg inside the trust radius ``ref/λ``
+    (``tinyopt_tpu.solvers.step._dogleg_step``): the GN step and up to two
+    damped steps of the same solver — the blockwise Cholesky of a
+    ``BlockDiag``, the Jacobi-PCG of a ``SparseSym``, and for dense
+    ``H`` Cholesky ("cholesky") or ``cg_solve`` — K1 on a CUDA device —
+    ("cg", "fused"); gᵀHg = g · Hg."""
+    use_ldlt = opts.hessian.use_ldlt
+    if isinstance(H, BlockDiag):
+        dx_gn, ok_gn = H.solve(-g, use_cholesky=use_ldlt)
+        return dogleg_core(
+            g, lam, dx_gn, ok_gn, _dot(g, H.matvec(g)),
+            lambda le: H.damp(le).solve(-g, use_cholesky=use_ldlt))
+    if isinstance(H, SparseSym):
+        iters = opts.hessian.cg_iters
+        dx_gn, ok_gn = H.solve(-g, cg_iters=iters)
+        return dogleg_core(
+            g, lam, dx_gn, ok_gn, _dot(g, H.matvec(g)),
+            lambda le: H.damp(le).solve(-g, cg_iters=iters))
     gHg = _dot(g, torch.matmul(H, g[..., None])[..., 0])
     if opts.hessian.solver in ("cg", "fused"):
         iters = opts.hessian.cg_iters or g.shape[-1]
@@ -124,21 +138,21 @@ def _dogleg_step(H: torch.Tensor, g: torch.Tensor, lam: torch.Tensor, opts):
         dx_gn, ok_gn = cg_ok(H)
         return dogleg_core(g, lam, dx_gn, ok_gn, gHg,
                            lambda le: cg_ok(damp_diagonal(H, le)))
-    use_ldlt = opts.hessian.use_ldlt
     dx_gn, ok_gn = solve_psd(H, -g, use_cholesky=use_ldlt)
     return dogleg_core(
         g, lam, dx_gn, ok_gn, gHg,
         lambda le: solve_psd(damp_diagonal(H, le), -g, use_cholesky=use_ldlt))
 
 
-def propose_step(H: torch.Tensor, g: torch.Tensor, lam: torch.Tensor, opts):
+def propose_step(H, g: torch.Tensor, lam: torch.Tensor, opts):
     """Propose dx for the current (H, g, λ), all batched. Returns (dx, ok).
 
     GD proposes dx = −lr·g and always succeeds; GN/LM solve
     (H ⊕ λ·diag) dx = −g (λ ignored for GN); DogLeg takes the Powell
     dogleg step in the trust radius ref/λ; a failed factorization
     or a non-finite step is reported through ``ok`` (B,) for the
-    λ-escalating retry loop."""
+    λ-escalating retry loop.  ``H`` is a dense (B, d, d) tensor, a
+    ``BlockDiag`` or a ``SparseSym``."""
     if opts.solver_type == SolverType.GRADIENT_DESCENT:
         return -opts.gd.lr * g, torch.ones(g.shape[:-1], dtype=torch.bool,
                                            device=g.device)
@@ -149,11 +163,14 @@ def propose_step(H: torch.Tensor, g: torch.Tensor, lam: torch.Tensor, opts):
         raise ValueError(
             f"{opts.solver_type.name} proposes through "
             "solvers/first_order.fo_propose, not propose_step")
-    if not isinstance(H, torch.Tensor):
-        raise NotImplementedError(
-            "BlockDiag / SparseSym Hessians are not ported yet (ROADMAP "
-            "Queue 1, slice C item 13)")
     is_lm = opts.solver_type == SolverType.LEVENBERG_MARQUARDT
+    if isinstance(H, BlockDiag):
+        Hd = H.damp(lam) if is_lm else H
+        return Hd.solve(-g, use_cholesky=opts.hessian.use_ldlt)
+    if isinstance(H, SparseSym):
+        # the reference's SimplicialLDLT path (gn.h:154-156) -> Jacobi-PCG
+        Hd = H.damp(lam) if is_lm else H
+        return Hd.solve(-g, cg_iters=opts.hessian.cg_iters)
     Hd = damp_diagonal(H, lam) if is_lm else H
     if opts.hessian.solver in ("cg", "fused"):
         iters = opts.hessian.cg_iters or g.shape[-1]
