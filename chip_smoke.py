@@ -27,12 +27,18 @@ with LM and the dogleg, BlockDiag and SparseSym covariances (phase 13);
 ICP on 4,096 cloud pairs through "cholesky" and "cg" (K1 at
 (4096, 6, 6)), the scan-sized 8 pairs of 10,000 points and robust ICP
 under outliers (phase 14); SEn3<3> prior solves of 10,000 instances
-(phase 15) — each with the launch counts set to 0 just before it and
+(phase 15); bundle adjustment by Schur complement — bench_ba's 100
+cameras x 5,000 landmarks through schur_optimize with LM, the dogleg,
+refinement and the PCG reduced solve, the card against the CPU port in
+float64, and 1,000 small problems through the batched Schur system and
+the dense loop with "cholesky" and "cg" (K1 at (1000, 96, 96)) (phase
+16) — each with the launch counts set to 0 just before it and
 read just after, and checks what comes out (the flagship's poses against
 the true ones, the curves' costs against float64 solves and their fits
 against the true curve, the sparse paths against x = 0.2, the dense
 solve, each other and the CPU port, ICP poses against the true ones and
-the CPU port's).  Every
+the CPU port's, the BA's reprojection RMSE against bench_ba's criterion
+and the Schur solves against the dense ones and the CPU port's).  Every
 phase that fails raises, so the script
 exits non-zero; without a CUDA device it exits non-zero before printing
 any result.
@@ -53,7 +59,8 @@ with its twin's time, bound and share, and the solves/s of its path
 through ``batched_optimize`` as ``mc_powell_path_solves_per_s``...; K1 at
 d = 6 as ``d6_ms`` and its
 launches on the curve fits as ``curve_launches``, and at ICP's
-(4096, 6, 6) as ``icp_ms``, ``icp_launches``...);
+(4096, 6, 6) as ``icp_ms``, ``icp_launches``..., and at the batched
+BA's (1000, 96, 96) as ``ba_ms``, ``ba_ms_f64``, ``ba_launches``...);
 the card's name and power limit; and last ``{"ok": true, "device":
 {...}}``.  The full record is also written to
 ``chiprun_out/chip_smoke.json``.
@@ -1287,6 +1294,320 @@ def phase15(to, dev, record, path_launches, cuda_cg, cuda_solver):
     assert gap < 1e-4 and di <= 1, "sen3 against the CPU port"
 
 
+# ---- phase 16: Schur-complement bundle adjustment (slice C item 14) ----
+
+BA_CAMS, BA_PTS, BA_NOISE = 100, 5000, 1e-3   # bench_ba's problem
+BA_CRIT = 1.2e-3             # bench_ba's criterion: RMSE <= 1.2 x the noise
+BA_BATCH = 1000              # 16c: instances of 4 cameras x 24 points
+BA_SMALL = (4, 24)
+
+
+def ba_pair(pose, point, obs):
+    """One observation's reprojection residual (the pair form of
+    ``ba_residuals``, benchmarks/run_benchmarks.py:315-316)."""
+    from tinyopt_tpu_torch.models.bundle_adjustment import project
+    return project(pose, point[None, :])[0] - obs
+
+
+def ba_pair_prior(pose, point, obs):
+    """``ba_pair`` with a prior of weight 0.1 on the pose's log and the
+    point in every pair: BA's 7-dim gauge leaves the plain H singular, so
+    its covariance is rounding noise; the prior makes H positive
+    definite."""
+    return torch.cat([ba_pair(pose, point, obs), 0.1 * pose.log(),
+                      0.1 * point])
+
+
+def ba_launches(path_launches, key, cuda_cg, cuda_solver):
+    n = path_launches[key] = {"K1": cuda_cg.cg_solve.launches,
+                              "K2": cuda_solver.fused_solve.launches}
+    return n
+
+
+def phase16(to, dev, record, path_launches, cuda_cg, cuda_solver):
+    """Schur-complement bundle adjustment (slice C item 14).  16a:
+    bench_ba's 100 cameras x 5,000 landmarks (15,600 tangent dims,
+    float32, benchmarks/run_benchmarks.py:264-326) through schur_optimize
+    with LM, the dogleg, LM with schur_refine=2 and LM with
+    schur_cg_iters=32, each to bench_ba's criterion, timed after a warm-up
+    from a perturbed start; no TPU kernel is on these paths.  16b: the
+    card against the CPU port in float64 (GN, LM, the dogleg; a
+    covariance at 10 x 200).  16c: 1,000 small BA problems through the
+    batched Schur system, the dense loop with "cholesky", and with "cg"
+    (K1's cg_kernel at (1000, 96, 96), counted and timed)."""
+    import dataclasses
+    from torch.utils import _pytree as pytree
+    from tinyopt_tpu_torch import manifold as mf
+    from tinyopt_tpu_torch.models.bundle_adjustment import (
+        ba_residuals, make_ba_problem, reprojection_rmse)
+    from tinyopt_tpu_torch.ops.linalg import solve_psd_cg
+    from tinyopt_tpu_torch.ops.schur import schur_system
+    from tinyopt_tpu_torch.optimizers.loop import optimize_from_acc
+    # float32 products must be exact (PARITY.md:121: a lower-precision
+    # multiply stalls BA at RMSE 3.2e-3)
+    assert torch.get_float32_matmul_precision() == "highest"
+    assert not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off"
+    rec = record["ba"] = {}
+
+    # ---- 16a: the large BA ----
+    data, x0, _ = make_ba_problem(n_cams=BA_CAMS, n_pts=BA_PTS,
+                                  noise=BA_NOISE, seed=11,
+                                  dtype=torch.float32, device=dev)
+    base = to.Options(max_iters=12, max_consec_failures=0, min_error=0.0,
+                      hessian=to.HessianOptions(save_last=False)
+                      ).for_dtype(torch.float32)
+    variants = {
+        "lm": base,
+        "dogleg": dataclasses.replace(base, solver_type=to.DogLeg),
+        "lm_refine2": dataclasses.replace(base, hessian=dataclasses.replace(
+            base.hessian, schur_refine=2)),
+        "lm_cg32": dataclasses.replace(
+            base, max_iters=24, hessian=dataclasses.replace(
+                base.hessian, schur_cg_iters=32)),
+    }
+    dims = 6 * BA_CAMS + 3 * BA_PTS
+    warm_x0 = dict(x0, points=x0["points"] + 1e-3)
+    rmse0 = reprojection_rmse(x0, data).item()
+    for name, o in variants.items():
+        def run(x):
+            return to.schur_optimize((x["poses"], x["points"]), ba_pair,
+                                     data.observations, data.mask, o)
+        run(warm_x0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_cg.cg_solve.launches = 0
+        cuda_solver.fused_solve.launches = 0
+        t0 = time.perf_counter()
+        (poses, points), out = run(x0)
+        rmse = reprojection_rmse({"points": points, "poses": poses},
+                                 data).item()
+        wall = time.perf_counter() - t0
+        n = ba_launches(path_launches, f"ba_{name}", cuda_cg, cuda_solver)
+        iters = int(out.num_iters)
+        r = rec[name] = {
+            "wall_s": wall, "iters": iters,
+            "ms_per_iter": wall * 1e3 / max(iters, 1),
+            "rmse": rmse, "rmse0": rmse0,
+            "stop": int(out.stop_reason),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": n}
+        log(f"[ba] {BA_CAMS} cams x {BA_PTS} pts ({dims} dims) {name}: "
+            f"{wall:.3f} s, {iters} iterations ({r['ms_per_iter']:.1f} ms "
+            f"an iteration), RMSE {rmse0:.3e} -> {rmse:.4e} (criterion "
+            f"{BA_CRIT}), stop {r['stop']}, peak memory {r['peak_gb']:.2f}"
+            f" GB, launches {n}")
+        assert n == {"K1": 0, "K2": 0}, f"ba_{name}: launches {n}"
+        assert rmse <= BA_CRIT, f"ba_{name}: RMSE {rmse}"
+
+    # ---- 16b: the card against the CPU port, float64 ----
+    cmp = rec["f64_vs_cpu"] = {}
+    d64, x64, _ = make_ba_problem(n_cams=6, n_pts=64, noise=1e-4, seed=9,
+                                  device="cpu")
+
+    def both(x, d, pair, o):
+        outs = []
+        for where in (dev, "cpu"):
+            xx = pytree.tree_map(lambda a: a.to(where), x)
+            dd = pytree.tree_map(lambda a: a.to(where), d)
+            outs.append(to.schur_optimize((xx["poses"], xx["points"]), pair,
+                                          dd.observations, dd.mask, o))
+        return outs
+
+    for name, st in (("gn", to.GaussNewton), ("lm", to.LevenbergMarquardt),
+                     ("dogleg", to.DogLeg)):
+        o = to.Options(max_iters=15, max_consec_failures=0, solver_type=st)
+        (xg, og), (xc, oc) = both(x64, d64, ba_pair, o)
+        gap = max(((a.cpu() - b).abs().max() / b.abs().max().clamp(
+            min=1e-300)).item() for a, b in zip(pytree.tree_leaves(xg),
+                                                 pytree.tree_leaves(xc)))
+        cg_, cc = og.final_cost.cost.item(), oc.final_cost.cost.item()
+        # equal costs (inf included: GN stops before it accepts a step)
+        cost_gap = 0.0 if cg_ == cc else abs(cg_ - cc) / abs(cc)
+        cmp[name] = {"stop": [int(og.stop_reason), int(oc.stop_reason)],
+                     "iters": [int(og.num_iters), int(oc.num_iters)],
+                     "x_rel_gap": gap, "cost_rel_gap": cost_gap}
+        log(f"[ba] 6 x 64 float64 {name}: card / CPU stop "
+            f"{cmp[name]['stop']}, iterations {cmp[name]['iters']}, x "
+            f"relative gap {gap:.3e}, cost relative gap {cost_gap:.3e}")
+        assert cmp[name]["stop"][0] == cmp[name]["stop"][1], name
+        assert cmp[name]["iters"][0] == cmp[name]["iters"][1], name
+        assert gap <= 1e-9 and cost_gap <= 1e-9, name
+    d10, x10, _ = make_ba_problem(n_cams=10, n_pts=200, noise=1e-3, seed=7,
+                                  device="cpu")
+    o = to.Options(max_iters=40, max_consec_failures=0, min_error=0.0)
+    (xg, og), (xc, oc) = both(x10, d10, ba_pair_prior, o)
+    covg, covc = og.covariance().cpu(), oc.covariance()
+    cov_gap = ((covg - covc).abs().max() / covc.abs().max()).item()
+    cmp["cov_10x200"] = {"dims": covc.shape[-1], "rel_gap": cov_gap,
+                         "iters": [int(og.num_iters), int(oc.num_iters)],
+                         "finite": bool(torch.isfinite(covg).all())}
+    log(f"[ba] 10 x 200 float64 with a 0.1 prior: covariance "
+        f"{tuple(covc.shape)}, card against the CPU port: relative gap "
+        f"{cov_gap:.3e}, iterations {cmp['cov_10x200']['iters']}")
+    assert cmp["cov_10x200"]["finite"] and cov_gap <= 1e-9, "covariance"
+
+    # ---- 16c: 1,000 small problems, batched ----
+    probs = [make_ba_problem(*BA_SMALL, noise=BA_NOISE, seed=i,
+                             dtype=torch.float32, device="cpu")
+             for i in range(BA_BATCH)]
+
+    def stack(f):
+        return pytree.tree_map(lambda *a: torch.stack(a).to(dev),
+                               *[f(p) for p in probs])
+
+    bdata = stack(lambda p: p[0])
+    bx0 = stack(lambda p: p[1])
+    nb_dims = 6 * BA_SMALL[0] + 3 * BA_SMALL[1]
+    opts = to.Options(max_iters=20, max_consec_failures=0).for_dtype(
+        torch.float32)
+    batch = {}
+
+    # the Schur system on the whole batch
+    one = pytree.tree_map(lambda a: a[0], bx0)
+    spec = mf.tangent_spec((one["poses"], one["points"]))
+    acc, ev, _, prop = schur_system(ba_pair, one["poses"], one["points"],
+                                    bdata.observations, bdata.mask, spec)
+    xb = mf.flatten_batch((bx0["poses"], bx0["points"]), spec)
+    cuda_cg.cg_solve.launches = 0
+    cuda_solver.fused_solve.launches = 0
+    (x, out), ms = timed(lambda: optimize_from_acc(xb, acc, ev, opts, spec,
+                                                   propose=prop))
+    n = ba_launches(path_launches, "ba_batch_schur", cuda_cg, cuda_solver)
+    poses, points = mf.unflatten(x, spec)
+    batch["schur"] = ({"points": points, "poses": poses}, out, ms, n)
+    for solver in ("cholesky", "cg"):
+        o = dataclasses.replace(opts, hessian=dataclasses.replace(
+            opts.hessian, solver=solver))
+        cuda_cg.cg_solve.launches = 0
+        cuda_solver.fused_solve.launches = 0
+        (xs, out), ms = timed(lambda: to.batched_optimize(
+            bx0, ba_residuals, o, data_batch=bdata))
+        n = ba_launches(path_launches, f"ba_batch_{solver}", cuda_cg,
+                        cuda_solver)
+        batch[solver] = (xs, out, ms, n)
+
+    def rmse_each(xs):
+        return torch.func.vmap(reprojection_rmse)(xs, bdata)
+
+    crec = rec["batch"] = {}
+    for name, (xs, out, ms, n) in batch.items():
+        r = rmse_each(xs)
+        crec[name] = {"ms": ms, "solves_per_s": BA_BATCH / (ms / 1e3),
+                      "share_at_criterion": (r <= BA_CRIT).float().mean(
+                          ).item(),
+                      "median_rmse": r.median().item(),
+                      "mean_iters": out.num_iters.float().mean().item(),
+                      "conv": out.converged().float().mean().item(),
+                      "launches": n}
+        log(f"[ba] {BA_BATCH} x ({BA_SMALL[0]} cams x {BA_SMALL[1]} pts, "
+            f"{nb_dims} dims) {name}: {crec[name]['solves_per_s']:.1f} "
+            f"solves/s ({ms:.1f} ms), RMSE <= {BA_CRIT} on "
+            f"{crec[name]['share_at_criterion']:.4f} (median "
+            f"{crec[name]['median_rmse']:.3e}), iterations mean "
+            f"{crec[name]['mean_iters']:.2f}, conv {crec[name]['conv']:.4f}"
+            f", launches {n}")
+    assert batch["schur"][3] == {"K1": 0, "K2": 0}, "ba_batch_schur"
+    assert batch["cholesky"][3] == {"K1": 0, "K2": 0}, "ba_batch_cholesky"
+    assert batch["cg"][3]["K1"] > 0 and batch["cg"][3]["K2"] == 0, \
+        f"ba_batch_cg: launches {batch['cg'][3]}"
+    assert (crec["cg"]["share_at_criterion"]
+            >= crec["cholesky"]["share_at_criterion"]), "ba cg criterion"
+    # float32: the Schur and dense solves of one instance part at the noise
+    # floor (the gauge drifts by rounding, and the stop tests fire an
+    # iteration apart; a CPU rehearsal of 64 instances: RMSE within 6.3e-6
+    # relative, x within 9.2e-4, iterations up to 8 apart), so their
+    # RMSEs are held to 1e-4 relative here and the trajectories in float64
+    r_s, r_c = rmse_each(batch["schur"][0]), rmse_each(batch["cholesky"][0])
+    crec["schur_vs_cholesky_f32"] = {
+        "rmse_rel_gap": ((r_s - r_c).abs() / r_c).max().item(),
+        "iter_gap": (batch["schur"][1].num_iters
+                     - batch["cholesky"][1].num_iters).abs().max().item()}
+    log(f"[ba] {BA_BATCH} float32: Schur against cholesky, RMSE relative "
+        f"gap {crec['schur_vs_cholesky_f32']['rmse_rel_gap']:.3e}, "
+        f"iteration gap {crec['schur_vs_cholesky_f32']['iter_gap']}")
+    assert crec["schur_vs_cholesky_f32"]["rmse_rel_gap"] <= 1e-4
+    # float64, the same instances: Schur against the dense cholesky loop
+    # per instance with tests/test_fused.py:51's tolerances (x in the
+    # parameter pytree; gradients in one tangent order: the Schur loop's
+    # is [poses; points], the dense one's [points; poses])
+    data64 = pytree.tree_map(lambda a: a.double(), bdata)
+    x64_0 = pytree.tree_map(lambda a: a.double(), bx0)
+    o64 = to.Options(max_iters=20, max_consec_failures=0)
+    one64 = pytree.tree_map(lambda a: a.double(),
+                            (one["poses"], one["points"]))
+    spec64 = mf.tangent_spec(one64)
+    acc, ev, _, prop = schur_system(ba_pair, one64[0], one64[1],
+                                    data64.observations, data64.mask, spec64)
+    x, out_s = optimize_from_acc(
+        mf.flatten_batch((x64_0["poses"], x64_0["points"]), spec64), acc,
+        ev, o64, spec64, propose=prop)
+    poses, points = mf.unflatten(x, spec64)
+    xs_c, out_c = to.batched_optimize(
+        x64_0, ba_residuals, dataclasses.replace(o64, hessian=dataclasses
+                                                 .replace(o64.hessian,
+                                                          solver="cholesky")),
+        data_batch=data64)
+    xs_s = {"points": points, "poses": poses}
+    for a, b in zip(pytree.tree_leaves(xs_s), pytree.tree_leaves(xs_c)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6,
+                                   equal_nan=True, msg="ba schur vs dense")
+    assert torch.equal(out_s.succeeded(), out_c.succeeded())
+    assert torch.equal(out_s.converged(), out_c.converged())
+    di = (out_s.num_iters - out_c.num_iters).abs().max().item()
+    df = (out_s.num_failures - out_c.num_failures).abs().max().item()
+    assert di <= 1 and df == 0, f"ba schur vs dense: gaps {di}, {df}"
+    torch.testing.assert_close(out_s.final_cost.cost, out_c.final_cost.cost,
+                               rtol=1e-5, atol=1e-6)
+    n_pose = 6 * BA_SMALL[0]
+    g_s = torch.cat([out_s.final_grad[:, n_pose:],
+                     out_s.final_grad[:, :n_pose]], dim=-1)
+    torch.testing.assert_close(g_s, out_c.final_grad, rtol=1e-4, atol=1e-5)
+    crec["schur_vs_cholesky_f64"] = {
+        "max_abs_x": max((a - b).abs().max().item() for a, b in zip(
+            pytree.tree_leaves(xs_s), pytree.tree_leaves(xs_c))),
+        "iter_gap": di}
+    log(f"[ba] {BA_BATCH} float64: Schur against cholesky, max |x_s - x_c| "
+        f"{crec['schur_vs_cholesky_f64']['max_abs_x']:.3e}, iteration gap "
+        f"{di}")
+
+    # K1 at the cg path's shape: (1000, 96, 96), 96 iterations
+    g = torch.Generator(device=dev).manual_seed(19)
+    k1 = rec["k1"] = {"launches": batch["cg"][3]["K1"]}
+    for dtype, tag in ((torch.float32, ""), (torch.float64, "_f64")):
+        A = torch.randn((BA_BATCH, 2 * nb_dims, nb_dims), generator=g,
+                        dtype=dtype, device=dev) / (2 * nb_dims) ** 0.5
+        H = A.mT @ A + 1e-3 * torch.eye(nb_dims, dtype=dtype, device=dev)
+        b = torch.randn((BA_BATCH, nb_dims), generator=g, dtype=dtype,
+                        device=dev)
+        xt = solve_psd_cg(H, b, nb_dims)
+        err = (cuda_cg.cg_solve(H, b, nb_dims) - xt).abs().max().item()
+        scale = xt.abs().max().item()
+        k1[f"ms{tag}"] = gpu_ms(lambda: cuda_cg.cg_solve(H, b, nb_dims), n=20)
+        k1[f"plain_ms{tag}"] = gpu_ms(lambda: solve_psd_cg(H, b, nb_dims),
+                                      n=3)
+        k1[f"bound_ms{tag}"], k1[f"bound_by{tag}"] = k1_bound(
+            BA_BATCH, nb_dims, nb_dims, H.element_size())
+        k1[f"bytes_bound_ms{tag}"] = ((BA_BATCH * nb_dims * nb_dims
+                                       + 2 * BA_BATCH * nb_dims)
+                                      * H.element_size() / HBM_BYTES_PER_S
+                                      * 1e3)
+        k1[f"share{tag}"] = k1[f"bound_ms{tag}"] / k1[f"ms{tag}"]
+        k1[f"max_abs_err{tag}"] = err
+        k1[f"max_abs_x{tag}"] = scale
+        plan = cuda_cg.k1_launch_plan(BA_BATCH, nb_dims, H.element_size(),
+                                      H.data_ptr())
+        log(f"[ba] K1 at ({BA_BATCH}, {nb_dims}, {nb_dims}) {dtype}, "
+            f"{nb_dims} iterations ({plan.path}): kernel "
+            f"{k1[f'ms{tag}']:.4f} ms, twin {k1[f'plain_ms{tag}']:.4f} ms, "
+            f"bound {k1[f'bound_ms{tag}']:.4f} ms ({k1[f'bound_by{tag}']};"
+            f" bytes alone {k1[f'bytes_bound_ms{tag}']:.4f} ms), share "
+            f"{k1[f'share{tag}']:.3f}, max|x_k - x_twin| {err:.3e} (max|x| "
+            f"{scale:.3e}); {k1['launches']} launches on the cg path")
+        # phase 3's hold of K1: 1e-5 of max|x| in float32, 1e-11 in float64
+        tol = 1e-5 if dtype == torch.float32 else 1e-11
+        assert err <= tol * max(1.0, scale), f"K1 at {nb_dims} {dtype}"
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2149,7 +2470,7 @@ def main() -> int:
             f"{BATCH}, ms {times})")
 
     for phase in (phase8, phase9, phase10, phase11, phase12, phase13,
-                  phase14, phase15):
+                  phase14, phase15, phase16):
         phase(to, dev, record, path_launches, cuda_cg, cuda_solver)
 
     kernels = [
@@ -2177,7 +2498,8 @@ def main() -> int:
          "d2_share_f64": k1["d2_share_f64"],
          "curve_launches": {p: n["K1"] for p, n in path_launches.items()
                             if p.startswith("curve_")},
-         **{f"icp_{k}": v for k, v in record["icp"]["k1"].items()}},
+         **{f"icp_{k}": v for k, v in record["icp"]["k1"].items()},
+         **{f"ba_{k}": v for k, v in record["ba"]["k1"].items()}},
         {"name": "K2 solver_seg_kernel", "route": "cuda",
          "source": "tinyopt_tpu_torch/csrc/solver_seg.cuh",
          "replaces": "tinyopt_tpu/ops/pallas_solver.py:150",

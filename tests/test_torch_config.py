@@ -120,6 +120,13 @@ def test_port_never_imports_jax():
         "to.block_optimize(torch.ones(3, 1), lambda x: x * x - 2)\n"
         "to.lbfgs.optimize(torch.zeros(2),"
         " lambda x: torch.sum((x - 1) ** 2))\n"
+        "import tinyopt_tpu_torch.ops.schur, tinyopt_tpu_torch.ops.schur_obs\n"
+        "from tinyopt_tpu_torch.models.bundle_adjustment import ("
+        "make_ba_problem, project)\n"
+        "d, x0, _ = make_ba_problem(2, 6, device='cpu')\n"
+        "to.schur_optimize((x0['poses'], x0['points']),"
+        " lambda p, q, o: project(p, q[None])[0] - o, d.observations,"
+        " d.mask, to.Options(max_iters=2))\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules"
         " if m.startswith('jax'))\n"
         "assert 'tinyopt_tpu' not in sys.modules\n"

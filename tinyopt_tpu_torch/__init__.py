@@ -9,9 +9,10 @@ norms and robust M-estimators, ``diff`` the automatic and numerical
 differentiation and the gradient checker; the first-order solvers, the
 segmented solve (``checkpoint``), covariance recovery and implicit
 differentiation (``implicit``) run on the same loop, and so do the
-block-diagonal, general-sparse and matrix-free solves of ``sparse``
-(``block_optimize``, ``sparse_optimize``, ``matfree_optimize``).  It
-never imports JAX.
+block-diagonal, general-sparse, matrix-free and Schur-complement
+(bundle adjustment) solves of ``sparse`` (``block_optimize``,
+``sparse_optimize``, ``matfree_optimize``, ``schur_optimize``).  It never
+imports JAX.
 
     import torch, tinyopt_tpu_torch as to
     x, out = to.optimize(torch.tensor(1.0), lambda x: x * x - 2)
@@ -35,7 +36,8 @@ from .ops.sparse_sym import SparseSym
 from .output import Output
 from .parallel.batched import batched_optimize, batched_solver
 from .profiling import dispatch_floor, profile_iterations
-from .sparse import block_optimize, matfree_optimize, sparse_optimize
+from .sparse import (block_optimize, matfree_optimize, schur_optimize,
+                     sparse_optimize)
 from .stop_reasons import StopReason, stop_reason_description
 
 # Namespace products mirroring the reference (optimizers/{nlls,unconstrained}.h)
@@ -61,6 +63,6 @@ __all__ = [
     "checkpoint", "covariance_at", "diff", "dispatch_floor", "dogleg", "gd",
     "gn", "implicit", "implicit_solver", "lbfgs", "lm", "losses",
     "matfree_optimize", "multi_start_optimize", "nlls", "optimize",
-    "profile_iterations", "sgd", "sparse", "sparse_optimize", "stepper",
-    "stop_reason_description", "unconstrained",
+    "profile_iterations", "schur_optimize", "sgd", "sparse",
+    "sparse_optimize", "stepper", "stop_reason_description", "unconstrained",
 ]

@@ -4,10 +4,11 @@
 dataclass with its fields) into this package's ``Options``, nested option
 groups and the solver-type enum included.  ``prior_problem_from_numpy``,
 ``so3_from_numpy``, ``se3_from_numpy``, ``sen3_from_numpy``,
-``se3_refinement_data_from_numpy`` and ``icp_problem_from_numpy`` build
-the port's problems and poses from host arrays, e.g. the ones a JAX
-``PriorProblem``, ``SO3``, ``SE3``, ``SEn3`` or ``ICPProblem`` holds after
-``np.asarray``; ``perceptron_from_numpy`` the perceptron's parameter dict
+``se3_refinement_data_from_numpy``, ``icp_problem_from_numpy`` and
+``ba_problem_from_numpy`` build the port's problems and poses from host
+arrays, e.g. the ones a JAX ``PriorProblem``, ``SO3``, ``SE3``, ``SEn3``,
+``ICPProblem`` or bundle-adjustment problem holds after ``np.asarray``;
+``perceptron_from_numpy`` the perceptron's parameter dict
 (``models/nn.py``).
 """
 
@@ -21,6 +22,7 @@ import torch
 
 from . import options as _opt
 from .manifolds import SE3, SO3, SEn3
+from .models.bundle_adjustment import BAData
 from .models.icp import ICPProblem
 from .models.problems import PriorProblem
 from .models.se3_refinement import SE3RefinementData
@@ -114,3 +116,28 @@ def icp_problem_from_numpy(src, dst, true_wxyz, true_translation,
                       dst=_tensor(dst, device, dtype),
                       true_pose=se3_from_numpy(true_wxyz, true_translation,
                                                device, dtype))
+
+
+def ba_problem_from_numpy(data, poses_wxyz, poses_translation, points,
+                          device="cuda", dtype=torch.float32):
+    """A bundle-adjustment problem ``(data, x0)`` on ``device`` from host
+    arrays, e.g. a JAX ``make_ba_problem``'s or ``make_ba_problem_sparse``'s
+    after ``np.asarray``.
+
+    ``data`` is the grid pair ``(observations, mask)``, which becomes a
+    ``BAData``, or the point-major triple ``(obs, cam_idx, mask)``, whose
+    ``cam_idx`` stays int32; the poses are quaternions (n_cams, 4) and
+    translations (n_cams, 3), the points (n_pts, 3).  ``x0`` is
+    ``{"points": ..., "poses": SE3}``, keys in the JAX package's (sorted)
+    order."""
+    if len(data) == 2:
+        out = BAData(*(_tensor(a, device, dtype) for a in data))
+    else:
+        obs, cam_idx, mask = data
+        out = (_tensor(obs, device, dtype),
+               torch.as_tensor(np.array(cam_idx), dtype=torch.int32,
+                               device=device),
+               _tensor(mask, device, dtype))
+    return out, {"points": _tensor(points, device, dtype),
+                 "poses": se3_from_numpy(poses_wxyz, poses_translation,
+                                         device, dtype)}

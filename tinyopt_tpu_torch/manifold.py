@@ -20,6 +20,7 @@ from __future__ import annotations
 import math
 from typing import Any, Callable, NamedTuple
 
+import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
@@ -266,6 +267,39 @@ def as_pytree(x):
             v = float(v)
         return torch.as_tensor(v)
     return pytree.tree_map(conv, x, is_leaf=_is_manifold_leaf)
+
+
+def element_perm(x_batched, n: int) -> np.ndarray | None:
+    """Index map from the ELEMENT-MAJOR flat tangent of a leading-axis
+    batched pytree (element 0's full tangent, then element 1's, …) to the
+    global leaf-major layout of ``tangent_spec(x_batched)``.
+
+    Returns ``em2gl`` with ``t_global = t_elem_major[em2gl]``, or ``None``
+    when the two layouts coincide (a single-leaf pytree: a batched SE3, a
+    plain (n, d) tensor).  The bipartite (Schur) systems do their algebra
+    element-major, each camera's tangent block contiguous, while the loop
+    retracts in the leaf-major layout; a multi-leaf element such as
+    ``{"f": (n, 1), "pose": SE3}`` needs this permutation at their
+    boundary (``tinyopt_tpu.manifold.element_perm``)."""
+    leaves, _ = _leaves(x_batched)
+    if len(leaves) <= 1:
+        return None
+    d_tot = [_leaf_dims(l) for l in leaves]
+    d_el = [d // n for d in d_tot]
+    if any(d != de * n for d, de in zip(d_tot, d_el)):
+        raise ValueError(
+            f"batched pytree leaf tangent dims {d_tot} not divisible by "
+            f"the batch size {n}")
+    da = sum(d_el)
+    goff = np.cumsum([0] + [n * de for de in d_el])[:-1]
+    eoff = np.cumsum([0] + d_el[:-1])
+    em2gl = np.empty(n * da, np.int64)
+    i = np.arange(n)[:, None]
+    for l, de in enumerate(d_el):
+        c = np.arange(de)[None, :]
+        em2gl[(goff[l] + i * de + c).reshape(-1)] = \
+            (i * da + eoff[l] + c).reshape(-1)
+    return em2gl
 
 
 def flatten_values(x) -> torch.Tensor:

@@ -60,11 +60,14 @@ def pcg_core(matvec, dinv: torch.Tensor, b: torch.Tensor,
     The formulas of ``tinyopt_tpu.ops.linalg.pcg_core``: a direction with
     pᵀHp ≤ finfo.tiny freezes the iterate (α = 0), and the CG β divides by
     max(rz, tiny).  ``matvec`` maps (..., d) -> (..., d); ``dinv`` is the
-    inverse diagonal (1 where non-positive)."""
+    inverse diagonal (1 where non-positive), or a callable applying a
+    general preconditioner M⁻¹ (the block-Jacobi of the Schur reduced
+    solve, ``ops/schur.py``)."""
     eps = torch.finfo(b.dtype).tiny
+    prec = dinv if callable(dinv) else (lambda v: v * dinv)
     x = torch.zeros_like(b)
     r = b
-    z = r * dinv
+    z = prec(r)
     p = z
     rz = torch.sum(r * z, dim=-1)
     for _ in range(iters):
@@ -76,7 +79,7 @@ def pcg_core(matvec, dinv: torch.Tensor, b: torch.Tensor,
                             torch.zeros_like(rz))
         x = x + alpha[..., None] * p
         r = r - alpha[..., None] * Hp
-        z = r * dinv
+        z = prec(r)
         rz_new = torch.sum(r * z, dim=-1)
         p = z + (rz_new / torch.clamp(rz, min=eps))[..., None] * p
         rz = rz_new
@@ -182,3 +185,22 @@ def cov_rescale(cost: torch.Tensor, num_residuals: torch.Tensor,
 def max_std_dev(H: torch.Tensor) -> torch.Tensor:
     """√(max coefficient of H⁻¹) (reference: solvers/gn.h:177-183)."""
     return torch.sqrt(torch.amax(inv_cov(H), dim=(-2, -1)))
+
+
+def refine_psd_solve(H: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
+                     rounds: int, use_cholesky: bool = True) -> torch.Tensor:
+    """Mixed-precision iterative refinement of a PSD solve, batched over
+    the leading axes (``tinyopt_tpu.ops.linalg.refine_psd_solve``).
+
+    Each of ``rounds`` rounds computes the residual ``r = b − H·x`` in
+    float64 and solves ``H c = r`` in the working dtype with
+    :func:`solve_psd`; a correction that is not finite is skipped (x
+    kept).  The forward error contracts by about eps·cond(H) a round, so
+    a few rounds recover near-float64 solutions of a float32 system
+    whenever cond(H) < 1/eps32."""
+    for _ in range(max(rounds, 0)):
+        r = (b.double() - torch.matmul(H.double(), x.double()[..., None])
+             [..., 0]).to(H.dtype)
+        corr, ok = solve_psd(H, r, use_cholesky=use_cholesky)
+        x = x + torch.where(ok[..., None], corr, torch.zeros_like(corr))
+    return x

@@ -115,7 +115,8 @@ class Pattern:
 
 class _DenseCov:
     """Duck-typed ``.to_dense()`` wrapper returned by :meth:`SparseSym.inv`
-    (a sparse matrix's inverse is dense)."""
+    and ``ops.schur.SchurSystem.inv`` (a structured matrix's inverse is
+    dense; ``Output.covariance`` calls ``inv().to_dense()``)."""
 
     def __init__(self, a):
         self._a = a

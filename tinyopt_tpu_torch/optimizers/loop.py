@@ -375,8 +375,16 @@ def optimize_from_acc(
 
         # --- Build validity (lm.h:83-88): min |H[i,i]| check ---
         if (not first_order) and opts.hessian.check_min_H_diag > 0:
-            diag = (torch.diagonal(Hc, dim1=-2, dim2=-1)
-                    if isinstance(Hc, torch.Tensor) else Hc.diagonal())
+            if isinstance(Hc, torch.Tensor):
+                diag = torch.diagonal(Hc, dim1=-2, dim2=-1)
+            elif hasattr(Hc, "diagonal"):
+                diag = Hc.diagonal()
+            else:
+                # a SchurSystem or LinPoint: jnp.diagonal raises TypeError
+                # on it in the JAX loop as well
+                raise TypeError(
+                    "hessian.check_min_H_diag needs the Hessian's diagonal; "
+                    f"a {type(Hc).__name__} has none")
             diag_ok = torch.all(torch.abs(diag)
                                 >= opts.hessian.check_min_H_diag, dim=-1)
         else:

@@ -19,11 +19,14 @@ tests/sparse.cpp:19-85 — a general ``SparseMatrix`` Hessian factored by
   one reverse-mode pass, the Gauss-Newton matvec v ↦ Jᵀ(Jv) one jvp and
   one vjp through the retraction, and the damping additive (λ times the
   Rayleigh quotient gᵀJᵀJg / gᵀg).
+* **Schur complement** (``schur_optimize``): bipartite problems (bundle
+  adjustment), the landmarks eliminated every iteration and only the
+  reduced camera system solved (``ops/schur.py``).
 
 Every system here is batch-native like ``diff.auto.make_nlls_system``:
 ``accumulate(x) -> (H, g, Cost)`` and ``evaluate(x) -> Cost`` over flat
 (B, P) parameters, for ``optimizers.loop.optimize_from_acc`` on a batch;
-the three ``*_optimize`` entry points are a batch of one.  The JAX
+the four ``*_optimize`` entry points are a batch of one.  The JAX
 package's compile cache has no counterpart: nothing here is traced.
 """
 
@@ -42,6 +45,7 @@ from .diff.auto import flatten_residuals, instance_residuals, num_residuals
 from .ops.block import BlockDiag
 from .ops.coloring import _greedy_color, probe_structure
 from .ops.linalg import cg_to_tol
+from .ops.schur import schur_system
 from .ops.sparse_sym import Pattern, SegmentSum, SparseSym
 from .optimizers.loop import optimize_from_acc
 from .options import FIRST_ORDER_TYPES, Options, SolverType
@@ -433,4 +437,38 @@ def matfree_optimize(x0, residual_fn: Callable,
                                          cg_tol, precond_probes)
     xb = mf.flatten_batch(pytree.tree_map(lambda a: a[None], x0), spec)
     x, out = optimize_from_acc(xb, acc, ev, opts, spec, propose=propose)
+    return _batch_of_one(x, out, spec)
+
+
+# --------------------------------------------------------------------------
+# Schur-complement path (bipartite problems)
+# --------------------------------------------------------------------------
+
+def schur_optimize(x0: tuple, pair_fn: Callable, data, mask,
+                   options: Options | None = None):
+    """Bipartite NLLS by Schur-complement elimination (bundle adjustment).
+
+    ``x0 = (a0, b0)``: two families of elements with a leading axis each —
+    e.g. cameras (a batched SE3) and landmarks ((n_b, 3)) — where every
+    residual couples exactly one element of each.
+    ``pair_fn(a_i, b_j, data_ij) -> (m,)`` evaluates one observation;
+    ``data`` leaves are (n_a, n_b, ...) and ``mask`` is (n_a, n_b), 1 for
+    an observed pair.  Every iteration eliminates the B family (batched
+    db×db inverses) and solves only the (n_a·da)² reduced camera system
+    (``ops/schur.py``).  Returns ``((a, b), Output)``;
+    ``Output.final_hessian`` is a :class:`~.ops.schur.SchurSystem` when
+    ``hessian.save_last`` is on and ``Output.covariance()`` inverts it by
+    blocks; ``Cost.num_residuals`` counts the observed pairs only
+    (m · count_nonzero(mask))."""
+    options = options or Options()
+    _check_second_order(options, "schur_optimize")
+    if not (isinstance(x0, tuple) and len(x0) == 2):
+        raise ValueError("schur_optimize needs x0 = (a0, b0)")
+    x0 = (mf.as_pytree(x0[0]), mf.as_pytree(x0[1]))
+    spec = mf.tangent_spec(x0)
+    data_b = pytree.tree_map(lambda a: torch.as_tensor(a)[None], data)
+    acc, ev, _, propose = schur_system(pair_fn, x0[0], x0[1], data_b,
+                                       torch.as_tensor(mask)[None], spec)
+    xb = mf.flatten_batch(pytree.tree_map(lambda a: a[None], x0), spec)
+    x, out = optimize_from_acc(xb, acc, ev, options, spec, propose=propose)
     return _batch_of_one(x, out, spec)
