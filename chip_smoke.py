@@ -2,11 +2,14 @@
 
 Builds the package's CUDA kernels from ``tinyopt_tpu_torch/csrc``, holds
 each kernel against its plain PyTorch twin on the card (K1 also at the
-flagship's 10k x 6 x 6; K2 for GN / LM, the dogleg and the history, also
-at the edges of its launch plans, printed per shape, and beside an
-instance whose data is NaN; K2's SE3 family, the retraction branch, at
-10k x 16 in float32 and float64 with LM and the dogleg, at K = 24, small
-batches and beside a NaN instance; K2's multi-color branch, Curtis-Powell-
+flagship's 10k x 6 x 6, and its block kernel, d > 64, at d = 65 to 300 in
+every way it reads H, with offset views, the alpha-freeze and 10,007
+instances, timed at (1000, 65, 65), (256, 100, 20) and (64, 300, 20); K2
+for GN / LM, the dogleg and the history, also at the edges of its launch
+plans, printed per shape, and beside an instance whose data is NaN;
+K2's SE3 family, the retraction branch, at 10k x 16 in float32 and
+float64 with LM and the dogleg, at K = 24, small batches and beside a
+NaN instance; K2's multi-color branch, Curtis-Powell-
 Reid probes, on Powell's singular function and Wood's at 10,000 perturbed
 standard starts, float32 and float64, LM and the dogleg, bit for bit
 against the twin and against K2 with the coloring off, at B = 1, 3, 257
@@ -1334,7 +1337,7 @@ def phase16(to, dev, record, path_launches, cuda_cg, cuda_solver):
     card against the CPU port in float64 (GN, LM, the dogleg; a
     covariance at 10 x 200).  16c: 1,000 small BA problems through the
     batched Schur system, the dense loop with "cholesky", and with "cg"
-    (K1's cg_kernel at (1000, 96, 96), counted and timed)."""
+    (K1's cg_block_kernel at (1000, 96, 96), counted and timed)."""
     import dataclasses
     from torch.utils import _pytree as pytree
     from tinyopt_tpu_torch import manifold as mf
@@ -1597,7 +1600,7 @@ def phase16(to, dev, record, path_launches, cuda_cg, cuda_solver):
         plan = cuda_cg.k1_launch_plan(BA_BATCH, nb_dims, H.element_size(),
                                       H.data_ptr())
         log(f"[ba] K1 at ({BA_BATCH}, {nb_dims}, {nb_dims}) {dtype}, "
-            f"{nb_dims} iterations ({plan.path}): kernel "
+            f"{nb_dims} iterations ({plan.path}/{plan.h_in}): kernel "
             f"{k1[f'ms{tag}']:.4f} ms, twin {k1[f'plain_ms{tag}']:.4f} ms, "
             f"bound {k1[f'bound_ms{tag}']:.4f} ms ({k1[f'bound_by{tag}']};"
             f" bytes alone {k1[f'bytes_bound_ms{tag}']:.4f} ms), share "
@@ -1706,43 +1709,102 @@ def main() -> int:
     assert torch.all(xk[::2] == 0) and torch.all(xt[::2] == 0), "K1 freeze"
     torch.testing.assert_close(xk, xt, rtol=1e-5, atol=1e-5)
     log("[K1] alpha-freeze (H = 0) and ragged B = 257: ok")
+    # Each edge is held against the float64 twin on the same inputs:
+    # float64 to 1e-11 of max|x|; float32 to twice the float32 twin's own
+    # gap, or 1e-5 of max|x| where that is larger — at d = 9, 8 iterations
+    # run CG to exhaustion, where float32 iterates are rounding noise, twin
+    # and kernel alike.  Returns the worst error over the limit.
+    def k1_edge(H, b, iters):
+        x64 = solve_psd_cg(H.double(), b.double(), iters)
+        scale = max(1.0, x64.abs().max().item())
+        twin_gap = (solve_psd_cg(H, b, iters).double()
+                    - x64).abs().max().item()
+        limit = (max(2 * twin_gap, 1e-5 * scale)
+                 if H.dtype == torch.float32 else 1e-11 * scale)
+        worst = 0.0
+        for Hk in (H, offset_view(H)):
+            err = (cuda_cg.cg_solve(Hk, b, iters).double()
+                   - x64).abs().max().item()
+            worst = max(worst, err / limit)
+        return worst
+
     # the warp kernel's edges: per-value copies (an instance of 324 or 676
     # bytes; a view one element past an aligned base), lanes without a
     # second column (d <= 32), an odd d with a second column (33: padded
-    # rows in float64), two full columns (d = 64), B below the
-    # warps of a block; and the block kernel just past it (d = 65), at 8
-    # iterations.  Each is held against the float64 twin on the same
-    # inputs: float64 to 1e-11 of max|x|; float32 to twice the float32
-    # twin's own gap, or 1e-5 of max|x| where that is larger — at d = 9,
-    # 8 iterations run CG to exhaustion, where float32 iterates are
-    # rounding noise, twin and kernel alike.
+    # rows in float64), two full columns (d = 64), B below the warps of a
+    # block, at 8 iterations
     for dtype in (torch.float32, torch.float64):
         for B, d in ((257, 9), (257, 13), (257, 33), (3, 50), (257, 50),
-                     (257, 64), (257, 65)):
+                     (257, 64)):
             H, b = spd(B, d, dtype)
-            x64 = solve_psd_cg(H.double(), b.double(), 8)
-            scale = max(1.0, x64.abs().max().item())
-            twin_gap = (solve_psd_cg(H, b, 8).double() - x64).abs().max().item()
-            limit = (max(2 * twin_gap, 1e-5 * scale)
-                     if dtype == torch.float32 else 1e-11 * scale)
-            for Hk in (H, offset_view(H)):
-                plan = cuda_cg.k1_launch_plan(B, d, Hk.element_size(),
-                                              Hk.data_ptr())
-                xk = cuda_cg.cg_solve(Hk, b, 8)
-                err = (xk.double() - x64).abs().max().item()
-                log(f"[K1] {B}x{d}x{d} {dtype} {plan.path}/{plan.h_in}/"
-                    f"{plan.copy}: max|x_k - x_f64| = {err:.3e}, twin "
-                    f"{twin_gap:.3e}, max|x| {scale:.3e}")
-                assert err <= limit, "K1 edge shape"
-    # shared memory above 48 KB (d = 100, f64) and H rows read from device
-    # memory past 227 KB (d = 300, f64)
-    for B, d in ((256, 100), (64, 300)):
-        H, b = spd(B, d, torch.float64)
-        xk = cuda_cg.cg_solve(H, b, 20)
-        xt = solve_psd_cg(H, b, 20)
-        err = (xk - xt).abs().max().item()
-        log(f"[K1] {B}x{d}x{d} float64 iters=20: max err {err:.3e}")
-        assert err <= 1e-11 * max(1.0, xt.abs().max().item()), "K1 large d"
+            plan = cuda_cg.k1_launch_plan(B, d, H.element_size(),
+                                          H.data_ptr())
+            worst = k1_edge(H, b, 8)
+            log(f"[K1] {B}x{d}x{d} {dtype} {plan.path}/{plan.h_in}/"
+                f"{plan.copy}: max|x_k - x_f64| / limit = {worst:.3f}, "
+                "aligned and offset")
+            assert worst <= 1.0, "K1 edge shape"
+    # the block kernel (d > 64): every way its plan reads H — the whole
+    # column in registers (to d = 128 in float32, 96 in float64), 64 rows
+    # of it with the rest from shared memory (above), and from device
+    # memory (d = 300, and float64 at 200) — aligned (one bulk copy) and
+    # offset (per-value copies), B = 1, 3, 257, at 8 and at d iterations
+    for dtype in (torch.float32, torch.float64):
+        for d in (65, 96, 97, 128, 129, 200, 300):
+            worst, ways = 0.0, set()
+            for B in (1, 3, 257):
+                H, b = spd(B, d, dtype)
+                ways.add(cuda_cg.k1_launch_plan(B, d, H.element_size(),
+                                                H.data_ptr()).h_in)
+                for iters in (8, d):
+                    worst = max(worst, k1_edge(H, b, iters))
+            log(f"[K1] block d = {d} {dtype} ({'/'.join(sorted(ways))}), "
+                f"B = 1, 3, 257, 8 and {d} iterations, aligned and offset: "
+                f"max|x_k - x_f64| / limit = {worst:.3f}")
+            assert worst <= 1.0, f"K1 block kernel at d = {d}"
+    # alpha-freeze on the block kernel (H = 0 in every other instance), and
+    # more instances than blocks resident at once (the persistent stride)
+    for dtype in (torch.float32, torch.float64):
+        H, b = spd(257, 96, dtype)
+        H[::2] = 0
+        xk = cuda_cg.cg_solve(H, b, 96)
+        assert torch.all(xk[::2] == 0), "K1 block freeze"
+        assert k1_edge(H, b, 96) <= 1.0, "K1 block freeze"
+        H, b = spd(10_007, 96, dtype)
+        worst = k1_edge(H, b, 8)
+        log(f"[K1] block {dtype}: alpha-freeze at d = 96 ok; 10007x96x96, 8 "
+            f"iterations: max|x_k - x_f64| / limit = {worst:.3f}")
+        assert worst <= 1.0, "K1 block kernel, persistent stride"
+    # the block kernel timed at the shapes of k1_bench.py: d = 65 at d
+    # iterations; d = 100, H in shared memory; d = 300, H read from device
+    # memory
+    for B, d, iters in ((1000, 65, 65), (256, 100, 20), (64, 300, 20)):
+        for dtype, tag in ((torch.float32, ""), (torch.float64, "_f64")):
+            H, b = spd(B, d, dtype)
+            xt = solve_psd_cg(H, b, iters)
+            err = (cuda_cg.cg_solve(H, b, iters) - xt).abs().max().item()
+            scale = xt.abs().max().item()
+            assert err <= k1_tol[dtype] * max(1.0, scale), f"K1 at d = {d}"
+            key = f"blk_d{d}"
+            k1[f"{key}_h_in{tag}"] = cuda_cg.k1_launch_plan(
+                B, d, H.element_size(), H.data_ptr()).h_in
+            k1[f"{key}_ms{tag}"] = gpu_ms(
+                lambda: cuda_cg.cg_solve(H, b, iters), n=20)
+            k1[f"{key}_plain_ms{tag}"] = gpu_ms(
+                lambda: solve_psd_cg(H, b, iters), n=3)
+            k1[f"{key}_bound_ms{tag}"], k1[f"{key}_bound_by{tag}"] = \
+                k1_bound(B, d, iters, H.element_size())
+            k1[f"{key}_share{tag}"] = (k1[f"{key}_bound_ms{tag}"]
+                                       / k1[f"{key}_ms{tag}"])
+            k1[f"{key}_max_abs_err{tag}"] = err
+            log(f"[K1] {B}x{d}x{d} {dtype} iters={iters} "
+                f"({k1[f'{key}_h_in{tag}']}): kernel "
+                f"{k1[f'{key}_ms{tag}']:.4f} ms, twin "
+                f"{k1[f'{key}_plain_ms{tag}']:.4f} ms; bound "
+                f"{k1[f'{key}_bound_ms{tag}']:.4f} ms "
+                f"({k1[f'{key}_bound_by{tag}']}), share "
+                f"{k1[f'{key}_share{tag}']:.3f}; max|x_k - x_twin| "
+                f"{err:.3e} (max|x| {scale:.3e})")
 
     # K1 on the flagship's cg path (10k systems of d = 6) and on the curve
     # fits' (d = 2): cg_iters 0, so d iterations (the tangent dimension)
@@ -2473,6 +2535,7 @@ def main() -> int:
                   phase14, phase15, phase16):
         phase(to, dev, record, path_launches, cuda_cg, cuda_solver)
 
+    ba_k1 = record["ba"]["k1"]
     kernels = [
         {"name": "K1 cg_warp_kernel", "route": "cuda",
          "source": "tinyopt_tpu_torch/csrc/cg.cu",
@@ -2498,8 +2561,24 @@ def main() -> int:
          "d2_share_f64": k1["d2_share_f64"],
          "curve_launches": {p: n["K1"] for p, n in path_launches.items()
                             if p.startswith("curve_")},
-         **{f"icp_{k}": v for k, v in record["icp"]["k1"].items()},
-         **{f"ba_{k}": v for k, v in record["ba"]["k1"].items()}},
+         **{f"icp_{k}": v for k, v in record["icp"]["k1"].items()}},
+        # the block kernel (d > 64) on the batched BA's "cg" path, phase
+        # 16c, at (1000, 96, 96), 96 iterations: "registers" in float32,
+        # "split" in float64; d = 65, 100 and 300 from phase 3
+        {"name": "K1 cg_block_kernel", "route": "cuda",
+         "source": "tinyopt_tpu_torch/csrc/cg.cu",
+         "replaces": "tinyopt_tpu/ops/pallas_cg.py:77",
+         "launches": ba_k1["launches"],
+         "path_launches": {p: n["K1"] for p, n in path_launches.items()
+                           if p.startswith("ba_")},
+         "max_abs_err": ba_k1["max_abs_err"], "ms": ba_k1["ms"],
+         "plain_ms": ba_k1["plain_ms"], "bound_ms": ba_k1["bound_ms"],
+         "bound_by": ba_k1["bound_by"], "share": ba_k1["share"],
+         "library_ms": None,
+         **{k: v for k, v in ba_k1.items()
+            if k not in ("launches", "max_abs_err", "ms", "plain_ms",
+                         "bound_ms", "bound_by", "share")},
+         **{k: v for k, v in k1.items() if k.startswith("blk_")}},
         {"name": "K2 solver_seg_kernel", "route": "cuda",
          "source": "tinyopt_tpu_torch/csrc/solver_seg.cuh",
          "replaces": "tinyopt_tpu/ops/pallas_solver.py:150",

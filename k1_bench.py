@@ -1,15 +1,18 @@
 """Time K1 (``tinyopt_tpu_torch/csrc/cg.cu``) against an earlier tree's K1.
 
-At the cg path's shape — 10,000 instances, d = 50, 8 iterations, float32
-and float64 — this tree's K1 and the earlier tree's are timed in turns
-(old, new, new, old) in one process, each checked against the plain twin
-first; both again at 0 iterations, where what is left is the copy of H and
-the work of each instance; and, for context only, an exact solve by
+At each shape (B instances, d, iterations), float32 and float64, this
+tree's K1 and the earlier tree's are timed in turns (old, new, new, old)
+in one process, each checked against the plain twin first; both again at
+0 iterations, where what is left is the copy of H and the work of each
+instance; and, for context only, an exact solve by
 ``torch.linalg.cholesky_ex`` and ``torch.cholesky_solve`` (another
-function: the port never calls it).
-K1's time beside its bound is ``chip_smoke.py``'s (phase 3).
+function: the port never calls it).  The default shape is the cg path's,
+10,000 instances at d = 50 with 8 iterations (the warp kernel); the
+batched BA's (1000, 96, 96) runs the block kernel.
+K1's time beside its bound is ``chip_smoke.py``'s (phases 3 and 16c).
 
-    python3 k1_bench.py --parent DIR [--ptxas]
+    python3 k1_bench.py --parent DIR [--ptxas] [--variants]
+                        [--shape B,d,iters ...]
 
 ``--parent DIR``: the root of a tree holding an earlier
 ``tinyopt_tpu_torch/`` package, unpacked for instance with
@@ -18,15 +21,20 @@ tinyopt_tpu_torch/_build/parent``.  That package is imported beside this
 one under another name, so its ``ops.cuda_cg.cg_solve(H, b, iters)``
 builds and calls its own kernels with its own entry points, whatever
 their arguments.  ``--ptxas``: print nvcc's registers, shared memory and
-spills for every kernel of this tree's ``csrc/cg.cu``.
+spills for every kernel of this tree's ``csrc/cg.cu``.  ``--shape``
+(repeatable): the shapes to time.  ``--variants``: at a shape on the
+block path, also time each other way this tree's block kernel can read
+H ("registers", "split" with 32 or 64 rows in registers, "shared"),
+in turns with the plan's own choice.
 
 Device times are milliseconds per call, from CUDA events around 20
-launches queued behind a device sleep (``chip_smoke.gpu_ms``); H is
-100 MB in float32, twice the L2, so each launch finds it mostly in
-device memory.  Host times are microseconds per ``cg_solve`` call, from
-the host clock around 200 calls at 64 instances that do not wait for the
-device.  Output: one line per measurement, the card's name and power
-limit, and the record in ``chiprun_out/k1_bench.json``.
+launches queued behind a device sleep (``chip_smoke.gpu_ms``); at the
+default shape H is 100 MB in float32, twice the L2, so each launch finds
+it mostly in device memory.  Host times are microseconds per
+``cg_solve`` call, from the host clock around 200 calls at 64 instances
+that do not wait for the device.  Output: one line per measurement, the
+card's name and power limit, and the record in
+``chiprun_out/k1_bench.json``.
 """
 
 from __future__ import annotations
@@ -49,7 +57,7 @@ sys.path.insert(0, HERE)
 
 from chip_smoke import gpu_ms  # noqa: E402
 
-B, D, ITERS, N_LAUNCH = 10_000, 50, 8, 20
+DEFAULT_SHAPE, N_LAUNCH = (10_000, 50, 8), 20
 
 
 def log(*a):
@@ -101,11 +109,43 @@ def host_us(fn, n=200):
     return t / n * 1e6
 
 
+def block_variants(cuda_cg, B, d, itemsize, h_ptr):
+    """Every way the block kernel can read H at this shape, by name:
+    the plan's own, the whole column in registers where the kernel is
+    built for it (float32 to d = 128, float64 to d = 96), 32 or 64 rows
+    of it ("split") and none ("shared"); empty off the block path or
+    where H does not fit shared memory."""
+    plan = cuda_cg.k1_launch_plan(B, d, itemsize, h_ptr)
+    if plan.path != "block" or plan.h_in == "device":
+        return {}
+    out = {"plan": plan}
+    if d <= (128 if itemsize == 4 else 96):
+        out["registers"] = plan._replace(h_in="registers",
+                                         reg_rows=-(-d // 8) * 8)
+    for rows in (64, 32):
+        out[f"split{rows}"] = plan._replace(h_in="split", reg_rows=rows)
+    out["shared"] = plan._replace(h_in="shared", reg_rows=0)
+    return out
+
+
+def spd(gen, B, d, dtype, dev):
+    A = torch.randn((B, 2 * d, d), generator=gen, dtype=dtype,
+                    device=dev) / (2 * d) ** 0.5
+    H = A.mT @ A + 1e-3 * torch.eye(d, dtype=dtype, device=dev)
+    b = torch.randn((B, d), generator=gen, dtype=dtype, device=dev)
+    return H, b
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True)
     ap.add_argument("--ptxas", action="store_true")
+    ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--shape", action="append", default=[],
+                    help="B,d,iters (repeatable)")
     args = ap.parse_args()
+    shapes = [tuple(int(v) for v in sh.split(",")) for sh in args.shape] \
+        or [DEFAULT_SHAPE]
     if not torch.cuda.is_available():
         print("k1_bench: no CUDA device", file=sys.stderr)
         return 2
@@ -119,7 +159,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    rec = {"nvidia_smi": smi, "shape": [B, D, D], "iters": ITERS}
+    rec = {"nvidia_smi": smi, "shapes": {}}
     log(f"[device] {smi}")
     if args.ptxas:
         rec["ptxas"] = ptxas_report(_build)
@@ -128,47 +168,67 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
-    tol = {torch.float32: 1e-5, torch.float64: 1e-11}
-    for dtype in (torch.float32, torch.float64):
-        name = str(dtype).split(".")[-1]
-        A = torch.randn((B, 2 * D, D), generator=gen, dtype=dtype,
-                        device=dev) / (2 * D) ** 0.5
-        H = A.mT @ A + 1e-3 * torch.eye(D, dtype=dtype, device=dev)
-        del A
-        b = torch.randn((B, D), generator=gen, dtype=dtype, device=dev)
-        xt = solve_psd_cg(H, b, ITERS)
-        scale = max(1.0, xt.abs().max().item())
-        r = rec[name] = {}
-        runs = {"old": lambda: old_cg.cg_solve(H, b, ITERS),
-                "new": lambda: cuda_cg.cg_solve(H, b, ITERS)}
-        for who, fn in runs.items():
-            err = (fn() - xt).abs().max().item()
-            assert err <= tol[dtype] * scale, f"{who} K1: err {err}"
-            r[f"{who}_err"] = err
-        r["turns_ms"] = [[w, gpu_ms(runs[w], n=N_LAUNCH)]
-                         for w in ("old", "new", "new", "old")]
-        log(f"[A/B] {name} {B}x{D}x{D} iters={ITERS}: turns "
-            f"{r['turns_ms']} ms; max err old {r['old_err']:.3e}, new "
-            f"{r['new_err']:.3e} (max|x| {scale:.3e})")
-        r["zero_iters_ms"] = {w: gpu_ms(lambda m=m: m.cg_solve(H, b, 0),
-                                        n=N_LAUNCH)
-                              for w, m in (("old", old_cg), ("new", cuda_cg))}
-        log(f"[A/B] {name} iters=0 (the copy of H and the work of each "
-            f"instance alone): {r['zero_iters_ms']} ms")
-        Hs, bs = H[:64].clone(), b[:64].clone()
-        r["host_us"] = {w: host_us(lambda f=f: f(Hs, bs, ITERS))
-                        for w, f in (("old", old_cg.cg_solve),
-                                     ("new", cuda_cg.cg_solve))}
-        log(f"[host] {name} 64x{D}x{D}: us per call {r['host_us']}")
+    for B, D, iters in shapes:
+        for dtype in (torch.float32, torch.float64):
+            name = str(dtype).split(".")[-1]
+            tag = f"{B}x{D}x{D} iters={iters} {name}"
+            H, b = spd(gen, B, D, dtype, dev)
+            # chip_smoke.py's hold: against the float64 twin, float64 to
+            # 1e-11 of max|x|, float32 to twice the float32 twin's own gap
+            # or 1e-5 of max|x|
+            xt = solve_psd_cg(H.double(), b.double(), iters)
+            scale = max(1.0, xt.abs().max().item())
+            gap = (solve_psd_cg(H, b, iters).double() - xt).abs().max().item()
+            limit = (max(2 * gap, 1e-5 * scale) if dtype == torch.float32
+                     else 1e-11 * scale)
+            plan = cuda_cg.k1_launch_plan(B, D, H.element_size(),
+                                          H.data_ptr())
+            r = rec["shapes"][tag] = {"plan": plan._asdict()}
+            runs = {"old": lambda: old_cg.cg_solve(H, b, iters),
+                    "new": lambda: cuda_cg.cg_solve(H, b, iters)}
+            for who, fn in runs.items():
+                err = (fn().double() - xt).abs().max().item()
+                assert err <= limit, f"{who} K1 {tag}: err {err} > {limit}"
+                r[f"{who}_err"] = err
+            r["turns_ms"] = [[w, gpu_ms(runs[w], n=N_LAUNCH)]
+                             for w in ("old", "new", "new", "old")]
+            log(f"[A/B] {tag} ({plan.h_in}): turns {r['turns_ms']} ms; max "
+                f"|x - x_f64| old {r['old_err']:.3e}, new {r['new_err']:.3e} "
+                f"(limit {limit:.3e}, max|x| {scale:.3e})")
+            r["zero_iters_ms"] = {
+                w: gpu_ms(lambda m=m: m.cg_solve(H, b, 0), n=N_LAUNCH)
+                for w, m in (("old", old_cg), ("new", cuda_cg))}
+            log(f"[A/B] {tag} at 0 iterations (the copy of H and the work "
+                f"of each instance alone): {r['zero_iters_ms']} ms")
+            Hs, bs = H[:64].clone(), b[:64].clone()
+            r["host_us"] = {w: host_us(lambda f=f: f(Hs, bs, iters))
+                            for w, f in (("old", old_cg.cg_solve),
+                                         ("new", cuda_cg.cg_solve))}
+            log(f"[host] {tag} at 64 instances: us per call {r['host_us']}")
+            if args.variants:
+                vs = block_variants(cuda_cg, B, D, H.element_size(),
+                                    H.data_ptr())
+                for vname, vplan in vs.items():
+                    err = (cuda_cg.launch(H, b, iters, vplan).double()
+                           - xt).abs().max().item()
+                    assert err <= limit, f"{vname} {tag}: {err} > {limit}"
+                names = list(vs)
+                order = names + names[::-1]
+                r["variants_ms"] = [
+                    [v, gpu_ms(lambda p=vs[v]: cuda_cg.launch(H, b, iters, p),
+                               n=N_LAUNCH)] for v in order]
+                if vs:
+                    log(f"[variants] {tag}: {r['variants_ms']} ms")
 
-        def chol():
-            L, _ = torch.linalg.cholesky_ex(H)
-            return torch.cholesky_solve(b[..., None], L)[..., 0]
-        r["exact_solve_ms"] = gpu_ms(chol, n=5)
-        log(f"[context] {name}: exact solve (cholesky_ex + cholesky_solve, "
-            f"not K1's function) {r['exact_solve_ms']:.4f} ms")
-        del H, b, xt
-        torch.cuda.empty_cache()
+            def chol():
+                L, _ = torch.linalg.cholesky_ex(H)
+                return torch.cholesky_solve(b[..., None], L)[..., 0]
+            r["exact_solve_ms"] = gpu_ms(chol, n=5)
+            log(f"[context] {tag}: exact solve (cholesky_ex + "
+                f"cholesky_solve, not K1's function) "
+                f"{r['exact_solve_ms']:.4f} ms")
+            del H, b, xt
+            torch.cuda.empty_cache()
 
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "k1_bench.json"), "w") as f:

@@ -82,6 +82,22 @@ def test_alpha_freeze_on_zero_curvature():
     np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-12)
 
 
+def test_column_products_equal_row_products_on_symmetric_h():
+    """K1's kernels form Hp from H's columns (Hᵀp); on a symmetric H that
+    is the twin's row products Hp to rounding, so the design needs only
+    symmetry."""
+    rng = np.random.default_rng(8)
+    H, b = _spd(rng, 8, 96, np.float64)
+    H = 0.5 * (H + np.swapaxes(H, -1, -2))      # symmetric bit for bit
+    Ht, bt = torch.from_numpy(H), torch.from_numpy(b)
+    dinv = tlin.jacobi_inverse(torch.diagonal(Ht, dim1=-2, dim2=-1))
+    rows = tlin.pcg_core(lambda p: (Ht @ p[..., None])[..., 0], dinv, bt, 96)
+    cols = tlin.pcg_core(lambda p: (Ht.mT @ p[..., None])[..., 0], dinv, bt,
+                         96)
+    scale = rows.abs().max().item()
+    assert (cols - rows).abs().max().item() <= 1e-12 * scale
+
+
 def test_damp_and_cholesky_solve_match_reference():
     rng = np.random.default_rng(2)
     H, b = _spd(rng, 5, 6, np.float64)
@@ -110,7 +126,8 @@ def test_cg_solve_on_cpu_takes_the_twin():
 
 
 @pytest.mark.parametrize("itemsize", [4, 8])
-@pytest.mark.parametrize("d", [9, 13, 33, 50, 64, 65, 100, 300])
+@pytest.mark.parametrize("d", [9, 13, 33, 50, 64, 65, 96, 100, 128, 129,
+                               200, 300])
 @pytest.mark.parametrize("offset", [0, 1])
 def test_k1_launch_plan(d, itemsize, offset):
     """The kernel, copy mode and geometry K1 takes, from the shape and H's
@@ -118,21 +135,37 @@ def test_k1_launch_plan(d, itemsize, offset):
     B = 10_007
     plan = cuda_cg.k1_launch_plan(B, d, itemsize, 4096 + offset * itemsize)
     assert plan.smem_bytes <= cuda_cg.MAX_SMEM
+    # one bulk copy needs 16-byte multiples: d*d*itemsize and the address
+    bulk = (d * d * itemsize) % 16 == 0 and offset == 0
     if d > 64:
-        assert plan.path == "block" and plan.copy == "plain"
-        # H in shared memory while it fits a block: d = 300 in float64 is
-        # 720 KB, in float32 360 KB
-        assert plan.h_in == ("device" if d == 300 else "shared")
-        assert plan.warps * 32 == min(max(-(-d // 32) * 32, 32), 256)
-        assert plan.smem_bytes == (6 * d + 33) * itemsize + (
-            d * d * itemsize if plan.h_in == "shared" else 0)
+        assert plan.path == "block"
+        # a thread a column: d threads rounded up to a warp
+        assert plan.cols == 1 and plan.warps == -(-d // 32)
+        # H in shared memory while the block's layout fits 227 KB: d = 300
+        # is 360 KB in float32 and 720 KB in float64, d = 200 in float64
+        # 320 KB; there its columns are read from device memory
+        in_smem = d < 300 and (itemsize == 4 or d < 200)
+        h_buf = -(-d * d * itemsize // 128) * 128 if in_smem else 0
+        p_buf = -(-(-(-d // 8) * 8 * itemsize) // 128) * 128
+        assert plan.smem_bytes == 128 + (64 * itemsize + 127) // 128 * 128 \
+            + p_buf + h_buf
+        if not in_smem:
+            assert (plan.h_in, plan.copy, plan.reg_rows) == ("device", "none",
+                                                             0)
+            return
+        assert plan.copy == ("bulk" if bulk else "elementwise")
+        if d <= (128 if itemsize == 4 else 96):
+            # the whole column in registers, rows rounded up to 8
+            assert plan.h_in == "registers"
+            assert plan.reg_rows == -(-d // 8) * 8 >= d
+        else:
+            # 64 rows of it, the rest read from shared memory
+            assert (plan.h_in, plan.reg_rows) == ("split", 64)
         return
-    assert plan.path == "warp"
+    assert plan.path == "warp" and (plan.reg_rows, plan.cols) == (0, 1)
     # a lane's 2d values fit its registers in float32, and in float64 up
     # to d = 32; above, float64 keeps column j + 32 in shared memory
     assert plan.h_in == ("split" if itemsize == 8 and d > 32 else "registers")
-    # one bulk copy needs 16-byte multiples: d*d*itemsize and the address
-    bulk = (d * d * itemsize) % 16 == 0 and offset == 0
     assert plan.copy == ("bulk" if bulk else "elementwise")
     assert d not in (9, 13) or itemsize == 8 or plan.copy == "elementwise"
     assert plan.warps == cuda_cg.WARP_WARPS[itemsize]
@@ -141,6 +174,33 @@ def test_k1_launch_plan(d, itemsize, offset):
     ld = d + d % 2 if plan.h_in == "split" else d
     h_buf = -(-(d * ld + 8) * itemsize // 128) * 128
     assert plan.smem_bytes == 128 + plan.warps * (64 * itemsize + h_buf)
+
+
+@pytest.mark.parametrize("d,cols", [(1024, 1), (1025, 2), (2049, 4),
+                                    (4096, 4)])
+def test_k1_launch_plan_many_columns(d, cols):
+    """Past 1024 a thread owns several columns; past 4096 K1 refuses."""
+    plan = cuda_cg.k1_launch_plan(4, d, 8, 0)
+    assert (plan.path, plan.h_in, plan.cols) == ("block", "device", cols)
+    assert plan.warps * 32 <= cuda_cg.BLOCK_MAX_THREADS
+    assert plan.warps * 32 * cols >= d
+    with pytest.raises(ValueError):
+        cuda_cg.k1_launch_plan(4, 4097, 4, 0)
+
+
+def test_k1_grids_are_persistent():
+    """Both kernels launch at most the blocks that fit the device at once
+    and stride over instances, so a batch larger than the resident blocks
+    runs in one launch."""
+    import re
+    from tinyopt_tpu_torch import _build
+    with open(f"{_build.CSRC}/cg.cu") as f:
+        src = f.read()
+    launch = src[src.index("int launch_cg("):]
+    assert re.search(r"const int grid = \(int\)\(need < fit \? need : fit\);",
+                     launch)
+    assert re.search(r"const int grid = B < fit \? B : fit;", launch)
+    assert "inst += nwarps" in src and "inst += gridDim.x" in src
 
 
 def test_k1_launch_plan_small_batch():
@@ -168,7 +228,7 @@ def test_k1_entry_point_matches_its_declaration():
     n_declared = re.search(r"argtypes = \[([^\]]*)\]", decl).group(1).count(",") + 1
     for name in ("tinyopt_cg_f32", "tinyopt_cg_f64"):
         params = re.search(rf'extern "C" int {name}\(([^)]*)\)', src).group(1)
-        assert params.count(",") + 1 == n_declared == 12, name
+        assert params.count(",") + 1 == n_declared == 14, name
 
 
 def _offset_view(H):
@@ -182,11 +242,14 @@ def _offset_view(H):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("B", [1, 3, 10_007])
-@pytest.mark.parametrize("d", [9, 13, 33, 50, 64, 65, 100])
+@pytest.mark.parametrize("B,d", [
+    (B, d) for d in (9, 13, 33, 50, 64, 65, 96, 97, 100, 128, 129, 200, 300)
+    for B in (1, 3, 10_007 if d <= 100 else 257)])
 def test_k1_shapes_on_gpu(dtype, B, d):
     """Both kernels, both copy modes and the ragged edges (d = 33: rows
-    padded to an even length under "split"), 8 iterations;
+    padded to an even length under "split"; the block kernel's ways of
+    reading H: registers, split, shared memory and, at d = 300, device
+    memory; B = 10,007 more instances than resident blocks), 8 iterations;
     H = 0 in every other instance freezes x at 0 (α = 0).  Each is held
     against the float64 twin on the same inputs: float64 within
     1e-11·max|x|; float32 no farther than twice the float32 twin's own

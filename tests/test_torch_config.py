@@ -136,3 +136,134 @@ def test_port_never_imports_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+#: Public names of ported modules that the port does not have yet, by the
+#: ROADMAP Queue 1 item that owes them (15: the chain and the pose graph;
+#: 16: the sparse-observation Schur solver, its buckets, bands and
+#: reduction plans; 17: multi-device solving).
+OWED = {
+    "": {15: ["ChainSystem", "chain_marginals", "chain_optimize"],
+         16: ["schur_sparse_covariance", "schur_sparse_covariance_buckets",
+              "schur_sparse_optimize", "schur_sparse_optimize_buckets"],
+         17: ["sharded_optimize", "sharded_schur_optimize",
+              "sharded_schur_sparse_covariance"]},
+    "sparse": {16: ["schur_sparse_covariance",
+                    "schur_sparse_covariance_buckets",
+                    "schur_sparse_optimize", "schur_sparse_optimize_buckets"]},
+    "parallel": {17: [
+        "init_distributed", "local_mesh", "make_block_system", "make_mesh",
+        "make_sharded_schur_obs_system", "make_sharded_schur_system",
+        "masked_residuals", "pad_instances", "sharded_optimize",
+        "sharded_schur_optimize", "sharded_schur_sparse_covariance",
+        "sharded_schur_sparse_optimize",
+        "sharded_schur_sparse_optimize_buckets"]},
+    "ops.schur_obs": {16: [
+        "SchurObsBuckets", "SchurObsSystem", "assemble_reduced",
+        "band_to_tridiag", "banded_cov_plan", "banded_reduced_solve",
+        "banded_reduced_solve_band", "bucket_caps", "bucket_obs",
+        "camera_marginals_from_S", "camera_sort_perm",
+        "detect_camera_bandwidth", "grid_to_obs",
+        "make_banded_window_chunk_loop", "make_landmark_marginal_pass",
+        "make_landmark_marginal_pass_banded", "make_obs_kernels",
+        "make_planned_segment_reduce", "make_planned_segment_reduce_multi",
+        "make_reduce_pass", "make_reduce_pass_planned",
+        "make_reduce_pass_window", "make_reduce_pass_window_banded",
+        "make_window_chunk_loop", "obs_linearize", "obs_marginals",
+        "obs_marginals_banded", "obs_marginals_buckets", "pick_band_group",
+        "plan_window_reduce", "plan_window_reduce_banded",
+        "plan_window_reduce_banded_multi", "plan_window_reduce_multi",
+        "schur_obs_bucket_system", "schur_obs_system"]},
+}
+
+
+def _public_names(mod) -> set:
+    """A module's ``__all__``, or else the classes and functions it defines
+    and the package's submodules it holds under their own names."""
+    import types
+    if hasattr(mod, "__all__"):
+        return set(mod.__all__)
+    out = set()
+    for n in dir(mod):
+        o = getattr(mod, n)
+        if n.startswith("_"):
+            continue
+        if isinstance(o, types.ModuleType):
+            root = mod.__name__.split(".")[0]
+            if o.__name__.startswith(root + ".") and \
+                    o.__name__.rsplit(".", 1)[-1] == n:
+                out.add(n)
+        elif getattr(o, "__module__", None) == mod.__name__:
+            out.add(n)
+    return out
+
+
+def test_public_names_match_reference():
+    """Every public name of a module the port has is there in the port,
+    but the names that items 15–18 still owe (``OWED``); and no owed name
+    is there already."""
+    import importlib
+    import importlib.util
+    import pkgutil
+    missing, early = {}, {}
+    ported = [""] + [m.name[len("tinyopt_tpu_torch."):] for m in
+                     pkgutil.walk_packages(to.__path__, "tinyopt_tpu_torch.")]
+    for name in ported:
+        ref_name = "tinyopt_tpu" + (f".{name}" if name else "")
+        if importlib.util.find_spec(ref_name) is None:
+            continue
+        ref = importlib.import_module(ref_name)
+        port = importlib.import_module(
+            "tinyopt_tpu_torch" + (f".{name}" if name else ""))
+        owed = {n for names in OWED.get(name, {}).values() for n in names}
+        gone = sorted(n for n in _public_names(ref) - owed
+                      if not hasattr(port, n))
+        there = sorted(n for n in owed if hasattr(port, n))
+        if gone:
+            missing[name] = gone
+        if there:
+            early[name] = there
+    assert not missing, missing
+    assert not early, early
+    # examples/custom_manifold.py calls to.register_manifold(...)
+    assert to.register_manifold is to.manifold.register_manifold
+
+
+def test_value_and_jacfwd_matches_reference():
+    import jax.numpy as jnp
+    from tinyopt_tpu.diff import value_and_jacfwd as jvj
+    x = np.array([0.3, -1.2, 2.0])
+
+    def f(v, lib):
+        return lib.stack([v[0] * v[1], lib.sin(v[2]) + v[0] ** 2])
+    yj, Jj = jvj(lambda v: f(v, jnp), jnp.asarray(x))
+    yt, Jt = to.diff.value_and_jacfwd(lambda v: f(v, torch),
+                                      torch.from_numpy(x))
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), rtol=1e-12)
+    np.testing.assert_allclose(Jt.numpy(), np.asarray(Jj), rtol=1e-12)
+
+
+def test_make_circle_matches_reference():
+    import jax.numpy as jnp
+    from tinyopt_tpu.models.problems import make_circle as jcircle
+    from tinyopt_tpu_torch.models.problems import make_circle
+    fj, xj = jcircle(n=12, noise=1e-3, seed=4)
+    ft, xt = make_circle(n=12, noise=1e-3, seed=4, dtype=torch.float64,
+                         device="cpu")
+    np.testing.assert_array_equal(xt.numpy(), np.asarray(xj))
+    x = np.array([1.5, 6.5, 1.8])
+    np.testing.assert_allclose(ft(torch.from_numpy(x)).numpy(),
+                               np.asarray(fj(jnp.asarray(x))), rtol=1e-12)
+
+
+def test_debug_nans_raises_at_the_operation(tmp_path):
+    from tinyopt_tpu_torch.utils import block_ms, debug_nans, device_trace
+    with pytest.raises(FloatingPointError, match="div"):
+        with debug_nans():
+            torch.zeros(2) / torch.zeros(2)
+    with debug_nans(False):
+        assert torch.isnan(torch.zeros(1) / torch.zeros(1)).all()
+    with device_trace(str(tmp_path)):
+        torch.ones(4).sum()
+    assert any(p.suffix == ".json" for p in tmp_path.iterdir())
+    assert block_ms(lambda: torch.ones(4).sum(), n=2) >= 0.0

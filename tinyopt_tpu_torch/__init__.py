@@ -24,6 +24,8 @@ from . import checkpoint, diff, implicit, losses, sparse
 from .checkpoint import Stepper, stepper
 from .cost import Cost
 from .implicit import implicit_solver
+from .manifold import (Manifold, TangentSpec, local, register_manifold,
+                       retract, tangent_spec)
 from .optimize import (Optimize, build_solver, covariance_at,
                        multi_start_optimize, optimize)
 from .options import (LBFGS, SGD, Adam, AdamOptions, AdamW,
@@ -39,6 +41,8 @@ from .profiling import dispatch_floor, profile_iterations
 from .sparse import (block_optimize, matfree_optimize, schur_optimize,
                      sparse_optimize)
 from .stop_reasons import StopReason, stop_reason_description
+from .version import __version__
+from . import manifolds, models, parallel, utils  # noqa: E402
 
 # Namespace products mirroring the reference (optimizers/{nlls,unconstrained}.h)
 from . import _methods as _m  # noqa: E402
@@ -54,6 +58,9 @@ nlls = _m.lm
 unconstrained = _m.gd
 
 __all__ = [
+    "__version__", "Manifold", "TangentSpec", "register_manifold",
+    "retract", "local", "tangent_spec", "manifolds", "models", "parallel",
+    "utils",
     "Adam", "AdamOptions", "AdamW", "BlockDiag", "Cost", "CostScalingOptions", "DogLeg",
     "GDOptions", "GaussNewton", "GradientDescent", "HessianOptions",
     "LBFGS", "LBFGSOptions", "LMOptions", "LevenbergMarquardt", "LogOptions",

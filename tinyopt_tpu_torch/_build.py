@@ -124,9 +124,9 @@ def load() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for name in ("tinyopt_cg_f32", "tinyopt_cg_f64"):
         # H, b, x, B, d, iters, then ops.cuda_cg.K1Plan's path, h_in, bulk,
-        # warps, smem_bytes, then the stream
+        # reg_rows, cols, warps, smem_bytes, then the stream
         fn = getattr(lib, name)
-        fn.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp]
+        fn.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp]
         fn.restype = ci
     for name in ("tinyopt_solver_f32", "tinyopt_solver_f64"):
         # params, io, the multi-color probes and recovery (or null), B,

@@ -219,7 +219,7 @@ def save_state(path: str, state) -> None:
     """Write a segment state (or any pytree of tensors) to ``path`` with
     ``torch.save``: its leaves as a list of tensors, so a load runs no
     pickled code."""
-    leaves = pytree.tree_leaves(state)
+    leaves = mf.tree_leaves_sorted(state)
     torch.save([None if l is None else l.detach() for l in leaves],
                os.path.abspath(path))
 
@@ -229,7 +229,7 @@ def load_state(path: str, abstract_state):
     ``abstract_state`` (from :meth:`SegmentSolver.abstract_state`): every
     tensor is placed on the template's device in the template's type, so
     a state saved on the card resumes on the card."""
-    leaves, spec = pytree.tree_flatten(abstract_state)
+    leaves, spec = mf.tree_flatten_sorted(abstract_state)
     saved = torch.load(os.path.abspath(path), map_location="cpu",
                        weights_only=True)
     if len(saved) != len(leaves):
@@ -241,4 +241,4 @@ def load_state(path: str, abstract_state):
             raise ValueError(f"{path}: does not match the template")
         out.append(None if t is None else s.to(device=t.device,
                                                dtype=t.dtype))
-    return pytree.tree_unflatten(out, spec)
+    return mf.tree_unflatten_sorted(out, spec)

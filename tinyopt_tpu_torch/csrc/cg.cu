@@ -7,9 +7,13 @@
 // iterations, alpha = 0 when p'Hp <= FLT_MIN/DBL_MIN, beta = rz_new /
 // max(rz, tiny).
 //
-// What bounds it on an H100: reading H once (d*d values per instance,
-// 100 MB in float for 10k instances at d = 50, ~31 us at 3.35 TB/s); the
-// arithmetic (iters*d^2 multiply-adds per instance) is small.  Two kernels,
+// What bounds it on an H100: at d <= 64 and few iterations, reading H
+// once (d*d values per instance, 100 MB in float for 10k instances at
+// d = 50, ~31 us at 3.35 TB/s); at larger d and d iterations, the
+// arithmetic (2d^2 + 11d flops an iteration: 28 us in float at
+// (1000, 96, 96), 96 iterations) and each iteration's chain of dependent
+// sums.  No tensor cores: each instance multiplies its own H by one
+// vector, so nothing is reused for an MMA.  Two kernels,
 // chosen by ops/cuda_cg.k1_launch_plan from the shape and the alignment of H
 // alone (the plan's numbers arrive here as arguments):
 //
@@ -42,14 +46,28 @@
 //   of dependent butterflies), so each warp has one buffer, not a ring:
 //   deeper rings and H kept in shared memory were timed slower (PERF.md,
 //   PR 3).
-// * cg_kernel, larger d: one block per instance, threads over rows.  The
-//   block copies its H into shared memory ONCE (opted in above 48 KB) and
-//   runs every CG iteration there; when H does not fit the 227 KB a block
-//   may use, it reads H's rows from device memory (L2-resident after the
-//   first iteration).  Dot products are block reductions.
+// * cg_block_kernel, d > 64.  One block per instance at a time, a
+//   persistent grid of as many blocks as fit at once, each block striding
+//   over instances; d threads (rounded up to a warp; C columns a thread
+//   above 1024, up to d = 4096).  Thread j owns column j, for the same
+//   reason as above: neighbouring threads read neighbouring words, with
+//   no bank conflict
+//   (rows read by threads, d words apart, conflicted 32-way at d = 96 and
+//   ran 0.006 of the bound, PERF.md §6).  The block's buffer takes
+//   one instance's H by one bulk copy on an mbarrier (per-value cp.async
+//   when unaligned).  In float at d <= 128 a thread holds its whole column
+//   in registers, so H is read from shared memory once an instance and
+//   the buffer takes the next instance's copy at once ("registers"); in
+//   double, which has half the registers' values, rows 0..R-1 of the
+//   column stay in registers and the rest is read from the buffer at every
+//   iteration ("split"), or all of it ("shared").  Where H does not fit
+//   the 227 KB a block may use, its columns are read from device memory
+//   ("device", coalesced).  Each dot product is one barrier: warp sums
+//   into alternating slot sets, then every thread adds the slots in one
+//   order; with the barrier that publishes p, three an iteration.
 //
-// The library is built with --fmad=false (K2's bit parity).  The warp
-// kernel contracts its products and updates with explicit fma(), which
+// The library is built with --fmad=false (K2's bit parity).  Both kernels
+// contract their products and updates with explicit fma(), which
 // that flag does not suppress: K1 is held to a relative tolerance against
 // its twin, not to bit equality.
 #include <cstdint>
@@ -57,71 +75,6 @@
 #include "common.cuh"
 
 namespace tinyopt {
-
-// ---------------------------------------------------------------------------
-// Block-per-instance kernel (d > 64).
-
-template <typename T>
-__global__ void cg_kernel(const T* __restrict__ H, const T* __restrict__ b,
-                          T* __restrict__ x, int d, int iters, int h_in_smem) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* xv = reinterpret_cast<T*>(smem_raw);
-  T* rv = xv + d;
-  T* zv = rv + d;
-  T* pv = zv + d;
-  T* hp = pv + d;
-  T* dinv = hp + d;
-  T* red = dinv + d;          // 33 reduction slots
-  T* Hs = red + 33;           // d*d when h_in_smem
-
-  const size_t inst = blockIdx.x;
-  const T* Hg = H + inst * (size_t)d * d;
-  const T* bg = b + inst * (size_t)d;
-  const T* Hm = h_in_smem ? Hs : Hg;
-  const T tiny = tiny_v<T>();
-
-  if (h_in_smem)
-    for (int k = threadIdx.x; k < d * d; k += blockDim.x) Hs[k] = Hg[k];
-  __syncthreads();
-
-  T part = 0;
-  for (int i = threadIdx.x; i < d; i += blockDim.x) {
-    const T di = Hm[(size_t)i * d + i];
-    dinv[i] = di > T(0) ? T(1) / di : T(1);
-    xv[i] = 0;
-    rv[i] = bg[i];
-    zv[i] = rv[i] * dinv[i];
-    pv[i] = zv[i];
-    part += rv[i] * zv[i];
-  }
-  T rz = block_sum(part, red);
-
-  for (int k = 0; k < iters; ++k) {
-    part = 0;
-    for (int i = threadIdx.x; i < d; i += blockDim.x) {
-      const T* row = Hm + (size_t)i * d;
-      T s = 0;
-      for (int j = 0; j < d; ++j) s += row[j] * pv[j];
-      hp[i] = s;
-      part += pv[i] * s;
-    }
-    const T denom = block_sum(part, red);
-    const T alpha = denom > tiny ? rz / denom : T(0);
-    part = 0;
-    for (int i = threadIdx.x; i < d; i += blockDim.x) {
-      xv[i] = xv[i] + alpha * pv[i];
-      rv[i] = rv[i] - alpha * hp[i];
-      zv[i] = rv[i] * dinv[i];
-      part += rv[i] * zv[i];
-    }
-    const T rz_new = block_sum(part, red);
-    const T beta = rz_new / (rz > tiny ? rz : tiny);
-    for (int i = threadIdx.x; i < d; i += blockDim.x) pv[i] = zv[i] + beta * pv[i];
-    rz = rz_new;
-    __syncthreads();          // p complete before the next row products
-  }
-  for (int i = threadIdx.x; i < d; i += blockDim.x) x[inst * (size_t)d + i] = xv[i];
-}
 
 // ---------------------------------------------------------------------------
 // Warp-per-instance kernel (d <= 64).
@@ -408,27 +361,314 @@ WarpKernel<T> warp_kernel_for(int d, int h_in) {
   return by_rows<T, 2, sizeof(T) == 8>(d);
 }
 
+// ---------------------------------------------------------------------------
+// Block kernel (d > 64).
+
+constexpr int kBlockMaxThreads = 1024;
+constexpr int kBlockRegThreads = 256;  // kernels that hold rows in registers
+constexpr int kBlockSlots = 32;        // reduction slots a set: one a warp
+
+// Shared-memory layout of one block of the block kernel: its mbarrier, two
+// sets of 32 reduction slots, p (d values rounded up to 8, the tail 0),
+// and, unless H is read from device memory, one buffer of one instance's H
+// (d rows of d values), each 128-byte aligned.  ops/cuda_cg.py
+// (_block_smem_bytes) computes the same total.
+struct BlockLayout {
+  size_t red_off, p_off, h_off, total;
+  __host__ __device__ BlockLayout(int d, int elem, bool h_in_smem)
+      : red_off(128),
+        p_off(red_off + round_up(2 * kBlockSlots * (size_t)elem, 128)),
+        h_off(p_off + round_up(round_up(d, 8) * (size_t)elem, 128)),
+        total(h_off + (h_in_smem ? round_up((size_t)d * d * elem, 128) : 0)) {}
+};
+
+// Start copying one instance's H (n values) into the block's buffer;
+// completion is reported on `bar`.  Every thread of the block calls it:
+// one bulk copy by thread 0 (16-byte aligned H and size), else per-value
+// cp.async by every thread, each arriving on `bar` once its copies landed.
+template <typename T>
+__device__ __forceinline__ void copy_block(T* dst, const T* src, long long n,
+                                           int bulk, uint64_t* bar) {
+  if (bulk) {
+    if (threadIdx.x == 0) {
+      const unsigned bytes = (unsigned)(n * (long long)sizeof(T));
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                   :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+          "[%0], [%1], %2, [%3];\n"
+          :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+          : "memory");
+    }
+  } else {
+    for (long long e = threadIdx.x; e < n; e += blockDim.x)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+                   :: "r"(smem_u32(dst + e)), "l"(src + e), "n"(sizeof(T))
+                   : "memory");
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+                 :: "r"(smem_u32(bar)) : "memory");
+  }
+}
+
+// Sum over the block with one barrier.  Each warp's butterfly total goes
+// to its slot of the current set; after the barrier every thread adds the
+// nw totals in warp order, so every thread holds the same value and the
+// control flow that follows stays uniform.  The two sets alternate: a set
+// is written again two sums later, after a barrier that every thread
+// reaches only once it has read the set.
+template <typename T>
+__device__ __forceinline__ T block_sum1(T v, T* slots, unsigned& set, int nw) {
+  v = warp_sum(v);
+  T* s = slots + set * kBlockSlots;
+  if ((threadIdx.x & 31) == 0) s[threadIdx.x >> 5] = v;
+  set ^= 1u;
+  __syncthreads();
+  T t = s[0];
+  for (int w = 1; w < nw; ++w) t += s[w];
+  return t;
+}
+
+// Thread j owns column j of each instance's H (and j + T, ... for C > 1,
+// T threads), so (Hp)_j = sum_i H[i][j] p[i] (H symmetric) reads
+// neighbouring words across a warp, with no bank conflict in shared memory
+// and coalesced in device memory.  R: rows of the column held in registers
+// (a multiple of 8, zero past d), read from the buffer once an instance;
+// rows R..d-1 are read at every iteration from the buffer (h_in_smem) or
+// from device memory.  R >= d holds the whole column ("registers"): the
+// buffer then takes the copy of the block's next instance at once, which
+// runs under this instance's iterations; otherwise ("split", "shared") it
+// is refilled after the instance.  p is broadcast from shared memory in
+// 16-byte loads.  Three barriers an iteration: p written, and one a sum.
+//
+// Registers a thread may use (__maxnreg__), by the rows R it holds.
+// Uncapped, ptxas issued every load of p ahead of the multiply-adds and
+// held about twice the registers the column needs, which cut the blocks
+// an SM: the float kernel at (1000, 96, 96) took 1.6x the time it takes
+// capped (PERF.md §6).  The caps are the fastest of those tried on an
+// H100: float R + 56 up to 168, double 2R + 96 for a split column, none
+// for the whole double column.  R = 0: 64, set by the launch bounds.
+template <typename T, int R>
+struct BlockRegCap {
+  static constexpr int value =
+      R == 0 ? 64
+      : sizeof(T) == 4 ? (R + 56 < 168 ? R + 56 : 168)
+      : (R <= 64 ? 2 * R + 96 : 255);
+};
+
+template <typename T, int R, int C>
+__global__ void __launch_bounds__(R > 0 ? kBlockRegThreads : kBlockMaxThreads)
+    __maxnreg__((BlockRegCap<T, R>::value))
+cg_block_kernel(const T* __restrict__ H, const T* __restrict__ b,
+                T* __restrict__ x, int B, int d, int iters, int h_in_smem,
+                int bulk) {
+  static_assert(R % 8 == 0 && (C == 1 || R == 0), "rows, columns");
+  extern __shared__ __align__(128) unsigned char blk_smem[];
+  const BlockLayout L(d, sizeof(T), h_in_smem != 0);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(blk_smem);
+  T* slots = reinterpret_cast<T*>(blk_smem + L.red_off);
+  T* pbuf = reinterpret_cast<T*>(blk_smem + L.p_off);
+  T* Hs = reinterpret_cast<T*>(blk_smem + L.h_off);
+  const int tid = threadIdx.x, nt = blockDim.x, nw = nt >> 5;
+  const long long n = (long long)d * d;
+  const bool all_regs = R >= d;
+  const T tiny = tiny_v<T>();
+
+  if (h_in_smem && tid == 0) mbar_init(bar, bulk ? 1u : (unsigned)nt);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  for (int i = tid; i < (int)round_up(d, 8); i += nt) pbuf[i] = T(0);
+  __syncthreads();
+  if (h_in_smem && blockIdx.x < B) copy_block(Hs, H + blockIdx.x * n, n, bulk, bar);
+
+  // A thread's columns; one past d reads column 0, masked by `on`.
+  int jc[C];
+  bool on[C];
+  T bn[C];                             // b of the block's next instance
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int j = tid + c * nt;
+    on[c] = j < d;
+    jc[c] = on[c] ? j : 0;
+    bn[c] = on[c] && blockIdx.x < B ? b[blockIdx.x * (long long)d + j] : T(0);
+  }
+
+  unsigned parity = 0, set = 0;
+  for (long long inst = blockIdx.x; inst < B; inst += gridDim.x, parity ^= 1u) {
+    const long long next = inst + gridDim.x;
+    const T* Hm = h_in_smem ? Hs : H + inst * n;
+    auto refill = [&]() {              // the buffer takes the next instance
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+      if (next < B) copy_block(Hs, H + next * n, n, bulk, bar);
+    };
+    if (h_in_smem) mbar_wait(bar, parity);
+
+    T r[C], dv[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      r[c] = bn[c];
+      if (next < B && on[c]) bn[c] = b[next * d + jc[c]];
+      const T g = on[c] ? Hm[(size_t)jc[c] * d + jc[c]] : T(1);
+      dv[c] = g > T(0) ? T(1) / g : T(1);
+    }
+    T h[R > 0 ? R : 1];
+    if constexpr (R > 0) {
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const T v = Hm[(size_t)(i < d ? i : 0) * d + jc[0]];
+        h[i] = on[0] && i < d ? v : T(0);
+      }
+    }
+    if (h_in_smem && all_regs) refill();
+
+    T xv[C], z[C], p[C];
+    T part = 0;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      xv[c] = 0;
+      z[c] = r[c] * dv[c];
+      p[c] = z[c];
+      part = fma_t(r[c], z[c], part);
+    }
+    T rz = block_sum1(part, slots, set, nw);
+    for (int k = 0; k < iters; ++k) {
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        if (on[c]) pbuf[jc[c]] = p[c];
+      __syncthreads();                 // p complete
+      T hp[C];
+      if constexpr (C == 1) {
+        T acc[4] = {0, 0, 0, 0};       // 4 independent sums
+        if constexpr (R > 0) {
+#pragma unroll
+          for (int i = 0; i < R; i += 4) {
+            T pv[4];
+            load4(pbuf + i, pv);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[q] = fma_t(h[i + q], pv[q], acc[q]);
+          }
+        }
+        if (!all_regs) {
+          const T* col = Hm + jc[0];
+          int i = R;
+#pragma unroll 4
+          for (; i + 4 <= d; i += 4) {
+            T pv[4], hv[4];
+            load4(pbuf + i, pv);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) hv[q] = col[(size_t)(i + q) * d];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[q] = fma_t(hv[q], pv[q], acc[q]);
+          }
+#pragma unroll
+          for (int q = 0; q < 3; ++q)    // the last d % 4 rows
+            if (i + q < d)
+              acc[q] = fma_t(col[(size_t)(i + q) * d], pbuf[i + q], acc[q]);
+        }
+        const T s = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+        hp[0] = on[0] ? s : T(0);
+      } else {
+        T acc[C];
+#pragma unroll
+        for (int c = 0; c < C; ++c) acc[c] = 0;
+#pragma unroll 4
+        for (int i = 0; i < d; ++i) {
+          const T pv = pbuf[i];
+          const T* row = Hm + (size_t)i * d;
+#pragma unroll
+          for (int c = 0; c < C; ++c) acc[c] = fma_t(row[jc[c]], pv, acc[c]);
+        }
+#pragma unroll
+        for (int c = 0; c < C; ++c) hp[c] = on[c] ? acc[c] : T(0);
+      }
+      part = 0;
+#pragma unroll
+      for (int c = 0; c < C; ++c) part = fma_t(p[c], hp[c], part);
+      const T denom = block_sum1(part, slots, set, nw);
+      const T alpha = denom > tiny ? rz / denom : T(0);
+      part = 0;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        xv[c] = fma_t(alpha, p[c], xv[c]);
+        r[c] = fma_t(-alpha, hp[c], r[c]);
+        z[c] = r[c] * dv[c];
+        part = fma_t(r[c], z[c], part);
+      }
+      const T rz_new = block_sum1(part, slots, set, nw);
+      const T beta = rz_new / (rz > tiny ? rz : tiny);
+#pragma unroll
+      for (int c = 0; c < C; ++c) p[c] = fma_t(beta, p[c], z[c]);
+      rz = rz_new;
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      if (on[c]) x[inst * d + jc[c]] = xv[c];
+    if (h_in_smem && !all_regs) refill();
+  }
+}
+
+template <typename T>
+using BlockKernel = void (*)(const T*, const T*, T*, int, int, int, int, int);
+
+// The block kernel for `rows` rows of a column in registers (0, 32 or 64,
+// or a multiple of 8 from 72 to 128 in float and to 96 in double) and
+// `cols` columns a thread (1, 2 or 4; more than 1 only with no rows in
+// registers: ptxas of CUDA 12.8 crashes on 8 columns a thread).
+template <typename T>
+BlockKernel<T> block_kernel_for(int rows, int cols) {
+  if (rows == 0) {
+    switch (cols) {
+      case 1: return cg_block_kernel<T, 0, 1>;
+      case 2: return cg_block_kernel<T, 0, 2>;
+      case 4: return cg_block_kernel<T, 0, 4>;
+    }
+    return nullptr;
+  }
+  if (cols != 1) return nullptr;
+  switch (rows) {
+    case 32: return cg_block_kernel<T, 32, 1>;
+    case 64: return cg_block_kernel<T, 64, 1>;
+    case 72: return cg_block_kernel<T, 72, 1>;
+    case 80: return cg_block_kernel<T, 80, 1>;
+    case 88: return cg_block_kernel<T, 88, 1>;
+    case 96: return cg_block_kernel<T, 96, 1>;
+  }
+  if constexpr (sizeof(T) == 4) {
+    switch (rows) {
+      case 104: return cg_block_kernel<T, 104, 1>;
+      case 112: return cg_block_kernel<T, 112, 1>;
+      case 120: return cg_block_kernel<T, 120, 1>;
+      case 128: return cg_block_kernel<T, 128, 1>;
+    }
+  }
+  return nullptr;
+}
+
 // path 1: the warp kernel, h_in kRegisters or kSplit (warp_kernel_for);
-// path 0: the block kernel, h_in kShared (H in shared memory) or kDevice
-// (H's rows from device memory).  warps*32 threads and smem bytes of
-// dynamic shared memory a block, as ops/cuda_cg.k1_launch_plan sets them.
+// rows and cols are not read.  path 0: the block kernel, h_in kRegisters
+// (rows >= d), kSplit (0 < rows < d, the rest from the buffer), kShared
+// (rows 0, H from the buffer) or kDevice (rows 0, H from device memory).
+// warps*32 threads and smem bytes of dynamic shared memory a block, as
+// ops/cuda_cg.k1_launch_plan sets them; both paths launch a persistent
+// grid of at most the blocks that fit the device at once.
 template <typename T>
 int launch_cg(const void* H, const void* b, void* x, int B, int d, int iters,
-              int path, int h_in, int bulk, int warps, int smem, void* stream) {
+              int path, int h_in, int bulk, int rows, int cols, int warps,
+              int smem, void* stream) {
   if (B <= 0 || d <= 0) return 0;
   auto st = static_cast<cudaStream_t>(stream);
   const T* Hp = static_cast<const T*>(H);
   const T* bp = static_cast<const T*>(b);
   T* xp = static_cast<T*>(x);
-  if (warps < 1 || warps * 32 > kWarpMaxThreads || smem < 0 ||
-      (size_t)smem > kMaxSmem)
+  if (warps < 1 || smem < 0 || (size_t)smem > kMaxSmem)
     return (int)cudaErrorInvalidValue;
+  const bool misaligned =
+      ((reinterpret_cast<uintptr_t>(H) | (size_t)d * d * sizeof(T)) & 15) != 0;
   int fit = 0;
   cudaError_t e;
   if (path == 1) {
     WarpKernel<T> kern = warp_kernel_for<T>(d, h_in);
-    if (kern == nullptr || (size_t)smem < WarpLayout(d, sizeof(T), warps).total ||
-        (bulk && ((reinterpret_cast<uintptr_t>(H) | (size_t)d * d * sizeof(T)) & 15)))
+    if (warps * 32 > kWarpMaxThreads || kern == nullptr ||
+        (size_t)smem < WarpLayout(d, sizeof(T), warps).total || (bulk && misaligned))
       return (int)cudaErrorInvalidValue;
     if ((e = device_fit(reinterpret_cast<const void*>(kern), warps * 32, smem,
                         &fit)) != cudaSuccess)
@@ -439,14 +679,24 @@ int launch_cg(const void* H, const void* b, void* x, int B, int d, int iters,
     kern<<<grid, warps * 32, smem, st>>>(Hp, bp, xp, B, d, iters, bulk);
     return (int)cudaGetLastError();
   }
-  const size_t need = (6 * (size_t)d + 33) * sizeof(T) +
-                      (h_in == kShared ? (size_t)d * d * sizeof(T) : 0);
-  if (path != 0 || (h_in != kShared && h_in != kDevice) || (size_t)smem < need)
+  const int threads = warps * 32;
+  const bool in_smem = h_in != kDevice;
+  const bool rows_ok = h_in == kRegisters ? rows >= d
+                       : h_in == kSplit   ? rows > 0 && rows < d
+                                          : rows == 0 && (h_in == kShared || h_in == kDevice);
+  BlockKernel<T> kern = block_kernel_for<T>(rows, cols);
+  if (path != 0 || !rows_ok || kern == nullptr || (size_t)rows > round_up(d, 8) ||
+      threads > (rows > 0 ? kBlockRegThreads : kBlockMaxThreads) ||
+      (long long)threads * cols < d ||
+      (size_t)smem < BlockLayout(d, sizeof(T), in_smem).total ||
+      (bulk && (misaligned || !in_smem)))
     return (int)cudaErrorInvalidValue;
-  if ((e = device_fit(reinterpret_cast<const void*>(cg_kernel<T>), warps * 32,
-                      smem, &fit)) != cudaSuccess)
+  if ((e = device_fit(reinterpret_cast<const void*>(kern), threads, smem,
+                      &fit)) != cudaSuccess)
     return (int)e;
-  cg_kernel<T><<<B, warps * 32, smem, st>>>(Hp, bp, xp, d, iters, h_in == kShared);
+  if (fit < 1) return (int)cudaErrorInvalidConfiguration;
+  const int grid = B < fit ? B : fit;
+  kern<<<grid, threads, smem, st>>>(Hp, bp, xp, B, d, iters, in_smem, bulk);
   return (int)cudaGetLastError();
 }
 
@@ -454,16 +704,18 @@ int launch_cg(const void* H, const void* b, void* x, int B, int d, int iters,
 
 extern "C" int tinyopt_cg_f32(const void* H, const void* b, void* x, int B,
                               int d, int iters, int path, int h_in, int bulk,
-                              int warps, int smem, void* stream) {
+                              int rows, int cols, int warps, int smem,
+                              void* stream) {
   return tinyopt::launch_cg<float>(H, b, x, B, d, iters, path, h_in, bulk,
-                                   warps, smem, stream);
+                                   rows, cols, warps, smem, stream);
 }
 
 extern "C" int tinyopt_cg_f64(const void* H, const void* b, void* x, int B,
                               int d, int iters, int path, int h_in, int bulk,
-                              int warps, int smem, void* stream) {
+                              int rows, int cols, int warps, int smem,
+                              void* stream) {
   return tinyopt::launch_cg<double>(H, b, x, B, d, iters, path, h_in, bulk,
-                                    warps, smem, stream);
+                                    rows, cols, warps, smem, stream);
 }
 
 extern "C" const char* tinyopt_cuda_error_string(int err) {

@@ -21,26 +21,6 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
-// Sum over a whole block; ``red`` is 33 elements of shared scratch.  Every
-// thread of the block must call it (it synchronises the block).
-template <typename T>
-__device__ __forceinline__ T block_sum(T v, T* red) {
-  const int lane = threadIdx.x & 31;
-  const int w = threadIdx.x >> 5;
-  const int nw = (blockDim.x + 31) >> 5;
-  v = warp_sum(v);
-  __syncthreads();
-  if (lane == 0) red[w] = v;
-  __syncthreads();
-  if (w == 0) {
-    T t = lane < nw ? red[lane] : T(0);
-    t = warp_sum(t);
-    if (lane == 0) red[32] = t;
-  }
-  __syncthreads();
-  return red[32];
-}
-
 // finfo(T).tiny / finfo(T).eps, the constants the JAX package uses.
 template <typename T> __device__ __forceinline__ T tiny_v();
 template <> __device__ __forceinline__ float tiny_v<float>() { return FLT_MIN; }

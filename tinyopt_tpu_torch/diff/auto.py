@@ -21,9 +21,17 @@ from .. import manifold as mf
 from ..cost import Cost
 
 
+def value_and_jacfwd(f, x: torch.Tensor):
+    """Forward-mode value and Jacobian: ``(f(x), J)`` with J[..., j] =
+    ∂f/∂x_j, the last axis over x's entries (``torch.func.jacfwd``, one jvp
+    a basis vector, as the JAX package's vmap of ``jax.jvp``)."""
+    return f(x), torch.func.jacfwd(f)(x)
+
+
 def flatten_residuals(res) -> torch.Tensor:
-    """Flatten a residual pytree into one 1-D vector (row-major per leaf)."""
-    leaves = pytree.tree_leaves(res)
+    """Flatten a residual pytree into one 1-D vector (row-major per leaf,
+    a dict's leaves by sorted key, as the JAX package)."""
+    leaves = mf.tree_leaves_sorted(res)
     if not leaves:
         return torch.zeros((0,))
     flat = [torch.reshape(torch.as_tensor(l), (-1,)) for l in leaves]

@@ -73,7 +73,7 @@ def implicit_solver(residual_fn: Callable, options: Options | None = None,
         key = (theta_def, tuple((t.shape[1:], t.dtype, t.device)
                                 for t in theta_leaves))
         if key not in built:
-            theta = pytree.tree_unflatten(list(theta_leaves), theta_def)
+            theta = mf.tree_unflatten_sorted(list(theta_leaves), theta_def)
             theta_ex = pytree.tree_map(lambda a: a[0], theta)
             built[key] = build_batch_solver(residual_fn, options, "residuals",
                                             x_example, theta_ex)
@@ -83,7 +83,7 @@ def implicit_solver(residual_fn: Callable, options: Options | None = None,
         class _ImplicitSolve(torch.autograd.Function):
             @staticmethod
             def forward(ctx, x0_flat, *theta_leaves):
-                theta = pytree.tree_unflatten(list(theta_leaves), theta_def)
+                theta = mf.tree_unflatten_sorted(list(theta_leaves), theta_def)
                 solve = batch_solver(theta_def, theta_leaves)
                 with torch.no_grad():
                     x_opt, _ = solve(mf.unflatten(x0_flat, spec), theta)
@@ -94,7 +94,7 @@ def implicit_solver(residual_fn: Callable, options: Options | None = None,
             @staticmethod
             def backward(ctx, v):
                 x_opt, *theta_leaves = ctx.saved_tensors
-                theta = pytree.tree_unflatten(theta_leaves, theta_def)
+                theta = mf.tree_unflatten_sorted(theta_leaves, theta_def)
                 J = torch.func.vmap(jac_one)(x_opt, theta)
                 H = torch.matmul(J.mT, J)
                 v = v.to(spec.dtype)
@@ -107,7 +107,7 @@ def implicit_solver(residual_fn: Callable, options: Options | None = None,
                     lam = torch.where(bad[:, None], lam_ls, lam)
 
                 def g_all(*leaves):
-                    th = pytree.tree_unflatten(list(leaves), theta_def)
+                    th = mf.tree_unflatten_sorted(list(leaves), theta_def)
                     return torch.func.vmap(g_one)(x_opt, th)
 
                 _, vjp_fn = torch.func.vjp(g_all, *theta_leaves)
@@ -122,7 +122,7 @@ def implicit_solver(residual_fn: Callable, options: Options | None = None,
         if not batched:
             theta = pytree.tree_map(lambda a: torch.as_tensor(a)[None], theta)
             x0 = pytree.tree_map(lambda a: a[None], x0)
-        leaves, theta_def = pytree.tree_flatten(theta)
+        leaves, theta_def = mf.tree_flatten_sorted(theta)
         fn = make_function(theta_def)
         x_opt = mf.unflatten(fn.apply(mf.flatten_batch(x0, spec), *leaves),
                              spec)

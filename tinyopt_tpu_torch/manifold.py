@@ -5,7 +5,9 @@ parameter block: tensors are Euclidean leaves (tangent dimension = size,
 retraction = addition); types registered here with a :class:`Manifold`
 (``manifolds.SO3``, ``SE3``, ``SE23``, ``SEn3``) are atomic leaves whose tangent
 dimension differs from their count of stored values.  The tangent vector
-concatenates the leaf tangents in pytree order.
+concatenates the leaf tangents in pytree order, JAX's order: a dict's
+leaves by sorted key (:func:`tree_flatten_sorted`), whatever order the
+caller inserted them in.
 
 The optimizer loop and the fused path keep parameters FLAT, as a (B, P)
 tensor of stored values (every tensor of the pytree flattened, in pytree
@@ -18,6 +20,7 @@ registered retraction of each manifold leaf otherwise.
 from __future__ import annotations
 
 import math
+from collections import defaultdict
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
@@ -61,14 +64,62 @@ def _leaf_dims(leaf) -> int:
     return int(torch.as_tensor(leaf).numel())
 
 
+class SortedTreeDef(NamedTuple):
+    """A pytree's structure as torch flattens it (every dict in its
+    insertion order), and the order JAX flattens it in (every dict's keys
+    sorted): leaf ``k`` in JAX's order is torch's leaf ``order[k]``."""
+    treedef: Any
+    order: tuple
+
+
+def _jax_order(spec, start: int) -> list:
+    """Torch's leaf positions of ``spec`` in JAX's order, from ``start``."""
+    if spec.is_leaf():
+        return [start]
+    kids = list(spec.children()) if hasattr(spec, "children") \
+        else list(spec.children_specs)
+    offsets = np.cumsum([start] + [k.num_leaves for k in kids]).tolist()
+    idx = range(len(kids))
+    if spec.type is dict or spec.type is defaultdict:
+        keys = spec.context if spec.type is dict else spec.context[1]
+        idx = sorted(idx, key=lambda i: keys[i])
+    return [p for i in idx for p in _jax_order(kids[i], offsets[i])]
+
+
+def tree_flatten_sorted(x, is_leaf=None):
+    """Flatten ``x`` as JAX's ``tree_flatten`` does: every dict (and
+    defaultdict) by its sorted keys, where torch keeps insertion order.
+    Every flat layout of the port (parameters, tangents, steps, gradients,
+    covariances) follows it, so it is the JAX package's layout.  Returns
+    the leaves and a :class:`SortedTreeDef`, from which
+    :func:`tree_unflatten_sorted` rebuilds the caller's structure, keys in
+    the caller's order."""
+    leaves, treedef = pytree.tree_flatten(x, is_leaf=is_leaf)
+    order = tuple(_jax_order(treedef, 0))
+    return [leaves[i] for i in order], SortedTreeDef(treedef, order)
+
+
+def tree_leaves_sorted(x, is_leaf=None) -> list:
+    """The leaves of ``x`` in JAX's order (:func:`tree_flatten_sorted`)."""
+    return tree_flatten_sorted(x, is_leaf)[0]
+
+
+def tree_unflatten_sorted(leaves, sdef: SortedTreeDef):
+    """Inverse of :func:`tree_flatten_sorted`."""
+    out = [None] * len(sdef.order)
+    for k, i in enumerate(sdef.order):
+        out[i] = leaves[k]
+    return pytree.tree_unflatten(out, sdef.treedef)
+
+
 def _leaves(x):
-    return pytree.tree_flatten(x, is_leaf=_is_manifold_leaf)
+    return tree_flatten_sorted(x, is_leaf=_is_manifold_leaf)
 
 
 class Block(NamedTuple):
     """One manifold-level leaf of a parameter pytree in the flat layouts."""
     manifold: Manifold | None   # None: a Euclidean tensor
-    treedef: Any                # the leaf's own tensor-level treedef
+    treedef: Any                # the leaf's own tensor-level SortedTreeDef
     shapes: tuple               # shapes of its tensors (one instance)
     p_offset: int               # offset of its stored values in the (P,) vector
     p_size: int
@@ -82,7 +133,7 @@ class TangentSpec(NamedTuple):
     and its tangent (``dims`` = D; per manifold-level leaf ``leaf_dims``
     and ``offsets``, as the JAX package's ``TangentSpec``)."""
 
-    treedef: Any              # tensor-level treedef (rebuilds manifold leaves)
+    treedef: Any              # tensor-level SortedTreeDef (rebuilds x)
     shapes: tuple             # per-tensor shape
     params: int               # P: stored values
     leaf_dims: tuple          # per manifold-level leaf tangent dimension
@@ -96,14 +147,14 @@ class TangentSpec(NamedTuple):
 def tangent_spec(x) -> TangentSpec:
     """The (static) parameter and tangent layout of ONE instance's pytree."""
     mleaves, _ = _leaves(x)
-    tensors, treedef = pytree.tree_flatten(x)
+    tensors, treedef = tree_flatten_sorted(x)
     tensors = [torch.as_tensor(t) for t in tensors]
     shapes = tuple(tuple(t.shape) for t in tensors)
     sizes = tuple(math.prod(s) for s in shapes)
     blocks, leaf_dims, offsets, dtypes = [], [], [], []
     i = p_off = t_off = 0
     for leaf in mleaves:
-        sub, sub_def = pytree.tree_flatten(leaf)
+        sub, sub_def = tree_flatten_sorted(leaf)
         n = len(sub)
         p_size = sum(sizes[i:i + n])
         td = _leaf_dims(leaf)
@@ -134,7 +185,7 @@ def tangent_spec(x) -> TangentSpec:
 
 def flatten_batch(xb, spec: TangentSpec) -> torch.Tensor:
     """Batched pytree (leading instance axis on every tensor) -> (B, P)."""
-    leaves = pytree.tree_leaves(xb)
+    leaves = tree_leaves_sorted(xb)
     cols = [torch.reshape(l, (l.shape[0], -1)).to(spec.dtype) for l in leaves]
     return cols[0] if len(cols) == 1 else torch.cat(cols, dim=-1)
 
@@ -146,7 +197,7 @@ def _unflatten(v, treedef, shapes):
         n = math.prod(s)
         leaves.append(torch.reshape(v[..., o:o + n], lead + s))
         o += n
-    return pytree.tree_unflatten(leaves, treedef)
+    return tree_unflatten_sorted(leaves, treedef)
 
 
 def unflatten(v: torch.Tensor, spec: TangentSpec):
@@ -174,7 +225,7 @@ def retract_flat(x: torch.Tensor, delta: torch.Tensor,
         new = blk.manifold.retract(_unflatten(xs, blk.treedef, blk.shapes),
                                    ds.to(xs.dtype))
         parts.extend(torch.reshape(a, lead + (-1,))
-                     for a in pytree.tree_leaves(new))
+                     for a in tree_leaves_sorted(new))
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
 
 
@@ -216,7 +267,7 @@ def retract(x, delta: torch.Tensor, spec: TangentSpec | None = None):
         else:
             arr = torch.as_tensor(leaf)
             new_leaves.append(arr + sl.reshape(arr.shape).to(arr.dtype))
-    return pytree.tree_unflatten(new_leaves, treedef)
+    return tree_unflatten_sorted(new_leaves, treedef)
 
 
 def local(x, y, spec: TangentSpec | None = None) -> torch.Tensor:
@@ -305,7 +356,7 @@ def element_perm(x_batched, n: int) -> np.ndarray | None:
 def flatten_values(x) -> torch.Tensor:
     """Flatten the *values* (not tangents) of a pytree into one vector."""
     arrs = [torch.reshape(torch.as_tensor(a), (-1,))
-            for a in pytree.tree_leaves(x)]
+            for a in tree_leaves_sorted(x)]
     if not arrs:
         return torch.zeros((0,))
     return torch.cat(arrs)

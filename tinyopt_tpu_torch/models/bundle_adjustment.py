@@ -5,10 +5,10 @@ large NLLS problem of the reference's domain (visual SLAM / SfM;
 reference README.md:165-167):
 
 * the parameters are ``{"points": (n_pts, 3), "poses": SE3 (n_cams
-  batched)}``, keys inserted in sorted order so that torch's pytree (which
-  flattens a dict in insertion order) lays the tangent out as the JAX
-  package does (sorted keys): the points' 3·n_pts dims first, then the
-  poses' 6·n_cams;
+  batched)}``; the port lays a dict out by sorted keys, as the JAX package
+  does (``manifold.tree_flatten_sorted``), so the tangent holds the
+  points' 3·n_pts dims first, then the poses' 6·n_cams, in whatever order
+  the keys were inserted (here sorted, as the JAX package's maker);
 * the observations are a dense (n_cams, n_pts, 2) tensor with a
   visibility mask (a masked pair contributes a zero residual and a zero
   Jacobian): the dense and matrix-free paths solve ``ba_residuals``, and

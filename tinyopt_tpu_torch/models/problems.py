@@ -25,6 +25,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..ops import cuda_solver
@@ -32,6 +33,28 @@ from ..ops import cuda_solver
 
 def sqrt2_residual(x):
     return x * x - 2.0
+
+
+def make_circle(n=10, r=2.0, center=(2.0, 7.0), noise=1e-5, seed=0,
+                dtype=torch.float32, device="cuda"):
+    """Fit a circle to ``n`` noisy points on it: the residual of each point
+    is |p − c|² − ρ² over x = (c_x, c_y, ρ), from the start (0, 0, 1).
+    The points are drawn from ``numpy.random.default_rng(seed)`` as the
+    JAX package draws them, so one seed gives the same problem; built on
+    ``device`` (the card unless the caller asks for another)."""
+    rng = np.random.default_rng(seed)
+    ang = np.arange(n) * 2 * np.pi / (n - 1)
+    obs = np.asarray(center)[None, :] + r * np.stack(
+        [np.cos(ang), np.sin(ang)], -1)
+    obs = obs + noise * rng.uniform(-1, 1, obs.shape)
+    obs = torch.as_tensor(obs, dtype=dtype, device=device)
+
+    def residuals(x):
+        delta = obs - x[:2][None, :]
+        return torch.sum(delta * delta, dim=-1) - x[2] * x[2]
+
+    return residuals, torch.tensor([0.0, 0.0, 1.0], dtype=dtype,
+                                   device=device)
 
 
 class PriorProblem(NamedTuple):
