@@ -4,7 +4,9 @@ Builds the package's CUDA kernels from ``tinyopt_tpu_torch/csrc``, holds
 each kernel against its plain PyTorch twin on the card (K1 also at the
 flagship's 10k x 6 x 6, and its block kernel, d > 64, at d = 65 to 300 in
 every way it reads H, with offset views, the alpha-freeze and 10,007
-instances, timed at (1000, 65, 65), (256, 100, 20) and (64, 300, 20); K2
+instances, and past 1024 threads at d = 1024, 1100, 2100 and 6000 f32 /
+4500 f64 (the wide kernel), timed at (1000, 65, 65), (256, 100, 20),
+(64, 300, 20) and (8, 2100, 20); K2
 for GN / LM, the dogleg and the history, also at the edges of its launch
 plans, printed per shape, and beside an instance whose data is NaN;
 K2's SE3 family, the retraction branch, at 10k x 16 in float32 and
@@ -1762,6 +1764,26 @@ def main() -> int:
                 f"B = 1, 3, 257, 8 and {d} iterations, aligned and offset: "
                 f"max|x_k - x_f64| / limit = {worst:.3f}")
             assert worst <= 1.0, f"K1 block kernel at d = {d}"
+    # past 1024 threads: d = 1024 reads H from device memory a thread a
+    # column; d = 1100 and 2100 run the wide kernel (two and three columns
+    # a thread, their state in shared memory), as do d = 6000 in float32
+    # and 4500 in float64 (six and five), at 8 iterations, aligned and
+    # offset
+    for dtype, wide in ((torch.float32, 6000), (torch.float64, 4500)):
+        for d, Bs in ((1024, (1, 3)), (1100, (1, 3)), (2100, (1, 3)),
+                      (wide, (1,))):
+            worst = 0.0
+            for B in Bs:
+                H, b = spd(B, d, dtype)
+                plan = cuda_cg.k1_launch_plan(B, d, H.element_size(),
+                                              H.data_ptr())
+                worst = max(worst, k1_edge(H, b, 8))
+                del H, b
+            torch.cuda.empty_cache()
+            log(f"[K1] block d = {d} {dtype} ({plan.h_in}, {plan.cols} "
+                f"columns a thread), B = {Bs}, 8 iterations, aligned and "
+                f"offset: max|x_k - x_f64| / limit = {worst:.3f}")
+            assert worst <= 1.0, f"K1 block kernel at d = {d}"
     # alpha-freeze on the block kernel (H = 0 in every other instance), and
     # more instances than blocks resident at once (the persistent stride)
     for dtype in (torch.float32, torch.float64):
@@ -1777,8 +1799,9 @@ def main() -> int:
         assert worst <= 1.0, "K1 block kernel, persistent stride"
     # the block kernel timed at the shapes of k1_bench.py: d = 65 at d
     # iterations; d = 100, H in shared memory; d = 300, H read from device
-    # memory
-    for B, d, iters in ((1000, 65, 65), (256, 100, 20), (64, 300, 20)):
+    # memory; d = 2100, the wide kernel
+    for B, d, iters in ((1000, 65, 65), (256, 100, 20), (64, 300, 20),
+                        (8, 2100, 20)):
         for dtype, tag in ((torch.float32, ""), (torch.float64, "_f64")):
             H, b = spd(B, d, dtype)
             xt = solve_psd_cg(H, b, iters)
@@ -2564,7 +2587,7 @@ def main() -> int:
          **{f"icp_{k}": v for k, v in record["icp"]["k1"].items()}},
         # the block kernel (d > 64) on the batched BA's "cg" path, phase
         # 16c, at (1000, 96, 96), 96 iterations: "registers" in float32,
-        # "split" in float64; d = 65, 100 and 300 from phase 3
+        # "split" in float64; d = 65, 100, 300 and 2100 (the wide kernel) from phase 3
         {"name": "K1 cg_block_kernel", "route": "cuda",
          "source": "tinyopt_tpu_torch/csrc/cg.cu",
          "replaces": "tinyopt_tpu/ops/pallas_cg.py:77",

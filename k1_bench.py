@@ -11,8 +11,7 @@ function: the port never calls it).  The default shape is the cg path's,
 batched BA's (1000, 96, 96) runs the block kernel.
 K1's time beside its bound is ``chip_smoke.py``'s (phases 3 and 16c).
 
-    python3 k1_bench.py --parent DIR [--ptxas] [--variants]
-                        [--shape B,d,iters ...]
+    python3 k1_bench.py --parent DIR [--ptxas] [--shape B,d,iters ...]
 
 ``--parent DIR``: the root of a tree holding an earlier
 ``tinyopt_tpu_torch/`` package, unpacked for instance with
@@ -22,10 +21,8 @@ one under another name, so its ``ops.cuda_cg.cg_solve(H, b, iters)``
 builds and calls its own kernels with its own entry points, whatever
 their arguments.  ``--ptxas``: print nvcc's registers, shared memory and
 spills for every kernel of this tree's ``csrc/cg.cu``.  ``--shape``
-(repeatable): the shapes to time.  ``--variants``: at a shape on the
-block path, also time each other way this tree's block kernel can read
-H ("registers", "split" with 32 or 64 rows in registers, "shared"),
-in turns with the plan's own choice.
+(repeatable): the shapes to time; past d = 1024 the block path runs
+``cg_block_wide_kernel``.
 
 Device times are milliseconds per call, from CUDA events around 20
 launches queued behind a device sleep (``chip_smoke.gpu_ms``); at the
@@ -109,25 +106,6 @@ def host_us(fn, n=200):
     return t / n * 1e6
 
 
-def block_variants(cuda_cg, B, d, itemsize, h_ptr):
-    """Every way the block kernel can read H at this shape, by name:
-    the plan's own, the whole column in registers where the kernel is
-    built for it (float32 to d = 128, float64 to d = 96), 32 or 64 rows
-    of it ("split") and none ("shared"); empty off the block path or
-    where H does not fit shared memory."""
-    plan = cuda_cg.k1_launch_plan(B, d, itemsize, h_ptr)
-    if plan.path != "block" or plan.h_in == "device":
-        return {}
-    out = {"plan": plan}
-    if d <= (128 if itemsize == 4 else 96):
-        out["registers"] = plan._replace(h_in="registers",
-                                         reg_rows=-(-d // 8) * 8)
-    for rows in (64, 32):
-        out[f"split{rows}"] = plan._replace(h_in="split", reg_rows=rows)
-    out["shared"] = plan._replace(h_in="shared", reg_rows=0)
-    return out
-
-
 def spd(gen, B, d, dtype, dev):
     A = torch.randn((B, 2 * d, d), generator=gen, dtype=dtype,
                     device=dev) / (2 * d) ** 0.5
@@ -140,7 +118,6 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True)
     ap.add_argument("--ptxas", action="store_true")
-    ap.add_argument("--variants", action="store_true")
     ap.add_argument("--shape", action="append", default=[],
                     help="B,d,iters (repeatable)")
     args = ap.parse_args()
@@ -205,21 +182,6 @@ def main() -> int:
                             for w, f in (("old", old_cg.cg_solve),
                                          ("new", cuda_cg.cg_solve))}
             log(f"[host] {tag} at 64 instances: us per call {r['host_us']}")
-            if args.variants:
-                vs = block_variants(cuda_cg, B, D, H.element_size(),
-                                    H.data_ptr())
-                for vname, vplan in vs.items():
-                    err = (cuda_cg.launch(H, b, iters, vplan).double()
-                           - xt).abs().max().item()
-                    assert err <= limit, f"{vname} {tag}: {err} > {limit}"
-                names = list(vs)
-                order = names + names[::-1]
-                r["variants_ms"] = [
-                    [v, gpu_ms(lambda p=vs[v]: cuda_cg.launch(H, b, iters, p),
-                               n=N_LAUNCH)] for v in order]
-                if vs:
-                    log(f"[variants] {tag}: {r['variants_ms']} ms")
-
             def chol():
                 L, _ = torch.linalg.cholesky_ex(H)
                 return torch.cholesky_solve(b[..., None], L)[..., 0]

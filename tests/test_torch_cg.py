@@ -176,16 +176,26 @@ def test_k1_launch_plan(d, itemsize, offset):
     assert plan.smem_bytes == 128 + plan.warps * (64 * itemsize + h_buf)
 
 
-@pytest.mark.parametrize("d,cols", [(1024, 1), (1025, 2), (2049, 4),
-                                    (4096, 4)])
-def test_k1_launch_plan_many_columns(d, cols):
-    """Past 1024 a thread owns several columns; past 4096 K1 refuses."""
-    plan = cuda_cg.k1_launch_plan(4, d, 8, 0)
-    assert (plan.path, plan.h_in, plan.cols) == ("block", "device", cols)
+@pytest.mark.parametrize("d,itemsize,cols", [
+    (1024, 8, 1), (1025, 8, 2), (2049, 8, 3), (4096, 8, 4), (4097, 4, 5),
+    (6000, 4, 6), (4500, 8, 5), (11_584, 4, 12), (5_792, 8, 6)])
+def test_k1_launch_plan_many_columns(d, itemsize, cols):
+    """Past 1024 a thread owns several columns (the wide kernel), whose
+    state — p, Hp, r, x and 1/H[j][j] — lives in shared memory, so K1 runs
+    up to the d whose five vectors fill a block's 227 KB: 11,584 in
+    float32, 5,792 in float64.  Beyond, it refuses."""
+    plan = cuda_cg.k1_launch_plan(4, d, itemsize, 0)
+    assert (plan.path, plan.h_in, plan.copy, plan.cols) == (
+        "block", "device", "none", cols)
     assert plan.warps * 32 <= cuda_cg.BLOCK_MAX_THREADS
     assert plan.warps * 32 * cols >= d
+    vecs = 1 if cols == 1 else cuda_cg.WIDE_VECTORS
+    assert plan.smem_bytes == 128 + (64 * itemsize + 127) // 128 * 128 \
+        + vecs * (-(-(-(-d // 8) * 8 * itemsize) // 128) * 128)
+    assert plan.smem_bytes <= cuda_cg.MAX_SMEM
     with pytest.raises(ValueError):
-        cuda_cg.k1_launch_plan(4, 4097, 4, 0)
+        cuda_cg.k1_launch_plan(4, 11_585 if itemsize == 4 else 5_793,
+                               itemsize, 0)
 
 
 def test_k1_grids_are_persistent():
@@ -231,6 +241,42 @@ def test_k1_entry_point_matches_its_declaration():
         assert params.count(",") + 1 == n_declared == 14, name
 
 
+def _spd_on_card(seed, B, d):
+    """``_spd``'s distribution in float64, drawn on the card: numpy's
+    einsum takes minutes at d in the thousands."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    A = torch.randn((B, 2 * d, d), generator=g, dtype=torch.float64,
+                    device="cuda") / np.sqrt(2 * d)
+    H = A.mT @ A + 1e-3 * torch.eye(d, dtype=torch.float64, device="cuda")
+    return H, torch.randn((B, d), generator=g, dtype=torch.float64,
+                          device="cuda")
+
+
+def _hold_against_f64_twin(Hc, bc, iters, zero=None):
+    """K1 on ``Hc`` and on an offset view of it, each held against the
+    float64 twin on the same inputs: float64 within 1e-11·max|x|; float32
+    no farther than twice the float32 twin's own gap, or 1e-5·max|x|
+    where that is larger.  Instances ``zero`` (a slice; H = 0 there) must
+    stay at 0."""
+    x64 = tlin.solve_psd_cg(Hc.double(), bc.double(), iters)
+    scale = max(1.0, x64.abs().max().item())
+    if Hc.dtype == torch.float32:
+        twin_gap = (tlin.solve_psd_cg(Hc, bc, iters).double()
+                    - x64).abs().max()
+        limit = max(2 * twin_gap.item(), 1e-5 * scale)
+    else:
+        limit = 1e-11 * scale
+    for Hk in (Hc, _offset_view(Hc)):
+        before = cuda_cg.cg_solve.launches
+        xk = cuda_cg.cg_solve(Hk, bc, iters)
+        assert cuda_cg.cg_solve.launches == before + 1
+        torch.cuda.synchronize()
+        if zero is not None:
+            assert torch.all(xk[zero] == 0)
+        err = (xk.double() - x64).abs().max().item()
+        assert err <= limit, (err, limit, Hk.shape)
+
+
 def _offset_view(H):
     """The same values as ``H`` in a contiguous view one element past an
     aligned base, so the warp kernel must copy element by element."""
@@ -244,39 +290,45 @@ def _offset_view(H):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("B,d", [
     (B, d) for d in (9, 13, 33, 50, 64, 65, 96, 97, 100, 128, 129, 200, 300)
-    for B in (1, 3, 10_007 if d <= 100 else 257)])
+    for B in (1, 3, 10_007 if d <= 100 else 257)] + [
+    (B, d) for d in (1024, 1100, 2100) for B in (1, 3)])
 def test_k1_shapes_on_gpu(dtype, B, d):
     """Both kernels, both copy modes and the ragged edges (d = 33: rows
     padded to an even length under "split"; the block kernel's ways of
-    reading H: registers, split, shared memory and, at d = 300, device
-    memory; B = 10,007 more instances than resident blocks), 8 iterations;
-    H = 0 in every other instance freezes x at 0 (α = 0).  Each is held
-    against the float64 twin on the same inputs: float64 within
-    1e-11·max|x|; float32 no farther than twice the float32 twin's own
-    gap, or 1e-5·max|x| where that is larger.  At d = 9, 8 iterations run
-    CG to exhaustion and float32 iterates are rounding noise, twin and
-    kernel alike, so the twin's gap there is the scale."""
+    reading H: its whole column in registers, 64 rows of it with the rest
+    from shared memory ("split"), and from device memory at d = 300 and
+    1024, and by the wide kernel at d = 1100 and 2100, two and three
+    columns a thread; B = 10,007 more instances than resident blocks), 8
+    iterations; H = 0 in every other instance freezes x at 0 (α = 0).
+    Each is held against the float64 twin (``_hold_against_f64_twin``).
+    At d = 9, 8 iterations run CG to exhaustion and float32 iterates are
+    rounding noise, twin and kernel alike, so the twin's gap there is the
+    scale."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (K1 is a CUDA kernel)")
-    H, b = _spd(np.random.default_rng(d), B, d, np.float64)
-    H[1::2] = 0.0
-    Hc = torch.from_numpy(H).to("cuda", dtype)
-    bc = torch.from_numpy(b).to("cuda", dtype)
-    x64 = tlin.solve_psd_cg(Hc.double(), bc.double(), 8)
-    scale = max(1.0, x64.abs().max().item())
-    if dtype == torch.float32:
-        twin_gap = (tlin.solve_psd_cg(Hc, bc, 8).double() - x64).abs().max()
-        limit = max(2 * twin_gap.item(), 1e-5 * scale)
+    if d > 300:
+        Hc, bc = _spd_on_card(d, B, d)
     else:
-        limit = 1e-11 * scale
-    for Hk in (Hc, _offset_view(Hc)):
-        before = cuda_cg.cg_solve.launches
-        xk = cuda_cg.cg_solve(Hk, bc, 8)
-        assert cuda_cg.cg_solve.launches == before + 1
-        torch.cuda.synchronize()
-        assert torch.all(xk[1::2] == 0)
-        err = (xk.double() - x64).abs().max().item()
-        assert err <= limit, (err, limit, Hk.shape)
+        H, b = _spd(np.random.default_rng(d), B, d, np.float64)
+        Hc, bc = torch.from_numpy(H).cuda(), torch.from_numpy(b).cuda()
+    Hc[1::2] = 0.0
+    _hold_against_f64_twin(Hc.to(dtype), bc.to(dtype), 8,
+                           zero=slice(1, None, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 6000),
+                                     (torch.float64, 4500)])
+def test_k1_wide_on_gpu(dtype, d):
+    """The wide kernel at d past what a register array of columns a
+    thread could take (6 and 5 columns a thread), one instance, 8
+    iterations, against the float64 twin."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K1 is a CUDA kernel)")
+    Hc, bc = _spd_on_card(d, 1, d)
+    _hold_against_f64_twin(Hc.to(dtype), bc.to(dtype), 8)
+    del Hc, bc
+    torch.cuda.empty_cache()
 
 
 @pytest.mark.cuda

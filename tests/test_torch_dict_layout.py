@@ -158,3 +158,30 @@ def test_batched_output_matches_jax():
         _close(xt[k], xj[k])
     _close(outt.final_grad, outj.final_grad)
     _close(outt.covariance(), outj.covariance())
+
+
+def _y_pose(lib):
+    """Another point than ``_x0_pose``, every dict inserted in the other
+    order: ``{"calib": {"bias", "scale"}, "pose"}``."""
+    if lib == "jax":
+        return {"calib": {"bias": jnp.asarray(BIAS_T),
+                          "scale": jnp.full(1, 1.5)},
+                "pose": JSE3.exp(jnp.asarray(POSE_T))}
+    return {"calib": {"bias": torch.as_tensor(BIAS_T),
+                      "scale": torch.full((1,), 1.5, dtype=torch.float64)},
+            "pose": SE3.exp(torch.as_tensor(POSE_T))}
+
+
+def test_local_across_insertion_orders_matches_jax():
+    """``local(x, y)`` where y's dicts hold x's keys in another insertion
+    order: one structure in JAX's terms, so the call succeeds and gives
+    JAX's tangent; ``retract`` takes it back to y.  A missing key still
+    raises."""
+    xj, xt = _x0_pose("jax"), _x0_pose("torch")
+    yj, yt = _y_pose("jax"), _y_pose("torch")
+    dt = mf.local(xt, yt)
+    _close(dt, jmf.local(xj, yj))
+    _close(mf.flatten_values(mf.retract(xt, dt)), jmf.flatten_values(yj))
+    del yt["calib"]["scale"]
+    with pytest.raises(ValueError, match="mismatched"):
+        mf.local(xt, yt)

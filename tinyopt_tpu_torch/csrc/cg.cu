@@ -13,7 +13,7 @@
 // arithmetic (2d^2 + 11d flops an iteration: 28 us in float at
 // (1000, 96, 96), 96 iterations) and each iteration's chain of dependent
 // sums.  No tensor cores: each instance multiplies its own H by one
-// vector, so nothing is reused for an MMA.  Two kernels,
+// vector, so nothing is reused for an MMA.  Three kernels,
 // chosen by ops/cuda_cg.k1_launch_plan from the shape and the alignment of H
 // alone (the plan's numbers arrive here as arguments):
 //
@@ -48,23 +48,24 @@
 //   PR 3).
 // * cg_block_kernel, d > 64.  One block per instance at a time, a
 //   persistent grid of as many blocks as fit at once, each block striding
-//   over instances; d threads (rounded up to a warp; C columns a thread
-//   above 1024, up to d = 4096).  Thread j owns column j, for the same
-//   reason as above: neighbouring threads read neighbouring words, with
-//   no bank conflict
-//   (rows read by threads, d words apart, conflicted 32-way at d = 96 and
-//   ran 0.006 of the bound, PERF.md §6).  The block's buffer takes
-//   one instance's H by one bulk copy on an mbarrier (per-value cp.async
-//   when unaligned).  In float at d <= 128 a thread holds its whole column
-//   in registers, so H is read from shared memory once an instance and
-//   the buffer takes the next instance's copy at once ("registers"); in
-//   double, which has half the registers' values, rows 0..R-1 of the
-//   column stay in registers and the rest is read from the buffer at every
-//   iteration ("split"), or all of it ("shared").  Where H does not fit
-//   the 227 KB a block may use, its columns are read from device memory
+//   over instances; d threads (rounded up to a warp).  Thread j owns
+//   column j, for the same reason as above: neighbouring threads read
+//   neighbouring words, with no bank conflict (rows read by threads, d
+//   words apart, conflicted 32-way at d = 96 and ran 0.006 of the bound,
+//   PERF.md §6).  The block's buffer takes one instance's H by one bulk
+//   copy on an mbarrier (per-value cp.async when unaligned).  In float at
+//   d <= 128, and in double at d <= 96, a thread holds its whole column in
+//   registers, so H is read from shared memory once an instance and the
+//   buffer takes the next instance's copy at once ("registers"); above,
+//   rows 0..63 of the column stay in registers and the rest is read from
+//   the buffer at every iteration ("split").  Where H does not fit the
+//   227 KB a block may use, its columns are read from device memory
 //   ("device", coalesced).  Each dot product is one barrier: warp sums
 //   into alternating slot sets, then every thread adds the slots in one
 //   order; with the barrier that publishes p, three an iteration.
+// * cg_block_wide_kernel, d > 1024: the same iteration with several
+//   columns a thread, looped over at run time, their state in shared
+//   memory, H read from device memory.
 //
 // The library is built with --fmad=false (K2's bit parity).  Both kernels
 // contract their products and updates with explicit fma(), which
@@ -83,7 +84,7 @@ constexpr int kWarpMaxD = 64;        // two columns per lane
 constexpr int kWarpMaxThreads = 256;
 
 // Where K1's iterations read H: ops/cuda_cg.H_IN_CODES.
-enum HIn { kDevice = 0, kShared = 1, kSplit = 2, kRegisters = 3 };
+enum HIn { kDevice = 0, kSplit = 1, kRegisters = 2 };
 
 __host__ __device__ constexpr size_t round_up(size_t v, size_t m) {
   return (v + m - 1) / m * m;
@@ -367,18 +368,21 @@ WarpKernel<T> warp_kernel_for(int d, int h_in) {
 constexpr int kBlockMaxThreads = 1024;
 constexpr int kBlockRegThreads = 256;  // kernels that hold rows in registers
 constexpr int kBlockSlots = 32;        // reduction slots a set: one a warp
+constexpr int kWideVectors = 5;        // p, Hp, r, x and 1/H[j][j]
 
-// Shared-memory layout of one block of the block kernel: its mbarrier, two
-// sets of 32 reduction slots, p (d values rounded up to 8, the tail 0),
-// and, unless H is read from device memory, one buffer of one instance's H
+// Shared-memory layout of one block of the block kernels: its mbarrier,
+// two sets of 32 reduction slots, `vecs` vectors of d values each rounded
+// up to 8 (p, the tail 0; the wide kernel's column state after it), and,
+// unless H is read from device memory, one buffer of one instance's H
 // (d rows of d values), each 128-byte aligned.  ops/cuda_cg.py
 // (_block_smem_bytes) computes the same total.
 struct BlockLayout {
-  size_t red_off, p_off, h_off, total;
-  __host__ __device__ BlockLayout(int d, int elem, bool h_in_smem)
+  size_t red_off, p_off, vec, h_off, total;
+  __host__ __device__ BlockLayout(int d, int elem, bool h_in_smem, int vecs)
       : red_off(128),
         p_off(red_off + round_up(2 * kBlockSlots * (size_t)elem, 128)),
-        h_off(p_off + round_up(round_up(d, 8) * (size_t)elem, 128)),
+        vec(round_up(round_up(d, 8) * (size_t)elem, 128)),
+        h_off(p_off + vecs * vec),
         total(h_off + (h_in_smem ? round_up((size_t)d * d * elem, 128) : 0)) {}
 };
 
@@ -428,25 +432,45 @@ __device__ __forceinline__ T block_sum1(T v, T* slots, unsigned& set, int nw) {
   return t;
 }
 
-// Thread j owns column j of each instance's H (and j + T, ... for C > 1,
-// T threads), so (Hp)_j = sum_i H[i][j] p[i] (H symmetric) reads
-// neighbouring words across a warp, with no bank conflict in shared memory
-// and coalesced in device memory.  R: rows of the column held in registers
-// (a multiple of 8, zero past d), read from the buffer once an instance;
-// rows R..d-1 are read at every iteration from the buffer (h_in_smem) or
-// from device memory.  R >= d holds the whole column ("registers"): the
-// buffer then takes the copy of the block's next instance at once, which
-// runs under this instance's iterations; otherwise ("split", "shared") it
-// is refilled after the instance.  p is broadcast from shared memory in
-// 16-byte loads.  Three barriers an iteration: p written, and one a sum.
+// (Hp)_j = sum_i H[i][j] p[i] for rows from..d-1 of column `col` (its row i
+// at col[i * d]), added to acc: four independent sums, p broadcast from
+// shared memory in 16-byte loads (`from` a multiple of 4).
+template <typename T>
+__device__ __forceinline__ void column_dot(const T* col, const T* pbuf,
+                                           int from, int d, T (&acc)[4]) {
+  int i = from;
+#pragma unroll 4
+  for (; i + 4 <= d; i += 4) {
+    T pv[4], hv[4];
+    load4(pbuf + i, pv);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) hv[q] = col[(size_t)(i + q) * d];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[q] = fma_t(hv[q], pv[q], acc[q]);
+  }
+#pragma unroll
+  for (int q = 0; q < 3; ++q)    // the last d % 4 rows
+    if (i + q < d) acc[q] = fma_t(col[(size_t)(i + q) * d], pbuf[i + q], acc[q]);
+}
+
+// Thread j owns column j of each instance's H, so (Hp)_j = sum_i H[i][j]
+// p[i] (H symmetric) reads neighbouring words across a warp, with no bank
+// conflict in shared memory and coalesced in device memory.  R: rows of
+// the column held in registers (a multiple of 8, zero past d), read from
+// the buffer once an instance; rows R..d-1 are read at every iteration
+// from the buffer (h_in_smem) or from device memory.  R >= d holds the
+// whole column ("registers"): the buffer then takes the copy of the
+// block's next instance at once, which runs under this instance's
+// iterations; otherwise ("split") it is refilled after the instance.  p
+// is broadcast from shared memory in 16-byte loads.  Three barriers an
+// iteration: p written, and one a sum.
 //
 // Registers a thread may use (__maxnreg__), by the rows R it holds.
 // Uncapped, ptxas issued every load of p ahead of the multiply-adds and
 // held about twice the registers the column needs, which cut the blocks
-// an SM: the float kernel at (1000, 96, 96) took 1.6x the time it takes
-// capped (PERF.md §6).  The caps are the fastest of those tried on an
-// H100: float R + 56 up to 168, double 2R + 96 for a split column, none
-// for the whole double column.  R = 0: 64, set by the launch bounds.
+// an SM.  The caps: float R + 56 up to 168, double 2R + 96 for a split
+// column, none for the whole double column.  R = 0: 64, set by the launch
+// bounds.
 template <typename T, int R>
 struct BlockRegCap {
   static constexpr int value =
@@ -455,15 +479,15 @@ struct BlockRegCap {
       : (R <= 64 ? 2 * R + 96 : 255);
 };
 
-template <typename T, int R, int C>
+template <typename T, int R>
 __global__ void __launch_bounds__(R > 0 ? kBlockRegThreads : kBlockMaxThreads)
     __maxnreg__((BlockRegCap<T, R>::value))
 cg_block_kernel(const T* __restrict__ H, const T* __restrict__ b,
                 T* __restrict__ x, int B, int d, int iters, int h_in_smem,
                 int bulk) {
-  static_assert(R % 8 == 0 && (C == 1 || R == 0), "rows, columns");
+  static_assert(R % 8 == 0, "rows");
   extern __shared__ __align__(128) unsigned char blk_smem[];
-  const BlockLayout L(d, sizeof(T), h_in_smem != 0);
+  const BlockLayout L(d, sizeof(T), h_in_smem != 0, 1);
   uint64_t* bar = reinterpret_cast<uint64_t*>(blk_smem);
   T* slots = reinterpret_cast<T*>(blk_smem + L.red_off);
   T* pbuf = reinterpret_cast<T*>(blk_smem + L.p_off);
@@ -479,17 +503,11 @@ cg_block_kernel(const T* __restrict__ H, const T* __restrict__ b,
   __syncthreads();
   if (h_in_smem && blockIdx.x < B) copy_block(Hs, H + blockIdx.x * n, n, bulk, bar);
 
-  // A thread's columns; one past d reads column 0, masked by `on`.
-  int jc[C];
-  bool on[C];
-  T bn[C];                             // b of the block's next instance
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const int j = tid + c * nt;
-    on[c] = j < d;
-    jc[c] = on[c] ? j : 0;
-    bn[c] = on[c] && blockIdx.x < B ? b[blockIdx.x * (long long)d + j] : T(0);
-  }
+  // The thread's column; a thread past d reads column 0, masked by `on`.
+  const bool on = tid < d;
+  const int j = on ? tid : 0;
+  // b of the block's next instance
+  T bn = on && blockIdx.x < B ? b[blockIdx.x * (long long)d + j] : T(0);
 
   unsigned parity = 0, set = 0;
   for (long long inst = blockIdx.x; inst < B; inst += gridDim.x, parity ^= 1u) {
@@ -502,154 +520,158 @@ cg_block_kernel(const T* __restrict__ H, const T* __restrict__ b,
     };
     if (h_in_smem) mbar_wait(bar, parity);
 
-    T r[C], dv[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      r[c] = bn[c];
-      if (next < B && on[c]) bn[c] = b[next * d + jc[c]];
-      const T g = on[c] ? Hm[(size_t)jc[c] * d + jc[c]] : T(1);
-      dv[c] = g > T(0) ? T(1) / g : T(1);
-    }
+    T r = bn;
+    if (next < B && on) bn = b[next * d + j];
+    const T g = on ? Hm[(size_t)j * d + j] : T(1);
+    const T dv = g > T(0) ? T(1) / g : T(1);
     T h[R > 0 ? R : 1];
     if constexpr (R > 0) {
 #pragma unroll
       for (int i = 0; i < R; ++i) {
-        const T v = Hm[(size_t)(i < d ? i : 0) * d + jc[0]];
-        h[i] = on[0] && i < d ? v : T(0);
+        const T v = Hm[(size_t)(i < d ? i : 0) * d + j];
+        h[i] = on && i < d ? v : T(0);
       }
     }
     if (h_in_smem && all_regs) refill();
 
-    T xv[C], z[C], p[C];
-    T part = 0;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      xv[c] = 0;
-      z[c] = r[c] * dv[c];
-      p[c] = z[c];
-      part = fma_t(r[c], z[c], part);
-    }
-    T rz = block_sum1(part, slots, set, nw);
+    T xv = 0, z = r * dv, p = z;
+    T rz = block_sum1(fma_t(r, z, T(0)), slots, set, nw);
     for (int k = 0; k < iters; ++k) {
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-        if (on[c]) pbuf[jc[c]] = p[c];
+      if (on) pbuf[j] = p;
       __syncthreads();                 // p complete
-      T hp[C];
-      if constexpr (C == 1) {
-        T acc[4] = {0, 0, 0, 0};       // 4 independent sums
-        if constexpr (R > 0) {
+      T acc[4] = {0, 0, 0, 0};         // 4 independent sums
+      if constexpr (R > 0) {
 #pragma unroll
-          for (int i = 0; i < R; i += 4) {
-            T pv[4];
-            load4(pbuf + i, pv);
+        for (int i = 0; i < R; i += 4) {
+          T pv[4];
+          load4(pbuf + i, pv);
 #pragma unroll
-            for (int q = 0; q < 4; ++q) acc[q] = fma_t(h[i + q], pv[q], acc[q]);
-          }
+          for (int q = 0; q < 4; ++q) acc[q] = fma_t(h[i + q], pv[q], acc[q]);
         }
-        if (!all_regs) {
-          const T* col = Hm + jc[0];
-          int i = R;
-#pragma unroll 4
-          for (; i + 4 <= d; i += 4) {
-            T pv[4], hv[4];
-            load4(pbuf + i, pv);
-#pragma unroll
-            for (int q = 0; q < 4; ++q) hv[q] = col[(size_t)(i + q) * d];
-#pragma unroll
-            for (int q = 0; q < 4; ++q) acc[q] = fma_t(hv[q], pv[q], acc[q]);
-          }
-#pragma unroll
-          for (int q = 0; q < 3; ++q)    // the last d % 4 rows
-            if (i + q < d)
-              acc[q] = fma_t(col[(size_t)(i + q) * d], pbuf[i + q], acc[q]);
-        }
-        const T s = (acc[0] + acc[1]) + (acc[2] + acc[3]);
-        hp[0] = on[0] ? s : T(0);
-      } else {
-        T acc[C];
-#pragma unroll
-        for (int c = 0; c < C; ++c) acc[c] = 0;
-#pragma unroll 4
-        for (int i = 0; i < d; ++i) {
-          const T pv = pbuf[i];
-          const T* row = Hm + (size_t)i * d;
-#pragma unroll
-          for (int c = 0; c < C; ++c) acc[c] = fma_t(row[jc[c]], pv, acc[c]);
-        }
-#pragma unroll
-        for (int c = 0; c < C; ++c) hp[c] = on[c] ? acc[c] : T(0);
       }
+      if (!all_regs) column_dot(Hm + j, pbuf, R, d, acc);
+      const T s = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+      const T hp = on ? s : T(0);
+      const T denom = block_sum1(fma_t(p, hp, T(0)), slots, set, nw);
+      const T alpha = denom > tiny ? rz / denom : T(0);
+      xv = fma_t(alpha, p, xv);
+      r = fma_t(-alpha, hp, r);
+      z = r * dv;
+      const T rz_new = block_sum1(fma_t(r, z, T(0)), slots, set, nw);
+      const T beta = rz_new / (rz > tiny ? rz : tiny);
+      p = fma_t(beta, p, z);
+      rz = rz_new;
+    }
+    if (on) x[inst * d + j] = xv;
+    if (h_in_smem && !all_regs) refill();
+  }
+}
+
+// More columns than a block has threads (d > 1024): thread t owns columns
+// t, t + nt, ..., a number known only at run time, so a column's state (p,
+// Hp, r, x and 1/H[j][j]) lives in shared memory, where cg_block_kernel
+// keeps it in registers, and any d whose five vectors fit a block's
+// shared memory runs.  H, far larger than shared memory here, is read by
+// columns from device memory (coalesced).  One barrier a sum and one that
+// publishes p: three an iteration.  Each thread touches only its own
+// columns' state; p, read by every thread, is rewritten only after the
+// barrier of the sum that follows the last read.
+template <typename T>
+__global__ void __launch_bounds__(kBlockMaxThreads)
+cg_block_wide_kernel(const T* __restrict__ H, const T* __restrict__ b,
+                     T* __restrict__ x, int B, int d, int iters, int, int) {
+  extern __shared__ __align__(128) unsigned char blk_smem[];
+  const BlockLayout L(d, sizeof(T), false, kWideVectors);
+  T* slots = reinterpret_cast<T*>(blk_smem + L.red_off);
+  T* ps = reinterpret_cast<T*>(blk_smem + L.p_off);
+  T* hps = reinterpret_cast<T*>(blk_smem + L.p_off + L.vec);
+  T* rs = reinterpret_cast<T*>(blk_smem + L.p_off + 2 * L.vec);
+  T* xs = reinterpret_cast<T*>(blk_smem + L.p_off + 3 * L.vec);
+  T* dvs = reinterpret_cast<T*>(blk_smem + L.p_off + 4 * L.vec);
+  const int tid = threadIdx.x, nt = blockDim.x, nw = nt >> 5;
+  const long long n = (long long)d * d;
+  const T tiny = tiny_v<T>();
+
+  unsigned set = 0;
+  for (long long inst = blockIdx.x; inst < B; inst += gridDim.x) {
+    const T* Hm = H + inst * n;
+    T part = 0;
+    for (int j = tid; j < d; j += nt) {
+      const T g = Hm[(size_t)j * d + j];
+      const T dv = g > T(0) ? T(1) / g : T(1);
+      const T r = b[inst * d + j];
+      const T z = r * dv;
+      dvs[j] = dv;
+      rs[j] = r;
+      xs[j] = T(0);
+      ps[j] = z;
+      part = fma_t(r, z, part);
+    }
+    T rz = block_sum1(part, slots, set, nw);  // its barrier publishes p
+    for (int k = 0; k < iters; ++k) {
       part = 0;
-#pragma unroll
-      for (int c = 0; c < C; ++c) part = fma_t(p[c], hp[c], part);
+      for (int j = tid; j < d; j += nt) {
+        T acc[4] = {0, 0, 0, 0};
+        column_dot(Hm + j, ps, 0, d, acc);
+        const T hp = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+        hps[j] = hp;
+        part = fma_t(ps[j], hp, part);
+      }
       const T denom = block_sum1(part, slots, set, nw);
       const T alpha = denom > tiny ? rz / denom : T(0);
       part = 0;
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        xv[c] = fma_t(alpha, p[c], xv[c]);
-        r[c] = fma_t(-alpha, hp[c], r[c]);
-        z[c] = r[c] * dv[c];
-        part = fma_t(r[c], z[c], part);
+      for (int j = tid; j < d; j += nt) {
+        xs[j] = fma_t(alpha, ps[j], xs[j]);
+        const T r = fma_t(-alpha, hps[j], rs[j]);
+        rs[j] = r;
+        part = fma_t(r, r * dvs[j], part);
       }
       const T rz_new = block_sum1(part, slots, set, nw);
       const T beta = rz_new / (rz > tiny ? rz : tiny);
-#pragma unroll
-      for (int c = 0; c < C; ++c) p[c] = fma_t(beta, p[c], z[c]);
+      for (int j = tid; j < d; j += nt)
+        ps[j] = fma_t(beta, ps[j], rs[j] * dvs[j]);
+      __syncthreads();                 // p complete
       rz = rz_new;
     }
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-      if (on[c]) x[inst * d + jc[c]] = xv[c];
-    if (h_in_smem && !all_regs) refill();
+    for (int j = tid; j < d; j += nt) x[inst * d + j] = xs[j];
   }
 }
 
 template <typename T>
 using BlockKernel = void (*)(const T*, const T*, T*, int, int, int, int, int);
 
-// The block kernel for `rows` rows of a column in registers (0, 32 or 64,
-// or a multiple of 8 from 72 to 128 in float and to 96 in double) and
-// `cols` columns a thread (1, 2 or 4; more than 1 only with no rows in
-// registers: ptxas of CUDA 12.8 crashes on 8 columns a thread).
+// The block kernel for `rows` rows of a column in registers: 0 (H from
+// device memory), 64 ("split"), or a multiple of 8 from 72 to 128 in
+// float and to 96 in double ("registers").
 template <typename T>
-BlockKernel<T> block_kernel_for(int rows, int cols) {
-  if (rows == 0) {
-    switch (cols) {
-      case 1: return cg_block_kernel<T, 0, 1>;
-      case 2: return cg_block_kernel<T, 0, 2>;
-      case 4: return cg_block_kernel<T, 0, 4>;
-    }
-    return nullptr;
-  }
-  if (cols != 1) return nullptr;
+BlockKernel<T> block_kernel_for(int rows) {
   switch (rows) {
-    case 32: return cg_block_kernel<T, 32, 1>;
-    case 64: return cg_block_kernel<T, 64, 1>;
-    case 72: return cg_block_kernel<T, 72, 1>;
-    case 80: return cg_block_kernel<T, 80, 1>;
-    case 88: return cg_block_kernel<T, 88, 1>;
-    case 96: return cg_block_kernel<T, 96, 1>;
+    case 0: return cg_block_kernel<T, 0>;
+    case 64: return cg_block_kernel<T, 64>;
+    case 72: return cg_block_kernel<T, 72>;
+    case 80: return cg_block_kernel<T, 80>;
+    case 88: return cg_block_kernel<T, 88>;
+    case 96: return cg_block_kernel<T, 96>;
   }
   if constexpr (sizeof(T) == 4) {
     switch (rows) {
-      case 104: return cg_block_kernel<T, 104, 1>;
-      case 112: return cg_block_kernel<T, 112, 1>;
-      case 120: return cg_block_kernel<T, 120, 1>;
-      case 128: return cg_block_kernel<T, 128, 1>;
+      case 104: return cg_block_kernel<T, 104>;
+      case 112: return cg_block_kernel<T, 112>;
+      case 120: return cg_block_kernel<T, 120>;
+      case 128: return cg_block_kernel<T, 128>;
     }
   }
   return nullptr;
 }
 
 // path 1: the warp kernel, h_in kRegisters or kSplit (warp_kernel_for);
-// rows and cols are not read.  path 0: the block kernel, h_in kRegisters
-// (rows >= d), kSplit (0 < rows < d, the rest from the buffer), kShared
-// (rows 0, H from the buffer) or kDevice (rows 0, H from device memory).
-// warps*32 threads and smem bytes of dynamic shared memory a block, as
-// ops/cuda_cg.k1_launch_plan sets them; both paths launch a persistent
-// grid of at most the blocks that fit the device at once.
+// rows and cols are not read.  path 0, cols 1: cg_block_kernel, h_in
+// kRegisters (rows >= d), kSplit (0 < rows < d, the rest from the buffer)
+// or kDevice (rows 0, H from device memory).  path 0, cols > 1:
+// cg_block_wide_kernel, kDevice, rows 0.  warps*32 threads and smem bytes
+// of dynamic shared memory a block, as ops/cuda_cg.k1_launch_plan sets
+// them; both paths launch a persistent grid of at most the blocks that
+// fit the device at once.
 template <typename T>
 int launch_cg(const void* H, const void* b, void* x, int B, int d, int iters,
               int path, int h_in, int bulk, int rows, int cols, int warps,
@@ -681,14 +703,16 @@ int launch_cg(const void* H, const void* b, void* x, int B, int d, int iters,
   }
   const int threads = warps * 32;
   const bool in_smem = h_in != kDevice;
+  const bool wide = cols > 1;
   const bool rows_ok = h_in == kRegisters ? rows >= d
                        : h_in == kSplit   ? rows > 0 && rows < d
-                                          : rows == 0 && (h_in == kShared || h_in == kDevice);
-  BlockKernel<T> kern = block_kernel_for<T>(rows, cols);
+                                          : h_in == kDevice && rows == 0;
+  BlockKernel<T> kern = !wide ? block_kernel_for<T>(rows)
+                        : in_smem ? nullptr : cg_block_wide_kernel<T>;
   if (path != 0 || !rows_ok || kern == nullptr || (size_t)rows > round_up(d, 8) ||
-      threads > (rows > 0 ? kBlockRegThreads : kBlockMaxThreads) ||
+      cols < 1 || threads > (rows > 0 ? kBlockRegThreads : kBlockMaxThreads) ||
       (long long)threads * cols < d ||
-      (size_t)smem < BlockLayout(d, sizeof(T), in_smem).total ||
+      (size_t)smem < BlockLayout(d, sizeof(T), in_smem, wide ? kWideVectors : 1).total ||
       (bulk && (misaligned || !in_smem)))
     return (int)cudaErrorInvalidValue;
   if ((e = device_fit(reinterpret_cast<const void*>(kern), threads, smem,

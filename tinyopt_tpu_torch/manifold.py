@@ -71,17 +71,51 @@ class SortedTreeDef(NamedTuple):
     treedef: Any
     order: tuple
 
+    def structure(self):
+        """The structure in JAX's terms: every dict's keys sorted, so two
+        pytrees whose dicts hold the same keys in another insertion order
+        compare equal, as their JAX treedefs do."""
+        return _sorted_structure(self.treedef)
+
+
+def _children(spec) -> list:
+    return list(spec.children()) if hasattr(spec, "children") \
+        else list(spec.children_specs)
+
+
+def _dict_keys(spec):
+    """The keys of a dict or defaultdict node in insertion order, else
+    None."""
+    if spec.type is dict:
+        return spec.context
+    if spec.type is defaultdict:
+        return spec.context[1]
+    return None
+
+
+def _sorted_structure(spec):
+    if spec.is_leaf():
+        return None
+    kids = _children(spec)
+    keys = _dict_keys(spec)
+    if keys is None:
+        return (spec.type, spec.context,
+                tuple(_sorted_structure(k) for k in kids))
+    idx = sorted(range(len(kids)), key=lambda i: keys[i])
+    factory = spec.context[0] if spec.type is defaultdict else None
+    return (spec.type, factory, tuple(keys[i] for i in idx),
+            tuple(_sorted_structure(kids[i]) for i in idx))
+
 
 def _jax_order(spec, start: int) -> list:
     """Torch's leaf positions of ``spec`` in JAX's order, from ``start``."""
     if spec.is_leaf():
         return [start]
-    kids = list(spec.children()) if hasattr(spec, "children") \
-        else list(spec.children_specs)
+    kids = _children(spec)
     offsets = np.cumsum([start] + [k.num_leaves for k in kids]).tolist()
     idx = range(len(kids))
-    if spec.type is dict or spec.type is defaultdict:
-        keys = spec.context if spec.type is dict else spec.context[1]
+    keys = _dict_keys(spec)
+    if keys is not None:
         idx = sorted(idx, key=lambda i: keys[i])
     return [p for i in idx for p in _jax_order(kids[i], offsets[i])]
 
@@ -276,7 +310,7 @@ def local(x, y, spec: TangentSpec | None = None) -> torch.Tensor:
         spec = tangent_spec(x)
     xl, xdef = _leaves(x)
     yl, ydef = _leaves(y)
-    if xdef != ydef:
+    if xdef.structure() != ydef.structure():
         raise ValueError(
             f"local(x, y): mismatched pytree structures {xdef} vs {ydef}")
     parts = []

@@ -32,23 +32,21 @@ WARP_MAX_D = 64
 #: PR 3, with deeper rings and H in shared memory, both slower).
 WARP_WARPS = {4: 4, 8: 2}
 #: Where K1's iterations read H (the entry point's ``h_in``, csrc/cg.cu).
-H_IN_CODES = {"device": 0, "shared": 1, "split": 2, "registers": 3}
-#: Threads a block of the block kernel: one a column up to 1024.
+H_IN_CODES = {"device": 0, "split": 1, "registers": 2}
+#: Threads a block of the block kernel: one a column up to 1024; past
+#: that, ``cg_block_wide_kernel`` gives a thread several columns.
 BLOCK_MAX_THREADS = 1024
-#: Columns a thread of the block kernel may own (csrc/cg.cu,
-#: ``block_kernel_for``): d ≤ 4096.
-BLOCK_COLS = (1, 2, 4)
+#: Vectors of d values the wide kernel keeps in shared memory: p, Hp, r,
+#: x and 1/H[j][j] (``kWideVectors``).
+WIDE_VECTORS = 5
 #: The block kernel holds a thread's whole column in registers up to this
 #: d (rounded up to 8 rows), by itemsize.
 BLOCK_REG_MAX_D = {4: 128, 8: 96}
 #: Rows of a column held in registers where the whole column is not, the
-#: rest read from shared memory at every iteration ("split"; the plan
-#: never reads all of it from there, "shared").  On an H100 at
-#: (1000, 96, 96) the whole column ran fastest, then 64 rows, 32 rows and
-#: none, 2.5× (float32) and 1.9× (float64) apart from first to last, and
-#: 64 rows beat 32 and none at d = 100 and 128 (``k1_bench.py
-#: --variants``, PERF.md §6).
-BLOCK_SPLIT_ROWS = {4: 64, 8: 64}
+#: rest read from shared memory at every iteration ("split").  On an H100
+#: at (1000, 96, 96) the whole column ran fastest, then 64 rows, 32 rows
+#: and none, and 64 rows beat 32 and none at d = 100 and 128 (PERF.md §6).
+BLOCK_SPLIT_ROWS = 64
 
 
 class K1Plan(NamedTuple):
@@ -61,15 +59,15 @@ class K1Plan(NamedTuple):
     "registers" (warp path: float32, and float64 at d ≤ 32; block path:
     the thread's whole column), "split" (warp path, float64 at d > 32:
     column j in registers, j + 32 in shared memory; block path: rows
-    ``reg_rows`` onwards of the column from shared memory), "shared"
-    (block path: all of it from shared memory) or "device" (block path,
-    where H does not fit 227 KB: from device memory).  ``copy``: how H
-    reaches shared memory — "bulk" (one ``cp.async.bulk`` per instance),
-    "elementwise" (per-value ``cp.async``) or "none" (read from device
-    memory).  ``reg_rows``: rows of a column a block-path thread holds in
-    registers; ``cols``: columns a block-path thread owns (both 0 and 1
-    on the warp path, which does not read them).  ``warps`` per block,
-    ``smem_bytes`` per block."""
+    ``reg_rows`` onwards of the column from shared memory) or "device"
+    (block path, where H does not fit 227 KB: from device memory).
+    ``copy``: how H reaches shared memory — "bulk" (one
+    ``cp.async.bulk`` per instance), "elementwise" (per-value
+    ``cp.async``) or "none" (read from device memory).  ``reg_rows``:
+    rows of a column a block-path thread holds in registers; ``cols``:
+    columns a block-path thread owns, more than one only in the wide
+    kernel past 1024 (both 0 and 1 on the warp path, which does not read
+    them).  ``warps`` per block, ``smem_bytes`` per block."""
     path: str
     h_in: str
     copy: str
@@ -93,13 +91,15 @@ def _warp_smem_bytes(d: int, itemsize: int, warps: int) -> int:
             + warps * _round_up((d * ld + 8) * itemsize, 128))
 
 
-def _block_smem_bytes(d: int, itemsize: int, h_in_smem: bool) -> int:
-    """Shared memory of one block of the block kernel (``BlockLayout`` in
-    csrc/cg.cu): the mbarrier, two sets of 32 reduction slots, p rounded
-    up to 8 values, and one buffer of one H unless H is read from device
-    memory, each 128-byte aligned."""
+def _block_smem_bytes(d: int, itemsize: int, h_in_smem: bool,
+                      vectors: int = 1) -> int:
+    """Shared memory of one block of the block kernels (``BlockLayout`` in
+    csrc/cg.cu): the mbarrier, two sets of 32 reduction slots, ``vectors``
+    vectors of d values rounded up to 8 (p; the wide kernel's column
+    state), and one buffer of one H unless H is read from device memory,
+    each 128-byte aligned."""
     return (128 + _round_up(64 * itemsize, 128)
-            + _round_up(_round_up(d, 8) * itemsize, 128)
+            + vectors * _round_up(_round_up(d, 8) * itemsize, 128)
             + (_round_up(d * d * itemsize, 128) if h_in_smem else 0))
 
 
@@ -109,13 +109,16 @@ def k1_launch_plan(B: int, d: int, itemsize: int, h_ptr: int) -> K1Plan:
     d ≤ 64 takes the warp kernel, with as much of H in registers as fits
     a lane: all of it in float32, and in float64 at d ≤ 32; one of a
     lane's two columns in float64 above.  Larger d takes the block
-    kernel: a thread a column (``cols`` columns a thread past 1024), the
-    whole column in registers up to ``BLOCK_REG_MAX_D``, else
-    ``BLOCK_SPLIT_ROWS`` rows of it with the rest in shared memory, and H
-    read from device memory where it does not fit a block's 227 KB.  The
-    copy is one bulk copy per instance when an instance's H (d·d·itemsize
-    bytes) and ``h_ptr`` are multiples of 16 bytes, per-value
-    ``cp.async`` otherwise."""
+    kernel: a thread a column, the whole column in registers up to
+    ``BLOCK_REG_MAX_D``, else ``BLOCK_SPLIT_ROWS`` rows of it with the
+    rest in shared memory, and H read from device memory where it does
+    not fit a block's 227 KB.  Past 1024 the wide kernel gives a thread
+    ``cols`` columns and reads H from device memory, up to the d whose
+    ``WIDE_VECTORS`` vectors fill a block's shared memory (11,584 in
+    float32, 5,792 in float64); beyond, K1 raises.  The copy is one bulk
+    copy per instance when an instance's H (d·d·itemsize bytes) and
+    ``h_ptr`` are multiples of 16 bytes, per-value ``cp.async``
+    otherwise."""
     if itemsize not in (4, 8):
         raise ValueError(f"k1_launch_plan: itemsize {itemsize}")
     h_bytes = d * d * itemsize
@@ -126,20 +129,23 @@ def k1_launch_plan(B: int, d: int, itemsize: int, h_ptr: int) -> K1Plan:
         warps = max(1, min(WARP_WARPS[itemsize], B))
         return K1Plan("warp", h_in, copy, warps,
                       _warp_smem_bytes(d, itemsize, warps))
-    cols = next((c for c in BLOCK_COLS if c * BLOCK_MAX_THREADS >= d), None)
-    if cols is None:
-        raise ValueError(f"k1_launch_plan: d = {d} > "
-                         f"{BLOCK_COLS[-1] * BLOCK_MAX_THREADS}")
-    warps = -(-d // (32 * cols))
+    if d > BLOCK_MAX_THREADS:
+        cols = -(-d // BLOCK_MAX_THREADS)
+        smem = _block_smem_bytes(d, itemsize, False, WIDE_VECTORS)
+        if smem > MAX_SMEM:
+            raise ValueError(f"k1_launch_plan: d = {d} needs {smem} bytes "
+                             f"of shared memory, more than {MAX_SMEM}")
+        return K1Plan("block", "device", "none", -(-d // (32 * cols)), smem,
+                      0, cols)
+    warps = -(-d // 32)
     smem = _block_smem_bytes(d, itemsize, True)
     if smem > MAX_SMEM:
         return K1Plan("block", "device", "none", warps,
-                      _block_smem_bytes(d, itemsize, False), 0, cols)
+                      _block_smem_bytes(d, itemsize, False))
     if d <= BLOCK_REG_MAX_D[itemsize]:
         return K1Plan("block", "registers", copy, warps, smem,
-                      _round_up(d, 8), cols)
-    return K1Plan("block", "split", copy, warps, smem,
-                  BLOCK_SPLIT_ROWS[itemsize], cols)
+                      _round_up(d, 8))
+    return K1Plan("block", "split", copy, warps, smem, BLOCK_SPLIT_ROWS)
 
 
 def cg_solve_cuda(H: torch.Tensor, b: torch.Tensor,
@@ -147,6 +153,8 @@ def cg_solve_cuda(H: torch.Tensor, b: torch.Tensor,
     """Launch K1 on ``H`` (B, d, d), symmetric, and ``b`` (B, d), both
     CUDA tensors of one float dtype, on the current stream, as
     :func:`k1_launch_plan` of the inputs says."""
+    from .. import _build
+
     if H.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"cg_solve: unsupported dtype {H.dtype}")
     if H.dim() != 3 or b.dim() != 2 or H.shape[0] != b.shape[0] \
@@ -157,21 +165,9 @@ def cg_solve_cuda(H: torch.Tensor, b: torch.Tensor,
         raise ValueError("cg_solve: H and b must share dtype and device")
     H = H.contiguous()
     b = b.contiguous()
-    B, d = b.shape
-    return launch(H, b, iters,
-                  k1_launch_plan(B, d, H.element_size(), H.data_ptr()))
-
-
-def launch(H: torch.Tensor, b: torch.Tensor, iters: int,
-           plan: K1Plan) -> torch.Tensor:
-    """K1's entry point on contiguous, checked ``H`` and ``b`` with
-    ``plan`` (:func:`cg_solve_cuda`'s, or another variant that
-    ``k1_bench.py --variants`` times; the entry point refuses a plan its
-    kernels do not take)."""
-    from .. import _build
-
     x = torch.empty_like(b)
     B, d = b.shape
+    plan = k1_launch_plan(B, d, H.element_size(), H.data_ptr())
     lib = _build.load()
     fn = lib.tinyopt_cg_f32 if H.dtype == torch.float32 else lib.tinyopt_cg_f64
     with torch.cuda.device(H.device):
