@@ -12,10 +12,10 @@ plans, printed per shape, and beside an instance whose data is NaN;
 K2's SE3 family, the retraction branch, at 10k x 16 in float32 and
 float64 with LM and the dogleg, at K = 24, small batches and beside a
 NaN instance; K2's multi-color branch, Curtis-Powell-
-Reid probes, on Powell's singular function and Wood's at 10,000 perturbed
-standard starts, float32 and float64, LM and the dogleg, bit for bit
-against the twin and against K2 with the coloring off, at B = 1, 3, 257
-and beside a NaN start), drives the paths — ``batched_optimize``
+Reid probes, one instance a thread, on Powell's singular function and
+Wood's at 10,000 perturbed standard starts, float32 and float64, LM and
+the dogleg, bit for bit against the twin and against K2 with the coloring
+off, at B = 1, 3, 33, 257 and beside a NaN start), drives the paths — ``batched_optimize``
 on the 50-dim Gaussian-prior bench problem at 10,000 instances through the
 fused solver (K2) and the "cg" solver (K1), with LM and with the dogleg,
 and the fused LM with the history; Powell's and Wood's 10,000 starts
@@ -58,10 +58,11 @@ the kernel reaches (float32, and float64 as ``*_f64``; K2's time on
 Jennrich-Sampson 4096 x 2 as ``js_ms``, its dogleg as ``dl_ms``,
 ``dl_ms_f64`` and ``dl_js_ms``, LM with the history as ``hist_ms``, the
 SE3 family as ``se3_ms``, ``se3_ms_f64``, ``se3_dl_ms``..., with its
-bound, bytes or operations, as ``se3_bound_ms``; the multi-color branch
-as ``mc_powell_ms``, ``mc_wood_dl_ms_f64``, ``mc_powell_off_ms``...,
-with its twin's time, bound and share, and the solves/s of its path
-through ``batched_optimize`` as ``mc_powell_path_solves_per_s``...; K1 at
+bound, bytes or operations, as ``se3_bound_ms``; the multi-color branch,
+K2's one-lane instance, in an entry of its own, as ``mc_powell_ms``,
+``mc_wood_dl_ms_f64``, ``mc_powell_off_ms``..., with its twin's time,
+bound and share, and the solves/s of its path through
+``batched_optimize`` as ``mc_powell_path_solves_per_s``...; K1 at
 d = 6 as ``d6_ms`` and its
 launches on the curve fits as ``curve_launches``, and at ICP's
 (4096, 6, 6) as ``icp_ms``, ``icp_launches``..., and at the batched
@@ -208,18 +209,40 @@ MC_STARTS = {"powell": (3.0, -1.0, 0.0, 1.0),
              "wood": (-3.0, -1.0, -3.0, -1.0)}
 
 
-def mc_bound(out, name, itemsize, dogleg=False):
-    """Least time in ms of K2's solve of this run's Powell or Wood
-    instances, and what sets it: the bytes (x0 in; x, g and 8 scalars an
-    instance out) over the memory rate, or the least operations
-    (``MC_MIN_FLOPS`` over each instance's ``num_iters``) over the peak
-    rate, whichever is larger."""
+def least_bound(out, d, itemsize, per_iter):
+    """Least time in ms of a K2 solve of this run's instances of a family
+    without data, and what sets it: the bytes (x0 in; x, g and 8 scalars
+    an instance out, d values each vector) over the memory rate, or the
+    least operations (``per_iter`` flops over each instance's
+    ``num_iters``) over the peak rate, whichever is larger."""
     B = out.num_iters.shape[0]
-    per_iter = MC_MIN_FLOPS[name] + (MC_MIN_FLOPS["dogleg"] if dogleg else 0)
     ops = float(out.num_iters.double().sum()) * per_iter
     t_ops = ops / PEAK_FLOPS[itemsize] * 1e3
-    t_bytes = (4 + 4 + 4 + 8) * B * itemsize / HBM_BYTES_PER_S * 1e3
+    t_bytes = (3 * d + 8) * B * itemsize / HBM_BYTES_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def mc_bound(out, name, itemsize, dogleg=False):
+    """``least_bound`` of this run's Powell or Wood instances
+    (``MC_MIN_FLOPS`` an iteration)."""
+    per_iter = MC_MIN_FLOPS[name] + (MC_MIN_FLOPS["dogleg"] if dogleg else 0)
+    return least_bound(out, 4, itemsize, per_iter)
+
+
+# The least arithmetic an iteration of Jennrich-Sampson (m residuals, 2
+# unknowns) needs (flops; an exponential counts one): for each residual
+# c x1 and c x2 (2), the two exponentials (2), r_i (3), J_i from the
+# exponentials (2), its part of g = J'r (4), of the 2 x 2 J'J (6) and of
+# the cost (2); then the damping, the 2 x 2 solve and the step (20); the
+# dogleg adds g'Hg, the step norms and the blend (30).
+JS_MIN_FLOPS = dict(residual=21, iteration=20, dogleg=30)
+
+
+def js_bound(out, m, itemsize, dogleg=False):
+    """``least_bound`` of this run's Jennrich-Sampson instances."""
+    per_iter = (JS_MIN_FLOPS["residual"] * m + JS_MIN_FLOPS["iteration"]
+                + (JS_MIN_FLOPS["dogleg"] if dogleg else 0))
+    return least_bound(out, 2, itemsize, per_iter)
 
 
 def timed(fn):
@@ -236,15 +259,23 @@ def timed(fn):
 
 def mc_check(ref, got, what):
     """K2's Powell and Wood families against the twin: bit for bit in x,
-    stop reasons and iterations (the closed-form jvp and vjp take
-    torch.func's products and sums in its order, csrc/solver.cuh), in
-    float32 and float64."""
+    g, cost, iterations, failure counts, stop reasons and the history rows
+    (the closed-form
+    jvp and vjp take torch.func's products and sums in its order,
+    csrc/solver.cuh), in float32 and float64; returns max |x - x_twin|
+    over the finite entries (0)."""
     (xr, outr), (xg, outg) = ref, got
-    torch.testing.assert_close(xg, xr, rtol=0, atol=0, equal_nan=True,
-                               msg=what)
-    assert torch.equal(outg.stop_reason, outr.stop_reason), what
-    assert torch.equal(outg.num_iters, outr.num_iters), what
-    assert torch.equal(outg.num_failures, outr.num_failures), what
+    for a, b, field in ((xg, xr, "x"), (outg.final_grad, outr.final_grad, "g"),
+                        (outg.final_cost.cost, outr.final_cost.cost, "cost"),
+                        (outg.errs, outr.errs, "errs"),
+                        (outg.deltas2, outr.deltas2, "deltas2")):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True,
+                                   msg=f"{what}: {field}")
+    for field in ("stop_reason", "num_iters", "num_failures",
+                  "num_consec_failures", "num_hist", "successes"):
+        assert torch.equal(getattr(outg, field), getattr(outr, field)), \
+            f"{what}: {field}"
+    return (torch.nan_to_num(xg) - torch.nan_to_num(xr)).abs().max().item()
 
 
 def pose_errors(to, x, true_pose):
@@ -1947,11 +1978,18 @@ def main() -> int:
         assert nfail > 0, "Jennrich-Sampson produced no rejections"
         k2[f"js_ms_{dtype}"] = gpu_ms(kern, n=5)
         k2[f"js_plain_ms_{dtype}"] = gpu_ms(plain, n=3)
+        k2[f"js_bound_ms_{dtype}"], k2[f"js_bound_by_{dtype}"] = js_bound(
+            got[1], 10, x0.element_size())
+        k2[f"js_share_{dtype}"] = (k2[f"js_bound_ms_{dtype}"]
+                                   / k2[f"js_ms_{dtype}"])
         log(f"[K2] Jennrich-Sampson 4096x2 {dtype}: max err {err:.3e}, "
             f"{nfail} rejections, stops "
             f"{torch.bincount(got[1].stop_reason.clamp(min=0)).tolist()}; "
             f"kernel {k2[f'js_ms_{dtype}']:.4f} ms, twin "
-            f"{k2[f'js_plain_ms_{dtype}']:.4f} ms per 4096 solves")
+            f"{k2[f'js_plain_ms_{dtype}']:.4f} ms per 4096 solves; bound "
+            f"{k2[f'js_bound_ms_{dtype}']:.5f} ms "
+            f"({k2[f'js_bound_by_{dtype}']}), share "
+            f"{k2[f'js_share_{dtype}']:.4f}")
     # the dogleg (closed-form GN and Levenberg steps on the prior) and LM
     # with the history rows, at the main path's shape, timed; the bytes
     # bound of the dogleg is LM's, the history adds its rows
@@ -1996,11 +2034,19 @@ def main() -> int:
         nfail = got[1].num_failures.sum().item()
         k2[f"dl_js_ms_{dtype}"] = gpu_ms(kern, n=5)
         k2[f"dl_js_plain_ms_{dtype}"] = gpu_ms(plain, n=3)
+        (k2[f"dl_js_bound_ms_{dtype}"],
+         k2[f"dl_js_bound_by_{dtype}"]) = js_bound(got[1], 10,
+                                                   x0.element_size(), True)
+        k2[f"dl_js_share_{dtype}"] = (k2[f"dl_js_bound_ms_{dtype}"]
+                                      / k2[f"dl_js_ms_{dtype}"])
         log(f"[K2] dogleg Jennrich-Sampson 4096x2 {dtype}: max err "
             f"{err:.3e}, {nfail} rejections, stops "
             f"{torch.bincount(got[1].stop_reason.clamp(min=0)).tolist()}; "
             f"kernel {k2[f'dl_js_ms_{dtype}']:.4f} ms, twin "
-            f"{k2[f'dl_js_plain_ms_{dtype}']:.4f} ms per 4096 solves")
+            f"{k2[f'dl_js_plain_ms_{dtype}']:.4f} ms per 4096 solves; bound "
+            f"{k2[f'dl_js_bound_ms_{dtype}']:.5f} ms "
+            f"({k2[f'dl_js_bound_by_{dtype}']}), share "
+            f"{k2[f'dl_js_share_{dtype}']:.4f}")
     # the edges of K2's plans: segments of 2 to 16 lanes, entries past d on
     # a segment's last lanes, the register kernel's largest d and the warp
     # kernel past it, a batch that is no multiple of a block's instances;
@@ -2183,8 +2229,11 @@ def main() -> int:
             x0.shape[0], 4, plan.n_res, x0.element_size(),
             cuda_solver.FAMILIES[fn].id,
             cuda_solver.coloring_kind(plan.coloring), params.solver)
-        return kern, plain, (f"{kp.path} S={kp.S} E={kp.E} warps="
-                             f"{kp.warps} grid<={kp.grid}")
+        lanes = (f"{32 // kp.S} instances a warp, one a thread" if kp.S == 1
+                 else f"{kp.S} threads an instance")
+        return kern, plain, (f"path {kp.path}, {lanes} (S={kp.S}, E={kp.E}),"
+                             f" blocks of {kp.warps * 32} threads, grid "
+                             f"<= {kp.grid}")
 
     mc_twins = {}      # each cell's starts and twin result, for phase 5b
     for dtype in (torch.float32, torch.float64):
@@ -2198,9 +2247,10 @@ def main() -> int:
                 got = kern()
                 ref, k2[f"{key}_plain_ms{tag}"] = timed(plain)
                 what = f"K2 multi-color {name}{sname} {dtype}"
-                mc_check(ref, got, what)
+                k2[f"{key}_max_abs_err{tag}"] = mc_check(ref, got, what)
                 mc_twins[key + tag] = (x0, ref)
-                kern_off, _, _ = mc_kernel(name, mc_options(st, "off"), x0)
+                kern_off, _, kplan_off = mc_kernel(name, mc_options(st, "off"),
+                                                   x0)
                 off = kern_off()
                 mc_check(off, got, what + " auto vs off")
                 k2[f"{key}_ms{tag}"] = gpu_ms(kern, n=3)
@@ -2216,7 +2266,8 @@ def main() -> int:
                 stops = torch.bincount(out.stop_reason.clamp(min=0)).tolist()
                 assert bool(torch.all(out.succeeded())), what
                 log(f"[K2] multi-color {name}{sname} {BATCH}x4 {dtype} "
-                    f"({kplan}): bit-equal to the twin and to coloring off; "
+                    f"({kplan}; off: {kplan_off}): bit-equal to the twin and "
+                    f"to coloring off; "
                     f"iterations mean {k2[f'{key}_mean_iters{tag}']:.2f} max "
                     f"{out.num_iters.max().item()}, stops {stops}; kernel "
                     f"{k2[f'{key}_ms{tag}']:.4f} ms, off "
@@ -2225,14 +2276,17 @@ def main() -> int:
                     f"{k2[f'{key}_bound_ms{tag}']:.5f} ms "
                     f"({k2[f'{key}_bound_by{tag}']}), share "
                     f"{k2[f'{key}_share{tag}']:.4f}")
-    # small batches and a NaN start beside its warp's other instances
+    # small batches and a NaN start beside its warp's other instances (at
+    # 16, the middle of a warp of 32 one-lane instances, and at 5)
     for B, name, st, dtype, nan_at in (
             (1, "powell", to.LevenbergMarquardt, torch.float32, None),
             (3, "wood", to.DogLeg, torch.float64, None),
             (257, "powell", to.DogLeg, torch.float32, None),
             (257, "wood", to.LevenbergMarquardt, torch.float64, None),
             (64, "wood", to.LevenbergMarquardt, torch.float32, 5),
-            (64, "powell", to.DogLeg, torch.float64, 5)):
+            (64, "powell", to.DogLeg, torch.float64, 5),
+            (33, "wood", to.DogLeg, torch.float32, 16),
+            (257, "powell", to.LevenbergMarquardt, torch.float64, 16)):
         x0 = mc_starts(name, B, dtype, nan_at)
         kern, plain, kplan = mc_kernel(name, mc_options(st), x0)
         got, ref = kern(), plain()
@@ -2245,7 +2299,8 @@ def main() -> int:
                 to.StopReason.SYSTEM_HAS_NAN_OR_INF), what
             assert bool(torch.all(torch.cat([stops[:nan_at],
                                              stops[nan_at + 1:]]) > 0)), what
-        log(f"[K2] {what[3:]} ({kplan}){' NaN at 5' if nan_at else ''}: "
+        log(f"[K2] {what[3:]} ({kplan})"
+            f"{f' NaN at {nan_at}' if nan_at is not None else ''}: "
             f"bit-equal to the twin, stops {stops[:8].tolist()}")
 
     # ---- 5. the paths: the main path (LM, fused and cg), then the dogleg
@@ -2326,11 +2381,16 @@ def main() -> int:
         opts = mc_options(st)
         cuda_cg.cg_solve.launches = 0
         cuda_solver.fused_solve.launches = 0
+        cuda_solver.fused_solve.lane_launches = 0
         got = to.batched_optimize(x0, mc_fns[name], opts)
         torch.cuda.synchronize()
-        n = path_launches[key] = {"K1": cuda_cg.cg_solve.launches,
-                                  "K2": cuda_solver.fused_solve.launches}
-        assert n == {"K1": 0, "K2": 1}, f"{key}: launches {n}"
+        n = path_launches[key] = {
+            "K1": cuda_cg.cg_solve.launches,
+            "K2": cuda_solver.fused_solve.launches,
+            "K2 one lane": cuda_solver.fused_solve.lane_launches}
+        # one K2 launch, of the one-lane instance, and no K1
+        assert n == {"K1": 0, "K2": 1, "K2 one lane": 1}, \
+            f"{key}: launches {n}"
         mc_check(ref, got, f"{key} through batched_optimize")
         assert bool(torch.all(got[1].succeeded())), key
         solve = to.batched_solver(mc_fns[name], opts, "residuals", x0[0])
@@ -2617,6 +2677,9 @@ def main() -> int:
          "share_f64": k2["share_torch.float64"],
          "js_ms": k2["js_ms_torch.float32"],
          "js_ms_f64": k2["js_ms_torch.float64"],
+         **{f"{w}js_{k}{t}": k2[f"{w}js_{k}_torch.float{b}"]
+            for w in ("", "dl_") for k in ("bound_ms", "bound_by", "share")
+            for t, b in (("", 32), ("_f64", 64))},
          "dl_ms": k2["dl_ms_torch.float32"],
          "dl_ms_f64": k2["dl_ms_torch.float64"],
          "dl_plain_ms": k2["dl_plain_ms_torch.float32"],
@@ -2644,7 +2707,26 @@ def main() -> int:
          "se3_dl_share": k2["se3_dl_share"],
          "se3_iter0_ms": k2["se3_iter0_ms"],
          "se3_iter0_ms_f64": k2["se3_iter0_ms_f64"],
-         "se3_dl_share_f64": k2["se3_dl_share_f64"],
+         "se3_dl_share_f64": k2["se3_dl_share_f64"]},
+        # the one-lane instance (S = 1, one instance a thread) on Powell's
+        # and Wood's families, the multi-color branch: phase 5b's paths
+        # (launches) and phase 4c's times; the headline numbers are Powell
+        # DogLeg 10k x 4 float32, every cell as mc_*
+        {"name": "K2 solver_seg_kernel, one instance a lane (S = 1)",
+         "route": "cuda",
+         "source": "tinyopt_tpu_torch/csrc/solver_seg.cuh",
+         "replaces": "tinyopt_tpu/ops/pallas_solver.py:150",
+         "launches": path_launches["mc_powell_dl"]["K2 one lane"],
+         "path_launches": {p: n["K2 one lane"]
+                           for p, n in path_launches.items()
+                           if "K2 one lane" in n},
+         "max_abs_err": max(v for k, v in k2.items()
+                            if k.startswith("mc_") and "max_abs_err" in k),
+         "ms": k2["mc_powell_dl_ms"],
+         "plain_ms": k2["mc_powell_dl_plain_ms"],
+         "bound_ms": k2["mc_powell_dl_bound_ms"],
+         "bound_by": k2["mc_powell_dl_bound_by"],
+         "share": k2["mc_powell_dl_share"], "library_ms": None,
          **{k: v for k, v in k2.items() if k.startswith("mc_")}},
     ]
     record.update(k1=k1, k2=k2, kernels=kernels)

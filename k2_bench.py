@@ -5,8 +5,13 @@ the options of ``bench.py``, float32 and float64 — this tree's K2 and the
 earlier tree's are timed in turns (old, new, new, old) in one process,
 each checked against this tree's plain twin first; both again at
 ``max_iters=0`` (one outer iteration: the loads, one linearization and
-step, and the stores); and Jennrich-Sampson at 4096 x 2 (20 iterations,
-rejections and PCG), float32 and float64, in turns.
+step, and the stores), with the dogleg and with the history;
+Jennrich-Sampson at 4096 x 2 (20 iterations, rejections and PCG); the SE3
+family at 10,000 poses x 16 points (``bench_se3``'s options); and the
+multi-color cells, Powell's singular function and Wood's at 10,000 x 4
+(``max_iters=200``, no failure budget), LM and the dogleg, coloring
+"auto" and "off", each held bit for bit to this tree's twin of "auto";
+float32 and float64, in turns.
 
     python3 k2_bench.py --parent DIR [--ptxas]
 
@@ -44,14 +49,16 @@ import tempfile
 import time
 
 import torch
+from torch.utils import _pytree as pytree
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
-from chip_smoke import bench_options, gpu_ms  # noqa: E402
+from chip_smoke import MC_STARTS, bench_options, gpu_ms, se3_options  # noqa: E402
 
 B, D, N_LAUNCH = 10_000, 50, 20
 JS_B = 4096
+SE3_K = 16
 
 
 def log(*a):
@@ -89,6 +96,19 @@ def ptxas_report(build) -> list[str]:
     return lines
 
 
+def ptxas_diff(old: list[str], new: list[str]) -> list[str]:
+    """The kernels whose ptxas registers differ between two reports, and
+    those in one report only."""
+    def regs(lines):
+        return {ln.rsplit(": ", 1)[0]: ln.rsplit(": ", 1)[1]
+                for ln in lines if "registers" in ln}
+    o, n = regs(old), regs(new)
+    return ([f"{k}: {o[k]} -> {n[k]}" for k in sorted(o.keys() & n.keys())
+             if o[k] != n[k]]
+            + [f"parent only: {k}" for k in sorted(o.keys() - n.keys())]
+            + [f"this tree only: {k}" for k in sorted(n.keys() - o.keys())])
+
+
 def parent_package(root: str):
     """The ``tinyopt_tpu_torch`` package under ``root``, imported as
     ``k2_parent``: its modules import each other relatively, so its
@@ -121,27 +141,61 @@ def host_us(fn, n=200):
 class Side:
     """One tree's K2 on one problem: the plan and a solver built once;
     ``run`` launches K2, ``twin`` runs its plain twin, ``solve`` calls the
-    solver a user builds with ``batched_solver``."""
+    solver a user builds with ``batched_solver``.  ``problem``: "prior"
+    (``x0`` and ``y``, ``inv_std``), "js", "powell", "wood" (``x0``; with
+    ``coloring``) or "se3" (the package's own flagship data, 10,000 x
+    ``SE3_K``, seed 11, of type ``dtype`` on ``device``)."""
 
-    def __init__(self, pkg, problem, opts_kw, x0, y=None, inv_std=None):
+    def __init__(self, pkg, problem, opts_kw, x0=None, y=None, inv_std=None,
+                 coloring="auto", dtype=None, device=None):
         cs = pkg.ops.cuda_solver
         probs = pkg.models.problems
         opts = bench_options(pkg)
-        if opts_kw:
-            opts = dataclasses.replace(opts, **opts_kw)
+        data, d_ex = None, None
         if problem == "prior":
             fn = probs.prior_residual
             data = probs.PriorProblem(y, inv_std)
             d_ex = probs.PriorProblem(y[0], inv_std[0])
+        elif problem == "js":
+            fn = probs.jennrich_sampson_residuals
+        elif problem in ("powell", "wood"):
+            fn = {"powell": probs.powell_singular_residuals,
+                  "wood": probs.wood_residuals}[problem]
+            opts = pkg.Options(
+                max_iters=200, max_consec_failures=0,
+                hessian=pkg.HessianOptions(solver="fused", save_last=False,
+                                           carry_system=False,
+                                           diag_coloring=coloring))
         else:
-            fn, data, d_ex = probs.jennrich_sampson_residuals, None, None
-        plan = cs.fused_plan(opts, "residuals", x0[0], residual_fn=fn,
-                             data_example=d_ex)
+            se3 = pkg.models.se3_refinement
+            fn = se3.se3_residual
+            opts = se3_options(pkg)
+            data, xb, _ = se3.make_se3_refinement(B, SE3_K, dtype=dtype,
+                                                  seed=11, device=device)
+            d_ex = type(data)(*(a[0] for a in data))
+        if opts_kw:
+            opts = dataclasses.replace(opts, **opts_kw)
+        if problem == "se3":
+            x_ex = pytree.tree_map(lambda a: a[0], xb)
+            plan = cs.fused_plan(opts, "residuals", x_ex, residual_fn=fn,
+                                 data_example=d_ex)
+            x0 = pkg.manifold.flatten_batch(xb, plan.spec)
+        else:
+            plan = cs.fused_plan(opts, "residuals", x0[0], residual_fn=fn,
+                                 data_example=d_ex)
         assert plan is not None
-        self.run = lambda: cs.fused_solve(fn, opts, x0, data, plan)  # noqa
+        # the solver's parameters and color tables built once, as
+        # batched_solver builds them (a table upload a call is a pageable
+        # copy that would put the host's time on the device's timeline)
+        params = cs.k2_params(cs.FAMILIES[fn].id, opts, plan)
+        tables = (None if plan.coloring is None or plan.coloring.identity
+                  else cs.color_tables(plan.coloring, x0.dtype, x0.device))
+        self.run = lambda: cs.fused_solve(  # noqa: E731
+            fn, opts, x0, data, plan, params, tables)
         self.twin = lambda: cs.fused_solve_plain(fn, opts, x0, data, plan)  # noqa
-        solver = pkg.batched_solver(fn, opts, "residuals", x0[0], d_ex)
-        self.solve = lambda: solver(x0, data)  # noqa: E731
+        if problem == "prior":
+            solver = pkg.batched_solver(fn, opts, "residuals", x0[0], d_ex)
+            self.solve = lambda: solver(x0, data)  # noqa: E731
 
 
 def check(side, ref, what):
@@ -154,6 +208,30 @@ def check(side, ref, what):
     di = (out.num_iters - outr.num_iters).abs().max().item()
     assert di <= 1, f"{what}: iteration gap {di}"
     return (x - xr).abs().max().item()
+
+
+def check_bits(side, ref, what):
+    """One side's K2 bit for bit against the twin: x, g, cost, iterations,
+    failure counts, stop reasons and the history rows (the multi-color
+    cells)."""
+    (x, out), (xr, outr) = side.run(), ref
+    torch.cuda.synchronize()
+    for a, b, f in ((x, xr, "x"), (out.final_grad, outr.final_grad, "g"),
+                    (out.final_cost.cost, outr.final_cost.cost, "cost"),
+                    (out.errs, outr.errs, "errs"),
+                    (out.deltas2, outr.deltas2, "deltas2")):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True,
+                                   msg=f"{what}: {f}")
+    for f in ("stop_reason", "num_iters", "num_failures",
+              "num_consec_failures", "num_hist", "successes"):
+        assert torch.equal(getattr(out, f), getattr(outr, f)), f"{what}: {f}"
+    return 0.0
+
+
+def turns(sides):
+    """Device ms of each side's K2 in turns: old, new, new, old."""
+    return [[w, gpu_ms(sides[w].run, n=N_LAUNCH)]
+            for w in ("old", "new", "new", "old")]
 
 
 def main() -> int:
@@ -178,8 +256,12 @@ def main() -> int:
     log(f"[device] {smi}")
     if args.ptxas:
         rec["ptxas"] = ptxas_report(_build)
+        rec["ptxas_parent"] = ptxas_report(
+            importlib.import_module("k2_parent._build"))
         for ln in rec["ptxas"]:
             log(f"[ptxas] {ln}")
+        for ln in ptxas_diff(rec["ptxas_parent"], rec["ptxas"]):
+            log(f"[ptxas diff] {ln}")
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -188,16 +270,18 @@ def main() -> int:
         name = str(dtype).split(".")[-1]
         r = rec[name] = {}
         data, x0 = make_prior_batch(B, D, dtype, generator=gen, device=dev)
-        for label, kw in (("bench", {}), ("max_iters_0", {"max_iters": 0})):
-            sides = {w: Side(p, "prior", kw, x0, data.y, data.inv_std)
+        for label, kw in (("bench", lambda p: {}),
+                          ("max_iters_0", lambda p: {"max_iters": 0}),
+                          ("dogleg", lambda p: {"solver_type": p.DogLeg}),
+                          ("history", lambda p: {"save_history": True})):
+            sides = {w: Side(p, "prior", kw(p), x0, data.y, data.inv_std)
                      for w, p in (("old", old_pkg), ("new", new_pkg))}
             ref = sides["new"].twin()
             errs = {w: check(s, ref, f"{w} {name} {label}")
                     for w, s in sides.items()}
-            turns = [[w, gpu_ms(sides[w].run, n=N_LAUNCH)]
-                     for w in ("old", "new", "new", "old")]
-            r[label] = {"turns_ms": turns, "max_err": errs}
-            log(f"[A/B] prior {B}x{D} {name} {label}: turns {turns} ms; "
+            t = turns(sides)
+            r[label] = {"turns_ms": t, "max_err": errs}
+            log(f"[A/B] prior {B}x{D} {name} {label}: turns {t} ms; "
                 f"max|x - x_twin| {errs}")
         plan = cs.k2_launch_plan(B, D, D, x0.element_size(), 0, "identity")
         r["plan"] = plan._asdict()
@@ -221,11 +305,61 @@ def main() -> int:
             x, _ = s.run()
             torch.cuda.synchronize()
             errs[w] = (x - ref[0]).abs().max().item()
-        turns = [[w, gpu_ms(sides[w].run, n=N_LAUNCH)]
-                 for w in ("old", "new", "new", "old")]
-        r["jennrich_sampson"] = {"turns_ms": turns, "max_err": errs}
-        log(f"[A/B] Jennrich-Sampson {JS_B}x2 {name}: turns {turns} ms; "
+        t = turns(sides)
+        r["jennrich_sampson"] = {"turns_ms": t, "max_err": errs}
+        log(f"[A/B] Jennrich-Sampson {JS_B}x2 {name}: turns {t} ms; "
             f"max|x - x_twin| {errs}")
+
+        # the SE3 family: each tree on its own flagship data of one seed
+        # (the same values); not bit-equal to the twin (PERF.md), so held
+        # to the tolerances of chip_smoke.py phase 4b
+        sides = {w: Side(p, "se3", {}, dtype=dtype, device=dev)
+                 for w, p in (("old", old_pkg), ("new", new_pkg))}
+        ref = sides["new"].twin()
+        tol = (dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32
+               else dict(rtol=1e-10, atol=1e-12))
+        errs = {}
+        for w, side in sides.items():
+            x, out = side.run()
+            torch.cuda.synchronize()
+            torch.testing.assert_close(x, ref[0], **tol, msg=f"SE3 {w}")
+            assert torch.equal(out.succeeded(), ref[1].succeeded()), w
+            errs[w] = (x - ref[0]).abs().max().item()
+        t = turns(sides)
+        r["se3"] = {"turns_ms": t, "max_err": errs}
+        log(f"[A/B] SE3 {B}x{SE3_K} {name}: turns {t} ms; max|x - x_twin| "
+            f"{errs}")
+
+        # the multi-color cells: each tree's K2, "auto" and "off", bit for
+        # bit against this tree's twin of "auto", then in turns
+        for prob in ("powell", "wood"):
+            x0m = (torch.tensor(MC_STARTS[prob], dtype=dtype, device=dev)
+                   + 0.1 * torch.randn((B, 4), generator=gen, dtype=dtype,
+                                       device=dev))
+            for sname in ("LevenbergMarquardt", "DogLeg"):
+                ref = None
+                for col in ("auto", "off"):
+                    sides = {w: Side(p, prob, {"solver_type":
+                                               getattr(p, sname)},
+                                     x0m, coloring=col)
+                             for w, p in (("old", old_pkg), ("new", new_pkg))}
+                    if ref is None:
+                        ref = sides["new"].twin()
+                    for w, side in sides.items():
+                        check_bits(side, ref, f"{prob} {sname} {col} {w}")
+                    kp = cs.k2_launch_plan(
+                        B, 4, 4 if prob == "powell" else 6, x0m.element_size(),
+                        3 if prob == "powell" else 4,
+                        "multi" if col == "auto" else None)
+                    t = turns(sides)
+                    label = f"mc_{prob}_{sname}_{col}"
+                    r[label] = {"turns_ms": t, "plan": kp._asdict(),
+                                "mean_iters":
+                                    ref[1].num_iters.float().mean().item(),
+                                "max_iters": ref[1].num_iters.max().item()}
+                    log(f"[A/B] {prob} {sname} {B}x4 {name} coloring {col} "
+                        f"(this tree's plan {tuple(kp)}): bit-equal to the "
+                        f"twin both; turns {t} ms")
         del data, x0
         torch.cuda.empty_cache()
 

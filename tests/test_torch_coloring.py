@@ -272,10 +272,11 @@ def _k2_check(ref, got, dtype):
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("solver", ["lm", "dogleg"])
 @pytest.mark.parametrize("name", ["powell", "wood"])
-@pytest.mark.parametrize("B", [1, 3, 257, 10_000])
+@pytest.mark.parametrize("B", [1, 3, 31, 32, 33, 257, 10_000])
 def test_k2_multicolor_on_gpu(B, name, solver, dtype):
-    """K2's multi-color branch (Powell and Wood families) against the twin,
-    and K2 "auto" against K2 "off" bit for bit."""
+    """K2's multi-color branch (Powell and Wood families, one instance a
+    lane, 32 a warp) against the twin, and K2 "auto" against K2 "off" bit
+    for bit, on a partial warp, a full one and one past it."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (K2 is a CUDA kernel)")
     if B == 10_000 and (name, solver) == ("powell", "dogleg"):
@@ -288,18 +289,27 @@ def test_k2_multicolor_on_gpu(B, name, solver, dtype):
     assert torch.equal(got[1].stop_reason, off[1].stop_reason)
 
 
+def _nan_stops_alone(stops, nan_at):
+    """The NaN start stops with SYSTEM_HAS_NAN_OR_INF, every other one
+    succeeds."""
+    assert stops[nan_at].item() == int(to.StopReason.SYSTEM_HAS_NAN_OR_INF)
+    assert bool(torch.all(torch.cat([stops[:nan_at], stops[nan_at + 1:]])
+                          > 0))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-def test_k2_multicolor_nan_neighbour_on_gpu(dtype):
-    """An instance whose start is NaN stops with SYSTEM_HAS_NAN_OR_INF; the
-    instances of its warp match the twin."""
+@pytest.mark.parametrize("name,solver", [("wood", "lm"), ("powell", "dogleg")])
+@pytest.mark.parametrize("B,nan_at", [(31, 16), (32, 16), (33, 16), (64, 5),
+                                      (257, 144)])
+def test_k2_multicolor_nan_neighbour_on_gpu(B, nan_at, name, solver, dtype):
+    """An instance whose start is NaN, in the middle of a warp, stops with
+    SYSTEM_HAS_NAN_OR_INF; the instances of its warp match the twin."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (K2 is a CUDA kernel)")
-    ref, got = _k2_pair("wood", "lm", dtype, 64, nan_at=5)
+    ref, got = _k2_pair(name, solver, dtype, B, nan_at=nan_at)
     _k2_check(ref, got, dtype)
-    stops = got[1].stop_reason
-    assert stops[5].item() == int(to.StopReason.SYSTEM_HAS_NAN_OR_INF)
-    assert bool(torch.all(torch.cat([stops[:5], stops[6:]]) > 0))
+    _nan_stops_alone(got[1].stop_reason, nan_at)
 
 
 @pytest.mark.cuda
@@ -334,18 +344,23 @@ def test_batched_optimize_multicolor_on_gpu(name, solver, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("solver", ["lm", "dogleg"])
-def test_k2_single_color_closed_form_on_gpu(solver):
+@pytest.mark.parametrize("B", [1, 31, 32, 33, 257])
+def test_k2_single_color_closed_form_on_gpu(B, solver):
     """K2's multi-color instances with one color take the closed-form step
     (the JAX kernel's n_colors == 1 branch), as the twin does.  No
     registered family has such a coloring, so the test gives Wood's family
     one color by hand: the all-ones probe and the structural recovery
     (diag(H) over-estimated, H taken as diagonal); K2 replays the twin's
-    arithmetic on it."""
+    arithmetic on it, beside a NaN start in the middle of a warp (B > 1:
+    instance 0 is the example the plan probes)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (K2 is a CUDA kernel)")
     from tinyopt_tpu_torch.ops.coloring import DiagColoring
     tfn, _ = FNS["wood"]
-    x0 = torch.from_numpy(_starts("wood", B=257, seed=3)).cuda()
+    x0 = torch.from_numpy(_starts("wood", B=B, seed=3)).cuda()
+    nan_at = 16 if B > 16 else None
+    if nan_at is not None:
+        x0[nan_at] = float("nan")
     opts = options_from_reference(_opts(solver, max_iters=50))
     plan = cuda_solver.fused_plan(opts, "residuals", x0[0], residual_fn=tfn)
     J = torch.func.jacfwd(tfn)(torch.tensor([0.3, -0.7, 1.1, 0.9],
@@ -360,6 +375,8 @@ def test_k2_single_color_closed_form_on_gpu(solver):
     ref, got = [(a.cpu(), map_output(lambda v: v.cpu(), o))
                 for a, o in (ref, got)]
     _k2_check(ref, got, np.float64)
+    if nan_at is not None:
+        _nan_stops_alone(got[1].stop_reason, nan_at)
     # the one-color solve is another algorithm than the two-color one
     two = cuda_solver.fused_solve_plain(tfn, opts, x0, None, plan)
     assert not torch.equal(two[0].cpu(), got[0])

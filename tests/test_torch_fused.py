@@ -461,8 +461,9 @@ def test_k2_kernel_matches_twin_on_gpu(case):
 def _k2_pairs():
     """The (S, E) pairs csrc/solver_seg.cuh builds for each family: the
     widths of ``K2_SEGMENTS`` with the family's ``kSegE`` (csrc/solver.cuh),
-    S = 2 or (S/2)·E < kMaxM (every S a plan takes for max(P, d, n_res) ≤
-    the family's largest, kMaxM ≤ 64)."""
+    from the least segment (``min_segment``: one lane where kSegE ≥ kMaxM,
+    else 2) up while (S/2)·E < kMaxM (every S a plan takes for max(P, d,
+    n_res) ≤ the family's largest, kMaxM ≤ 64)."""
     import re
     from tinyopt_tpu_torch import _build
     with open(f"{_build.CSRC}/solver_seg.cuh") as f:
@@ -479,8 +480,9 @@ def _k2_pairs():
                          re.S).group(0)
         E = int(re.search(r"kSegE = (\d+);", body).group(1))
         max_m = int(re.search(r"kMaxM = (\d+);", body).group(1))
+        least = 1 if E >= max_m else 2
         pairs[fam] = {(S, E) for S in widths
-                      if S == 2 or (S // 2) * E < max_m}
+                      if S == least or (S > least and (S // 2) * E < max_m)}
     return pairs
 
 
@@ -494,8 +496,10 @@ def _k2_pairs():
 def test_k2_launch_plan(case, d, itemsize, solver):
     """K2's kernel and geometry from the shapes and the solver alone: the
     register kernel up to max(d, n_res) = 64 on segments that hold every
-    entry, with a pair of (S, E) the kernel is built for; past 64, the warp
-    kernel.  The dogleg instances take the plan of the LM ones."""
+    entry, with a pair of (S, E) the kernel is built for, Powell's and
+    Wood's families one instance a lane (S = 1) and one warp a block; past
+    64, the warp kernel.  The dogleg instances take the plan of the LM
+    ones."""
     family, n_res, coloring = {
         "prior_identity": (0, d, "identity"), "prior_none": (0, d, None),
         "jennrich_sampson": (1, 10, None), "powell_multi": (3, 4, "multi"),
@@ -510,7 +514,7 @@ def test_k2_launch_plan(case, d, itemsize, solver):
                                               coloring, 0)
     m = max(d, n_res)
     assert plan.S * plan.E >= m
-    assert plan.S & (plan.S - 1) == 0 and 2 <= plan.S <= 32
+    assert plan.S & (plan.S - 1) == 0 and 1 <= plan.S <= 32
     if m > cuda_solver.SEG_MAX:
         assert plan.path == "warp" and plan.S == 32
         # 4 warps a block while their shared memory fits 48 KB
@@ -523,9 +527,16 @@ def test_k2_launch_plan(case, d, itemsize, solver):
     assert plan.path == "segment" and plan.smem_bytes == 0
     assert (plan.S, plan.E) in _k2_pairs()[family]
     assert plan.E == cuda_solver.SEG_E[family]
-    # the least segment that holds max(d, n_res) entries
-    assert plan.S == 2 or (plan.S // 2) * plan.E < m
-    assert plan.warps == cuda_solver.SEG_WARPS
+    # the least segment that holds max(d, n_res) entries: one lane for the
+    # families of fixed shape, whose E holds every entry
+    fixed = family in cuda_solver.FIXED_SHAPES
+    assert (plan.S == 1) == fixed
+    assert plan.S == (1 if fixed else 2) or (plan.S // 2) * plan.E < m
+    if fixed:
+        assert plan.E == m
+    # a warp a block for one lane an instance: the 313 blocks of 10k
+    # instances cover all 132 SMs of an H100
+    assert plan.warps == (1 if fixed else cuda_solver.SEG_WARPS)
     per_block = plan.warps * 32 // plan.S
     assert plan.grid == -(-B // per_block)
 
@@ -599,6 +610,24 @@ def test_k2_entry_point_matches_its_declaration():
     for name in ("tinyopt_solver_f32", "tinyopt_solver_f64"):
         params = re.search(rf'extern "C" int {name}\(([^)]*)\)', src).group(1)
         assert params.count(",") + 1 == n_declared == 12, name
+    # the register kernels' launcher takes the plans' least segment (one
+    # lane, the fixed shapes), and the entry point holds Powell and Wood to
+    # the shapes the plan and the families' compiled constants fix
+    with open(f"{_build.CSRC}/solver_seg.cuh") as f:
+        seg = f.read()
+    least = int(re.search(r"if \(S < (\d+) \|\| S > 32", seg).group(1))
+    assert least == 1 == min(
+        cuda_solver.k2_launch_plan(3, d, n, 4, fam, col).S
+        for fam, (d, n) in cuda_solver.FIXED_SHAPES.items()
+        for col in ("multi", None))
+    for fam, name in ((3, "Powell"), (4, "Wood")):
+        d, n = cuda_solver.FIXED_SHAPES[fam]
+        assert (f"(p->family == k{name} && (p->d != {d} || p->n_res != {n}))"
+                in src), name
+        body = re.search(rf"struct {name}Family {{.*?kMaxM = \d+;", hdr,
+                         re.S).group(0)
+        assert re.search(r"kD = (\d+), kNRes = (\d+);", body).groups() \
+            == (str(d), str(n)), name
     for struct, cls in (("SolverParams", _build.SolverParams),
                         ("SolverIO", _build.SolverIO)):
         body = re.search(rf"struct {struct} \{{([^}}]*)\}}", hdr).group(1)

@@ -71,7 +71,9 @@ enum Stop {
 // of one lane; seg_sum the others, shuffles inside the segment, after
 // which every lane of the segment holds the bit-identical total (each
 // pairwise add is commutative) and no value has crossed into another
-// segment.
+// segment.  On one lane (S = 1) lane_part is the whole tree, and it leaves
+// out the steps whose partner slot lies past E: they add +0 to a slot that
+// began as 0 + t and so is never -0, which changes no bit.
 template <int S, int E, typename T>
 __device__ __forceinline__ T lane_part(const T (&t)[E]) {
   constexpr int R = 32 / S;   // slots below 32 a lane holds
@@ -82,10 +84,21 @@ __device__ __forceinline__ T lane_part(const T (&t)[E]) {
 #pragma unroll
     for (int j = k + R; j < E; j += R) u[k] = u[k] + t[j];
   }
+  if constexpr (S == 1) {
+    int live = E;   // slots that may hold a value other than +0
 #pragma unroll
-  for (int off = 16; off >= S; off >>= 1) {
+    for (int off = 16; off >= 1; off >>= 1) {
 #pragma unroll
-    for (int k = 0; k < off / S; ++k) u[k] = u[k] + u[k + off / S];
+      for (int k = 0; k < off; ++k)
+        if (k + off < live) u[k] = u[k] + u[k + off];
+      live = live < off ? live : off;
+    }
+  } else {
+#pragma unroll
+    for (int off = 16; off >= S; off >>= 1) {
+#pragma unroll
+      for (int k = 0; k < off / S; ++k) u[k] = u[k] + u[k + off / S];
+    }
   }
   return u[0];
 }
@@ -98,9 +111,13 @@ __device__ __forceinline__ T seg_sum(T v) {
 }
 
 // Whether the flag holds on every lane of the segment whose lanes are the
-// set bits of `bits`.
+// set bits of `bits` (on one lane, the lane's own flag).
+template <int S>
 __device__ __forceinline__ bool seg_all(bool f, unsigned bits) {
-  return (__ballot_sync(kFullMask, !f) & bits) == 0;
+  if constexpr (S == 1)
+    return f;
+  else
+    return (__ballot_sync(kFullMask, !f) & bits) == 0;
 }
 
 // r = (x - y) * inv_std;  J p = p * inv_std;  J'q = q * inv_std.
@@ -283,16 +300,6 @@ __device__ __forceinline__ T pick(const T (&v)[N], int i) {
   return r;
 }
 
-// Entry I of a vector in the register kernel's layout (entry i on lane
-// i % S of the segment, slot i / S), on every lane of the segment.
-template <int I, int S, int E, typename T>
-__device__ __forceinline__ T seg_entry(const T (&v)[E]) {
-  if constexpr (I / S < E)
-    return __shfl_sync(kFullMask, v[I / S], I % S, S);
-  else
-    return T(0);
-}
-
 // Powell's singular function (models/problems.powell_singular_residuals),
 // 4 parameters and 4 residuals:
 //   r = (x1 + 10 x2, s5 (x3 - x4), u^2, s10 w^2),  u = x2 - 2 x3, w = x1 - x4
@@ -302,9 +309,11 @@ __device__ __forceinline__ T seg_entry(const T (&v)[E]) {
 // of two terms), so on the same x they equal the twin's bit for bit.
 template <typename T>
 struct PowellFamily {
-  // Every lane computes all four values from the gathered x: 2 x 2 is the
-  // least segment (S >= 2), 16 instances a warp.
-  static constexpr int kSegE = 2;
+  // One instance a thread (solver_seg_kernel at S = 1, 32 instances a
+  // warp): the lane holds all 4 entries of every vector, and the fixed
+  // shape (kD, kNRes) is known to the compiler.
+  static constexpr int kD = 4, kNRes = 4;
+  static constexpr int kSegE = 4;
   static constexpr int kMaxM = 4;
   static constexpr bool kManifold = false;
 
@@ -334,44 +343,22 @@ struct PowellFamily {
     o[3] = (-a1) + (-a3);
   }
 
-  // Register form only (the fixed shape never takes solver_kernel): x, the
-  // probes and the residual vectors gathered from the segment by shuffles;
-  // each lane keeps its own entries (0 past 4).
+  // Register form only (the fixed shape never takes solver_kernel), one
+  // instance a lane: x and every vector are the lane's own registers.
   template <int S, int E>
   struct Lanes {
-    int sl;
-    __device__ __forceinline__ void start(const PowellFamily&, int, int sl_) { sl = sl_; }
-    __device__ __forceinline__ static void gather(const T (&v)[E], T* g) {
-      g[0] = seg_entry<0, S>(v);
-      g[1] = seg_entry<1, S>(v);
-      g[2] = seg_entry<2, S>(v);
-      g[3] = seg_entry<3, S>(v);
-    }
-    __device__ __forceinline__ void keep(const T (&v)[4], T (&out)[E]) const {
-#pragma unroll
-      for (int k = 0; k < E; ++k) out[k] = pick<4>(v, sl + k * S);
-    }
+    static_assert(S == 1 && E == kSegE, "one instance a lane");
+    __device__ __forceinline__ void start(const PowellFamily&, int, int) {}
     __device__ __forceinline__ void residual(const T (&x)[E], T (&r)[E]) const {
-      T xv[4], v[4];
-      gather(x, xv);
-      rows(xv, v);
-      keep(v, r);
+      rows(x, r);
     }
     __device__ __forceinline__ void jvp(const T (&x)[E], const T (&p)[E],
                                         T (&out)[E]) const {
-      T xv[4], pv[4], v[4];
-      gather(x, xv);
-      gather(p, pv);
-      jvp_rows(xv, pv, v);
-      keep(v, out);
+      jvp_rows(x, p, out);
     }
     __device__ __forceinline__ void vjp(const T (&x)[E], const T (&q)[E],
                                         T (&out)[E]) const {
-      T xv[4], qv[4], v[4];
-      gather(x, xv);
-      gather(q, qv);
-      vjp_rows(xv, qv, v);
-      keep(v, out);
+      vjp_rows(x, q, out);
     }
   };
 };
@@ -388,8 +375,10 @@ struct PowellFamily {
 // the last bit of r5 and its products).
 template <typename T>
 struct WoodFamily {
-  // 2 lanes x 3 entries hold the 6 residuals; tangent entries 4 and 5 are 0.
-  static constexpr int kSegE = 3;
+  // One instance a thread, as PowellFamily: the lane's 6 entries hold the 6
+  // residuals; tangent entries 4 and 5 are 0.
+  static constexpr int kD = 4, kNRes = 6;
+  static constexpr int kSegE = 6;
   static constexpr int kMaxM = 6;
   static constexpr bool kManifold = false;
 
@@ -422,46 +411,23 @@ struct WoodFamily {
     o[3] = (b4 + (-b5)) + b2;
   }
 
-  // Register form only, as PowellFamily.
+  // Register form only, one instance a lane, as PowellFamily: the
+  // residuals fill the lane's 6 entries, tangent entries 4 and 5 stay 0.
   template <int S, int E>
   struct Lanes {
-    int sl;
-    __device__ __forceinline__ void start(const WoodFamily&, int, int sl_) { sl = sl_; }
-    __device__ __forceinline__ static void gather4(const T (&v)[E], T* g) {
-      g[0] = seg_entry<0, S>(v);
-      g[1] = seg_entry<1, S>(v);
-      g[2] = seg_entry<2, S>(v);
-      g[3] = seg_entry<3, S>(v);
-    }
+    static_assert(S == 1 && E == kSegE, "one instance a lane");
+    __device__ __forceinline__ void start(const WoodFamily&, int, int) {}
     __device__ __forceinline__ void residual(const T (&x)[E], T (&r)[E]) const {
-      T xv[4], v[6];
-      gather4(x, xv);
-      rows(xv, v);
-#pragma unroll
-      for (int k = 0; k < E; ++k) r[k] = pick<6>(v, sl + k * S);
+      rows(x, r);
     }
     __device__ __forceinline__ void jvp(const T (&x)[E], const T (&p)[E],
                                         T (&out)[E]) const {
-      T xv[4], pv[4], v[6];
-      gather4(x, xv);
-      gather4(p, pv);
-      jvp_rows(xv, pv, v);
-#pragma unroll
-      for (int k = 0; k < E; ++k) out[k] = pick<6>(v, sl + k * S);
+      jvp_rows(x, p, out);
     }
     __device__ __forceinline__ void vjp(const T (&x)[E], const T (&q)[E],
                                         T (&out)[E]) const {
-      T xv[4], qv[6], v[4];
-      gather4(x, xv);
-      qv[0] = seg_entry<0, S>(q);
-      qv[1] = seg_entry<1, S>(q);
-      qv[2] = seg_entry<2, S>(q);
-      qv[3] = seg_entry<3, S>(q);
-      qv[4] = seg_entry<4, S>(q);
-      qv[5] = seg_entry<5, S>(q);
-      vjp_rows(xv, qv, v);
-#pragma unroll
-      for (int k = 0; k < E; ++k) out[k] = pick<4>(v, sl + k * S);
+      vjp_rows(x, q, out);
+      out[4] = out[5] = T(0);
     }
   };
 };

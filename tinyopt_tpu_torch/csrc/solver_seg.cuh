@@ -12,7 +12,7 @@
 // and the accept / stop logic.  The design shortens the chain and packs
 // more instances into each warp:
 //
-// * One instance runs on a SEGMENT of S lanes (S a power of two, 2..32;
+// * One instance runs on a SEGMENT of S lanes (S a power of two, 1..32;
 //   32 / S instances a warp).  Lane sl holds entries sl + k*S, k < E, of
 //   every vector, in registers: x, best_x, g, diag(H), dx, the proposal,
 //   the damping and its inverse, the PCG vectors, the residuals and J v
@@ -30,11 +30,22 @@
 //   segment that has nothing to do runs along and its results are
 //   discarded.  Every shuffle uses the full mask and no lane leaves the
 //   loop early; a value never crosses a segment's edge, so a NaN or a stop
-//   in one segment cannot reach its neighbours.
+//   in one segment cannot reach its neighbours.  (On one lane, S = 1, the
+//   votes are the lane's own: warp_any.)
 // * A persistent grid (as many blocks as fit the card at once, from the
 //   occupancy query): a segment whose instance stops writes it out and
 //   starts the instance one grid's worth of segments further on, at once,
 //   without waiting for the other segments of its warp.
+// * A family of fixed shape whose every vector fits one lane's entries
+//   (kSegE >= kMaxM: Powell's and Wood's, d = 4 and 4 or 6 residuals) runs
+//   one instance a thread (S = 1, min_segment): its jvp and vjp read the
+//   lane's own registers, every sum is lane_part's whole tree in the
+//   lane, the butterflies and ballots vanish, and d and n_res are the
+//   family's constants.  An iteration is then a chain of the arithmetic
+//   itself, not of shuffles that wait on each other.  The multi-color
+//   coloring is built for these instances only; its tables (the probes and
+//   the recovery, a few hundred bytes) are copied into shared memory once
+//   a block.
 //
 // S and E are template parameters, chosen with the block size by
 // ops/cuda_solver.k2_launch_plan; the identity coloring (closed-form step),
@@ -43,14 +54,16 @@
 // the recovery sum, the JAX kernel's pallas_solver.py:269-279; PCG, or the
 // closed form when one color) are separate instances, so the closed-form
 // kernel holds no PCG registers and only the multi-color one takes the
-// coloring's tables (the probes and the recovery, read through the
-// read-only cache).  So are the
+// coloring's tables.  So are the
 // dogleg (kDogLeg: up to three solves a proposal, GN then damped by lambda
 // then by max(lambda, 1), each damped one while any segment of the warp
 // needs it, and g'Hg by one more J'(J g); the GN and LM kernels keep none
 // of its registers) and the history (kHist: lane 0 of a segment writes
 // slot `it` of its instance's rows each iteration, and the segment writes
-// 0 past num_hist when the instance stops, so the rows need no fill).
+// 0 past num_hist when the instance stops, so the rows need no fill; on one
+// lane the rows come zeroed from the wrapper instead, one coalesced memset:
+// a lane writing its own row's tail value by value, 32 rows apart across
+// the warp, took most of a short call, PERF.md).
 //
 // A manifold family (Fam::kManifold, the SE3 family) holds x as P stored
 // values in the same entry layout (entry i on lane i % S, slot i / S) and
@@ -102,6 +115,53 @@ using SegColor =
 // bound; naming the threads alone made ptxas cap float at 80 and spill
 // (PERF.md).
 constexpr int kSegMaxThreads = 128;
+
+// Whether the flag holds on any lane of the warp: the vote of the
+// warp-uniform loops and branches.  On one lane (S = 1) nothing is shared
+// across lanes, so each lane decides for its own instance: a lane whose
+// instance needs no more tries, or no damped solve, goes on without
+// waiting for the others, and no result changes (the work a vote adds
+// for a lane that does not need it is discarded).
+template <int S>
+__device__ __forceinline__ bool warp_any(bool f) {
+  if constexpr (S == 1)
+    return f;
+  else
+    return __any_sync(kFullMask, f);
+}
+
+// The multi-color instances' shared copy of the coloring's tables (dynamic
+// shared memory, sized by launch_seg_family).
+template <typename T>
+__device__ __forceinline__ T* seg_tables() {
+  extern __shared__ __align__(16) unsigned char seg_smem[];
+  return reinterpret_cast<T*>(seg_smem);
+}
+
+// The least segment a family runs on: one lane where one lane's entries
+// hold every vector of every instance (kSegE >= kMaxM, the fixed shapes of
+// Powell and Wood), else 2 lanes.
+template <typename Fam>
+constexpr int min_segment() {
+  return Fam::kSegE >= Fam::kMaxM ? 1 : 2;
+}
+
+// d and n_res of an instance: on one lane (S = 1) its family's fixed shape,
+// known to the compiler; the run-time values on wider segments.
+template <typename Fam, int S>
+__device__ __forceinline__ int seg_d(int d) {
+  if constexpr (S == 1)
+    return Fam::kD;
+  else
+    return d;
+}
+template <typename Fam, int S>
+__device__ __forceinline__ int seg_n_res(int n_res) {
+  if constexpr (S == 1)
+    return Fam::kNRes;
+  else
+    return n_res;
+}
 
 // The Powell dogleg of one retry for the segment's instance, in the trust
 // radius ref / lam_try: the twin's GN step, g'Hg, then solvers/step.
@@ -160,7 +220,7 @@ __device__ __forceinline__ bool propose_dogleg(
   bool r1_sane = false;
 #pragma unroll
   for (int k = 0; k < E; ++k) reg[k] = T(0);
-  if (__any_sync(kFullMask, need)) {
+  if (warp_any<S>(need)) {
     const bool ok_r1 = solve(true, lam_try, reg) && need;
 #pragma unroll
     for (int k = 0; k < E; ++k) ta[k] = reg[k] * reg[k];
@@ -169,7 +229,7 @@ __device__ __forceinline__ bool propose_dogleg(
   }
   const bool need2 = need && !r1_sane;
   bool ok_r2 = false;
-  if (__any_sync(kFullMask, need2)) {
+  if (warp_any<S>(need2)) {
     T r2[E];
     ok_r2 = solve(true, fmax(lam_try, T(1)), r2) && need2;
 #pragma unroll
@@ -207,7 +267,7 @@ __device__ __forceinline__ bool propose_dogleg(
     dxn[k] = geo.entry(gn[k], g[k], reg[k]);
     f = f && (!vt[k] || isfinite(dxn[k]));
   }
-  return seg_all(f, bits);
+  return seg_all<S>(f, bits);
 }
 
 template <typename T, typename Fam, int S, int E, int kColor, bool kDogLeg,
@@ -215,6 +275,8 @@ template <typename T, typename Fam, int S, int E, int kColor, bool kDogLeg,
 __global__ void __launch_bounds__(kSegMaxThreads, 1)
 solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
                   int B, const SegColor<kColor> ct) {
+  static_assert(kColor != kColorMulti || S == 1,
+                "the multi-color coloring runs one instance a lane");
   constexpr int W = 32 / S;   // instances a warp
   const int lane = threadIdx.x & 31;
   const int sl = lane & (S - 1);
@@ -224,9 +286,9 @@ solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
   const int stride = gridDim.x * warps * W;
   int b = (blockIdx.x * warps + (threadIdx.x >> 5)) * W + seg;
 
-  const int d = p.d;
+  const int d = seg_d<Fam, S>(p.d);
   const int P = param_width<Fam>(d);
-  const int nr = p.n_res;
+  const int nr = seg_n_res<Fam, S>(p.n_res);
   const T tiny = tiny_v<T>();
   const T feps = float_epsilon_v<T>();
   const T noise = T(8) * eps_v<T>();
@@ -333,11 +395,22 @@ solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
     bool f = true;
 #pragma unroll
     for (int k = 0; k < E; ++k) f = f && (!vt[k] || isfinite(dxn[k]));
-    return seg_all(f, bits);
+    return seg_all<S>(f, bits);
   };
 
+  // the coloring's tables, copied into shared memory once a block: the
+  // probes (n_colors, d), then the recovery (n_colors * n_res, d)
+  if constexpr (kColor == kColorMulti) {
+    const int np = p.n_colors * d, n = np * (1 + nr);
+    T* tab = seg_tables<T>();
+    for (int i = threadIdx.x; i < n; i += blockDim.x)
+      tab[i] = i < np ? static_cast<const T*>(ct.probes)[i]
+                      : static_cast<const T*>(ct.recovery)[i - np];
+    __syncthreads();
+  }
+
   start();
-  while (__any_sync(kFullMask, b < B)) {
+  while (warp_any<S>(b < B)) {
     const bool act = b < B && it < p.max_iters_total;
 
     // ---- linearize at x: g, diag(H), and this lane's part of r'r ----
@@ -361,42 +434,26 @@ solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
     } else if constexpr (kColor == kColorMulti) {
       // Curtis-Powell-Reid: a jvp of each color's probe row, the squares,
       // then diag_j = sum over the recovery's rows (c, i) in ascending
-      // order of sq_i * recovery[c * n_res + i][j], the twin's sum; sq_i
-      // reaches the segment from lane i % S by a shuffle.  The tables are
-      // read through the read-only cache, the same few hundred bytes for
-      // every instance.
-      const T* probes = static_cast<const T*>(ct.probes);
-      const T* rec = static_cast<const T*>(ct.recovery);
-      int jc[E];   // this lane's tangent entries, clamped to valid columns
+      // order of sq_i * recovery[c * n_res + i][j], the twin's sum; the
+      // tables from the block's shared copy, every lane reading the same
+      // address (a broadcast).
+      const T* tab_probes = seg_tables<T>();
+      const T* tab_rec = tab_probes + p.n_colors * d;
 #pragma unroll
-      for (int k = 0; k < E; ++k) {
-        diagH[k] = T(0);
-        jc[k] = vt[k] ? sl + k * S : 0;
-      }
+      for (int k = 0; k < E; ++k) diagH[k] = T(0);
       for (int c = 0; c < p.n_colors; ++c) {
         T pv[E], jp[E];
 #pragma unroll
-        for (int k = 0; k < E; ++k) {
-          const T v = __ldg(probes + (size_t)c * d + jc[k]);
-          pv[k] = vt[k] ? v : T(0);
-        }
+        for (int k = 0; k < E; ++k) pv[k] = vt[k] ? tab_probes[c * d + k] : T(0);
         fl.jvp(x, pv, jp);
 #pragma unroll
-        for (int k = 0; k < E; ++k) jp[k] = jp[k] * jp[k];
+        for (int i = 0; i < E; ++i) {
+          if (i < nr) {
+            const T sq = jp[i] * jp[i];
+            const T* row = tab_rec + (c * nr + i) * d;
 #pragma unroll
-        for (int kk = 0; kk < E; ++kk) {
-#pragma unroll
-          for (int s = 0; s < S; ++s) {
-            const int i = s + kk * S;   // ascending: kk outer, s inner
-            if (i < nr) {
-              const T sq = __shfl_sync(kFullMask, jp[kk], s, S);
-              const T* row = rec + ((size_t)c * nr + i) * d;
-#pragma unroll
-              for (int k = 0; k < E; ++k) {
-                const T rv = __ldg(row + jc[k]);
-                if (vt[k]) diagH[k] = diagH[k] + sq * rv;
-              }
-            }
+            for (int k = 0; k < E; ++k)
+              if (vt[k]) diagH[k] = diagH[k] + sq * row[k];
           }
         }
       }
@@ -432,7 +489,7 @@ solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
     for (int k = 0; k < E; ++k) dx[k] = 0;
     while (true) {
       const bool upd = act && !ok && !give_up && nc <= max_tries;
-      if (!__any_sync(kFullMask, upd)) break;
+      if (!warp_any<S>(upd)) break;
       T dxn[E];
       bool ok_new;
       if constexpr (kDogLeg)
@@ -486,7 +543,7 @@ solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
       dx_part += ox;
       g_part += og;
     }
-    const bool g_ok = seg_all(g_fin, bits);
+    const bool g_ok = seg_all<S>(g_fin, bits);
 
     bool m_roll = false, m_apply = false, m_success = false;
     if (act) {
@@ -629,7 +686,7 @@ solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
         if (vx[k]) xo[sl + k * S] = x[k];
         if (vt[k]) go[sl + k * S] = it > 0 ? g[k] : T(0);
       }
-      if constexpr (kHist) {
+      if constexpr (kHist && S > 1) {
         const size_t row = (size_t)b * p.cap;
         for (int j = nhist + sl; j < p.cap; j += S) {
           static_cast<T*>(io.errs)[row + j] = T(0);
@@ -657,11 +714,11 @@ solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
 }
 
 // The segment widths K2 is built for, each family with its own entries a
-// lane (Fam::kSegE), where (S / 2) * kSegE < 64: every plan ops/
-// cuda_solver.k2_launch_plan can choose, the least S with S * kSegE >=
-// max(P, d, n_res) for max(P, d, n_res) <= 64 (tests/test_torch_fused.py
-// checks the two agree).
-#define K2_SEGMENTS(X) X(2) X(4) X(8) X(16) X(32)
+// lane (Fam::kSegE), from its least segment (min_segment) up while
+// (S / 2) * kSegE < kMaxM: every plan ops/cuda_solver.k2_launch_plan can
+// choose, the least S with S * kSegE >= max(P, d, n_res) for max(P, d,
+// n_res) <= 64 (tests/test_torch_fused.py checks the two agree).
+#define K2_SEGMENTS(X) X(1) X(2) X(4) X(8) X(16) X(32)
 
 template <typename T, typename Fam, int kColor, bool kDogLeg, bool kHist>
 int launch_seg_family(const SolverParams& p, const SolverIO& io,
@@ -670,8 +727,10 @@ int launch_seg_family(const SolverParams& p, const SolverIO& io,
   void (*kern)(const SolverParams, const SegIO<kHist>, const Fam, int,
                const SegColor<kColor>) = nullptr;
   if (E != Fam::kSegE) return (int)cudaErrorInvalidValue;
+  constexpr int kLeast = min_segment<Fam>();
 #define K2_PICK(s)                                                           \
-  if constexpr (s == 2 || (s / 2) * Fam::kSegE < Fam::kMaxM) {               \
+  if constexpr (s == kLeast ||                                               \
+                (s > kLeast && (s / 2) * Fam::kSegE < Fam::kMaxM)) {         \
     if (S == s)                                                              \
       kern = solver_seg_kernel<T, Fam, s, Fam::kSegE, kColor, kDogLeg,       \
                                kHist>;                                       \
@@ -679,21 +738,25 @@ int launch_seg_family(const SolverParams& p, const SolverIO& io,
   K2_SEGMENTS(K2_PICK)
 #undef K2_PICK
   if (kern == nullptr) return (int)cudaErrorInvalidValue;
+  // the multi-color instances' shared copy of the tables
+  int smem = 0;
+  SegColor<kColor> ct{};
+  if constexpr (kColor == kColorMulti) {
+    if (tables.probes == nullptr || tables.recovery == nullptr ||
+        p.n_colors < 1 || p.n_colors > p.d)
+      return (int)cudaErrorInvalidValue;
+    smem = (int)(p.n_colors * p.d * (1 + p.n_res) * sizeof(T));
+    ct = tables;
+  }
   int fit = 0;
   cudaError_t e = device_fit(reinterpret_cast<const void*>(kern), warps * 32,
-                             0, &fit);
+                             smem, &fit);
   if (e != cudaSuccess) return (int)e;
   if (fit < 1) return (int)cudaErrorInvalidConfiguration;
   SegIO<kHist> sio;
   std::memcpy(&sio, &io, sizeof(sio));
-  SegColor<kColor> ct{};
-  if constexpr (kColor == kColorMulti) {
-    if (tables.probes == nullptr || tables.recovery == nullptr ||
-        p.n_colors < 1)
-      return (int)cudaErrorInvalidValue;
-    ct = tables;
-  }
-  kern<<<grid < fit ? grid : fit, warps * 32, 0, stream>>>(p, sio, fam, B, ct);
+  kern<<<grid < fit ? grid : fit, warps * 32, smem, stream>>>(p, sio, fam, B,
+                                                               ct);
   return (int)cudaGetLastError();
 }
 
@@ -707,7 +770,7 @@ int launch_segment(const SolverParams& p, const SolverIO& io,
   const int P = p.family == kSE3 ? SE3Family<T>::kP : p.d;
   const int dm = P > p.d ? P : p.d;
   const int m = dm > p.n_res ? dm : p.n_res;
-  if (S < 2 || S > 32 || (S & (S - 1)) || E < 1 || S * E < m || m > 64 ||
+  if (S < 1 || S > 32 || (S & (S - 1)) || E < 1 || S * E < m || m > 64 ||
       warps < 1 || warps * 32 > kSegMaxThreads ||
       (long long)grid * warps * (32 / S) < B ||
       kDogLeg != (p.solver == kSolverDogLeg) || kHist != (p.cap > 0))

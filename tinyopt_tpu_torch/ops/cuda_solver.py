@@ -81,8 +81,11 @@ _DEFAULT_SMEM = 48 * 1024
 SEG_MAX = 64
 #: Entries of each vector a lane of the register kernel holds, by family
 #: (``kSegE`` of the family in csrc/solver.cuh): a segment is the least
-#: power of two of lanes, 2 to 32, that holds max(d, n_res).
-SEG_E = {0: 4, 1: 2, 2: 3, 3: 2, 4: 3}
+#: power of two of lanes, 2 to 32, that holds max(d, n_res) — or one lane,
+#: one instance a thread, for a family of fixed shape (``FIXED_SHAPES``,
+#: whose E holds all of max(d, n_res); csrc/solver_seg.cuh's
+#: ``min_segment``).
+SEG_E = {0: 4, 1: 2, 2: 3, 3: 4, 4: 6}
 #: The colorings K2's register kernel is built for, by family (the
 #: ``launch_segment`` dispatch in csrc/solver_seg.cuh): "identity" (one
 #: probe, closed form), "multi" (Curtis–Powell–Reid probes) or ``None``
@@ -94,7 +97,9 @@ SEG_COLORINGS = {0: (None, "identity"), 1: (None,), 2: (None,),
 FIXED_SHAPES = {3: (4, 4), 4: (4, 6)}
 #: ``SolverParams.coloring`` (``enum Coloring``, csrc/solver.cuh).
 COLORING_CODES = {None: 0, "identity": 1, "multi": 2}
-#: Warps a block of the register kernel.
+#: Warps a block of the register kernel; one where an instance runs on
+#: one lane, so that 10,000 instances make 313 blocks over all 132 SMs of
+#: an H100 (4 warps a block would leave 53 of them idle).
 SEG_WARPS = 4
 #: The entry point's path codes (``enum Path``, csrc/solver.cuh).
 PATH_CODES = {"warp": 0, "segment": 1}
@@ -212,7 +217,8 @@ class K2Plan(NamedTuple):
     """How K2 runs one call (the plan arguments of ``tinyopt_solver_f32/f64``).
 
     ``path``: "segment" (``solver_seg_kernel``, csrc/solver_seg.cuh: S lanes
-    an instance, E entries of every vector a lane, all state in registers;
+    an instance — one for Powell's and Wood's families —, E entries of
+    every vector a lane, all state in registers;
     a persistent grid, so the entry point launches at most as many blocks
     as fit the card) or "warp" (``solver_kernel``, csrc/solver.cu: one warp
     an instance, state in ``smem_bytes`` of shared memory a block; S = 32).
@@ -263,7 +269,9 @@ def k2_launch_plan(B: int, d: int, n_res: int, itemsize: int, family: int,
     Raises for a configuration outside :func:`k2_supports`.
     max(P, D, n_res) ≤ 64 takes the register kernel, E = SEG_E[family]
     entries a lane, on segments of S = the least power of two (2 to 32)
-    with S·E ≥ max(P, D, n_res), for every solver.  Larger shapes take the
+    with S·E ≥ max(P, D, n_res), for every solver, 4 warps a block; a
+    family of fixed shape (Powell's, Wood's) runs one instance a thread
+    (S = 1, E = max(d, n_res)), one warp a block.  Larger shapes take the
     warp kernel, with up to 4 warps a block while their shared memory fits
     48 KB; it has no multi-color branch (ROADMAP Queue 2, K2-a)."""
     P = d if P is None else P
@@ -278,11 +286,11 @@ def k2_launch_plan(B: int, d: int, n_res: int, itemsize: int, family: int,
     m = max(P, d, n_res)
     if m <= SEG_MAX:
         E = SEG_E[family]
-        S = 2
+        S = 1 if family in FIXED_SHAPES else 2
         while S * E < m:
             S *= 2
         per_warp = 32 // S
-        warps = max(1, min(SEG_WARPS, -(-B // per_warp)))
+        warps = max(1, min(1 if S == 1 else SEG_WARPS, -(-B // per_warp)))
         return K2Plan("segment", S, E, warps,
                       max(1, -(-B // (warps * per_warp))), 0)
     per_warp = warp_values(P, d, n_res) * itemsize
@@ -621,16 +629,23 @@ def fused_solve_plain(residual_fn, opts: Options, x0: torch.Tensor, data,
         successes=succ, num_hist=num_hist, final_lambda=lm.lam)
 
 
-def _kernel_outputs(B: int, P: int, d: int, cap: int, dtype, dev):
+def _kernel_outputs(B: int, P: int, d: int, cap: int, dtype, dev,
+                    zero_history: bool = False):
     """Every tensor K2 writes, as disjoint views of two new buffers: one of
     the solver's type (x (B, P) and g (B, D), then cost, rerr, λ, then the
     (B, cap) history rows errs and deltas2) and one of int32 (six
     counters, then the float32 inlier ratio and duration in the next 2·B
     entries, then the (B, cap) bool successes in the bytes after them).
     The kernel writes every entry, history slots past ``num_hist`` as 0 /
-    False.  Returns (x, Output, the SolverIO output pointers)."""
+    False — unless ``zero_history``: the one-lane instances (S = 1) write
+    only the slots they fill, and the rows are zeroed here, one coalesced
+    memset each buffer.  Returns (x, Output, the SolverIO output
+    pointers)."""
     f = torch.empty(B * (P + d + 3 + 2 * cap), dtype=dtype, device=dev)
     i = torch.empty(8 * B + -(-B * cap // 4), dtype=_I32, device=dev)
+    if zero_history and cap:
+        f[B * (P + d + 3):].zero_()
+        i[8 * B:].zero_()
     x = f[:B * P].view(B, P)
     g = f[B * P:B * (P + d)].view(B, d)
     cost, rerr, lam = f[B * (P + d):B * (P + d + 3)].view(3, B)
@@ -712,7 +727,8 @@ def fused_solve_cuda(family: int, opts: Options, x0: torch.Tensor, data,
     if params.d != d or params.family != family:
         raise ValueError(f"K2: parameters for d = {params.d}, family "
                          f"{params.family}; got d = {d}, family {family}")
-    x_out, out, ptrs = _kernel_outputs(B, P, d, params.cap, dtype, dev)
+    x_out, out, ptrs = _kernel_outputs(B, P, d, params.cap, dtype, dev,
+                                       zero_history=kp.S == 1)
     io = _build.SolverIO(x0=x0.data_ptr(), data0=data_ptrs[0],
                          data1=data_ptrs[1], **ptrs)
     lib = _build.load()
@@ -724,6 +740,8 @@ def fused_solve_cuda(family: int, opts: Options, x0: torch.Tensor, data,
                  kp.smem_bytes, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "K2 solver kernel")
     fused_solve.launches += 1
+    if kp.S == 1:
+        fused_solve.lane_launches += 1
     return x_out, out
 
 
@@ -745,8 +763,11 @@ def fused_solve(residual_fn, opts: Options, x0: torch.Tensor, data,
                             params, tables)
 
 
-#: Number of K2 launches in this process (reset freely by callers).
+#: Number of K2 launches in this process, and of those the one-lane
+#: instances' (S = 1: Powell's and Wood's families; reset freely by
+#: callers).
 fused_solve.launches = 0
+fused_solve.lane_launches = 0
 
 
 def fused_batched_solver(residual_fn, options: Options, x_example,
