@@ -9,10 +9,11 @@ instances, and past 1024 threads at d = 1024, 1100, 2100 and 6000 f32 /
 (64, 300, 20) and (8, 2100, 20); K2
 for GN / LM, the dogleg and the history, also at the edges of its launch
 plans, printed per shape, and beside an instance whose data is NaN;
-K2's SE3 family, the retraction branch, at 10k x 16 in float32 and
-float64 with LM and the dogleg, at K = 24, small batches and beside a
-NaN instance; K2's multi-color branch, Curtis-Powell-
-Reid probes, one instance a thread, on Powell's singular function and
+K2's SE3 family, the retraction branch (its register kernel, H from the
+points), at 10k x 16 in float32 and float64 with LM and the dogleg, at
+K = 24 (the warp kernel), small batches and beside a NaN instance; K2's
+multi-color branch, Curtis-Powell-Reid probes, one instance a thread, on
+Powell's singular function and
 Wood's at 10,000 perturbed standard starts, float32 and float64, LM and
 the dogleg, bit for bit against the twin and against K2 with the coloring
 off, at B = 1, 3, 33, 257 and beside a NaN start), drives the paths — ``batched_optimize``
@@ -56,9 +57,11 @@ kernel's launches on the main path (and on each path in
 beside the twin's, and its memory bound (``bound_ms``) and the share of it
 the kernel reaches (float32, and float64 as ``*_f64``; K2's time on
 Jennrich-Sampson 4096 x 2 as ``js_ms``, its dogleg as ``dl_ms``,
-``dl_ms_f64`` and ``dl_js_ms``, LM with the history as ``hist_ms``, the
-SE3 family as ``se3_ms``, ``se3_ms_f64``, ``se3_dl_ms``..., with its
-bound, bytes or operations, as ``se3_bound_ms``; the multi-color branch,
+``dl_ms_f64`` and ``dl_js_ms``, LM with the history as ``hist_ms``; the
+SE3 family's register kernel in an entry of its own, as ``se3_ms``,
+``se3_ms_f64``, ``se3_dl_ms``..., with its bound, bytes or operations, as
+``se3_bound_ms`` and the split of its LM call as ``se3_iter0_ms`` and
+``se3_iter_us``; the multi-color branch,
 K2's one-lane instance, in an entry of its own, as ``mc_powell_ms``,
 ``mc_wood_dl_ms_f64``, ``mc_powell_off_ms``..., with its twin's time,
 bound and share, and the solves/s of its path through
@@ -152,14 +155,16 @@ def k2_bound_ms(B, d, itemsize, cap=0):
 # count one each), whatever way a kernel computes it.  r_k = R p_k + t - q_k
 # has J_k = R [I, -[p_k]x], so for each point: the residual and its square
 # (R p: 15, + t - q: 6, square and sum: 6); g = J'r as R'(sum r_k) and
-# R'(sum (R p_k) x r_k) (3 + 12); and once an instance, since J'J =
-# sum [I, -[p]x]' R'R [I, -[p]x] needs the points only through sum p_k and
-# sum p_k p_k' (3 + 12).  For each iteration: R(q) (28), the two R'
-# products (30), H from R'R and the two sums (190); one Jacobi-PCG step on
-# the 6 x 6 system as K1 counts it (2 d^2 + 11 d); the retraction (exp_q,
-# q (x) dq, R V(omega) rho + t: 100); the dogleg's g'Hg and blend (110).
-SE3_MIN_FLOPS = dict(point_once=15, residual=27, grad=15, pose=248,
-                     pcg_step=2 * 36 + 11 * 6, retract=100, dogleg=110)
+# R'(sum (R p_k) x r_k) (3 + 12).  Once an instance, since J'J =
+# sum [I, -[p]x]' R'R [I, -[p]x] with R'R = I needs the points only through
+# sum p_k and sum p_k p_k': those sums (3 + 12 a point) and H from them
+# (190).  For each iteration: R(q) (28), the two R' products (30); one
+# Jacobi-PCG step on the 6 x 6 system as K1 counts it (2 d^2 + 11 d); the
+# retraction (exp_q, q (x) dq, R V(omega) rho + t: 100); the dogleg's g'Hg
+# and blend (110).
+SE3_MIN_FLOPS = dict(point_once=15, instance_once=190, residual=27, grad=15,
+                     pose=58, pcg_step=2 * 36 + 11 * 6, retract=100,
+                     dogleg=110)
 SE3_K = 16                     # points an instance: the flagship's
 SE3_CELL = "10k x 16"
 
@@ -178,7 +183,7 @@ def k2_se3_bound(out, opts, n_points, itemsize, dogleg=False):
     instances, and what sets it: the bytes (x0, points and targets in; x,
     g and 8 scalars an instance out) over the memory rate, or the least
     operations the solve needs (``SE3_MIN_FLOPS``) over the peak rate —
-    for each instance its points' sums once, and for each of its outer
+    for each instance its points' sums and H once, and for each of its outer
     iterations (``num_iters``, rejected ones included) a residual and
     gradient over its points, H, one PCG solve of ``cg_iters`` steps (D
     when 0) and the retraction.  Retried proposals and the dogleg's
@@ -189,7 +194,7 @@ def k2_se3_bound(out, opts, n_points, itemsize, dogleg=False):
     per_iter = (K * (f["residual"] + f["grad"]) + f["pose"]
                 + cg * f["pcg_step"] + f["retract"]
                 + (f["dogleg"] if dogleg else 0))
-    ops = (B * K * f["point_once"]
+    ops = (B * (K * f["point_once"] + f["instance_once"])
            + float(out.num_iters.double().sum()) * per_iter)
     t_ops = ops / PEAK_FLOPS[itemsize] * 1e3
     t_bytes = ((7 + 6 * K) * B + (7 + 6 + 8) * B) * itemsize \
@@ -310,6 +315,25 @@ def se3_check(ref, got, dtype, what):
     fin = torch.isfinite(xr) & torch.isfinite(xg)
     err = (xg - xr)[fin].abs().max().item() if bool(fin.any()) else 0.0
     return err, di, df
+
+
+def se3_check_few(ref, got, x64, what):
+    """K2's SE3 family against its float32 twin where three points pin a
+    pose loosely: the twin itself lies farther than ``se3_check``'s atol
+    from the float64 solve there (its late accept / reject decisions follow
+    rounding, PERF.md), so x is held as tests/test_torch_se3.py's
+    ``_se3_kernel_parity`` holds it — rtol 1e-4, atol max(1e-5, twice the
+    twin's own gap to the float64 twin ``x64``) — with the same success.
+    Returns max |x_k - x_twin|, the twin's gap and max |x_k - x_64|."""
+    (xr, outr), (xg, outg) = ref, got
+    gap = (xr.double() - x64).nan_to_num().abs().max().item()
+    torch.testing.assert_close(xg, xr, rtol=1e-4, atol=max(1e-5, 2 * gap),
+                               equal_nan=True, msg=what)
+    assert torch.equal(outg.succeeded(), outr.succeeded()), what
+    fin = torch.isfinite(xr) & torch.isfinite(xg)
+    err = (xg - xr)[fin].abs().max().item() if bool(fin.any()) else 0.0
+    d64 = (xg.double() - x64).nan_to_num().abs().max().item()
+    return err, gap, d64
 
 
 def offset_view(H):
@@ -2102,7 +2126,8 @@ def main() -> int:
     # ---- 4b. K2's SE3 family (the retraction branch) against its twin:
     # the flagship's 10k x 16 in float32 and float64 with LM and the
     # dogleg, timed; K = 24 (n_res 72, the warp kernel); B = 1, 3, 257;
-    # an instance whose target is NaN ----
+    # K = 3, 4, 8 and 21, every geometry launch_se3 can pick; an instance
+    # whose target is NaN ----
     def k2_se3(opts, B, K, dtype, seed, nan_at=None):
         data, xb, _ = make_se3_refinement(B, K, dtype=dtype, seed=seed,
                                           device=dev)
@@ -2119,20 +2144,24 @@ def main() -> int:
             se3_residual, opts, x0, data, plan)
         plain = lambda: cuda_solver.fused_solve_plain(  # noqa: E731
             se3_residual, opts, x0, data, plan)
+        plain64 = lambda: cuda_solver.fused_solve_plain(  # noqa: E731
+            se3_residual, opts, x0.double(),
+            type(data)(*(a.double() for a in data)), plan)[0]
         got, ref = kern(), plain()
         torch.cuda.synchronize()
         kp = cuda_solver.k2_launch_plan(B, 6, 3 * K, x0.element_size(), 2,
                                         None, cuda_solver.SOLVER_CODES[
                                             opts.solver_type], 7)
         return got, ref, kern, plain, (f"{kp.path} S={kp.S} E={kp.E} "
-                                       f"warps={kp.warps} grid<={kp.grid}")
+                                       f"warps={kp.warps} grid<={kp.grid}"), \
+            plain64
 
     for dtype in (torch.float32, torch.float64):
         tag = "" if dtype == torch.float32 else "_f64"
         for what, kw in (("", {}), ("dl_", dict(solver_type=to.DogLeg))):
             opts = se3_options(to, **kw)
-            got, ref, kern, plain, kplan = k2_se3(opts, BATCH, SE3_K, dtype,
-                                                  11)
+            got, ref, kern, plain, kplan, _ = k2_se3(opts, BATCH, SE3_K,
+                                                     dtype, 11)
             err, di, df = se3_check(ref, got, dtype,
                                     f"K2 SE3 {what}{SE3_CELL} {dtype}")
             out = got[1]
@@ -2146,6 +2175,8 @@ def main() -> int:
             k2[f"se3_{what}share{tag}"] = (k2[f"se3_{what}bound_ms{tag}"]
                                            / k2[f"se3_{what}ms{tag}"])
             k2[f"se3_{what}max_abs_err{tag}"] = err
+            k2[f"se3_{what}mean_iters{tag}"] = (
+                out.num_iters.float().mean().item())
             stops = torch.bincount(out.stop_reason.clamp(min=0)).tolist()
             log(f"[K2] SE3 {'dogleg' if what else 'LM'} {SE3_CELL} {dtype} "
                 f"({kplan}): max|x_k - x_twin| = {err:.3e}, iteration gap "
@@ -2158,23 +2189,46 @@ def main() -> int:
                 f"{k2[f'se3_{what}share{tag}']:.3f}")
         # one outer iteration (max_iters=0): loads, one linearization and
         # step, stores; the rest of se3_ms is the ~3 further iterations
-        _, _, kern0, _, _ = k2_se3(se3_options(to, max_iters=0), BATCH,
-                                   SE3_K, dtype, 11)
+        _, _, kern0, _, kplan0, _ = k2_se3(se3_options(to, max_iters=0),
+                                           BATCH, SE3_K, dtype, 11)
         k2[f"se3_iter0_ms{tag}"] = gpu_ms(kern0, n=5)
-        log(f"[K2] SE3 LM {SE3_CELL} {dtype} at max_iters=0: kernel "
-            f"{k2[f'se3_iter0_ms{tag}']:.4f} ms")
-        for B, K, kw in ((257, 24, {}), (257, 24, dict(solver_type=to.DogLeg)),
-                         (1, SE3_K, {}), (3, SE3_K, {}), (257, SE3_K, {}),
-                         (257, SE3_K, dict(solver_type=to.DogLeg))):
+        # the split of LM's time: the first outer iteration (with the loads
+        # and stores) and each further one, from the two times and the
+        # mean iterations (the clock64 split of an iteration is
+        # k2_attribution.py --family se3's)
+        further = k2[f"se3_mean_iters{tag}"] - 1
+        k2[f"se3_iter_us{tag}"] = ((k2[f"se3_ms{tag}"]
+                                    - k2[f"se3_iter0_ms{tag}"])
+                                   / max(further, 1e-9) * 1e3)
+        log(f"[K2] SE3 LM {SE3_CELL} {dtype} ({kplan0}) at max_iters=0: "
+            f"kernel {k2[f'se3_iter0_ms{tag}']:.4f} ms; split of the LM "
+            f"call: first iteration {k2[f'se3_iter0_ms{tag}']:.4f} ms, "
+            f"{further:.3f} further iterations at "
+            f"{k2[f'se3_iter_us{tag}']:.2f} us each")
+        dl = dict(solver_type=to.DogLeg)
+        # the register kernel's geometries (S lanes, 4 points a lane in
+        # float32, 8 in float64): S = 1 at K = 3, 4 (and 8 in float64), S =
+        # 2 at K = 8 in float32, S = 8 in float32 and 4 in float64 at K = 21
+        for B, K, kw in ((257, 24, {}), (257, 24, dl), (1, SE3_K, {}),
+                         (3, SE3_K, {}), (257, SE3_K, {}), (257, SE3_K, dl),
+                         *((257, k, w) for k in (3, 4, 8, 21)
+                           for w in ({}, dl))):
             opts = se3_options(to, **kw)
-            got, ref, _, _, kplan = k2_se3(opts, B, K, dtype, 12 + B + K)
+            got, ref, _, _, kplan, plain64 = k2_se3(opts, B, K, dtype,
+                                                    12 + B + K)
             name = "dogleg" if kw else "LM"
-            err, di, df = se3_check(ref, got, dtype,
-                                    f"K2 SE3 {name} {B}x{K} {dtype}")
+            what = f"K2 SE3 {name} {B}x{K} {dtype}"
+            if K == 3 and dtype == torch.float32:
+                err, gap, d64 = se3_check_few(ref, got, plain64(), what)
+                log(f"[K2] SE3 {name} {B}x{K} {dtype} ({kplan}): max|x_k - "
+                    f"x_twin| = {err:.3e} within twice the twin's own gap "
+                    f"to float64 ({gap:.3e}); max|x_k - x_f64| = {d64:.3e}")
+                continue
+            err, di, df = se3_check(ref, got, dtype, what)
             log(f"[K2] SE3 {name} {B}x{K} {dtype} ({kplan}): max|x_k - "
                 f"x_twin| = {err:.3e}, iteration gap {di}, failure gap {df}")
-        got, ref, _, _, _ = k2_se3(se3_options(to), 64, SE3_K, dtype, 5,
-                                   nan_at=5)
+        got, ref, _, _, _, _ = k2_se3(se3_options(to), 64, SE3_K, dtype, 5,
+                                      nan_at=5)
         err, _, _ = se3_check(ref, got, dtype, f"K2 SE3 nan neighbour {dtype}")
         stops = got[1].stop_reason
         assert stops[5].item() == int(to.StopReason.SYSTEM_HAS_NAN_OR_INF)
@@ -2444,18 +2498,24 @@ def main() -> int:
     for name, (opts, kernel) in se3_paths.items():
         cuda_cg.cg_solve.launches = 0
         cuda_solver.fused_solve.launches = 0
+        cuda_solver.fused_solve.se3_launches = 0
         x, out = to.batched_optimize(sx0, se3_residual, opts,
                                      data_batch=sdata)
         torch.cuda.synchronize()
-        n = path_launches[name] = {"K1": cuda_cg.cg_solve.launches,
-                                   "K2": cuda_solver.fused_solve.launches}
+        n = path_launches[name] = {
+            "K1": cuda_cg.cg_solve.launches,
+            "K2": cuda_solver.fused_solve.launches,
+            "K2 SE3": cuda_solver.fused_solve.se3_launches}
         log(f"[flagship] {name}: launches {n}")
         if kernel == "K2":
-            assert n == {"K1": 0, "K2": 1}, f"{name}: launches {n}"
+            # one K2 launch, of the SE3 family's register kernel
+            assert n == {"K1": 0, "K2": 1, "K2 SE3": 1}, \
+                f"{name}: launches {n}"
         elif kernel == "K1":
             assert n["K1"] > 0 and n["K2"] == 0, f"{name}: launches {n}"
         else:
-            assert n == {"K1": 0, "K2": 0}, f"{name}: launches {n}"
+            assert n == {"K1": 0, "K2": 0, "K2 SE3": 0}, \
+                f"{name}: launches {n}"
         assert x.rotation.wxyz.shape == (BATCH, 4), name
         assert x.translation.shape == (BATCH, 3), name
         assert bool(torch.all(torch.isfinite(x.rotation.wxyz))), name
@@ -2694,20 +2754,21 @@ def main() -> int:
          "hist_bound_ms": k2["hist_bound_ms_torch.float32"],
          "hist_bound_ms_f64": k2["hist_bound_ms_torch.float64"],
          "hist_share": k2["hist_share_torch.float32"],
-         "hist_share_f64": k2["hist_share_torch.float64"],
-         "se3_ms": k2["se3_ms"], "se3_ms_f64": k2["se3_ms_f64"],
-         "se3_plain_ms": k2["se3_plain_ms"],
-         "se3_bound_ms": k2["se3_bound_ms"],
-         "se3_bound_by": k2["se3_bound_by"],
-         "se3_bound_ms_f64": k2["se3_bound_ms_f64"],
-         "se3_share": k2["se3_share"], "se3_share_f64": k2["se3_share_f64"],
-         "se3_max_abs_err": k2["se3_max_abs_err"],
-         "se3_max_abs_err_f64": k2["se3_max_abs_err_f64"],
-         "se3_dl_ms": k2["se3_dl_ms"], "se3_dl_ms_f64": k2["se3_dl_ms_f64"],
-         "se3_dl_share": k2["se3_dl_share"],
-         "se3_iter0_ms": k2["se3_iter0_ms"],
-         "se3_iter0_ms_f64": k2["se3_iter0_ms_f64"],
-         "se3_dl_share_f64": k2["se3_dl_share_f64"]},
+         "hist_share_f64": k2["hist_share_torch.float64"]},
+        # the SE3 family's register kernel (K <= 21 points): phase 6's
+        # flagship path (launches) and phase 4b's times at 10k x 16; the
+        # headline numbers are LM float32, every cell as se3_*
+        {"name": "K2 solver_se3_kernel (SE3 family)", "route": "cuda",
+         "source": "tinyopt_tpu_torch/csrc/solver_se3.cuh",
+         "replaces": "tinyopt_tpu/ops/pallas_solver.py:150",
+         "launches": path_launches["se3_fused"]["K2 SE3"],
+         "path_launches": {p: n["K2 SE3"] for p, n in path_launches.items()
+                           if "K2 SE3" in n},
+         "max_abs_err": k2["se3_max_abs_err"], "ms": k2["se3_ms"],
+         "plain_ms": k2["se3_plain_ms"], "bound_ms": k2["se3_bound_ms"],
+         "bound_by": k2["se3_bound_by"], "share": k2["se3_share"],
+         "library_ms": None,
+         **{k: v for k, v in k2.items() if k.startswith("se3_")}},
         # the one-lane instance (S = 1, one instance a thread) on Powell's
         # and Wood's families, the multi-color branch: phase 5b's paths
         # (launches) and phase 4c's times; the headline numbers are Powell

@@ -1,7 +1,8 @@
-"""Attribute K2's multi-color time on the card (Powell's and Wood's families).
+"""Attribute K2's time on the card: the multi-color branch (Powell's and
+Wood's families, ``--family mc``) or the SE3 family (``--family se3``).
 
 Copies of two trees are patched under ``tinyopt_tpu_torch/_build/attr/``
-(ignored by git; the package itself is never changed):
+(ignored by git; the package itself is never changed).  ``--family mc``:
 
 * ``s248``: the earlier tree (``--parent``, K2 at S = 2 for these families)
   with their register kernels built at S = 2, 4 and 8 and its plan's S
@@ -21,12 +22,34 @@ is this tree), the stamps' split of an iteration in cycles (the mean over
 instances and the slowest instance), and ptxas registers, stack frame and
 spills of each instance of these families.
 
-    python3 k2_attribution.py --parent DIR
+``--family se3``: ``se3_stamp_parent`` and ``se3_stamp_this``, the
+earlier tree (its SE3 instances of the generic register kernel) and this
+one (``solver_se3_kernel``) with ``clock64()`` stamps summed per instance
+around the linearization with g, diag(H) (the earlier tree's per-dimension
+sweeps; this tree's H from the points, built once an instance), the
+proposal (the retry loop), each PCG solve and the retraction, and over the
+whole loop pass (written into ``nres``: the passes, ``nhist``: the solves,
+``inlier``: the linearization, ``duration``: diag(H), ``rerr``: the
+retraction, ``lam``: the proposal, all in cycles); and ``se3_geoms``, this
+tree built for more geometries — (S, points a lane) = (16, 1), (8, 2),
+(4, 4), (2, 8) — its plan's points a lane and warps a block read from
+``K2_ATTR_NP`` and ``K2_ATTR_W``; ``se3_geoms_regs`` the same with each
+lane's points held in registers from the instance's start (the package
+reads them through the read-only cache at each pass).  Then at 10,000 poses x 16 points
+(``bench_se3``'s options, ``save_history`` at its default), LM and the
+dogleg, float32 and float64, and LM at ``max_iters=0``: every layout held
+to this tree's twin (``chip_smoke.se3_check``), timed in turns (the
+earlier tree, then each geometry, then back), the stamps' split of an
+iteration, and ptxas registers, stack frame and spills of the SE3
+instances.  ``--split-only``: the earlier tree's stamps, and ptxas of
+both trees, alone.
+
+    python3 k2_attribution.py --parent DIR [--family mc|se3] [--split-only]
 
 ``DIR``: the root of a tree holding the earlier ``tinyopt_tpu_torch/``
 (``git archive <commit> tinyopt_tpu_torch | tar -x -C DIR``).  Output: one
 line per cell, the card's name and power limit, and the record in
-``chiprun_out/k2_attribution.json``.
+``chiprun_out/k2_attribution.json`` (``k2_attribution_se3.json``).
 """
 
 from __future__ import annotations
@@ -42,11 +65,12 @@ import subprocess
 import sys
 
 import torch
+from torch.utils import _pytree as pytree
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
-from chip_smoke import MC_STARTS, gpu_ms  # noqa: E402
+from chip_smoke import MC_STARTS, gpu_ms, se3_check, se3_options  # noqa: E402
 from k2_bench import ptxas_report  # noqa: E402
 
 B = 10_000
@@ -115,6 +139,166 @@ STAMPS = [
 ]
 
 
+# this tree's solver_se3_kernel keeps the instance's book (InstanceBook)
+# and writes its scalars by book.write: the counters are the kernel's,
+# written after it
+THIS_DECL = [
+    ("  InstanceBook<T, kDogLeg, kHist> book;\n",
+     "  InstanceBook<T, kDogLeg, kHist> book;\n  long long cl_lin = 0, "
+     "cl_diag = 0, cl_prop = 0, cl_tot = 0, cl_solve = 0, cl_ret = 0;\n"),
+    ("    book.start(p);\n  };",
+     "    book.start(p);\n    cl_lin = cl_diag = cl_prop = cl_tot = cl_solve = "
+     "cl_ret = 0;\n  };"),
+]
+
+
+def this_writes(fields) -> list:
+    """After the kernel's book.write, lane 0 writes the counters into
+    ``fields`` ({output: counter})."""
+    body = "".join(f"        {k} = {v};\n" for k, v in fields.items())
+    return [("      book.write(io, b, sl);\n",
+             "      book.write(io, b, sl);\n      if (sl == 0) {\n" + body
+             + "      }\n")]
+
+
+# clock64 stamps of the SE3 split, the earlier tree's generic register
+# kernel (solver_seg.cuh): (point, text inserted) pairs
+SE3_DECL = [
+    ("  int nhist = 0;\n",
+     "  int nhist = 0;\n  long long cl_lin = 0, cl_diag = 0, cl_prop = 0, "
+     "cl_tot = 0, cl_solve = 0, cl_ret = 0;\n"),
+    ("    stop = kNone;\n  };",
+     "    stop = kNone;\n    cl_lin = cl_diag = cl_prop = cl_tot = cl_solve = "
+     "cl_ret = 0;\n  };"),
+]
+SE3_WRITES = [
+    ("static_cast<T*>(io.rerr)[b] = final_rerr;",
+     "static_cast<T*>(io.rerr)[b] = (T)cl_ret;"),
+    ("static_cast<T*>(io.lam)[b] = lam;", "static_cast<T*>(io.lam)[b] = (T)cl_prop;"),
+    ("static_cast<int*>(io.nres)[b] = best_nres;",
+     "static_cast<int*>(io.nres)[b] = (int)cl_tot;"),
+    ("static_cast<int*>(io.nhist)[b] = kHist ? nhist : 0;",
+     "static_cast<int*>(io.nhist)[b] = (int)cl_solve;"),
+    ("static_cast<float*>(io.inlier)[b] = 1.0f;",
+     "static_cast<float*>(io.inlier)[b] = (float)cl_lin;"),
+    ("static_cast<float*>(io.duration)[b] = 0.0f;",
+     "static_cast<float*>(io.duration)[b] = (float)cl_diag;"),
+]
+SE3_STAMPS_PARENT = SE3_DECL + [
+    ("  auto solve = [&](bool damped, T lam_eff, T (&dxn)[E]) -> bool {\n",
+     "  auto solve = [&](bool damped, T lam_eff, T (&dxn)[E]) -> bool {\n"
+     "    const long long ts_ = clock64();\n"),
+    ("    for (int k = 0; k < E; ++k) f = f && (!vt[k] || isfinite(dxn[k]));\n"
+     "    return seg_all",
+     "    for (int k = 0; k < E; ++k) f = f && (!vt[k] || isfinite(dxn[k]));\n"
+     "    cl_solve += clock64() - ts_;\n    return seg_all"),
+    ("    const bool act = b < B && it < p.max_iters_total;\n",
+     "    const bool act = b < B && it < p.max_iters_total;\n"
+     "    const long long t0_ = clock64();\n"),
+    ("    if constexpr (kColor == kColorIdentity) {\n      T ones[E], jp[E];",
+     "    const long long ta_ = clock64();\n    cl_lin += ta_ - t0_;\n"
+     "    if constexpr (kColor == kColorIdentity) {\n      T ones[E], jp[E];"),
+    ("    if (p.grad_clipping > 0) {",
+     "    cl_diag += clock64() - ta_;\n    if (p.grad_clipping > 0) {"),
+    ("    // ---- propose, retry with lambda escalation",
+     "    const long long t1_ = clock64();\n"
+     "    // ---- propose, retry with lambda escalation"),
+    ("    // ---- err, dx'dx, g'g in one butterfly",
+     "    cl_prop += clock64() - t1_;\n    // ---- err, dx'dx, g'g in one butterfly"),
+    ("    if constexpr (Fam::kManifold) {\n      // x (+) dx from the rollback",
+     "    const long long tr_ = clock64();\n"
+     "    if constexpr (Fam::kManifold) {\n      // x (+) dx from the rollback"),
+    ("    // ---- a stopped instance is written out",
+     "    cl_ret += clock64() - tr_;\n    cl_tot += clock64() - t0_;\n"
+     "    // ---- a stopped instance is written out"),
+] + SE3_WRITES
+# the same split in this tree's solver_se3_kernel (solver_se3.cuh); diag(H)
+# is a new instance's H from its points (two passes and their butterflies)
+SE3_STAMPS_THIS = THIS_DECL + [
+    ("  auto solve = [&](bool damped, T lam_eff, T (&dxn)[D]) -> bool {\n",
+     "  auto solve = [&](bool damped, T lam_eff, T (&dxn)[D]) -> bool {\n"
+     "    const long long ts_ = clock64();\n"),
+    ("    return finite6(dxn);\n  };\n\n  // The Powell dogleg",
+     "    cl_solve += clock64() - ts_;\n    return finite6(dxn);\n  };\n\n"
+     "  // The Powell dogleg"),
+    ("  while (warp_any<S>(b < B)) {\n",
+     "  while (warp_any<S>(b < B)) {\n    const long long t0_ = clock64();\n"),
+    ("    const bool act = b < B && book.it < p.max_iters_total;\n",
+     "    const long long ta_ = clock64();\n    cl_diag += ta_ - t0_;\n"
+     "    const bool act = b < B && book.it < p.max_iters_total;\n"),
+    ("    if (p.grad_clipping > 0) {",
+     "    cl_lin += clock64() - ta_;\n    if (p.grad_clipping > 0) {"),
+    ("    // ---- propose, retry with lambda escalation; judge",
+     "    const long long t1_ = clock64();\n"
+     "    // ---- propose, retry with lambda escalation; judge"),
+    ("    if (act) {\n      const auto m = book.judge(",
+     "    cl_prop += clock64() - t1_;\n"
+     "    if (act) {\n      const auto m = book.judge("),
+    ("      T xn[P];\n", "      const long long tr_ = clock64();\n      T xn[P];\n"),
+    ("        x[i] = xn[i];\n      }\n    }\n",
+     "        x[i] = xn[i];\n      }\n      cl_ret += clock64() - tr_;\n    }\n"),
+    ("    // ---- a stopped instance is written out",
+     "    cl_tot += clock64() - t0_;\n    // ---- a stopped instance is written out"),
+] + this_writes({
+    "static_cast<T*>(io.rerr)[b]": "(T)cl_ret",
+    "static_cast<T*>(io.lam)[b]": "(T)cl_prop",
+    "static_cast<int*>(io.nres)[b]": "(int)cl_tot",
+    "static_cast<int*>(io.nhist)[b]": "(int)cl_solve",
+    "static_cast<float*>(io.inlier)[b]": "(float)cl_lin",
+    "static_cast<float*>(io.duration)[b]": "(float)cl_diag"})
+# this tree at more geometries, the plan's from the environment
+SE3_GEOMS = [(16, 1), (8, 2), (4, 4), (2, 8)]
+
+
+def make_se3_trees(parent: str, split_only: bool) -> dict:
+    """The SE3 copies (``split_only``: the earlier tree's stamps alone);
+    returns {name: tree root}."""
+    patch(copy_tree(parent, "se3_stamp_parent"), "csrc/solver_seg.cuh",
+          SE3_STAMPS_PARENT)
+    names = ["se3_stamp_parent"]
+    if not split_only:
+        patch(copy_tree(HERE, "se3_stamp_this"), "csrc/solver_se3.cuh",
+              SE3_STAMPS_THIS)
+        make_geoms_tree("se3_geoms", [])
+        make_geoms_tree("se3_geoms_regs", SE3_POINTS_IN_REGISTERS)
+        names += ["se3_stamp_this", "se3_geoms", "se3_geoms_regs"]
+    return {n: os.path.join(ATTR, n) for n in names}
+
+
+# the lane's points held in registers from the instance's start, where the
+# kernel reads them through the read-only cache at each pass
+SE3_POINTS_IN_REGISTERS = [
+    ("  auto point = [&](int j, T (&v)[6]) {\n    const int i = sl + j * S;",
+     "  T pts_[NP][6];\n  auto point = [&](int j, T (&v)[6]) {\n"
+     "    for (int c = 0; c < 6; ++c) v[c] = pts_[j][c];\n  };\n"
+     "  auto load_point = [&](int j, T (&v)[6]) {\n"
+     "    const int i = sl + j * S;"),
+    ("    bl = b < B ? b : B - 1;\n",
+     "    bl = b < B ? b : B - 1;\n"
+     "    for (int j = 0; j < NP; ++j) load_point(j, pts_[j]);\n"),
+]
+
+
+def make_geoms_tree(name: str, edits) -> None:
+    """This tree built for ``SE3_GEOMS`` with ``edits`` to its SE3 kernel,
+    its plan's points a lane and warps a block from the environment."""
+    pkg = copy_tree(HERE, name)
+    patch(pkg, "csrc/solver_se3.cuh", [
+        ("#define K2_SE3_GEOMETRIES(X, np) X(1, np) X(2, np) X(4, np) X(8, np)",
+         "#define K2_SE3_GEOMETRIES(X, np) "
+         + " ".join(f"X({s}, {n})" for s, n in SE3_GEOMS))] + edits)
+    patch(pkg, "ops/cuda_solver.py", [
+        ("            E, S, m = SE3_POINTS[itemsize], 1, n_res // 3   "
+         "# E points a lane\n",
+         "            E, S, m = SE3_POINTS[itemsize], 1, n_res // 3   "
+         "# E points a lane\n"
+         "            E = int(__import__('os').environ['K2_ATTR_NP'])\n"),
+        ("        warps = max(1, min(1 if S == 1 else SEG_WARPS, "
+         "-(-B // per_warp)))",
+         "        warps = max(1, min(int(__import__('os').environ.get("
+         "'K2_ATTR_W', 1 if S == 1 else SEG_WARPS)), -(-B // per_warp)))")])
+
+
 def make_trees(parent: str) -> dict:
     """The three patched copies; returns {name: tree root}."""
     pkg = copy_tree(parent, "s248")
@@ -142,7 +326,8 @@ def load(name: str, root: str):
     mod = importlib.util.module_from_spec(spec)
     sys.modules[name] = mod
     spec.loader.exec_module(mod)
-    for sub in ("ops.cuda_solver", "models.problems", "_build"):
+    for sub in ("ops.cuda_solver", "models.problems", "models.se3_refinement",
+                "_build"):
         importlib.import_module(f"{name}.{sub}")
     return mod
 
@@ -197,9 +382,139 @@ def kernel_lines(lines) -> list[str]:
     return [ln for ln in lines if "Powell" in ln or "Wood" in ln]
 
 
+SE3_K = 16
+
+
+def se3_runner(p, opts_kw, dtype, dev, env=None):
+    """(run, twin) of package ``p``'s K2 on the flagship's 10,000 x 16 poses
+    of seed 11 (``env``: the environment of the ``se3_geoms`` plan)."""
+    cs = p.ops.cuda_solver
+    se3 = p.models.se3_refinement
+    opts = se3_options(p, **opts_kw(p))
+    data, xb, _ = se3.make_se3_refinement(B, SE3_K, dtype=dtype, seed=11,
+                                          device=dev)
+    x_ex = pytree.tree_map(lambda a: a[0], xb)
+    plan = cs.fused_plan(opts, "residuals", x_ex,
+                         residual_fn=se3.se3_residual,
+                         data_example=type(data)(*(a[0] for a in data)))
+    x0 = p.manifold.flatten_batch(xb, plan.spec)
+    params = cs.k2_params(2, opts, plan)
+
+    def run():
+        if env is not None:
+            os.environ.update(env)
+            cs.k2_launch_plan.cache_clear()
+        return cs.fused_solve(se3.se3_residual, opts, x0, data, plan, params)
+    return run, lambda: cs.fused_solve_plain(se3.se3_residual, opts, x0,
+                                             data, plan)
+
+
+def se3_split(out) -> dict:
+    """The SE3 stamps' cycles an iteration: the mean over instances and
+    the slowest instance's (by its whole time)."""
+    it = out.num_iters.double().clamp(min=1)
+    parts = {"pass": out.final_cost.num_residuals.double(),
+             "solves": out.num_hist.double(),
+             "linearize_g": out.final_cost.inlier_ratio.double(),
+             "diag_H": out.duration_ms.double(),
+             "propose": out.final_lambda.double(),
+             "retract": out.final_rerr_dec.double()}
+    parts["propose_not_solves"] = parts["propose"] - parts["solves"]
+    parts["accept_stop_rest"] = (parts["pass"] - parts["linearize_g"]
+                                 - parts["diag_H"] - parts["propose"]
+                                 - parts["retract"])
+    slow = int(torch.argmax(parts["pass"]))
+    return {"mean": {k: (v / it).mean().item() for k, v in parts.items()},
+            "slowest": {k: (v[slow] / it[slow]).item()
+                        for k, v in parts.items()},
+            "slowest_iters": int(out.num_iters[slow]),
+            "mean_iters": out.num_iters.double().mean().item()}
+
+
+def se3_kernel_lines(lines) -> list[str]:
+    return [ln for ln in lines if "SE3" in ln or "se3" in ln]
+
+
+def main_se3(args, smi) -> int:
+    import tinyopt_tpu_torch as this
+    import tinyopt_tpu_torch.models.se3_refinement  # noqa: F401
+    import tinyopt_tpu_torch.ops.cuda_solver  # noqa: F401
+    from tinyopt_tpu_torch import _build
+
+    roots = make_se3_trees(os.path.abspath(args.parent), args.split_only)
+    pk = {"this": this}
+    for name, root in roots.items():
+        pk[name] = load(f"attr_{name}", root)
+    builds = {n: (_build if n == "this" else sys.modules[f"attr_{n}._build"])
+              for n in pk}
+    if args.split_only:
+        del pk["this"], builds["this"]
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as ex:
+        list(ex.map(lambda b: b.load(), builds.values()))
+    parent = importlib.import_module("k2_bench").parent_package(
+        os.path.abspath(args.parent))
+    parent_build = importlib.import_module("k2_parent._build")
+    rec = {"nvidia_smi": smi, "shape": [B, SE3_K],
+           "ptxas": {"parent": se3_kernel_lines(ptxas_report(parent_build)),
+                     "this": se3_kernel_lines(ptxas_report(_build))},
+           "cells": {}}
+    if not args.split_only:
+        for n in ("se3_geoms", "se3_geoms_regs"):
+            rec["ptxas"][n] = se3_kernel_lines(ptxas_report(builds[n]))
+    for n, lines in rec["ptxas"].items():
+        for ln in lines:
+            log(f"[ptxas {n}] {ln}")
+
+    dev = torch.device("cuda", 0)
+    cells = {"LM": lambda p: {}, "DogLeg": lambda p: {"solver_type": p.DogLeg},
+             "LM_max_iters_0": lambda p: {"max_iters": 0}}
+    for dtype in (torch.float32, torch.float64):
+        for cname, kw in cells.items():
+            key = f"{cname} {str(dtype).split('.')[-1]}"
+            r = rec["cells"][key] = {}
+            stamped = ["se3_stamp_parent"] + (
+                [] if args.split_only else ["se3_stamp_this"])
+            for sn in stamped:
+                run, _ = se3_runner(pk[sn], kw, dtype, dev)
+                _, out = run()
+                torch.cuda.synchronize()
+                r[sn] = se3_split(out)
+            if not args.split_only:
+                lay = {"parent": se3_runner(parent, kw, dtype, dev)[0]}
+                for S, n in SE3_GEOMS:
+                    lay[f"S{S}xNP{n}"] = se3_runner(
+                        pk["se3_geoms"], kw, dtype, dev,
+                        {"K2_ATTR_NP": str(n), "K2_ATTR_W": "4"})[0]
+                lay["S4xNP4_w1"] = se3_runner(
+                    pk["se3_geoms"], kw, dtype, dev,
+                    {"K2_ATTR_NP": "4", "K2_ATTR_W": "1"})[0]
+                # the points held in registers
+                for S, n in ((4, 4), (2, 8)):
+                    lay[f"S{S}xNP{n}_regs"] = se3_runner(
+                        pk["se3_geoms_regs"], kw, dtype, dev,
+                        {"K2_ATTR_NP": str(n), "K2_ATTR_W": "4"})[0]
+                lay["this"] = se3_runner(this, kw, dtype, dev)[0]
+                ref = se3_runner(this, kw, dtype, dev)[1]()
+                r["max_err"] = {k: se3_check(ref, f(), dtype, f"{key} {k}")[0]
+                                for k, f in lay.items()}
+                order = list(lay)
+                r["turns_ms"] = [[k, gpu_ms(lay[k], n=5)]
+                                 for k in order + order[::-1]]
+            log(f"[cell] SE3 {B}x{SE3_K} {key}: {json.dumps(r)}")
+
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "k2_attribution_se3.json"),
+              "w") as f:
+        json.dump(rec, f, indent=1)
+    print(smi)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True)
+    ap.add_argument("--family", choices=("mc", "se3"), default="mc")
+    ap.add_argument("--split-only", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("k2_attribution: no CUDA device", file=sys.stderr)
@@ -214,6 +529,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     log(f"[device] {smi}")
+    if args.family == "se3":
+        return main_se3(args, smi)
     pk = {"this": this}
     for name, root in make_trees(os.path.abspath(args.parent)).items():
         pk[name] = load(f"attr_{name}", root)

@@ -7,7 +7,8 @@ each checked against this tree's plain twin first; both again at
 ``max_iters=0`` (one outer iteration: the loads, one linearization and
 step, and the stores), with the dogleg and with the history;
 Jennrich-Sampson at 4096 x 2 (20 iterations, rejections and PCG); the SE3
-family at 10,000 poses x 16 points (``bench_se3``'s options); and the
+family at 10,000 poses x 16 points (``bench_se3``'s options), LM, the
+dogleg and LM at ``max_iters=0``; and the
 multi-color cells, Powell's singular function and Wood's at 10,000 x 4
 (``max_iters=200``, no failure budget), LM and the dogleg, coloring
 "auto" and "off", each held bit for bit to this tree's twin of "auto";
@@ -21,7 +22,10 @@ float32 and float64, in turns.
 tinyopt_tpu_torch/_build/parent``.  That package is imported beside this
 one under another name, so its ``ops.cuda_solver.fused_solve`` builds and
 calls its own kernels with its own entry points.  ``--ptxas``: print
-nvcc's registers and spills for every kernel of this tree's K2 sources.
+nvcc's registers, stack frame and spills for every kernel of this tree's
+K2 sources (the SE3 family's instances once more as ``[ptxas se3]``), and
+as ``[ptxas diff]`` the kernels whose registers or stack frame differ from
+the earlier tree's.
 
 Device times are milliseconds per call, from CUDA events around
 launches queued behind a device sleep (``chip_smoke.gpu_ms``).  Host
@@ -54,7 +58,8 @@ from torch.utils import _pytree as pytree
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
-from chip_smoke import MC_STARTS, bench_options, gpu_ms, se3_options  # noqa: E402
+from chip_smoke import (MC_STARTS, bench_options, gpu_ms, se3_check,  # noqa: E402
+                        se3_options)
 
 B, D, N_LAUNCH = 10_000, 50, 20
 JS_B = 4096
@@ -97,16 +102,43 @@ def ptxas_report(build) -> list[str]:
 
 
 def ptxas_diff(old: list[str], new: list[str]) -> list[str]:
-    """The kernels whose ptxas registers differ between two reports, and
-    those in one report only."""
+    """The kernels whose ptxas registers or stack frame differ between two
+    reports, and those in one report only."""
     def regs(lines):
-        return {ln.rsplit(": ", 1)[0]: ln.rsplit(": ", 1)[1]
-                for ln in lines if "registers" in ln}
+        got: dict = {}
+        for ln in lines:
+            if "registers" in ln or "stack frame" in ln:
+                name, text = ln.rsplit(": ", 1)
+                key = name + (" [stack]" if "stack frame" in ln else "")
+                got[key] = got.get(key, ()) + (text,)
+        return got
     o, n = regs(old), regs(new)
     return ([f"{k}: {o[k]} -> {n[k]}" for k in sorted(o.keys() & n.keys())
              if o[k] != n[k]]
             + [f"parent only: {k}" for k in sorted(o.keys() - n.keys())]
             + [f"this tree only: {k}" for k in sorted(n.keys() - o.keys())])
+
+
+def ptxas_se3(lines: list[str]) -> list[str]:
+    """One line per SE3 instance of a report: registers, stack frame and
+    spills (the largest of the kernel's lines: a double kernel's trig
+    slow path prints a frame of its own after the kernel's)."""
+    got: dict = {}
+    for ln in lines:
+        name, text = ln.rsplit(": ", 1)
+        if "SE3" not in name and "se3" not in name:
+            continue
+        m = re.search(r"Used (\d+) registers", text)
+        if m:
+            got.setdefault(name, {})["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", text)
+        if m:
+            k = got.setdefault(name, {})
+            for f, v in zip(("stack", "spill_stores", "spill_loads"),
+                            m.groups()):
+                k[f] = max(k.get(f, 0), int(v))
+    return [f"{k}: {v}" for k, v in sorted(got.items())]
 
 
 def parent_package(root: str):
@@ -260,6 +292,10 @@ def main() -> int:
             importlib.import_module("k2_parent._build"))
         for ln in rec["ptxas"]:
             log(f"[ptxas] {ln}")
+        for ln in ptxas_se3(rec["ptxas"]):
+            log(f"[ptxas se3] {ln}")
+        for ln in ptxas_se3(rec["ptxas_parent"]):
+            log(f"[ptxas se3 parent] {ln}")
         for ln in ptxas_diff(rec["ptxas_parent"], rec["ptxas"]):
             log(f"[ptxas diff] {ln}")
 
@@ -312,23 +348,25 @@ def main() -> int:
 
         # the SE3 family: each tree on its own flagship data of one seed
         # (the same values); not bit-equal to the twin (PERF.md), so held
-        # to the tolerances of chip_smoke.py phase 4b
-        sides = {w: Side(p, "se3", {}, dtype=dtype, device=dev)
-                 for w, p in (("old", old_pkg), ("new", new_pkg))}
-        ref = sides["new"].twin()
-        tol = (dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32
-               else dict(rtol=1e-10, atol=1e-12))
-        errs = {}
-        for w, side in sides.items():
-            x, out = side.run()
-            torch.cuda.synchronize()
-            torch.testing.assert_close(x, ref[0], **tol, msg=f"SE3 {w}")
-            assert torch.equal(out.succeeded(), ref[1].succeeded()), w
-            errs[w] = (x - ref[0]).abs().max().item()
-        t = turns(sides)
-        r["se3"] = {"turns_ms": t, "max_err": errs}
-        log(f"[A/B] SE3 {B}x{SE3_K} {name}: turns {t} ms; max|x - x_twin| "
-            f"{errs}")
+        # to chip_smoke.py phase 4b's se3_check
+        for label, kw in (("se3", lambda p: {}),
+                          ("se3_dogleg", lambda p: {"solver_type": p.DogLeg}),
+                          ("se3_max_iters_0", lambda p: {"max_iters": 0})):
+            sides = {w: Side(p, "se3", kw(p), dtype=dtype, device=dev)
+                     for w, p in (("old", old_pkg), ("new", new_pkg))}
+            ref = sides["new"].twin()
+            errs = {w: se3_check(ref, side.run(), dtype, f"{label} {w}")[0]
+                    for w, side in sides.items()}
+            kp = cs.k2_launch_plan(B, 6, 3 * SE3_K, ref[0].element_size(), 2,
+                                   None, cs.SOLVER_CODES[
+                                       kw(new_pkg).get("solver_type",
+                                                       new_pkg.LevenbergMarquardt)],
+                                   7)
+            t = turns(sides)
+            r[label] = {"turns_ms": t, "max_err": errs, "plan": kp._asdict(),
+                        "mean_iters": ref[1].num_iters.float().mean().item()}
+            log(f"[A/B] {label} {B}x{SE3_K} {name} (this tree's plan "
+                f"{tuple(kp)}): turns {t} ms; max|x - x_twin| {errs}")
 
         # the multi-color cells: each tree's K2, "auto" and "off", bit for
         # bit against this tree's twin of "auto", then in turns

@@ -462,8 +462,9 @@ def _k2_pairs():
     """The (S, E) pairs csrc/solver_seg.cuh builds for each family: the
     widths of ``K2_SEGMENTS`` with the family's ``kSegE`` (csrc/solver.cuh),
     from the least segment (``min_segment``: one lane where kSegE ≥ kMaxM,
-    else 2) up while (S/2)·E < kMaxM (every S a plan takes for max(P, d,
-    n_res) ≤ the family's largest, kMaxM ≤ 64)."""
+    else 2) up while (S/2)·E < kMaxM (every S a plan takes for max(d,
+    n_res) ≤ the family's largest, kMaxM ≤ 64).  The SE3 family has a
+    register kernel of its own (tests/test_torch_se3.py)."""
     import re
     from tinyopt_tpu_torch import _build
     with open(f"{_build.CSRC}/solver_seg.cuh") as f:
@@ -474,8 +475,7 @@ def _k2_pairs():
     widths = [int(w) for w in re.findall(r"X\((\d+)\)", widths)]
     pairs = {}
     for fam, name in ((0, "PriorFamily"), (1, "JenSamFamily"),
-                      (2, "SE3Family"), (3, "PowellFamily"),
-                      (4, "WoodFamily")):
+                      (3, "PowellFamily"), (4, "WoodFamily")):
         body = re.search(rf"struct {name} {{.*?kMaxM = \d+;", hdr,
                          re.S).group(0)
         E = int(re.search(r"kSegE = (\d+);", body).group(1))

@@ -253,7 +253,7 @@ def test_fused_envelope_se3_family():
     does (6 colors > max(1, D/2))."""
     fam = cuda_solver.FAMILIES[se3_residual]
     assert fam.id == 2
-    assert cuda_solver.SEG_E[2] == 3
+    assert cuda_solver.SE3_POINTS == {4: 4, 8: 8}
     (jdata, jx0), (tdata, tx0), _ = _jax_problem(2, 5, 4)
     x_ex = pytree.tree_map(lambda a: a[0], tx0)
     d_ex = SE3RefinementData(*(a[0] for a in tdata))
@@ -277,28 +277,36 @@ def test_fused_envelope_se3_family():
     assert cuda_solver.warp_values(7, 6, 72) == 230
 
 
-def _se3_pairs():
-    """The (S, E) pairs csrc/solver_seg.cuh builds for the SE3 family."""
+def _se3_pairs(itemsize):
+    """The (S, points a lane) pairs csrc/solver_se3.cuh builds the SE3
+    family's register kernel for in a type: ``se3_points``'s NP with each
+    width of ``K2_SE3_GEOMETRIES`` that ``launch_se3`` instantiates (S = 1,
+    or (S/2)·NP < kSE3MaxK)."""
     from tinyopt_tpu_torch import _build
-    with open(f"{_build.CSRC}/solver_seg.cuh") as f:
-        seg = f.read()
-    with open(f"{_build.CSRC}/solver.cuh") as f:
-        hdr = f.read()
-    widths = re.search(r"#define K2_SEGMENTS\(X\)([^\n]*)", seg).group(1)
-    widths = [int(w) for w in re.findall(r"X\((\d+)\)", widths)]
-    E = int(re.search(r"struct SE3Family {.*?kSegE = (\d+);", hdr,
-                      re.S).group(1))
-    return {(S, E) for S in widths if (S // 2) * E < 64}
+    with open(f"{_build.CSRC}/solver_se3.cuh") as f:
+        src = f.read()
+    f32, f64 = re.search(r"return sizeof\(T\) == 4 \? (\d+) : (\d+);",
+                         src).groups()
+    NP = int(f32 if itemsize == 4 else f64)
+    max_k = int(re.search(r"constexpr int kSE3MaxK = (\d+);", src).group(1))
+    # the register kernel's most points: max(7, 3K) <= SEG_MAX
+    assert max_k == cuda_solver.SEG_MAX // 3
+    geoms = re.search(r"#define K2_SE3_GEOMETRIES\(X, np\)([^\n]*)",
+                      src).group(1)
+    widths = [int(w) for w in re.findall(r"X\((\d+), np\)", geoms)]
+    return {(S, NP) for S in widths if S == 1 or (S // 2) * NP < max_k}
 
 
 @pytest.mark.parametrize("solver", ["gn", "lm", "dogleg"])
 @pytest.mark.parametrize("itemsize", [4, 8])
 @pytest.mark.parametrize("K", [1, 2, 3, 12, 16, 17, 21, 22, 24, 100])
 def test_k2_launch_plan_se3(K, itemsize, solver):
-    """K2's plan for the SE3 family (P = 7, D = 6, n_res = 3K): one point a
-    lane (E = 3) on the least segment with S·3 ≥ max(7, 3K), which every
-    lane of the segment can serve, up to K = 21; past that the warp
-    kernel with 2·7 + 12·6 + 2·3K values a warp."""
+    """K2's plan for the SE3 family (P = 7, D = 6, n_res = 3K): its own
+    register kernel up to K = 21 (max(7, 3K) ≤ 64), SE3_POINTS = 4 points a
+    lane in float32 and 8 in float64 on the least power of two of lanes S
+    (from 1) with S·E ≥ K, every lane of the segment holding the pose-side
+    state; past that the warp kernel with 2·7 + 12·6 + 2·3K values a
+    warp."""
     code = cuda_solver.SOLVER_CODES[{"gn": to.GaussNewton,
                                      "lm": to.LevenbergMarquardt,
                                      "dogleg": to.DogLeg}[solver]]
@@ -314,11 +322,15 @@ def test_k2_launch_plan_se3(K, itemsize, solver):
         assert plan.smem_bytes == plan.warps * per_warp
         assert plan.grid * plan.warps >= B
         return
-    assert plan.path == "segment" and plan.E == 3 and plan.smem_bytes == 0
-    assert (plan.S, plan.E) in _se3_pairs()
-    assert plan.S * 3 >= m and (plan.S == 2 or (plan.S // 2) * 3 < m)
-    assert plan.S >= K               # one point a lane
-    assert plan.warps == cuda_solver.SEG_WARPS
+    E = cuda_solver.SE3_POINTS[itemsize]
+    assert plan.path == "segment" and plan.E == E and plan.smem_bytes == 0
+    assert (plan.S, plan.E) in _se3_pairs(itemsize)
+    assert plan.S * E >= K and (plan.S == 1 or (plan.S // 2) * E < K)
+    assert plan.S == {4: {1: 1, 2: 1, 3: 1, 12: 4, 16: 4, 17: 8, 21: 8},
+                      8: {1: 1, 2: 1, 3: 1, 12: 2, 16: 2, 17: 4,
+                          21: 4}}[itemsize][K]
+    # one warp a block where an instance takes one lane
+    assert plan.warps == (1 if plan.S == 1 else cuda_solver.SEG_WARPS)
     assert plan.grid == -(-B // (plan.warps * 32 // plan.S))
 
 
@@ -352,8 +364,11 @@ def _k2_se3_case(B, K, dtype, seed, kw, dev, nan_at=None):
     assert plan is not None
     x0 = mf.flatten_batch(xb, plan.spec)
     before = cuda_solver.fused_solve.launches
+    before_se3 = cuda_solver.fused_solve.se3_launches
     got = cuda_solver.fused_solve(se3_residual, opts, x0, data, plan)
     assert cuda_solver.fused_solve.launches == before + 1
+    # the SE3 family's register kernel up to K = 21, the warp kernel past
+    assert cuda_solver.fused_solve.se3_launches == before_se3 + (K <= 21)
     ref = cuda_solver.fused_solve_plain(se3_residual, opts, x0, data, plan)
     # the float64 twin on the same values: the float32 twin's own gap
     x64 = cuda_solver.fused_solve_plain(
@@ -386,11 +401,15 @@ def _se3_kernel_parity(ref, got, dtype, twin_gap=0.0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("solver", ["lm", "dogleg", "gn"])
-@pytest.mark.parametrize("B,K", [(1, 16), (3, 16), (1000, 16), (257, 3),
+@pytest.mark.parametrize("B,K", [(1, 16), (3, 16), (31, 16), (32, 16),
+                                 (33, 16), (257, 16), (1000, 16),
+                                 (10_007, 16), (257, 3), (257, 8),
                                  (257, 12), (257, 21), (257, 24)])
 def test_k2_se3_on_gpu(B, K, solver, dtype):
     """K2's SE3 family against its twin on the card: the register kernel
-    (K ≤ 21, one point a lane) and the warp kernel (K = 24)."""
+    (K ≤ 21; 4 points a lane on 1, 2, 4 or 8 lanes; batches that fill a
+    warp's 8 segments, leave it ragged or need the persistent grid to
+    stride) and the warp kernel (K = 24)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (K2 is a CUDA kernel)")
     kw = {"gn": dict(solver_type=jto.GaussNewton),
@@ -402,12 +421,16 @@ def test_k2_se3_on_gpu(B, K, solver, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_k2_se3_nan_neighbour_on_gpu(dtype):
+@pytest.mark.parametrize("solver", ["lm", "dogleg"])
+@pytest.mark.parametrize("B", [64, 10_007])
+def test_k2_se3_nan_neighbour_on_gpu(B, solver, dtype):
     """A NaN target stops its instance with SYSTEM_HAS_NAN_OR_INF; the
-    instances beside it in its warp match the twin."""
+    instances beside it in its warp (its segment's neighbours) match the
+    twin."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (K2 is a CUDA kernel)")
-    ref, got, gap = _k2_se3_case(64, 16, dtype, 3, {}, torch.device("cuda"),
+    kw = {"dogleg": dict(solver_type=jto.DogLeg)}.get(solver, {})
+    ref, got, gap = _k2_se3_case(B, 16, dtype, 3, kw, torch.device("cuda"),
                                  nan_at=5)
     _se3_kernel_parity(ref, got, dtype, gap)
     stops = got[1].stop_reason

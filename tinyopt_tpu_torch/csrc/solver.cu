@@ -1,8 +1,9 @@
 // K2: the whole batched GN / LM / DogLeg solve.  This file holds the C entry
 // points and K2's kernel for max(P, d, n_res) > 64, one warp per instance
 // with its state in shared memory; csrc/solver_seg.cuh holds the kernel
-// for max(P, d, n_res) <= 64 (the bench prior, Jennrich-Sampson, SE3 pose
-// refinement up to 21 points), state in registers.
+// for max(d, n_res) <= 64 (the bench prior, Jennrich-Sampson, Powell,
+// Wood) and csrc/solver_se3.cuh the SE3 family's (pose refinement up to 21
+// points), state in registers.
 // ops/cuda_solver.k2_launch_plan picks one and its geometry.
 //
 // Replaces the TPU kernel tinyopt_tpu/ops/pallas_solver.py::_solver_kernel
@@ -466,7 +467,8 @@ int launch_warp(const SolverParams& p, const SolverIO& io, const Fam& fam,
 }
 
 // path kPathSegment: solver_seg_kernel (S lanes and E entries a lane per
-// instance, max(d, n_res) <= 64); kPathWarp: solver_kernel.  The plan's
+// instance, max(d, n_res) <= 64), or for the SE3 family solver_se3_kernel
+// (S lanes and E points a lane); kPathWarp: solver_kernel.  The plan's
 // numbers come from ops/cuda_solver.k2_launch_plan; one the kernels cannot
 // run is refused with cudaErrorInvalidValue.
 template <typename T>

@@ -1,7 +1,8 @@
-// K2's parameters, outputs and residual families, shared by its two
-// kernels: solver_kernel (csrc/solver.cu, state in shared memory, any d)
-// and solver_seg_kernel (csrc/solver_seg.cuh, state in registers,
-// max(P, d, n_res) <= 64).  A family's kManifold says whether its
+// K2's parameters, outputs and residual families, shared by its kernels:
+// solver_kernel (csrc/solver.cu, state in shared memory, any d),
+// solver_seg_kernel (csrc/solver_seg.cuh, state in registers, max(d, n_res)
+// <= 64) and the SE3 family's solver_se3_kernel (csrc/solver_se3.cuh, up to
+// 21 points).  A family's kManifold says whether its
 // parameters are Euclidean (x and the tangent both d wide, x + dx) or a
 // manifold with kP stored values, a tangent of kD and a retraction of its
 // own (the SE3 family: 7 and 6).
@@ -290,16 +291,6 @@ struct JenSamFamily {
   };
 };
 
-// The value at index i of the small array v (0 past N), by selects, so v
-// stays in registers.
-template <int N, typename T>
-__device__ __forceinline__ T pick(const T (&v)[N], int i) {
-  T r = T(0);
-#pragma unroll
-  for (int j = 0; j < N; ++j) r = i == j ? v[j] : r;
-  return r;
-}
-
 // Powell's singular function (models/problems.powell_singular_residuals),
 // 4 parameters and 4 residuals:
 //   r = (x1 + 10 x2, s5 (x3 - x4), u^2, s10 w^2),  u = x2 - 2 x3, w = x1 - x4
@@ -464,7 +455,7 @@ __device__ __forceinline__ void quat_mul(const T* a, const T* b, T* out) {
 }
 
 // R(q) as SO3.matrix builds it, row-major: the same linear map as
-// quat_apply, which the tangent products apply 2 and 8 times an iteration
+// quat_apply, which the tangent products apply
 template <typename T>
 __device__ __forceinline__ void quat_matrix(const T* q, T* R) {
   const T w = q[0], x = q[1], y = q[2], z = q[3];
@@ -518,15 +509,14 @@ __device__ __forceinline__ void se3_retract(const T* q, const T* t,
 // and the retraction se3_retract.  The kernels are not bit-equal to the
 // twin here (it differentiates the quaternion formulas with torch.func;
 // these are the closed forms of the same maps): PERF.md states the
-// tolerances they are held to.
+// tolerances they are held to.  The register kernel of the family,
+// solver_se3_kernel, reads points, targets and K and runs its own
+// products (csrc/solver_se3.cuh).
 template <typename T>
 struct SE3Family {
   const T* points;    // (B, K, 3)
   const T* targets;   // (B, K, 3)
   int K;
-  // One point a lane: its three residuals are the lane's entries.
-  static constexpr int kSegE = 3;
-  static constexpr int kMaxM = 64;
   static constexpr bool kManifold = true;
   static constexpr int kP = 7, kD = 6;
 
@@ -583,101 +573,6 @@ struct SE3Family {
   __device__ void retract(const T* x, const T* d, T* xn) const {
     se3_retract(x, x + 4, d, xn, xn + 4);
   }
-
-  // Register form (solver_seg_kernel, S >= K): lane sl holds point sl (its
-  // point, target and three residuals; 0 past K).  Every lane of the
-  // segment holds the pose and R(q), gathered by shuffles from the
-  // parameter layout (entry i on lane i % S, slot i / S) when the kernel
-  // linearizes; residual, jvp and vjp use that pose.
-  template <int S, int E>
-  struct Lanes {
-    static_assert(E == 3, "one point a lane: its three residuals");
-    T p[3], qh[3];
-    T q[4], t[3], R[9];
-    int sl;
-    bool has_;   // the lane holds a point (sl < K)
-
-    // entry i of a vector in the parameter / tangent layout
-    template <int I>
-    __device__ __forceinline__ static T entry(const T (&v)[E]) {
-      if constexpr (I / S < E)
-        return __shfl_sync(kFullMask, v[I / S], I % S, S);
-      else
-        return T(0);   // no plan takes a segment this narrow
-    }
-    __device__ __forceinline__ void start(const SE3Family& f, int b, int sl_) {
-      sl = sl_;
-      const bool has = sl < f.K;
-      const size_t o = ((size_t)b * f.K + (has ? sl : f.K - 1)) * 3;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const T pv = f.points[o + c], tv = f.targets[o + c];
-        p[c] = has ? pv : T(0);
-        qh[c] = has ? tv : T(0);
-      }
-      has_ = has;
-    }
-    __device__ __forceinline__ void linearize(const T (&x)[E]) {
-      q[0] = entry<0>(x);
-      q[1] = entry<1>(x);
-      q[2] = entry<2>(x);
-      q[3] = entry<3>(x);
-      t[0] = entry<4>(x);
-      t[1] = entry<5>(x);
-      t[2] = entry<6>(x);
-      quat_matrix(q, R);
-    }
-    __device__ __forceinline__ void residual(const T (&)[E], T (&r)[E]) const {
-      T a[3];
-      quat_apply(q, p, a);
-#pragma unroll
-      for (int c = 0; c < 3; ++c) r[c] = has_ ? (a[c] + t[c]) - qh[c] : T(0);
-    }
-    __device__ __forceinline__ void jvp(const T (&)[E], const T (&v)[E],
-                                        T (&out)[E]) const {
-      const T d[6] = {entry<0>(v), entry<1>(v), entry<2>(v),
-                      entry<3>(v), entry<4>(v), entry<5>(v)};
-      T u[3];
-      cross3(d + 3, p, u);
-#pragma unroll
-      for (int c = 0; c < 3; ++c) u[c] = d[c] + u[c];
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const T o = (R[3 * c] * u[0] + R[3 * c + 1] * u[1]) + R[3 * c + 2] * u[2];
-        out[c] = has_ ? o : T(0);
-      }
-    }
-    __device__ __forceinline__ void vjp(const T (&)[E], const T (&u)[E],
-                                        T (&out)[E]) const {
-      T s[6];
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        s[c] = (R[c] * u[0] + R[3 + c] * u[1]) + R[6 + c] * u[2];
-      cross3(p, s, s + 3);
-#pragma unroll
-      for (int off = S / 2; off > 0; off >>= 1) {
-        T o[6];
-#pragma unroll
-        for (int c = 0; c < 6; ++c) o[c] = __shfl_xor_sync(kFullMask, s[c], off);
-#pragma unroll
-        for (int c = 0; c < 6; ++c) s[c] += o[c];
-      }
-#pragma unroll
-      for (int k = 0; k < E; ++k) out[k] = pick<6>(s, sl + k * S);
-    }
-    // xn = xb (+) d in the parameter layout, every lane of the segment
-    __device__ __forceinline__ void retract(const T (&xb)[E], const T (&d)[E],
-                                            T (&xn)[E]) const {
-      const T xv[7] = {entry<0>(xb), entry<1>(xb), entry<2>(xb), entry<3>(xb),
-                       entry<4>(xb), entry<5>(xb), entry<6>(xb)};
-      const T dv[6] = {entry<0>(d), entry<1>(d), entry<2>(d),
-                       entry<3>(d), entry<4>(d), entry<5>(d)};
-      T nv[7];
-      se3_retract(xv, xv + 4, dv, nv, nv + 4);
-#pragma unroll
-      for (int k = 0; k < E; ++k) xn[k] = pick<7>(nv, sl + k * S);
-    }
-  };
 };
 
 // Values of the flat parameters x of an instance: d for a Euclidean family,

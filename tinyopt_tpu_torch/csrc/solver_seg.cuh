@@ -1,5 +1,6 @@
-// K2 for max(P, d, n_res) <= 64: solver_seg_kernel, the whole GN / LM /
-// DogLeg solve with every per-instance value in registers.
+// K2 for max(d, n_res) <= 64: solver_seg_kernel, the whole GN / LM /
+// DogLeg solve with every per-instance value in registers (the SE3 family
+// has a register kernel of its own, csrc/solver_se3.cuh).
 //
 // Same function as solver_kernel (csrc/solver.cu) and its twin
 // ops/cuda_solver.fused_solve_plain: the same per-instance stop reason,
@@ -64,15 +65,6 @@
 // lane the rows come zeroed from the wrapper instead, one coalesced memset:
 // a lane writing its own row's tail value by value, 32 rows apart across
 // the warp, took most of a short call, PERF.md).
-//
-// A manifold family (Fam::kManifold, the SE3 family) holds x as P stored
-// values in the same entry layout (entry i on lane i % S, slot i / S) and
-// its tangent vectors as D entries; the kernel calls its linearize(x) at
-// the top of each iteration, and applies a step by its retraction, which
-// shuffles inside the segment, so every lane of the warp runs it (after
-// the per-segment accept logic) and a segment keeps the result where its
-// instance is active.  The Euclidean families compile to the code they
-// had: x + dx, no such calls.
 #pragma once
 
 #include <cstddef>
@@ -414,7 +406,6 @@ solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
     const bool act = b < B && it < p.max_iters_total;
 
     // ---- linearize at x: g, diag(H), and this lane's part of r'r ----
-    if constexpr (Fam::kManifold) fl.linearize(x);
     T e_part;
     {
       T r[E], rr[E];
@@ -545,7 +536,6 @@ solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
     }
     const bool g_ok = seg_all<S>(g_fin, bits);
 
-    bool m_roll = false, m_apply = false, m_success = false;
     if (act) {
       T err = e_part;
       if (!p.use_squared_norm) err = sqrt(err);
@@ -638,43 +628,18 @@ solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
       const bool roll = !success && has_last;
       const bool apply = (success || probe) && cascade == kNone &&
                          it + 1 < p.max_iters_total;
-      if constexpr (Fam::kManifold) {
-        m_roll = roll;
-        m_apply = apply;
-        m_success = success;
-      } else {
 #pragma unroll
-        for (int k = 0; k < E; ++k) {
-          const T xb = roll ? best_x[k] : x[k];
-          const T xn = xb + (apply ? dx[k] : T(0));
-          if (success) best_x[k] = x[k];
-          x[k] = xn;
-        }
+      for (int k = 0; k < E; ++k) {
+        const T xb = roll ? best_x[k] : x[k];
+        const T xn = xb + (apply ? dx[k] : T(0));
+        if (success) best_x[k] = x[k];
+        x[k] = xn;
       }
       has_last = success ? 1 : (has_last ? 0 : (probe ? 1 : 0));
       ++it;
       nfail = nfail_new;
       nconsec = nconsec_new;
       stop = stop_new;
-    }
-    if constexpr (Fam::kManifold) {
-      // x (+) dx from the rollback point, dx = 0 where no step applies (the
-      // twin retracts every instance so); every lane of the warp runs the
-      // retraction, a segment keeps it where its instance is active
-      T xb[E], dd[E], xn[E];
-#pragma unroll
-      for (int k = 0; k < E; ++k) {
-        xb[k] = m_roll ? best_x[k] : x[k];
-        dd[k] = m_apply ? dx[k] : T(0);
-      }
-      fl.retract(xb, dd, xn);
-      if (act) {
-#pragma unroll
-        for (int k = 0; k < E; ++k) {
-          if (m_success) best_x[k] = x[k];
-          x[k] = xn[k];
-        }
-      }
     }
 
     // ---- a stopped instance is written out; its segment starts the next ----
@@ -760,16 +725,23 @@ int launch_seg_family(const SolverParams& p, const SolverIO& io,
   return (int)cudaGetLastError();
 }
 
+// The SE3 family's register kernel (csrc/solver_se3.cuh): S lanes and NP
+// points a lane an instance.
+template <typename T, bool kDogLeg, bool kHist>
+int launch_se3(const SolverParams& p, const SolverIO& io, int B, int S,
+               int NP, int warps, int grid, cudaStream_t stream);
+
 // The register kernels of one type, solver kind (kDogLeg: the dogleg, else
 // GN / LM) and history (kHist); each combination is compiled in a
-// translation unit of its own (csrc/solver_seg*_f32.cu, *_f64.cu).
+// translation unit of its own (csrc/solver_seg*_f32.cu, *_f64.cu), the SE3
+// family's kernels with them (E is its points a lane there).
 template <typename T, bool kDogLeg, bool kHist>
 int launch_segment(const SolverParams& p, const SolverIO& io,
                    const ColorTables& tables, int B, int S, int E, int warps,
                    int grid, cudaStream_t stream) {
-  const int P = p.family == kSE3 ? SE3Family<T>::kP : p.d;
-  const int dm = P > p.d ? P : p.d;
-  const int m = dm > p.n_res ? dm : p.n_res;
+  if (p.family == kSE3)
+    return launch_se3<T, kDogLeg, kHist>(p, io, B, S, E, warps, grid, stream);
+  const int m = p.d > p.n_res ? p.d : p.n_res;
   if (S < 1 || S > 32 || (S & (S - 1)) || E < 1 || S * E < m || m > 64 ||
       warps < 1 || warps * 32 > kSegMaxThreads ||
       (long long)grid * warps * (32 / S) < B ||
@@ -789,12 +761,6 @@ int launch_segment(const SolverParams& p, const SolverIO& io,
   if (p.family == kJennrichSampson && col == kColorNone) {
     JenSamFamily<T> fam{p.fam_m};
     return launch_seg_family<T, JenSamFamily<T>, kColorNone, kDogLeg, kHist>(
-        p, io, fam, tables, B, S, E, warps, grid, stream);
-  }
-  if (p.family == kSE3 && col == kColorNone) {
-    SE3Family<T> fam{static_cast<const T*>(io.data0),
-                     static_cast<const T*>(io.data1), p.fam_m};
-    return launch_seg_family<T, SE3Family<T>, kColorNone, kDogLeg, kHist>(
         p, io, fam, tables, B, S, E, warps, grid, stream);
   }
   if (p.family == kPowell && col != kColorIdentity) {

@@ -79,13 +79,20 @@ _MAX_SMEM = 232448
 _DEFAULT_SMEM = 48 * 1024
 #: K2's register kernel covers max(d, n_res) up to this.
 SEG_MAX = 64
+#: K2's residual families (``enum Family``, csrc/solver.cuh).
+FAMILY_IDS = (0, 1, 2, 3, 4)
+#: Points a lane of the SE3 family's register kernel serves, by itemsize
+#: (csrc/solver_se3.cuh, ``se3_points``): a segment is the least power of
+#: two of lanes, from 1, that holds the K points, and each of its lanes
+#: holds the whole pose-side state.
+SE3_POINTS = {4: 4, 8: 8}
 #: Entries of each vector a lane of the register kernel holds, by family
 #: (``kSegE`` of the family in csrc/solver.cuh): a segment is the least
 #: power of two of lanes, 2 to 32, that holds max(d, n_res) — or one lane,
 #: one instance a thread, for a family of fixed shape (``FIXED_SHAPES``,
 #: whose E holds all of max(d, n_res); csrc/solver_seg.cuh's
-#: ``min_segment``).
-SEG_E = {0: 4, 1: 2, 2: 3, 3: 4, 4: 6}
+#: ``min_segment``).  The SE3 family's E is ``SE3_POINTS``.
+SEG_E = {0: 4, 1: 2, 3: 4, 4: 6}
 #: The colorings K2's register kernel is built for, by family (the
 #: ``launch_segment`` dispatch in csrc/solver_seg.cuh): "identity" (one
 #: probe, closed form), "multi" (Curtis–Powell–Reid probes) or ``None``
@@ -136,7 +143,7 @@ def register_family(residual_fn, family: int, accepts=None) -> None:
     family ``family`` (an id of ``enum Family``, csrc/solver.cuh), on the
     instances for which ``accepts(x_example, spec, data_example)`` holds
     (every instance when ``None``)."""
-    if family not in SEG_E:
+    if family not in FAMILY_IDS:
         raise ValueError(f"register_family: K2 has no family {family}")
     FAMILIES[residual_fn] = Family(family, accepts)
 
@@ -218,9 +225,10 @@ class K2Plan(NamedTuple):
 
     ``path``: "segment" (``solver_seg_kernel``, csrc/solver_seg.cuh: S lanes
     an instance — one for Powell's and Wood's families —, E entries of
-    every vector a lane, all state in registers;
-    a persistent grid, so the entry point launches at most as many blocks
-    as fit the card) or "warp" (``solver_kernel``, csrc/solver.cu: one warp
+    every vector a lane, all state in registers; for the SE3 family
+    ``solver_se3_kernel``, csrc/solver_se3.cuh: S lanes, E points a lane,
+    the pose-side state whole in each lane; a persistent grid, so the
+    entry point launches at most as many blocks as fit the card) or "warp" (``solver_kernel``, csrc/solver.cu: one warp
     an instance, state in ``smem_bytes`` of shared memory a block; S = 32).
     ``warps`` a block; ``grid``: the blocks that give every instance a
     segment or a warp of its own."""
@@ -242,7 +250,7 @@ def k2_supports(family: int, d: int, n_res: int, coloring: str | None,
     kernel (the warp kernel has no multi-color branch, ROADMAP Queue 2,
     K2-a).  An id that is no family of K2's raises."""
     P = d if P is None else P
-    if family not in SEG_E:
+    if family not in FAMILY_IDS:
         raise ValueError(f"k2_supports: unknown residual family {family}")
     if coloring not in SEG_COLORINGS[family]:
         return False
@@ -271,7 +279,11 @@ def k2_launch_plan(B: int, d: int, n_res: int, itemsize: int, family: int,
     entries a lane, on segments of S = the least power of two (2 to 32)
     with S·E ≥ max(P, D, n_res), for every solver, 4 warps a block; a
     family of fixed shape (Powell's, Wood's) runs one instance a thread
-    (S = 1, E = max(d, n_res)), one warp a block.  Larger shapes take the
+    (S = 1, E = max(d, n_res)), one warp a block; the SE3 family (K ≤ 21
+    points) E = ``SE3_POINTS[itemsize]`` points a lane on the least power
+    of two of lanes S (from 1) with S·E ≥ K, one warp a block at S = 1,
+    else 4.
+    Larger shapes take the
     warp kernel, with up to 4 warps a block while their shared memory fits
     48 KB; it has no multi-color branch (ROADMAP Queue 2, K2-a)."""
     P = d if P is None else P
@@ -285,8 +297,11 @@ def k2_launch_plan(B: int, d: int, n_res: int, itemsize: int, family: int,
                          f"with coloring {coloring!r}")
     m = max(P, d, n_res)
     if m <= SEG_MAX:
-        E = SEG_E[family]
-        S = 1 if family in FIXED_SHAPES else 2
+        if family == 2:
+            E, S, m = SE3_POINTS[itemsize], 1, n_res // 3   # E points a lane
+        else:
+            E = SEG_E[family]
+            S = 1 if family in FIXED_SHAPES else 2
         while S * E < m:
             S *= 2
         per_warp = 32 // S
@@ -629,6 +644,50 @@ def fused_solve_plain(residual_fn, opts: Options, x0: torch.Tensor, data,
         successes=succ, num_hist=num_hist, final_lambda=lm.lam)
 
 
+def se3_gram_plain(points: torch.Tensor, q: torch.Tensor | None = None):
+    """H = JᵀJ (..., 6, 6) of the SE3 family's residual r_k = R p_k + t −
+    q̂_k at a pose, for points (..., K, 3), where J_k = R [I, −[p_k]×] is
+    the tangent Jacobian through the right retraction (tangent ρ, ω).
+
+    With ``q`` ``None``, RᵀR = I and H is what K2's SE3 kernel builds
+    once an instance (csrc/solver_se3.cuh): [[K·I, −[c]×], [[c]×, tr(M)·I
+    − M]], c = Σ p_k, M = Σ p_k p_kᵀ, formed as the kernel forms it, Aᵀ
+    diag(K·I, tr(C)·I − C) A with the centroid c̄ = c / K, the centred
+    scatter C = Σ (p_k − c̄)(p_k − c̄)ᵀ and A = [[I, −[c̄]×], [0, I]].
+    With a quaternion ``q`` (..., 4),
+    wxyz, H = Σ A_kᵀ RᵀR A_k, A_k = [I, −[p_k]×], R = R(q) as SO3.matrix
+    builds it: the same sum where the stored quaternion is off unit norm.
+    A plain version for the tests."""
+    K = points.shape[-2]
+    eye = torch.eye(3, dtype=points.dtype, device=points.device)
+
+    def skew(v):
+        z = torch.zeros_like(v[..., 0])
+        return torch.stack([torch.stack([z, -v[..., 2], v[..., 1]], -1),
+                            torch.stack([v[..., 2], z, -v[..., 0]], -1),
+                            torch.stack([-v[..., 1], v[..., 0], z], -1)], -2)
+
+    if q is None:
+        cb = points.mean(-2)
+        e = points - cb[..., None, :]
+        C = torch.einsum("...ki,...kj->...ij", e, e)
+        tr = torch.diagonal(C, dim1=-2, dim2=-1).sum(-1)
+        # Aᵀ diag(K·I, tr(C)·I − C) A block by block, symmetric as formed
+        n2 = (cb * cb).sum(-1)
+        ww = K * (n2[..., None, None] * eye
+                  - cb[..., :, None] * cb[..., None, :])
+        top = torch.cat([K * eye.expand(C.shape), -K * skew(cb)], -1)
+        bot = torch.cat([K * skew(cb), ww + (tr[..., None, None] * eye - C)],
+                        -1)
+        return torch.cat([top, bot], -2)
+    from ..manifolds import SO3
+    R = SO3(q).matrix()
+    A = torch.cat([eye.expand(points.shape[:-1] + (3, 3)), -skew(points)],
+                  -1)
+    return torch.einsum("...kia,...ij,...kjb->...ab", A,
+                        R.transpose(-1, -2) @ R, A)
+
+
 def _kernel_outputs(B: int, P: int, d: int, cap: int, dtype, dev,
                     zero_history: bool = False):
     """Every tensor K2 writes, as disjoint views of two new buffers: one of
@@ -637,9 +696,9 @@ def _kernel_outputs(B: int, P: int, d: int, cap: int, dtype, dev,
     counters, then the float32 inlier ratio and duration in the next 2·B
     entries, then the (B, cap) bool successes in the bytes after them).
     The kernel writes every entry, history slots past ``num_hist`` as 0 /
-    False — unless ``zero_history``: the one-lane instances (S = 1) write
-    only the slots they fill, and the rows are zeroed here, one coalesced
-    memset each buffer.  Returns (x, Output, the SolverIO output
+    False — unless ``zero_history``: the one-lane instances (S = 1) of
+    ``solver_seg_kernel`` write only the slots they fill, and the rows are
+    zeroed here, one coalesced memset each buffer.  Returns (x, Output, the SolverIO output
     pointers)."""
     f = torch.empty(B * (P + d + 3 + 2 * cap), dtype=dtype, device=dev)
     i = torch.empty(8 * B + -(-B * cap // 4), dtype=_I32, device=dev)
@@ -727,8 +786,9 @@ def fused_solve_cuda(family: int, opts: Options, x0: torch.Tensor, data,
     if params.d != d or params.family != family:
         raise ValueError(f"K2: parameters for d = {params.d}, family "
                          f"{params.family}; got d = {d}, family {family}")
+    se3 = family == 2 and kp.path == "segment"
     x_out, out, ptrs = _kernel_outputs(B, P, d, params.cap, dtype, dev,
-                                       zero_history=kp.S == 1)
+                                       zero_history=kp.S == 1 and not se3)
     io = _build.SolverIO(x0=x0.data_ptr(), data0=data_ptrs[0],
                          data1=data_ptrs[1], **ptrs)
     lib = _build.load()
@@ -740,7 +800,9 @@ def fused_solve_cuda(family: int, opts: Options, x0: torch.Tensor, data,
                  kp.smem_bytes, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "K2 solver kernel")
     fused_solve.launches += 1
-    if kp.S == 1:
+    if se3:
+        fused_solve.se3_launches += 1
+    elif kp.S == 1:
         fused_solve.lane_launches += 1
     return x_out, out
 
@@ -764,10 +826,11 @@ def fused_solve(residual_fn, opts: Options, x0: torch.Tensor, data,
 
 
 #: Number of K2 launches in this process, and of those the one-lane
-#: instances' (S = 1: Powell's and Wood's families; reset freely by
-#: callers).
+#: instances' (S = 1: Powell's and Wood's families) and the SE3 family's
+#: register kernel's (``solver_se3_kernel``); reset freely by callers.
 fused_solve.launches = 0
 fused_solve.lane_launches = 0
+fused_solve.se3_launches = 0
 
 
 def fused_batched_solver(residual_fn, options: Options, x_example,
