@@ -11,7 +11,8 @@ for GN / LM, the dogleg and the history, also at the edges of its launch
 plans, printed per shape, and beside an instance whose data is NaN;
 K2's SE3 family, the retraction branch (its register kernel, H from the
 points), at 10k x 16 in float32 and float64 with LM and the dogleg, at
-K = 24 (the warp kernel), small batches and beside a NaN instance; K2's
+K = 24 (the warp kernel, timed at 10k x 24 with LM), small batches and
+beside a NaN instance; K2's
 multi-color branch, Curtis-Powell-Reid probes, one instance a thread, on
 Powell's singular function and
 Wood's at 10,000 perturbed standard starts, float32 and float64, LM and
@@ -38,13 +39,20 @@ cameras x 5,000 landmarks through schur_optimize with LM, the dogleg,
 refinement and the PCG reduced solve, the card against the CPU port in
 float64, and 1,000 small problems through the batched Schur system and
 the dense loop with "cholesky" and "cg" (K1 at (1000, 96, 96)) (phase
-16) — each with the launch counts set to 0 just before it and
+16); the chain solver — bench_pose_graph's 5,000 poses + 100 loop
+closures in float32 by cyclic reduction, a 200-pose float64 graph on the
+card against the CPU port's scan, ms an LM iteration, one solve by each
+method, the marginals, and launches an iteration and the busy share
+under torch.profiler (phase 17, ``[chain]`` lines) — each with the
+launch counts set to 0 just before it and
 read just after, and checks what comes out (the flagship's poses against
 the true ones, the curves' costs against float64 solves and their fits
 against the true curve, the sparse paths against x = 0.2, the dense
 solve, each other and the CPU port, ICP poses against the true ones and
 the CPU port's, the BA's reprojection RMSE against bench_ba's criterion
-and the Schur solves against the dense ones and the CPU port's).  Every
+and the Schur solves against the dense ones and the CPU port's, the pose
+graph's cost against bench_pose_graph's chi^2 criterion and the card's
+chain solves and marginals against the CPU port's).  Every
 phase that fails raises, so the script
 exits non-zero; without a CUDA device it exits non-zero before printing
 any result.
@@ -167,6 +175,7 @@ SE3_MIN_FLOPS = dict(point_once=15, instance_once=190, residual=27, grad=15,
                      dogleg=110)
 SE3_K = 16                     # points an instance: the flagship's
 SE3_CELL = "10k x 16"
+SE3_WARP_K = 24                # points: past 21, K2's warp kernel
 
 
 def se3_options(to, solver="fused", **kw):
@@ -260,6 +269,20 @@ def timed(fn):
     e1.record()
     torch.cuda.synchronize()
     return out, e0.elapsed_time(e1)
+
+
+class PathLaunches(dict):
+    """Launch counts by path.  Each record also takes K2's warp-kernel
+    count (``fused_solve.warp_launches``, set to 0 with the others before
+    the path runs), read when the record is made."""
+
+    def __init__(self, cuda_solver):
+        super().__init__()
+        self.k2 = cuda_solver.fused_solve
+
+    def __setitem__(self, key, counts):
+        super().__setitem__(key, {**counts,
+                                  "K2 warp": self.k2.warp_launches})
 
 
 def mc_check(ref, got, what):
@@ -491,6 +514,7 @@ def phase8(to, dev, record, path_launches, cuda_cg, cuda_solver):
         key = f"fo_mlp_{name}"
         cuda_cg.cg_solve.launches = 0
         cuda_solver.fused_solve.launches = 0
+        cuda_solver.fused_solve.warp_launches = 0
         (p, out), ms = timed(lambda: to.batched_optimize(
             p0, mse, opts, data_batch=y, mode="cost"))
         n = path_launches[key] = {"K1": cuda_cg.cg_solve.launches,
@@ -568,6 +592,7 @@ def phase8(to, dev, record, path_launches, cuda_cg, cuda_solver):
         key = f"fo_prior_{name}"
         cuda_cg.cg_solve.launches = 0
         cuda_solver.fused_solve.launches = 0
+        cuda_solver.fused_solve.warp_launches = 0
         (x, out), ms = timed(lambda: to.batched_optimize(
             x0, prior_cost, opts, data_batch=data, mode="cost"))
         n = path_launches[key] = {"K1": cuda_cg.cg_solve.launches,
@@ -626,6 +651,7 @@ def phase9(to, dev, record, path_launches, cuda_cg, cuda_solver):
 
         cuda_cg.cg_solve.launches = 0
         cuda_solver.fused_solve.launches = 0
+        cuda_solver.fused_solve.warp_launches = 0
         x, out, _ = seg.run(x0, data, on_segment=round_trip_once)
         torch.cuda.synchronize()
         n = path_launches["segments_cg"] = {
@@ -702,6 +728,7 @@ def phase10(to, dev, record, path_launches, cuda_cg, cuda_solver):
         solver="cholesky", save_last=True, carry_system=True))
     cuda_cg.cg_solve.launches = 0
     cuda_solver.fused_solve.launches = 0
+    cuda_solver.fused_solve.warp_launches = 0
     xc, outc = to.batched_optimize(sx0, se3_residual, chol, data_batch=sdata)
     torch.cuda.synchronize()
     path_launches["cov_cholesky"] = {"K1": cuda_cg.cg_solve.launches,
@@ -710,6 +737,7 @@ def phase10(to, dev, record, path_launches, cuda_cg, cuda_solver):
     C, cov_ms = timed(lambda: outc.covariance())
     cuda_cg.cg_solve.launches = 0
     cuda_solver.fused_solve.launches = 0
+    cuda_solver.fused_solve.warp_launches = 0
     xf, outf = to.batched_optimize(sx0, se3_residual, se3_options(to),
                                    data_batch=sdata)
     torch.cuda.synchronize()
@@ -767,6 +795,7 @@ def phase11(to, dev, record, path_launches, cuda_cg, cuda_solver):
                       hessian=to.HessianOptions(solver="cg"))
     cuda_cg.cg_solve.launches = 0
     cuda_solver.fused_solve.launches = 0
+    cuda_solver.fused_solve.warp_launches = 0
     (xb, ob, outs), ms = timed(lambda: to.multi_start_optimize(
         starts, powell_singular_residuals, opts))
     n = path_launches["multi_start_cg"] = {
@@ -837,6 +866,7 @@ def phase11(to, dev, record, path_launches, cuda_cg, cuda_solver):
     grad_of(solve, dev)
     cuda_cg.cg_solve.launches = 0
     cuda_solver.fused_solve.launches = 0
+    cuda_solver.fused_solve.warp_launches = 0
     grad, ms = timed(lambda: grad_of(solve, dev))
     n = path_launches["implicit_cg"] = {
         "K1": cuda_cg.cg_solve.launches,
@@ -887,6 +917,7 @@ def phase12(to, dev, record, path_launches, cuda_cg, cuda_solver):
 
     cuda_cg.cg_solve.launches = 0
     cuda_solver.fused_solve.launches = 0
+    cuda_solver.fused_solve.warp_launches = 0
     lines, out = run(dev, opts)
     n = path_launches["log_cg"] = {"K1": cuda_cg.cg_solve.launches,
                                    "K2": cuda_solver.fused_solve.launches}
@@ -1020,6 +1051,7 @@ def phase13(to, dev, record, path_launches, cuda_cg, cuda_solver):
             x0 = starts(BATCH, d)
             cuda_cg.cg_solve.launches = 0
             cuda_solver.fused_solve.launches = 0
+            cuda_solver.fused_solve.warp_launches = 0
             x, out = solve(x0)                       # warm-up and the hold
             torch.cuda.synchronize()
             n = path_launches[key] = {"K1": cuda_cg.cg_solve.launches,
@@ -1066,6 +1098,7 @@ def phase13(to, dev, record, path_launches, cuda_cg, cuda_solver):
                 solve = sparse_solvers(to, chain_residual, x_ex, opts, path)
                 cuda_cg.cg_solve.launches = 0
                 cuda_solver.fused_solve.launches = 0
+                cuda_solver.fused_solve.warp_launches = 0
                 (x, out), ms = timed(lambda: solve(x0))
                 n = path_launches[key] = {
                     "K1": cuda_cg.cg_solve.launches,
@@ -1201,6 +1234,7 @@ def phase14(to, dev, record, path_launches, cuda_cg, cuda_solver):
         opts = icp_options(to, solver)
         cuda_cg.cg_solve.launches = 0
         cuda_solver.fused_solve.launches = 0
+        cuda_solver.fused_solve.warp_launches = 0
         (pose, out), ms = timed(lambda: icp(prob.src, prob.dst,
                                             options=opts))
         n = path_launches[key] = {"K1": cuda_cg.cg_solve.launches,
@@ -1328,6 +1362,7 @@ def phase15(to, dev, record, path_launches, cuda_cg, cuda_solver):
                                                    data_batch=prior))
     cuda_cg.cg_solve.launches = 0
     cuda_solver.fused_solve.launches = 0
+    cuda_solver.fused_solve.warp_launches = 0
     (x, out), ms = timed(lambda: to.batched_optimize(x0, res, opts,
                                                      data_batch=prior))
     n = path_launches["sen3"] = {"K1": cuda_cg.cg_solve.launches,
@@ -1437,6 +1472,7 @@ def phase16(to, dev, record, path_launches, cuda_cg, cuda_solver):
         torch.cuda.reset_peak_memory_stats()
         cuda_cg.cg_solve.launches = 0
         cuda_solver.fused_solve.launches = 0
+        cuda_solver.fused_solve.warp_launches = 0
         t0 = time.perf_counter()
         (poses, points), out = run(x0)
         rmse = reprojection_rmse({"points": points, "poses": poses},
@@ -1530,6 +1566,7 @@ def phase16(to, dev, record, path_launches, cuda_cg, cuda_solver):
     xb = mf.flatten_batch((bx0["poses"], bx0["points"]), spec)
     cuda_cg.cg_solve.launches = 0
     cuda_solver.fused_solve.launches = 0
+    cuda_solver.fused_solve.warp_launches = 0
     (x, out), ms = timed(lambda: optimize_from_acc(xb, acc, ev, opts, spec,
                                                    propose=prop))
     n = ba_launches(path_launches, "ba_batch_schur", cuda_cg, cuda_solver)
@@ -1540,6 +1577,7 @@ def phase16(to, dev, record, path_launches, cuda_cg, cuda_solver):
             opts.hessian, solver=solver))
         cuda_cg.cg_solve.launches = 0
         cuda_solver.fused_solve.launches = 0
+        cuda_solver.fused_solve.warp_launches = 0
         (xs, out), ms = timed(lambda: to.batched_optimize(
             bx0, ba_residuals, o, data_batch=bdata))
         n = ba_launches(path_launches, f"ba_batch_{solver}", cuda_cg,
@@ -1666,6 +1704,299 @@ def phase16(to, dev, record, path_launches, cuda_cg, cuda_solver):
         # phase 3's hold of K1: 1e-5 of max|x| in float32, 1e-11 in float64
         tol = 1e-5 if dtype == torch.float32 else 1e-11
         assert err <= tol * max(1.0, scale), f"K1 at {nb_dims} {dtype}"
+
+
+# ---- phase 17: the chain solver and the 5,000-pose pose graph (ROADMAP
+# Queue 1, item 15) ----
+
+# bench_pose_graph's row (benchmarks/run_benchmarks.py:394-420)
+PG_POSES, PG_LOOPS, PG_NOISE, PG_SEED = 5000, 100, 1e-3, 4
+PG_REPS = 2                  # fresh starts a max_iters value, the minimum kept
+
+
+def pg_anchor(x_n, dd):
+    """The pose-0 prior of ``models/pose_graph.pose_graph_optimize``."""
+    from tinyopt_tpu_torch.manifolds import SE3, SO3
+    q, t = dd
+    return (SE3(SO3(q), t).inverse() @ x_n).log()
+
+
+def pg_iter_options(to, iters):
+    """``benchmarks/exp_pose_graph_iter.py``'s options: exactly ``iters``
+    iterations unless a failure budget stops the solve."""
+    return to.Options(max_iters=iters, min_error=0.0, min_step_norm2=0.0,
+                      min_grad_norm2=0.0, min_rerr_dec=0.0,
+                      hessian=to.HessianOptions(save_last=False))
+
+
+def phase17(to, dev, record, path_launches, cuda_cg, cuda_solver):
+    """The chain solver (``chain.py`` over ``ops/tridiag.py``; no TPU kernel
+    on the path, so neither K1 nor K2 may launch).  17a: bench_pose_graph's
+    5,000 poses + 100 loop closures, float32, cyclic reduction ("auto" on
+    the card), a success stop at cost <= 3 x DOF x sigma^2 (the bench's
+    gate).  17b: a 200-pose /
+    10-loop graph in float64, the card (cyclic reduction) against the CPU
+    port (the scan), solve and marginals.  17c: ms an LM iteration by
+    exp_pose_graph_iter.py's marginal protocol (max_iters 15 against 5,
+    fresh starts); one solve of the 5,000-pose system with its 1 + m
+    right-hand sides by each method; the marginals at 5,000 poses; kernel
+    launches an iteration and the device-busy share under torch.profiler
+    (counted as profile_main.py counts them).  Every line names the card
+    and its power limit."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils import _pytree as pytree
+    from profile_main import union_us
+    from tinyopt_tpu_torch import manifold as mf
+    from tinyopt_tpu_torch.chain import chain_system
+    from tinyopt_tpu_torch.manifolds import SE3
+    from tinyopt_tpu_torch.models.pose_graph import (
+        make_pose_graph, pose_graph_edge_fn, pose_graph_marginals,
+        pose_graph_optimize)
+    from tinyopt_tpu_torch.ops import tridiag
+    # the chain's conditioning grows like N^2: float32 products must be
+    # exact (the JAX package pins them to HIGHEST for the same reason)
+    assert not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off"
+    smi = record["nvidia_smi"]
+    rec = record["chain"] = {"card": smi}
+
+    def reset():
+        cuda_cg.cg_solve.launches = 0
+        cuda_solver.fused_solve.launches = 0
+        cuda_solver.fused_solve.warp_launches = 0
+        for k in tridiag.SOLVES:
+            tridiag.SOLVES[k] = 0
+
+    def shifted(x, s):
+        """Poses with every translation moved by ``s`` (a fresh start)."""
+        return SE3(x.rotation, x.translation + s)
+
+    # ---- 17a: the reference's row, float32, by cyclic reduction ----
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    data, x0, _ = make_pose_graph(PG_POSES, PG_LOOPS, noise=PG_NOISE,
+                                  init_noise=0.05, dtype=torch.float32,
+                                  seed=PG_SEED, device=dev)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    E = int(data.edges.shape[0])
+    m = 6 * (E - (PG_POSES - 1))
+    dof = 6 * E + 6 - 6 * PG_POSES
+    crit = 3.0 * max(dof, 1) * PG_NOISE ** 2
+    opts = to.Options(hessian=to.HessianOptions(save_last=False)
+                      ).for_dtype(torch.float32)
+    pose_graph_optimize(shifted(x0, 1e-5), data, opts)   # warm-up, untimed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    x, out = pose_graph_optimize(x0, data, opts)
+    cost = out.final_cost.cost.item()
+    wall = time.perf_counter() - t0
+    n = path_launches["pose_graph_cr"] = {
+        "K1": cuda_cg.cg_solve.launches,
+        "K2": cuda_solver.fused_solve.launches}
+    solves = dict(tridiag.SOLVES)
+    iters = int(out.num_iters)
+    rec["solve"] = {
+        "poses": PG_POSES, "edges": E, "m": m, "dims": 6 * PG_POSES,
+        "generate_s": gen_s, "wall_s": wall, "iters": iters,
+        "ms_per_iter_wall": wall * 1e3 / max(iters, 1), "cost": cost,
+        "criterion": crit, "stop": int(out.stop_reason),
+        "converged": bool(out.converged()), "solves": solves,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": n}
+    log(f"[chain] {PG_POSES} poses + {E - PG_POSES + 1} loops ({6 * PG_POSES}"
+        f" dims, m = {m}) float32, LM by {solves}: cost {cost:.4e} "
+        f"(criterion 3 x DOF x sigma^2 = {crit:.4e}), {iters} iterations, "
+        f"stop {int(out.stop_reason)}, {wall:.3f} s ({wall * 1e3 / iters:.1f}"
+        f" ms an iteration, wall), peak {rec['solve']['peak_gb']:.2f} GB, "
+        f"graph built in {gen_s:.2f} s; launches {n} | {smi}")
+    # bench_pose_graph's gate: a success stop at the chi^2 floor (in
+    # float32 the step / relative-decrease floors rarely fire there, so the
+    # solve may end MAX_CONSEC_NO_DECR, a success, as the JAX package's
+    # float32 solve of the 500-pose graph does on the CPU)
+    assert bool(out.succeeded()), f"pose graph: stop {int(out.stop_reason)}"
+    assert cost <= crit, f"pose graph: cost {cost} above {crit}"
+    assert solves["cr"] > 0 and solves["scan"] == 0, solves
+    assert n == {"K1": 0, "K2": 0}, f"pose graph: launches {n}"
+    assert all(bool(torch.isfinite(a).all()) for a in pytree.tree_leaves(x))
+
+    # ---- 17b: the card (cyclic reduction) against the CPU port (the
+    # scan), float64, solve and marginals ----
+    rec["a_s"] = time.perf_counter() - t_phase
+    t_b = time.perf_counter()
+    d_cpu, x_cpu, _ = make_pose_graph(200, 10, noise=PG_NOISE,
+                                      init_noise=0.05, seed=PG_SEED,
+                                      device="cpu")
+    opts64 = to.Options(hessian=to.HessianOptions(save_last=False))
+    got = []
+    for where in (dev, "cpu"):
+        reset()
+        dd = pytree.tree_map(lambda a: a.to(where), d_cpu)
+        xx, oo = pose_graph_optimize(
+            pytree.tree_map(lambda a: a.to(where), x_cpu), dd, opts64)
+        got.append((xx, oo, dict(tridiag.SOLVES),
+                    pose_graph_marginals(xx, dd).cpu()))
+    (xg, og, sg, mg), (xc, oc, sc, mc) = got
+    x_gap = max((a.cpu() - b).abs().max().item()
+                for a, b in zip(pytree.tree_leaves(xg),
+                                pytree.tree_leaves(xc)))
+    marg_gap = ((mg - mc).abs().max() / mc.abs().max()).item()
+    rec["f64_vs_cpu"] = {
+        "stop": [int(og.stop_reason), int(oc.stop_reason)],
+        "iters": [int(og.num_iters), int(oc.num_iters)],
+        "solves": [sg, sc], "x_max_abs_gap": x_gap,
+        "marginals_rel_gap": marg_gap}
+    log(f"[chain] 200 poses + 10 loops float64: card {sg} / CPU {sc}, stop "
+        f"{rec['f64_vs_cpu']['stop']}, iterations "
+        f"{rec['f64_vs_cpu']['iters']}, max |x_card - x_cpu| {x_gap:.3e}, "
+        f"marginals relative gap {marg_gap:.3e} | {smi}")
+    assert sg["cr"] > 0 and sg["scan"] == 0, sg
+    assert sc["scan"] > 0 and sc["cr"] == 0, sc
+    assert int(og.stop_reason) == int(oc.stop_reason), "200-pose stop"
+    assert abs(int(og.num_iters) - int(oc.num_iters)) <= 1, "200-pose iters"
+    assert x_gap <= 1e-9, f"200-pose x gap {x_gap}"
+    assert marg_gap <= 1e-9, f"200-pose marginals gap {marg_gap}"
+
+    rec["b_s"] = time.perf_counter() - t_b
+
+    # ---- 17c: times ----
+    # ms an LM iteration: max_iters 15 against 5, fresh starts each rep
+    t_iter = time.perf_counter()
+    walls, runs = {}, {}
+    for it in (5, 15):
+        o = pg_iter_options(to, it)
+        pose_graph_optimize(shifted(x0, 1e-6), data, o)     # warm-up
+        torch.cuda.synchronize()
+        ws = []
+        for r in range(PG_REPS):
+            xr = shifted(x0, 1e-6 * (r + 2))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, o_r = pose_graph_optimize(xr, data, o)
+            o_r.final_cost.cost.item()
+            ws.append(time.perf_counter() - t0)
+        walls[it], runs[it] = ws, int(o_r.num_iters)
+    d_it = runs[15] - runs[5]
+    per_iter = (min(walls[15]) - min(walls[5])) * 1e3 / max(d_it, 1)
+    rec["iteration"] = {"walls_s": walls, "iters": runs,
+                        "ms_per_iter": per_iter,
+                        "protocol_s": time.perf_counter() - t_iter}
+    log(f"[chain] {PG_POSES} poses float32 ms an LM iteration (marginal, "
+        f"max_iters 15 against 5, min of {PG_REPS} fresh starts): "
+        f"{per_iter:.2f} ms ({runs} iterations, walls {walls} s) | {smi}")
+    assert d_it > 0, f"the marginal protocol ran {runs} iterations"
+
+    # one solve of the system at x0 with its 1 + m right-hand sides, each
+    # method: tridiagonal solve and Woodbury capacitance, damped as LM's
+    # first proposal damps it (the undamped float32 system at x0 is too
+    # ill-conditioned for a float32 solve to mean anything: its relative
+    # residual was 0.35 by either method)
+    t_solve = time.perf_counter()
+    spec = mf.tangent_spec(x0)
+    acc, _, _, _ = chain_system(
+        x0, pose_graph_edge_fn, data.edges, (data.meas_q[None],
+                                             data.meas_t[None]),
+        pg_anchor, [0], (data.anchor_q[None, None],
+                         data.anchor_t[None, None]), spec)
+    H, g, _ = acc(mf.flatten_batch(pytree.tree_map(lambda a: a[None], x0),
+                                   spec))
+    rhs = -g.reshape(1, PG_POSES, 6)
+    lam = opts.lm.damping_init
+    Dd = H.D + torch.diag_embed(lam * torch.where(
+        H.diag == 0, torch.ones_like(H.diag), H.diag))
+    Hd = dataclasses.replace(H, D=Dd, diag=(1 + lam) * H.diag)
+    sol = {}
+    for how, reps in (("cr", 3), ("scan", 1)):
+        def solve():
+            return tridiag.tridiag_woodbury_solve(Dd, H.B, H.U, rhs,
+                                                  method=how)
+        if how == "cr":
+            solve()                                      # warm-up
+        ms = []
+        for _ in range(reps):
+            (dx, ok), t = timed(solve)
+            ms.append(t)
+        resid = (Hd.matvec(dx.reshape(1, -1)) - rhs.reshape(1, -1)).norm() \
+            / rhs.norm()
+        sol[how] = dx
+        rec[f"solve_{how}"] = {"ms": ms, "ok": bool(ok.all()),
+                               "rel_residual": resid.item(),
+                               "rhs": 1 + H.U.shape[-1]}
+        log(f"[chain] one {how} solve of the {PG_POSES}-pose system, "
+            f"{1 + H.U.shape[-1]} right-hand sides, float32, LM-damped "
+            f"(lambda {lam}): ms {ms}, |H_lam dx + g| / |g| = "
+            f"{resid.item():.3e} | {smi}")
+        assert bool(ok.all()) and bool(torch.isfinite(dx).all()), how
+    gap = ((sol["cr"] - sol["scan"]).norm() / sol["scan"].norm()).item()
+    rec["solve_cr_vs_scan_rel_gap"] = gap
+    rec["solve_s"] = time.perf_counter() - t_solve
+    log(f"[chain] |dx_cr - dx_scan| / |dx_scan| = {gap:.3e} | {smi}")
+
+    # the marginals at 5,000 poses (the scan factor, the selected inverse's
+    # reverse loop, the Woodbury downdate)
+    t_marg = time.perf_counter()
+    marg, t = timed(lambda: pose_graph_marginals(x, data))
+    ms = [t]
+    diag = torch.diagonal(marg, dim1=-2, dim2=-1)
+    rec["marginals"] = {"ms": ms, "shape": list(marg.shape),
+                        "finite": bool(torch.isfinite(marg).all()),
+                        "min_diag": diag.min().item(),
+                        "max_diag": diag.max().item()}
+    log(f"[chain] pose_graph_marginals at {PG_POSES} poses float32: ms {ms},"
+        f" diagonal {diag.min().item():.3e} .. {diag.max().item():.3e} | "
+        f"{smi}")
+    assert rec["marginals"]["finite"] and diag.min().item() > 0, "marginals"
+    rec["marginals_s"] = time.perf_counter() - t_marg
+
+    # kernel launches an iteration and the busy share: one traced solve of
+    # 2 and one of 5 iterations from fresh starts (profile_main.py's count:
+    # every kernel, memcpy and memset on the device; the union of their
+    # intervals).  Device activity alone is traced: the host's op events
+    # of a 5-iteration solve cost the profiler tens of seconds
+    t_prof = time.perf_counter()
+    traced = {}
+    for it in (2, 5):
+        o = pg_iter_options(to, it)
+        xr = shifted(x0, 3e-6 * it)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, o_r = pose_graph_optimize(xr, data, o)
+            torch.cuda.synchronize()
+        wall_on = time.perf_counter() - t0
+        inside = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+        assert inside, "the trace holds no device events"
+        kernels = [e for e in inside
+                   if not e.name.startswith(("Memcpy", "Memset"))]
+        traced[it] = {
+            "iters": int(o_r.num_iters), "kernels": len(kernels),
+            "copies": len(inside) - len(kernels),
+            "device_ms": union_us([(e.time_range.start, e.time_range.end)
+                                   for e in inside]) / 1e3,
+            "wall_ms_profiled": wall_on * 1e3}
+    t5, t15 = traced[2], traced[5]
+    d_it = max(t15["iters"] - t5["iters"], 1)
+    per_it = (t15["kernels"] - t5["kernels"]) / d_it
+    # busy share of an iteration: its device time over the marginal
+    # protocol's profiler-off ms an iteration
+    dev_it = (t15["device_ms"] - t5["device_ms"]) / d_it
+    busy_off = dev_it / per_iter
+    busy_on = t15["device_ms"] / t15["wall_ms_profiled"]
+    rec["profile"] = {"traced": traced, "kernels_per_iter": per_it,
+                      "copies_per_iter": (t15["copies"] - t5["copies"])
+                      / d_it,
+                      "device_ms_per_iter": dev_it,
+                      "busy_off": busy_off, "busy_on": busy_on,
+                      "profile_s": time.perf_counter() - t_prof}
+    log(f"[chain] {PG_POSES} poses float32 under torch.profiler: "
+        f"{per_it:.1f} kernel launches an LM iteration (+ "
+        f"{rec['profile']['copies_per_iter']:.1f} copies), device "
+        f"{dev_it:.2f} ms an iteration; busy share {busy_off:.4f} of the "
+        f"profiler-off ms an iteration ({busy_on:.4f} of the traced 5-"
+        f"iteration call); traced {traced} | {smi}")
+    rec["phase_s"] = time.perf_counter() - t_phase
 
 
 def main() -> int:
@@ -2187,6 +2518,29 @@ def main() -> int:
                 f"{k2[f'se3_{what}bound_ms{tag}']:.5f} ms "
                 f"({k2[f'se3_{what}bound_by{tag}']}), share "
                 f"{k2[f'se3_{what}share{tag}']:.3f}")
+        # K2's warp kernel (solver_kernel, max(d, n_res) > 64) at 10k x 24
+        # points, LM: no main path reaches it; timed for PERF.md's table
+        opts = se3_options(to)
+        got, ref, kern, plain, kplan, _ = k2_se3(opts, BATCH, SE3_WARP_K,
+                                                 dtype, 13)
+        assert kplan.startswith("warp"), kplan
+        err, di, df = se3_check(ref, got, dtype,
+                                f"K2 warp SE3 {BATCH}x{SE3_WARP_K} {dtype}")
+        out = got[1]
+        w = {"ms": gpu_ms(kern, n=5), "plain_ms": gpu_ms(plain, n=1),
+             "max_abs_err": err,
+             "mean_iters": out.num_iters.float().mean().item(),
+             "conv": out.converged().float().mean().item()}
+        w["bound_ms"], w["bound_by"] = k2_se3_bound(
+            out, opts, SE3_WARP_K, got[0].element_size())
+        w["share"] = w["bound_ms"] / w["ms"]
+        k2.update({f"warp_se3_{k}{tag}": v for k, v in w.items()})
+        log(f"[K2] warp kernel, SE3 LM {BATCH}x{SE3_WARP_K} {dtype} "
+            f"({kplan}): max|x_k - x_twin| = {err:.3e}, iteration gap {di}, "
+            f"failure gap {df}, conv {w['conv']:.4f}, mean iters "
+            f"{w['mean_iters']:.3f}; kernel {w['ms']:.4f} ms, twin "
+            f"{w['plain_ms']:.4f} ms; bound {w['bound_ms']:.5f} ms "
+            f"({w['bound_by']}), share {w['share']:.4f}")
         # one outer iteration (max_iters=0): loads, one linearization and
         # step, stores; the rest of se3_ms is the ~3 further iterations
         _, _, kern0, _, kplan0, _ = k2_se3(se3_options(to, max_iters=0),
@@ -2369,10 +2723,11 @@ def main() -> int:
         "dogleg_cg": (bench_options(to, "cg", solver_type=to.DogLeg), "K1"),
         "history_fused": (bench_options(to, save_history=True), "K2"),
     }
-    path_launches = {}
+    path_launches = PathLaunches(cuda_solver)
     for name, (opts, kernel) in paths.items():
         cuda_cg.cg_solve.launches = 0
         cuda_solver.fused_solve.launches = 0
+        cuda_solver.fused_solve.warp_launches = 0
         x, out = to.batched_optimize(x0, prior_residual, opts,
                                      data_batch=data)
         torch.cuda.synchronize()
@@ -2435,6 +2790,7 @@ def main() -> int:
         opts = mc_options(st)
         cuda_cg.cg_solve.launches = 0
         cuda_solver.fused_solve.launches = 0
+        cuda_solver.fused_solve.warp_launches = 0
         cuda_solver.fused_solve.lane_launches = 0
         got = to.batched_optimize(x0, mc_fns[name], opts)
         torch.cuda.synchronize()
@@ -2498,6 +2854,7 @@ def main() -> int:
     for name, (opts, kernel) in se3_paths.items():
         cuda_cg.cg_solve.launches = 0
         cuda_solver.fused_solve.launches = 0
+        cuda_solver.fused_solve.warp_launches = 0
         cuda_solver.fused_solve.se3_launches = 0
         x, out = to.batched_optimize(sx0, se3_residual, opts,
                                      data_batch=sdata)
@@ -2600,6 +2957,7 @@ def main() -> int:
         x_start64 = cx0.double() if start is None else fits64[start]
         cuda_cg.cg_solve.launches = 0
         cuda_solver.fused_solve.launches = 0
+        cuda_solver.fused_solve.warp_launches = 0
         x, out = to.batched_optimize(x_start, fn, curve_options(),
                                      data_batch=cdata, mode=mode)
         torch.cuda.synchronize()
@@ -2675,8 +3033,12 @@ def main() -> int:
             f"{BATCH}, ms {times})")
 
     for phase in (phase8, phase9, phase10, phase11, phase12, phase13,
-                  phase14, phase15, phase16):
+                  phase14, phase15, phase16, phase17):
         phase(to, dev, record, path_launches, cuda_cg, cuda_solver)
+    # K2's warp kernel (solver_kernel, max(d, n_res) > 64) on each path
+    warp = record["k2_warp_path_launches"] = {
+        p: n["K2 warp"] for p, n in path_launches.items()}
+    log(f"[K2] warp kernel launches on each path: {warp}")
 
     ba_k1 = record["ba"]["k1"]
     kernels = [

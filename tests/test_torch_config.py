@@ -127,6 +127,11 @@ def test_port_never_imports_jax():
         "to.schur_optimize((x0['poses'], x0['points']),"
         " lambda p, q, o: project(p, q[None])[0] - o, d.observations,"
         " d.mask, to.Options(max_iters=2))\n"
+        "from tinyopt_tpu_torch.models.pose_graph import (make_pose_graph,"
+        " pose_graph_optimize)\n"
+        "pd, px0, _ = make_pose_graph(6, 2, noise=1e-3, device='cpu')\n"
+        "_, pout = pose_graph_optimize(px0, pd)\n"
+        "assert bool(pout.converged()), pout\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules"
         " if m.startswith('jax'))\n"
         "assert 'tinyopt_tpu' not in sys.modules\n"
@@ -139,12 +144,11 @@ def test_port_never_imports_jax():
 
 
 #: Public names of ported modules that the port does not have yet, by the
-#: ROADMAP Queue 1 item that owes them (15: the chain and the pose graph;
-#: 16: the sparse-observation Schur solver, its buckets, bands and
-#: reduction plans; 17: multi-device solving).
+#: ROADMAP Queue 1 item that owes them (16: the sparse-observation Schur
+#: solver, its buckets, bands and reduction plans; 17: multi-device
+#: solving).
 OWED = {
-    "": {15: ["ChainSystem", "chain_marginals", "chain_optimize"],
-         16: ["schur_sparse_covariance", "schur_sparse_covariance_buckets",
+    "": {16: ["schur_sparse_covariance", "schur_sparse_covariance_buckets",
               "schur_sparse_optimize", "schur_sparse_optimize_buckets"],
          17: ["sharded_optimize", "sharded_schur_optimize",
               "sharded_schur_sparse_covariance"]},
@@ -200,7 +204,7 @@ def _public_names(mod) -> set:
 
 def test_public_names_match_reference():
     """Every public name of a module the port has is there in the port,
-    but the names that items 15–18 still owe (``OWED``); and no owed name
+    but the names that items 16–18 still owe (``OWED``); and no owed name
     is there already."""
     import importlib
     import importlib.util

@@ -11,8 +11,10 @@ segmented solve (``checkpoint``), covariance recovery and implicit
 differentiation (``implicit``) run on the same loop, and so do the
 block-diagonal, general-sparse, matrix-free and Schur-complement
 (bundle adjustment) solves of ``sparse`` (``block_optimize``,
-``sparse_optimize``, ``matfree_optimize``, ``schur_optimize``).  It never
-imports JAX.
+``sparse_optimize``, ``matfree_optimize``, ``schur_optimize``), and the
+chain solver of pose graphs (``chain_optimize``, ``chain_marginals``:
+block-tridiagonal Cholesky or cyclic reduction with Woodbury loop
+closures, ``ops/tridiag.py``).  It never imports JAX.
 
     import torch, tinyopt_tpu_torch as to
     x, out = to.optimize(torch.tensor(1.0), lambda x: x * x - 2)
@@ -20,7 +22,8 @@ imports JAX.
     x, out = to.adam.optimize(x0, lambda x: torch.sum((x - 1) ** 2))
 """
 
-from . import checkpoint, diff, implicit, losses, sparse
+from . import chain, checkpoint, diff, implicit, losses, sparse
+from .chain import ChainSystem, chain_marginals, chain_optimize
 from .checkpoint import Stepper, stepper
 from .cost import Cost
 from .implicit import implicit_solver
@@ -61,13 +64,15 @@ __all__ = [
     "__version__", "Manifold", "TangentSpec", "register_manifold",
     "retract", "local", "tangent_spec", "manifolds", "models", "parallel",
     "utils",
-    "Adam", "AdamOptions", "AdamW", "BlockDiag", "Cost", "CostScalingOptions", "DogLeg",
+    "Adam", "AdamOptions", "AdamW", "BlockDiag", "ChainSystem", "Cost",
+    "CostScalingOptions", "DogLeg",
     "GDOptions", "GaussNewton", "GradientDescent", "HessianOptions",
     "LBFGS", "LBFGSOptions", "LMOptions", "LevenbergMarquardt", "LogOptions",
     "Optimize", "Options", "Output", "SGD", "SGDOptions", "SolverType",
     "SparseSym", "StopReason", "Stepper", "adam", "adamw",
     "batched_optimize", "batched_solver", "block_optimize", "build_solver",
-    "checkpoint", "covariance_at", "diff", "dispatch_floor", "dogleg", "gd",
+    "chain", "chain_marginals", "chain_optimize", "checkpoint",
+    "covariance_at", "diff", "dispatch_floor", "dogleg", "gd",
     "gn", "implicit", "implicit_solver", "lbfgs", "lm", "losses",
     "matfree_optimize", "multi_start_optimize", "nlls", "optimize",
     "profile_iterations", "schur_optimize", "sgd", "sparse",

@@ -4,10 +4,11 @@
 dataclass with its fields) into this package's ``Options``, nested option
 groups and the solver-type enum included.  ``prior_problem_from_numpy``,
 ``so3_from_numpy``, ``se3_from_numpy``, ``sen3_from_numpy``,
-``se3_refinement_data_from_numpy``, ``icp_problem_from_numpy`` and
-``ba_problem_from_numpy`` build the port's problems and poses from host
-arrays, e.g. the ones a JAX ``PriorProblem``, ``SO3``, ``SE3``, ``SEn3``,
-``ICPProblem`` or bundle-adjustment problem holds after ``np.asarray``;
+``se3_refinement_data_from_numpy``, ``icp_problem_from_numpy``,
+``ba_problem_from_numpy`` and ``pose_graph_data_from_numpy`` build the
+port's problems and poses from host arrays, e.g. the ones a JAX
+``PriorProblem``, ``SO3``, ``SE3``, ``SEn3``, ``ICPProblem``,
+bundle-adjustment problem or ``PoseGraphData`` holds after ``np.asarray``;
 ``perceptron_from_numpy`` the perceptron's parameter dict
 (``models/nn.py``).
 """
@@ -24,6 +25,7 @@ from . import options as _opt
 from .manifolds import SE3, SO3, SEn3
 from .models.bundle_adjustment import BAData
 from .models.icp import ICPProblem
+from .models.pose_graph import PoseGraphData
 from .models.problems import PriorProblem
 from .models.se3_refinement import SE3RefinementData
 
@@ -141,3 +143,19 @@ def ba_problem_from_numpy(data, poses_wxyz, poses_translation, points,
     return out, {"points": _tensor(points, device, dtype),
                  "poses": se3_from_numpy(poses_wxyz, poses_translation,
                                          device, dtype)}
+
+
+def pose_graph_data_from_numpy(edges, meas_q, meas_t, anchor_q, anchor_t,
+                               device="cuda",
+                               dtype=torch.float32) -> PoseGraphData:
+    """``PoseGraphData`` on ``device`` from host arrays, e.g. a JAX
+    ``PoseGraphData``'s fields after ``np.asarray``: edges (E, 2) (int64
+    here, JAX's int32), measured rotations (E, 4) and translations (E, 3),
+    and pose 0's prior (4,) and (3,)."""
+    return PoseGraphData(
+        edges=torch.as_tensor(np.array(edges), dtype=torch.int64,
+                              device=device),
+        meas_q=_tensor(meas_q, device, dtype),
+        meas_t=_tensor(meas_t, device, dtype),
+        anchor_q=_tensor(anchor_q, device, dtype),
+        anchor_t=_tensor(anchor_t, device, dtype))

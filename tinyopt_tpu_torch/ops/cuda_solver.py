@@ -804,6 +804,8 @@ def fused_solve_cuda(family: int, opts: Options, x0: torch.Tensor, data,
         fused_solve.se3_launches += 1
     elif kp.S == 1:
         fused_solve.lane_launches += 1
+    if kp.path == "warp":
+        fused_solve.warp_launches += 1
     return x_out, out
 
 
@@ -826,11 +828,13 @@ def fused_solve(residual_fn, opts: Options, x0: torch.Tensor, data,
 
 
 #: Number of K2 launches in this process, and of those the one-lane
-#: instances' (S = 1: Powell's and Wood's families) and the SE3 family's
-#: register kernel's (``solver_se3_kernel``); reset freely by callers.
+#: instances' (S = 1: Powell's and Wood's families), the SE3 family's
+#: register kernel's (``solver_se3_kernel``) and the warp kernel's
+#: (``solver_kernel``, max(d, n_res) > 64); reset freely by callers.
 fused_solve.launches = 0
 fused_solve.lane_launches = 0
 fused_solve.se3_launches = 0
+fused_solve.warp_launches = 0
 
 
 def fused_batched_solver(residual_fn, options: Options, x_example,
