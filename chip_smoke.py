@@ -1706,6 +1706,73 @@ def phase16(to, dev, record, path_launches, cuda_cg, cuda_solver):
         assert err <= tol * max(1.0, scale), f"K1 at {nb_dims} {dtype}"
 
 
+def marginal_iteration_ms(solve, lo, hi, reps):
+    """ms an iteration by the marginal protocol of
+    ``benchmarks/exp_pose_graph_iter.py``: ``solve(iters, rep) -> Output``
+    (a fresh start for each ``rep``; -1 is the untimed warm-up) at
+    ``max_iters`` ``lo`` and ``hi``, ``reps`` host-timed solves each;
+    (min wall at hi - min wall at lo) over the iterations between.
+    Returns ``(ms, walls, iterations, failures)``, the last two of each
+    rep."""
+    walls, runs, fails = {}, {}, {}
+    for it in (lo, hi):
+        solve(it, -1)
+        torch.cuda.synchronize()
+        ws, its, fs = [], [], []
+        for r in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = solve(it, r)
+            out.final_cost.cost.item()
+            ws.append(time.perf_counter() - t0)
+            its.append(int(out.num_iters))
+            fs.append(int(out.num_failures))
+        walls[it], runs[it], fails[it] = ws, its, fs
+    d_it = runs[hi][-1] - runs[lo][-1]
+    assert d_it > 0, f"the marginal protocol ran {runs} iterations"
+    return ((min(walls[hi]) - min(walls[lo])) * 1e3 / d_it, walls, runs,
+            fails)
+
+
+def traced_iterations(solve):
+    """Kernel launches and device time an iteration under torch.profiler:
+    ``solve(iters) -> Output`` traced once at 2 and once at 5 iterations
+    (profile_main.py's count: every kernel, memcpy and memset on the
+    device; the union of their intervals).  Device activity alone is
+    traced: the host's op events of a 5-iteration solve cost the profiler
+    tens of seconds.  Returns ``(traced, kernels an iteration, copies an
+    iteration, device ms an iteration, busy share of the traced
+    5-iteration call)``."""
+    from torch.profiler import ProfilerActivity, profile
+    from profile_main import union_us
+    traced = {}
+    for it in (2, 5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            o_r = solve(it)
+            torch.cuda.synchronize()
+        wall_on = time.perf_counter() - t0
+        inside = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+        assert inside, "the trace holds no device events"
+        kernels = [e for e in inside
+                   if not e.name.startswith(("Memcpy", "Memset"))]
+        traced[it] = {
+            "iters": int(o_r.num_iters), "kernels": len(kernels),
+            "copies": len(inside) - len(kernels),
+            "device_ms": union_us([(e.time_range.start, e.time_range.end)
+                                   for e in inside]) / 1e3,
+            "wall_ms_profiled": wall_on * 1e3}
+    a, b = traced[2], traced[5]
+    d_it = max(b["iters"] - a["iters"], 1)
+    return (traced, (b["kernels"] - a["kernels"]) / d_it,
+            (b["copies"] - a["copies"]) / d_it,
+            (b["device_ms"] - a["device_ms"]) / d_it,
+            b["device_ms"] / b["wall_ms_profiled"])
+
+
 # ---- phase 17: the chain solver and the 5,000-pose pose graph (ROADMAP
 # Queue 1, item 15) ----
 
@@ -1743,9 +1810,7 @@ def phase17(to, dev, record, path_launches, cuda_cg, cuda_solver):
     launches an iteration and the device-busy share under torch.profiler
     (counted as profile_main.py counts them).  Every line names the card
     and its power limit."""
-    from torch.profiler import ProfilerActivity, profile
     from torch.utils import _pytree as pytree
-    from profile_main import union_us
     from tinyopt_tpu_torch import manifold as mf
     from tinyopt_tpu_torch.chain import chain_system
     from tinyopt_tpu_torch.manifolds import SE3
@@ -1862,29 +1927,16 @@ def phase17(to, dev, record, path_launches, cuda_cg, cuda_solver):
     # ---- 17c: times ----
     # ms an LM iteration: max_iters 15 against 5, fresh starts each rep
     t_iter = time.perf_counter()
-    walls, runs = {}, {}
-    for it in (5, 15):
-        o = pg_iter_options(to, it)
-        pose_graph_optimize(shifted(x0, 1e-6), data, o)     # warm-up
-        torch.cuda.synchronize()
-        ws = []
-        for r in range(PG_REPS):
-            xr = shifted(x0, 1e-6 * (r + 2))
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            _, o_r = pose_graph_optimize(xr, data, o)
-            o_r.final_cost.cost.item()
-            ws.append(time.perf_counter() - t0)
-        walls[it], runs[it] = ws, int(o_r.num_iters)
-    d_it = runs[15] - runs[5]
-    per_iter = (min(walls[15]) - min(walls[5])) * 1e3 / max(d_it, 1)
-    rec["iteration"] = {"walls_s": walls, "iters": runs,
+    per_iter, walls, runs, fails = marginal_iteration_ms(
+        lambda it, r: pose_graph_optimize(shifted(x0, 1e-6 * (r + 2)), data,
+                                          pg_iter_options(to, it))[1],
+        5, 15, PG_REPS)
+    rec["iteration"] = {"walls_s": walls, "iters": runs, "failures": fails,
                         "ms_per_iter": per_iter,
                         "protocol_s": time.perf_counter() - t_iter}
     log(f"[chain] {PG_POSES} poses float32 ms an LM iteration (marginal, "
         f"max_iters 15 against 5, min of {PG_REPS} fresh starts): "
         f"{per_iter:.2f} ms ({runs} iterations, walls {walls} s) | {smi}")
-    assert d_it > 0, f"the marginal protocol ran {runs} iterations"
 
     # one solve of the system at x0 with its 1 + m right-hand sides, each
     # method: tridiagonal solve and Woodbury capacitance, damped as LM's
@@ -1949,53 +2001,397 @@ def phase17(to, dev, record, path_launches, cuda_cg, cuda_solver):
     rec["marginals_s"] = time.perf_counter() - t_marg
 
     # kernel launches an iteration and the busy share: one traced solve of
-    # 2 and one of 5 iterations from fresh starts (profile_main.py's count:
-    # every kernel, memcpy and memset on the device; the union of their
-    # intervals).  Device activity alone is traced: the host's op events
-    # of a 5-iteration solve cost the profiler tens of seconds
+    # 2 and one of 5 iterations from fresh starts
     t_prof = time.perf_counter()
-    traced = {}
-    for it in (2, 5):
-        o = pg_iter_options(to, it)
-        xr = shifted(x0, 3e-6 * it)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            _, o_r = pose_graph_optimize(xr, data, o)
-            torch.cuda.synchronize()
-        wall_on = time.perf_counter() - t0
-        inside = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not getattr(e, "is_user_annotation", False)]
-        assert inside, "the trace holds no device events"
-        kernels = [e for e in inside
-                   if not e.name.startswith(("Memcpy", "Memset"))]
-        traced[it] = {
-            "iters": int(o_r.num_iters), "kernels": len(kernels),
-            "copies": len(inside) - len(kernels),
-            "device_ms": union_us([(e.time_range.start, e.time_range.end)
-                                   for e in inside]) / 1e3,
-            "wall_ms_profiled": wall_on * 1e3}
-    t5, t15 = traced[2], traced[5]
-    d_it = max(t15["iters"] - t5["iters"], 1)
-    per_it = (t15["kernels"] - t5["kernels"]) / d_it
+    traced, per_it, copies_it, dev_it, busy_on = traced_iterations(
+        lambda it: pose_graph_optimize(shifted(x0, 3e-6 * it), data,
+                                       pg_iter_options(to, it))[1])
     # busy share of an iteration: its device time over the marginal
     # protocol's profiler-off ms an iteration
-    dev_it = (t15["device_ms"] - t5["device_ms"]) / d_it
     busy_off = dev_it / per_iter
-    busy_on = t15["device_ms"] / t15["wall_ms_profiled"]
     rec["profile"] = {"traced": traced, "kernels_per_iter": per_it,
-                      "copies_per_iter": (t15["copies"] - t5["copies"])
-                      / d_it,
+                      "copies_per_iter": copies_it,
                       "device_ms_per_iter": dev_it,
                       "busy_off": busy_off, "busy_on": busy_on,
                       "profile_s": time.perf_counter() - t_prof}
     log(f"[chain] {PG_POSES} poses float32 under torch.profiler: "
         f"{per_it:.1f} kernel launches an LM iteration (+ "
-        f"{rec['profile']['copies_per_iter']:.1f} copies), device "
+        f"{copies_it:.1f} copies), device "
         f"{dev_it:.2f} ms an iteration; busy share {busy_off:.4f} of the "
         f"profiler-off ms an iteration ({busy_on:.4f} of the traced 5-"
         f"iteration call); traced {traced} | {smi}")
+    rec["phase_s"] = time.perf_counter() - t_phase
+
+
+# ---- phase 18: the sparse-observation Schur system (ROADMAP Queue 1,
+# item 16a) ----
+
+# bench_ba_sparse's row (benchmarks/run_benchmarks.py:329-391)
+BAS_CAMS, BAS_PTS, BAS_K, BAS_NOISE, BAS_SEED = 1000, 50_000, 8, 1e-3, 7
+BAS_F64 = (100, 5000)        # 18b: the card against the CPU port, float64
+BAS_REPS = 3                 # fresh starts a max_iters value, the minimum kept
+BAL_EXCERPT = os.path.join(HERE, "tests", "data", "bal_excerpt.txt")
+
+
+def bas_options(to, **hessian):
+    """bench_ba_sparse's options: 12 iterations, no failure budget, no
+    error floor, two refinement rounds of the reduced solve (``hessian``
+    replaces fields)."""
+    return to.Options(max_iters=12, max_consec_failures=0, min_error=0.0,
+                      hessian=to.HessianOptions(**{**dict(
+                          save_last=False, schur_refine=2), **hessian}))
+
+
+def bas_iter_options(to, iters):
+    """Exactly ``iters`` iterations (every stop test off, no failure
+    budget), bench_ba_sparse's reduced solve, float32 thresholds."""
+    return to.Options(max_iters=iters, min_error=0.0, min_step_norm2=0.0,
+                      min_grad_norm2=0.0, min_rerr_dec=0.0,
+                      max_consec_failures=0,
+                      hessian=to.HessianOptions(save_last=False,
+                                                schur_refine=2))
+
+
+BAS_SPLIT_REPS = 3
+
+
+def bas_split(to, x0, obs, ci, mk):
+    """The stages of one LM iteration of 18a, each run alone at the start
+    (λ = 1e-4): ``accumulate`` (the linearization of every slot, Ba, g, E,
+    C), ``evaluate`` (the cost at a candidate), the whole ``propose``, and
+    inside it the damped ``reduce`` (S, E C⁻¹ g_b, C⁻¹), the reduced solve
+    by cyclic reduction (``solve_banded``, two refinement rounds, 3 CR
+    solves) and by the dense Cholesky (``solve_dense``, the "off" route),
+    and the landmark ``backsub``: the system's own stages
+    (``propose.stages``).  Each: the median host wall of ``BAS_SPLIT_REPS``
+    synchronized runs, and the device time (the union of its intervals)
+    and kernel count of one more under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils import _pytree as pytree
+    from profile_main import union_us
+    from tinyopt_tpu_torch import manifold as mf
+    from tinyopt_tpu_torch.ops import schur_obs
+    from tinyopt_tpu_torch.ops.schur import _damp_blocks
+
+    o = bas_options(to).for_dtype(torch.float32)
+    a0, b0 = x0["poses"], x0["points"]
+    spec = mf.tangent_spec((a0, b0))
+    acc, ev, _, prop = schur_obs.schur_obs_system(ba_pair, a0, b0, obs[None],
+                                                  ci, mk, spec)
+    st = prop.stages
+    xb = mf.flatten_batch(pytree.tree_map(lambda a: a[None], (a0, b0)), spec)
+    H, g, _ = acc(xb)
+    lam = torch.full((1,), 1e-4, dtype=torch.float32, device=xb.device)
+    Bd = _damp_blocks(H.Ba, lam)
+    g_a, g_b, E_p, Cd_p = st.reduce_inputs(
+        H, schur_obs._damp_flat(H.C, 3, lam), g)
+    S_f, rhs, Cinv = st.reduce(E_p, Cd_p, g_b)
+    dx_a, _ = schur_obs.assemble_reduced(S_f, rhs, Bd, g_a, refine=2,
+                                         band_group=st.band_group)
+
+    stages = {
+        "accumulate": lambda: acc(xb),
+        "evaluate": lambda: ev(xb),
+        "propose": lambda: prop(H, g, lam, o),
+        "reduce": lambda: st.reduce(E_p, Cd_p, g_b),
+        "solve_banded": lambda: schur_obs.assemble_reduced(
+            S_f, rhs, Bd, g_a, refine=2, band_group=st.band_group),
+        "solve_dense": lambda: schur_obs.assemble_reduced(
+            S_f, rhs, Bd, g_a, refine=2),
+        "backsub": lambda: st.backsub(E_p, Cinv, g_b, dx_a),
+    }
+    out = {}
+    for name, fn in stages.items():
+        fn()
+        walls = []
+        for _ in range(BAS_SPLIT_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ev_dev = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+        kern = [e for e in ev_dev
+                if not e.name.startswith(("Memcpy", "Memset"))]
+        out[name] = {
+            "wall_ms": statistics.median(walls), "walls_ms": walls,
+            "device_ms": union_us([(e.time_range.start, e.time_range.end)
+                                   for e in ev_dev]) / 1e3,
+            "kernels": len(kern), "copies": len(ev_dev) - len(kern)}
+    return out
+
+
+def phase18(to, dev, record, path_launches, cuda_cg, cuda_solver):
+    """The sparse-observation Schur system (``ops/schur_obs.py`` through
+    ``schur_sparse_optimize``; no TPU kernel on the path, so neither K1 nor
+    K2 may launch).  18a: bench_ba_sparse's 1,000 cameras x 50,000
+    landmarks, K = 8 (400,000 observations, 156,000 tangent dims), float32
+    with two refinement rounds, the banded reduced solve (bandwidth 7,
+    groups of 7 cameras): a success stop at RMSE <= 1.2 x the noise; ms an
+    LM iteration by the marginal protocol (max_iters 6 against 2), launches
+    and device ms an iteration and the busy share under torch.profiler,
+    the peak memory; one solve with the banded route off (the dense
+    6,000^2 Cholesky) and one with schur_cg_iters=32.  18b: 100 x 5,000
+    in float64, the card against the CPU port (assert_parity's
+    tolerances), and schur_sparse_covariance with a 0.1 prior at the
+    solution (relative 1e-9).  18c: the covariance at 18a's solution in
+    float32 (the same prior), its ms and peak memory.  18d: the committed
+    BAL excerpt (30 cameras, 600 points, 4,369 observations, padded to
+    K = 30) from tests/test_bal.py's perturbation, float64, the card
+    against the CPU port, RMSE < 0.55 px.  Every line names the card and
+    its power limit."""
+    import numpy as np
+    from torch.utils import _pytree as pytree
+    from tinyopt_tpu_torch import manifold as mf
+    from tinyopt_tpu_torch.models.bal import bal_residual, bal_rmse, load_bal
+    from tinyopt_tpu_torch.models.bundle_adjustment import (
+        make_ba_problem_sparse, reprojection_rmse_sparse)
+    from tinyopt_tpu_torch.ops import schur_obs
+    from tinyopt_tpu_torch.output import map_output
+    assert not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off"
+    smi = record["nvidia_smi"]
+    rec = record["ba_sparse"] = {"card": smi}
+    t_phase = time.perf_counter()
+
+    def reset():
+        cuda_cg.cg_solve.launches = 0
+        cuda_solver.fused_solve.launches = 0
+        cuda_solver.fused_solve.warp_launches = 0
+        for k in schur_obs.SOLVES:
+            schur_obs.SOLVES[k] = 0
+
+    def launches(key):
+        n = path_launches[key] = {"K1": cuda_cg.cg_solve.launches,
+                                  "K2": cuda_solver.fused_solve.launches}
+        return n
+
+    # ---- 18a: bench_ba_sparse's row, float32 ----
+    t0 = time.perf_counter()
+    (obs, ci, mk), x0, _ = make_ba_problem_sparse(
+        n_cams=BAS_CAMS, n_pts=BAS_PTS, k_obs=BAS_K, noise=BAS_NOISE,
+        seed=BAS_SEED, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    dims = 6 * BAS_CAMS + 3 * BAS_PTS
+    bw = schur_obs.detect_camera_bandwidth(ci, mk)
+    # the system's host planning (SegmentSum tables), once; the band group
+    # its propose uses
+    spec = mf.tangent_spec((x0["poses"], x0["points"]))
+    t0 = time.perf_counter()
+    *_, prop = schur_obs.schur_obs_system(ba_pair, x0["poses"], x0["points"],
+                                          obs[None], ci, mk, spec)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    group = prop.stages.band_group
+
+    def solve(pts, o):
+        return to.schur_sparse_optimize((x0["poses"], pts), ba_pair, obs, ci,
+                                        mk, o.for_dtype(torch.float32))
+
+    def rmse_of(x):
+        return reprojection_rmse_sparse({"poses": x[0], "points": x[1]},
+                                        obs, ci, mk).item()
+
+    rmse0 = rmse_of((x0["poses"], x0["points"]))
+    runs = {}
+    for name, o in (("banded", bas_options(to)),
+                    ("off", bas_options(to, schur_banded="off")),
+                    ("cg32", dataclasses.replace(
+                        bas_options(to, schur_refine=0, schur_cg_iters=32),
+                        max_iters=24))):
+        if name == "banded":
+            solve(x0["points"] + 1e-3, o)        # warm-up, untimed
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        t0 = time.perf_counter()
+        x, out = solve(x0["points"], o)
+        rmse = rmse_of(x)
+        wall = time.perf_counter() - t0
+        n = launches(f"ba_sparse_{name}")
+        iters = int(out.num_iters)
+        r = runs[name] = {
+            "wall_s": wall, "iters": iters, "rmse": rmse, "rmse0": rmse0,
+            "stop": int(out.stop_reason), "succeeded": bool(out.succeeded()),
+            "ms_per_iter_wall": wall * 1e3 / max(iters, 1),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "solves": dict(schur_obs.SOLVES), "launches": n}
+        log(f"[ba_sparse] {BAS_CAMS} cams x {BAS_PTS} pts, K = {BAS_K} "
+            f"({dims} dims) float32 {name}: {wall:.3f} s, {iters} "
+            f"iterations ({r['ms_per_iter_wall']:.1f} ms an iteration, wall"
+            f" with the system's build), RMSE {rmse0:.3e} -> {rmse:.4e} "
+            f"(criterion {BA_CRIT}), stop {r['stop']}, reduced solves "
+            f"{r['solves']}, peak {r['peak_gb']:.2f} GB, launches {n} | "
+            f"{smi}")
+        assert r["succeeded"], f"ba_sparse {name}: stop {r['stop']}"
+        assert rmse <= BA_CRIT, f"ba_sparse {name}: RMSE {rmse}"
+        assert n == {"K1": 0, "K2": 0}, f"ba_sparse {name}: launches {n}"
+        if name == "banded":
+            sol = x
+    rec.update(generate_s=gen_s, build_s=build_s, bandwidth=bw,
+               band_group=group, runs=runs)
+    log(f"[ba_sparse] bandwidth {bw}, band group {group} cameras "
+        f"({-(-BAS_CAMS // max(group or 1, 1))} groups); problem drawn in "
+        f"{gen_s:.2f} s, system planned in {build_s:.2f} s | {smi}")
+    assert group == 7, f"band group {group}"
+    assert runs["banded"]["solves"]["banded"] > 0 and \
+        runs["banded"]["solves"]["dense"] == 0, runs["banded"]["solves"]
+    assert runs["off"]["solves"]["dense"] > 0 and \
+        runs["off"]["solves"]["banded"] == 0, runs["off"]["solves"]
+    assert runs["cg32"]["solves"]["pcg"] > 0, runs["cg32"]["solves"]
+
+    # ms an LM iteration (marginal, max_iters 6 against 2, fresh starts).
+    # With every stop test off, the float32 solve runs on past its
+    # convergence until λ is ~1e-7, where a float32 cyclic reduction can
+    # be far off and its refinement rounds diverge; a candidate's cost
+    # can then overflow and the retries end the solve SOLVER_FAILED
+    # (tests/torch_ba_sparse_f32_study.py); the first 7 iterations stay
+    # clear of it (a rejected step, one failure, is an ordinary iteration)
+    t_iter = time.perf_counter()
+    per_iter, walls, its, fails = marginal_iteration_ms(
+        lambda it, r: solve(x0["points"] + 1e-6 * (r + 2),
+                            bas_iter_options(to, it))[1], 2, 6, BAS_REPS)
+    rec["iteration"] = {"walls_s": walls, "iters": its, "failures": fails,
+                        "ms_per_iter": per_iter,
+                        "protocol_s": time.perf_counter() - t_iter}
+    log(f"[ba_sparse] {BAS_CAMS} x {BAS_PTS} float32 ms an LM iteration "
+        f"(marginal, max_iters 6 against 2, min of {BAS_REPS} fresh "
+        f"starts): {per_iter:.2f} ms ({its} iterations, {fails} failures, "
+        f"walls {walls} s) | {smi}")
+    assert max(f for fs in fails.values() for f in fs) <= 1, fails
+    t_prof = time.perf_counter()
+    traced, per_it, copies_it, dev_it, busy_on = traced_iterations(
+        lambda it: solve(x0["points"] + 3e-6 * it,
+                         bas_iter_options(to, it))[1])
+    rec["profile"] = {"traced": traced, "kernels_per_iter": per_it,
+                      "copies_per_iter": copies_it,
+                      "device_ms_per_iter": dev_it,
+                      "busy_off": dev_it / per_iter, "busy_on": busy_on,
+                      "profile_s": time.perf_counter() - t_prof}
+    log(f"[ba_sparse] {BAS_CAMS} x {BAS_PTS} float32 under torch.profiler: "
+        f"{per_it:.1f} kernel launches an LM iteration (+ {copies_it:.1f} "
+        f"copies), device {dev_it:.2f} ms an iteration; busy share "
+        f"{dev_it / per_iter:.4f} of the profiler-off ms an iteration "
+        f"({busy_on:.4f} of the traced 5-iteration call); traced {traced} "
+        f"| {smi}")
+
+    # where an LM iteration goes: its stages at 18a's start, each run alone
+    t_split = time.perf_counter()
+    rec["split"] = split = bas_split(to, x0, obs, ci, mk)
+    rec["split_s"] = time.perf_counter() - t_split
+    for name, v in split.items():
+        log(f"[ba_sparse] split of an LM iteration at {BAS_CAMS} x "
+            f"{BAS_PTS} float32, {name}: wall {v['wall_ms']:.2f} ms "
+            f"(median of {BAS_SPLIT_REPS}), device {v['device_ms']:.2f} ms "
+            f"in {v['kernels']} kernels + {v['copies']} copies | {smi}")
+
+    # ---- 18c: the covariance at 18a's solution, float32 ----
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (cov_a, cov_b), ms = timed(lambda: to.schur_sparse_covariance(
+        sol, ba_pair_prior, obs, ci, mk))
+    diag = torch.diagonal(cov_a, dim1=-2, dim2=-1)
+    rec["covariance"] = {
+        "ms": ms, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "finite": bool(torch.isfinite(cov_a).all()
+                       and torch.isfinite(cov_b).all()),
+        "min_cam_diag": diag.min().item(), "max_cam_diag": diag.max().item()}
+    c = rec["covariance"]
+    log(f"[ba_sparse] schur_sparse_covariance at the {BAS_CAMS} x {BAS_PTS} "
+        f"solution (0.1 prior, float32, the dense {6 * BAS_CAMS}^2 S^-1): "
+        f"{ms:.1f} ms, peak {c['peak_gb']:.2f} GB, finite {c['finite']}, "
+        f"camera variances {c['min_cam_diag']:.3e} .. {c['max_cam_diag']:.3e}"
+        f" | {smi}")
+    assert c["finite"] and c["min_cam_diag"] > 0, "ba_sparse covariance"
+    del obs, ci, mk, x0, sol, cov_a, cov_b
+    torch.cuda.empty_cache()
+
+    # ---- 18b: the card against the CPU port, float64 ----
+    t_b = time.perf_counter()
+    (o_c, c_c, m_c), x_c, _ = make_ba_problem_sparse(
+        *BAS_F64, k_obs=BAS_K, noise=BAS_NOISE, seed=BAS_SEED, device="cpu")
+    got = []
+    for where in (dev, "cpu"):
+        reset()
+        data = [a.to(where) for a in (o_c, c_c, m_c)]
+        xx = pytree.tree_map(lambda a: a.to(where), (x_c["poses"],
+                                                     x_c["points"]))
+        t0 = time.perf_counter()
+        xs, out = to.schur_sparse_optimize(xx, ba_pair, *data,
+                                           bas_options(to))
+        out.final_cost.cost.item()
+        got.append((xs, map_output(lambda v: v.cpu(), out),
+                    dict(schur_obs.SOLVES), time.perf_counter() - t0))
+    (xsg, og, sg, wg), (xsc, oc, sc, wc) = got
+    # the covariance (0.1 prior) at the CPU port's solution, on each side
+    covs = [to.schur_sparse_covariance(
+        pytree.tree_map(lambda a: a.to(where), xsc), ba_pair_prior,
+        *[a.to(where) for a in (o_c, c_c, m_c)]) for where in (dev, "cpu")]
+    cov_gap = max(((a.cpu() - b).abs().max() / b.abs().max()).item()
+                  for a, b in zip(*covs))
+
+    def flat(x):
+        return torch.cat([a.reshape(-1).cpu() for a in pytree.tree_leaves(x)])
+
+    x_gap = assert_parity((flat(xsc), oc), (flat(xsg), og), rtol=1e-5,
+                          atol=1e-9, what="ba_sparse f64 card vs CPU")
+    rec["f64_vs_cpu"] = {
+        "size": BAS_F64, "stop": [int(og.stop_reason), int(oc.stop_reason)],
+        "iters": [int(og.num_iters), int(oc.num_iters)],
+        "cost": [og.final_cost.cost.item(), oc.final_cost.cost.item()],
+        "solves": [sg, sc], "x_max_abs_gap": x_gap,
+        "cov_rel_gap": cov_gap, "wall_s": [wg, wc],
+        "phase_s": time.perf_counter() - t_b}
+    log(f"[ba_sparse] {BAS_F64[0]} x {BAS_F64[1]} float64: card / CPU stop "
+        f"{rec['f64_vs_cpu']['stop']}, iterations "
+        f"{rec['f64_vs_cpu']['iters']}, reduced solves {sg} / {sc}, max "
+        f"|x_card - x_cpu| {x_gap:.3e}; covariance (0.1 prior) at the CPU "
+        f"solution, relative gap {cov_gap:.3e}; solve walls {wg:.2f} / "
+        f"{wc:.2f} s | {smi}")
+    assert int(og.stop_reason) == int(oc.stop_reason), "ba_sparse f64 stop"
+    assert sg["banded"] > 0 and sc["banded"] > 0, (sg, sc)
+    assert cov_gap <= 1e-9, f"ba_sparse f64 covariance gap {cov_gap}"
+
+    # ---- 18d: the BAL excerpt, padded, float64 ----
+    t_d = time.perf_counter()
+    (bo, bc, bm), bx0 = load_bal(BAL_EXCERPT, device="cpu")
+    rng = np.random.default_rng(0)
+    bx0 = (bx0[0], bx0[1] + torch.as_tensor(
+        rng.normal(0.0, 5e-3, tuple(bx0[1].shape))))
+    o = to.Options(max_iters=20, max_consec_failures=0,
+                   hessian=to.HessianOptions(save_last=False))
+    got = []
+    for where in (dev, "cpu"):
+        reset()
+        data = [a.to(where) for a in (bo, bc, bm)]
+        xs, out = to.schur_sparse_optimize(
+            pytree.tree_map(lambda a: a.to(where), bx0), bal_residual, *data,
+            o)
+        got.append((flat(xs), map_output(lambda v: v.cpu(), out),
+                    bal_rmse(*xs, *data).item(), dict(schur_obs.SOLVES)))
+        if where == dev:
+            n_bal = launches("ba_sparse_bal")
+    (xg, og, rg, sg), (xc, oc, rc, sc) = got
+    x_gap = assert_parity((xc, oc), (xg, og), rtol=1e-5, atol=1e-9,
+                          what="BAL excerpt card vs CPU")
+    rec["bal_excerpt"] = {
+        "rmse_px": [rg, rc], "stop": [int(og.stop_reason),
+                                      int(oc.stop_reason)],
+        "iters": [int(og.num_iters), int(oc.num_iters)], "solves": [sg, sc],
+        "x_max_abs_gap": x_gap, "launches": n_bal,
+        "phase_s": time.perf_counter() - t_d}
+    log(f"[ba_sparse] BAL excerpt (30 cams, 600 pts, 4369 obs, K = 30) "
+        f"float64: card / CPU RMSE {rg:.4f} / {rc:.4f} px (gate 0.55), "
+        f"stop {rec['bal_excerpt']['stop']}, iterations "
+        f"{rec['bal_excerpt']['iters']}, max |x_card - x_cpu| {x_gap:.3e}, "
+        f"launches {n_bal} | {smi}")
+    assert bool(og.succeeded()) and rg < 0.55, f"BAL excerpt RMSE {rg}"
+    assert rec["bal_excerpt"]["launches"] == {"K1": 0, "K2": 0}
     rec["phase_s"] = time.perf_counter() - t_phase
 
 
@@ -2021,6 +2417,7 @@ def main() -> int:
     from tinyopt_tpu_torch.ops import cuda_cg, cuda_solver
     from tinyopt_tpu_torch.ops.linalg import solve_psd_cg
 
+    t_main = time.perf_counter()
     dev = torch.device("cuda", 0)
     record = {"python": sys.version.split()[0], "torch": torch.__version__,
               "cuda": torch.version.cuda}
@@ -3032,9 +3429,14 @@ def main() -> int:
         log(f"[curves] {name}: {rec['solves_per_s']:.1f} solves/s (2 reps x "
             f"{BATCH}, ms {times})")
 
+    times = record["phase_s"] = {"to_phase8": time.perf_counter() - t_main}
     for phase in (phase8, phase9, phase10, phase11, phase12, phase13,
-                  phase14, phase15, phase16, phase17):
+                  phase14, phase15, phase16, phase17, phase18):
+        t0 = time.perf_counter()
         phase(to, dev, record, path_launches, cuda_cg, cuda_solver)
+        times[phase.__name__] = time.perf_counter() - t0
+    log(f"[time] seconds: {', '.join(f'{k} {v:.1f}' for k, v in times.items())}"
+        f", total {time.perf_counter() - t_main:.1f}")
     # K2's warp kernel (solver_kernel, max(d, n_res) > 64) on each path
     warp = record["k2_warp_path_launches"] = {
         p: n["K2 warp"] for p, n in path_launches.items()}

@@ -132,6 +132,14 @@ def test_port_never_imports_jax():
         "pd, px0, _ = make_pose_graph(6, 2, noise=1e-3, device='cpu')\n"
         "_, pout = pose_graph_optimize(px0, pd)\n"
         "assert bool(pout.converged()), pout\n"
+        "from tinyopt_tpu_torch.models.bundle_adjustment import ("
+        "make_ba_problem_sparse)\n"
+        "(so, sc, sm), sx0, _ = make_ba_problem_sparse(4, 12, 3, noise=1e-3,"
+        " device='cpu')\n"
+        "_, sout = to.schur_sparse_optimize((sx0['poses'], sx0['points']),"
+        " lambda p, q, o: project(p, q[None])[0] - o, so, sc, sm,"
+        " to.Options(max_iters=2))\n"
+        "import tinyopt_tpu_torch.models.bal\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules"
         " if m.startswith('jax'))\n"
         "assert 'tinyopt_tpu' not in sys.modules\n"
@@ -144,17 +152,17 @@ def test_port_never_imports_jax():
 
 
 #: Public names of ported modules that the port does not have yet, by the
-#: ROADMAP Queue 1 item that owes them (16: the sparse-observation Schur
-#: solver, its buckets, bands and reduction plans; 17: multi-device
-#: solving).
+#: ROADMAP Queue 1 item that owes them (16: the parts of the
+#: sparse-observation Schur solver that wait — its K-buckets, and the
+#: window reduce, band storage, planned reduce and landmark sort of the
+#: TPU layout; 17: multi-device solving).
 OWED = {
-    "": {16: ["schur_sparse_covariance", "schur_sparse_covariance_buckets",
-              "schur_sparse_optimize", "schur_sparse_optimize_buckets"],
+    "": {16: ["schur_sparse_covariance_buckets",
+              "schur_sparse_optimize_buckets"],
          17: ["sharded_optimize", "sharded_schur_optimize",
               "sharded_schur_sparse_covariance"]},
-    "sparse": {16: ["schur_sparse_covariance",
-                    "schur_sparse_covariance_buckets",
-                    "schur_sparse_optimize", "schur_sparse_optimize_buckets"]},
+    "sparse": {16: ["schur_sparse_covariance_buckets",
+                    "schur_sparse_optimize_buckets"]},
     "parallel": {17: [
         "init_distributed", "local_mesh", "make_block_system", "make_mesh",
         "make_sharded_schur_obs_system", "make_sharded_schur_system",
@@ -163,21 +171,18 @@ OWED = {
         "sharded_schur_sparse_optimize",
         "sharded_schur_sparse_optimize_buckets"]},
     "ops.schur_obs": {16: [
-        "SchurObsBuckets", "SchurObsSystem", "assemble_reduced",
-        "band_to_tridiag", "banded_cov_plan", "banded_reduced_solve",
-        "banded_reduced_solve_band", "bucket_caps", "bucket_obs",
-        "camera_marginals_from_S", "camera_sort_perm",
-        "detect_camera_bandwidth", "grid_to_obs",
-        "make_banded_window_chunk_loop", "make_landmark_marginal_pass",
-        "make_landmark_marginal_pass_banded", "make_obs_kernels",
-        "make_planned_segment_reduce", "make_planned_segment_reduce_multi",
-        "make_reduce_pass", "make_reduce_pass_planned",
+        # buckets
+        "SchurObsBuckets", "bucket_caps", "bucket_obs",
+        "obs_marginals_buckets", "schur_obs_bucket_system",
+        # window reduce, band storage, planned reduce, the landmark sort
+        "band_to_tridiag", "banded_cov_plan", "banded_reduced_solve_band",
+        "camera_sort_perm", "make_banded_window_chunk_loop",
+        "make_landmark_marginal_pass_banded", "make_planned_segment_reduce",
+        "make_planned_segment_reduce_multi", "make_reduce_pass_planned",
         "make_reduce_pass_window", "make_reduce_pass_window_banded",
-        "make_window_chunk_loop", "obs_linearize", "obs_marginals",
-        "obs_marginals_banded", "obs_marginals_buckets", "pick_band_group",
+        "make_window_chunk_loop", "obs_marginals_banded",
         "plan_window_reduce", "plan_window_reduce_banded",
-        "plan_window_reduce_banded_multi", "plan_window_reduce_multi",
-        "schur_obs_bucket_system", "schur_obs_system"]},
+        "plan_window_reduce_banded_multi", "plan_window_reduce_multi"]},
 }
 
 

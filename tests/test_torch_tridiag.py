@@ -110,6 +110,27 @@ def test_cyclic_reduction(N):
            jtri.block_tridiag_cr_solve(*_j(D, B, b[..., 0])))
 
 
+@pytest.mark.parametrize("method", ["scan", "cr"])
+def test_asymmetric_blocks_factor_their_symmetric_part(method):
+    """Diagonal blocks whose upper triangle differs from the lower one (as
+    rounding leaves D − B D⁻¹ Bᵀ): each block Cholesky factors the
+    symmetric part (A + Aᵀ)/2, as JAX's ``cholesky`` does, not the lower
+    triangle alone."""
+    N, d = 9, 4
+    D, B, rng = _system(7, N, d)
+    D = D + np.triu(0.05 * rng.normal(size=(N, d, d)), 1)
+    b = rng.normal(size=(N, d, 2))
+    if method == "cr":
+        _close(ttri.block_tridiag_cr_solve(*_t(D, B, b)),
+               jtri.block_tridiag_cr_solve(*_j(D, B, b)))
+    else:
+        L, M, _ = jtri.block_tridiag_factor(*_j(D, B))
+        Lt, Mt, _ = ttri.block_tridiag_factor(*_t(D, B))
+        _close(Lt, L)
+        _close(ttri.block_tridiag_solve(Lt, Mt, *_t(b)),
+               jtri.block_tridiag_solve(L, M, *_j(b)))
+
+
 @pytest.mark.parametrize("m", [0, 7])
 @pytest.mark.parametrize("method", ["scan", "cr"])
 def test_woodbury_solve(method, m):

@@ -11,7 +11,9 @@ segmented solve (``checkpoint``), covariance recovery and implicit
 differentiation (``implicit``) run on the same loop, and so do the
 block-diagonal, general-sparse, matrix-free and Schur-complement
 (bundle adjustment) solves of ``sparse`` (``block_optimize``,
-``sparse_optimize``, ``matfree_optimize``, ``schur_optimize``), and the
+``sparse_optimize``, ``matfree_optimize``, ``schur_optimize``, and for
+sparse visibility ``schur_sparse_optimize`` with
+``schur_sparse_covariance``), and the
 chain solver of pose graphs (``chain_optimize``, ``chain_marginals``:
 block-tridiagonal Cholesky or cyclic reduction with Woodbury loop
 closures, ``ops/tridiag.py``).  It never imports JAX.
@@ -42,6 +44,7 @@ from .output import Output
 from .parallel.batched import batched_optimize, batched_solver
 from .profiling import dispatch_floor, profile_iterations
 from .sparse import (block_optimize, matfree_optimize, schur_optimize,
+                     schur_sparse_covariance, schur_sparse_optimize,
                      sparse_optimize)
 from .stop_reasons import StopReason, stop_reason_description
 from .version import __version__
@@ -75,6 +78,7 @@ __all__ = [
     "covariance_at", "diff", "dispatch_floor", "dogleg", "gd",
     "gn", "implicit", "implicit_solver", "lbfgs", "lm", "losses",
     "matfree_optimize", "multi_start_optimize", "nlls", "optimize",
-    "profile_iterations", "schur_optimize", "sgd", "sparse",
+    "profile_iterations", "schur_optimize", "schur_sparse_covariance",
+    "schur_sparse_optimize", "sgd", "sparse",
     "sparse_optimize", "stepper", "stop_reason_description", "unconstrained",
 ]

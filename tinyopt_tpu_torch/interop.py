@@ -5,10 +5,11 @@ dataclass with its fields) into this package's ``Options``, nested option
 groups and the solver-type enum included.  ``prior_problem_from_numpy``,
 ``so3_from_numpy``, ``se3_from_numpy``, ``sen3_from_numpy``,
 ``se3_refinement_data_from_numpy``, ``icp_problem_from_numpy``,
-``ba_problem_from_numpy`` and ``pose_graph_data_from_numpy`` build the
-port's problems and poses from host arrays, e.g. the ones a JAX
-``PriorProblem``, ``SO3``, ``SE3``, ``SEn3``, ``ICPProblem``,
-bundle-adjustment problem or ``PoseGraphData`` holds after ``np.asarray``;
+``ba_problem_from_numpy``, ``bal_cameras_from_numpy`` and
+``pose_graph_data_from_numpy`` build the port's problems and poses from
+host arrays, e.g. the ones a JAX ``PriorProblem``, ``SO3``, ``SE3``,
+``SEn3``, ``ICPProblem``, bundle-adjustment problem, BAL camera pytree or
+``PoseGraphData`` holds after ``np.asarray``;
 ``perceptron_from_numpy`` the perceptron's parameter dict
 (``models/nn.py``).
 """
@@ -143,6 +144,17 @@ def ba_problem_from_numpy(data, poses_wxyz, poses_translation, points,
     return out, {"points": _tensor(points, device, dtype),
                  "poses": se3_from_numpy(poses_wxyz, poses_translation,
                                          device, dtype)}
+
+
+def bal_cameras_from_numpy(wxyz, translation, intr, device="cuda",
+                           dtype=torch.float32) -> dict:
+    """A batch of BAL cameras ``{"intr": (n, 3), "pose": SE3}``
+    (``models/bal.py``; keys in the JAX package's sorted order) on
+    ``device`` from host quaternions (n, 4), translations (n, 3) and
+    intrinsics (f, k1, k2) (n, 3), e.g. a JAX ``cameras_from_bal``
+    pytree's leaves after ``np.asarray``."""
+    return {"intr": _tensor(intr, device, dtype),
+            "pose": se3_from_numpy(wxyz, translation, device, dtype)}
 
 
 def pose_graph_data_from_numpy(edges, meas_q, meas_t, anchor_q, anchor_t,

@@ -76,10 +76,16 @@ class SegmentSum:
             lab = np.repeat(np.arange(n_out), n_chunk)
             src = np.arange(lab.size)
 
-    def __call__(self, v: torch.Tensor) -> torch.Tensor:
+    def __call__(self, v: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """Sum the entries of ``v`` along ``dim`` (the last axis by
+        default; another axis keeps the trailing ones as the entries'
+        values, e.g. blocks (..., m, w) summed along ``dim=-2``)."""
+        dim = dim % v.dim()
         for table in self.tables:
-            padded = torch.cat([v, v.new_zeros(v.shape[:-1] + (1,))], dim=-1)
-            v = padded[..., table].sum(dim=-1)
+            zero = v.new_zeros(v.shape[:dim] + (1,) + v.shape[dim + 1:])
+            padded = torch.cat([v, zero], dim=dim)
+            v = padded.index_select(dim, table.reshape(-1)).unflatten(
+                dim, tuple(table.shape)).sum(dim=dim + 1)
         return v
 
 

@@ -52,10 +52,17 @@ def _nan_like(A: torch.Tensor) -> torch.Tensor:
 
 
 def _chol(A: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky factor of every block of ``A`` (..., d, d); a block
+    """Lower Cholesky factor of every block of ``A`` (..., d, d), of its
+    symmetric part (A + Aᵀ)/2 as JAX's ``cholesky`` factors it; a block
     that is not positive definite comes out NaN on and below its diagonal
-    and 0 above it, as JAX's ``cholesky`` gives it."""
-    L, info = torch.linalg.cholesky_ex(A)
+    and 0 above it, as JAX's ``cholesky`` gives it.
+
+    The blocks that cyclic reduction and the scan build (D − B D⁻¹ Bᵀ) are
+    symmetric only up to rounding; on the lower triangle alone the float32
+    banded reduced solve of bundle adjustment near convergence drifted
+    far from the float64 one, and its refinement rounds diverged
+    (``tests/torch_ba_sparse_f32_study.py --probe``)."""
+    L, info = torch.linalg.cholesky_ex((A + A.mT) / 2)
     d = A.shape[-1]
     lower = torch.ones((d, d), dtype=torch.bool, device=A.device).tril()
     return torch.where((info != 0)[..., None, None] & lower, _nan_like(A),

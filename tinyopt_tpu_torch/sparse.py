@@ -21,12 +21,15 @@ tests/sparse.cpp:19-85 — a general ``SparseMatrix`` Hessian factored by
   Rayleigh quotient gᵀJᵀJg / gᵀg).
 * **Schur complement** (``schur_optimize``): bipartite problems (bundle
   adjustment), the landmarks eliminated every iteration and only the
-  reduced camera system solved (``ops/schur.py``).
+  reduced camera system solved (``ops/schur.py``); for sparse visibility
+  ``schur_sparse_optimize`` takes exactly the observations in the
+  point-major layout and ``schur_sparse_covariance`` gives the marginal
+  covariance blocks at its solution (``ops/schur_obs.py``).
 
 Every system here is batch-native like ``diff.auto.make_nlls_system``:
 ``accumulate(x) -> (H, g, Cost)`` and ``evaluate(x) -> Cost`` over flat
 (B, P) parameters, for ``optimizers.loop.optimize_from_acc`` on a batch;
-the four ``*_optimize`` entry points are a batch of one.  The JAX
+the ``*_optimize`` entry points are a batch of one.  The JAX
 package's compile cache has no counterpart: nothing here is traced.
 """
 
@@ -44,8 +47,9 @@ from .cost import Cost
 from .diff.auto import flatten_residuals, instance_residuals, num_residuals
 from .ops.block import BlockDiag
 from .ops.coloring import _greedy_color, probe_structure
-from .ops.linalg import cg_to_tol
+from .ops.linalg import cg_to_tol, cov_rescale
 from .ops.schur import schur_system
+from .ops.schur_obs import obs_marginals, schur_obs_system
 from .ops.sparse_sym import Pattern, SegmentSum, SparseSym
 from .optimizers.loop import optimize_from_acc
 from .options import FIRST_ORDER_TYPES, Options, SolverType
@@ -462,13 +466,82 @@ def schur_optimize(x0: tuple, pair_fn: Callable, data, mask,
     (m · count_nonzero(mask))."""
     options = options or Options()
     _check_second_order(options, "schur_optimize")
-    if not (isinstance(x0, tuple) and len(x0) == 2):
-        raise ValueError("schur_optimize needs x0 = (a0, b0)")
-    x0 = (mf.as_pytree(x0[0]), mf.as_pytree(x0[1]))
+    x0 = _schur_pair(x0, "schur_optimize needs x0 = (a0, b0)")
     spec = mf.tangent_spec(x0)
-    data_b = pytree.tree_map(lambda a: torch.as_tensor(a)[None], data)
-    acc, ev, _, propose = schur_system(pair_fn, x0[0], x0[1], data_b,
-                                       torch.as_tensor(mask)[None], spec)
-    xb = mf.flatten_batch(pytree.tree_map(lambda a: a[None], x0), spec)
+    acc, ev, _, propose = schur_system(pair_fn, x0[0], x0[1],
+                                       _batch_tree(data),
+                                       _batch_tree(mask), spec)
+    xb = mf.flatten_batch(_batch_tree(x0), spec)
     x, out = optimize_from_acc(xb, acc, ev, options, spec, propose=propose)
     return _batch_of_one(x, out, spec)
+
+
+def _schur_pair(x0, message: str) -> tuple:
+    """``x0 = (a0, b0)`` as two pytrees; ``message`` if it is not a pair."""
+    if not (isinstance(x0, tuple) and len(x0) == 2):
+        raise ValueError(message)
+    return (mf.as_pytree(x0[0]), mf.as_pytree(x0[1]))
+
+
+def _batch_tree(tree):
+    """Every leaf of ``tree`` with a leading instance axis of one."""
+    return pytree.tree_map(lambda a: torch.as_tensor(a)[None], tree)
+
+
+def schur_sparse_optimize(x0: tuple, pair_fn: Callable, obs, cam_idx, mask,
+                          options: Options | None = None):
+    """Sparse-observation bundle adjustment (point-major padded layout).
+
+    The memory-scalable form of :func:`schur_optimize` for SPARSE
+    visibility: instead of a dense (n_a, n_b) grid, pass exactly the
+    observations — ``obs``, a pytree with leaves (n_b, K, ...): per-landmark
+    data for up to ``K`` observations; ``cam_idx`` (n_b, K) ints: the
+    camera of each slot; ``mask`` (n_b, K): 1 for real slots (a padded slot
+    contributes exactly zero residual and Jacobian).  Memory is O(n_b · K)
+    instead of O(n_a · n_b).  The same Schur elimination every iteration
+    (``ops/schur_obs.py``); GN / LM / DogLeg; the reduced camera system
+    is solved by cyclic reduction where the cameras are banded
+    (``hessian.schur_banded``).  ``hessian.schur_sort`` is accepted and
+    sorts nothing: the JAX package sorts landmarks only for its TPU
+    window reduce.  ``ops.schur_obs.grid_to_obs`` converts grid-form
+    data.  Returns ``((a, b), Output)``; ``Cost.num_residuals`` counts
+    real slots only."""
+    options = options or Options()
+    _check_second_order(options, "schur_sparse_optimize")
+    x0 = _schur_pair(x0, "schur_sparse_optimize needs x0 = (a0, b0)")
+    spec = mf.tangent_spec(x0)
+    acc, ev, _, propose = schur_obs_system(pair_fn, x0[0], x0[1],
+                                           _batch_tree(obs), cam_idx, mask,
+                                           spec)
+    xb = mf.flatten_batch(_batch_tree(x0), spec)
+    x, out = optimize_from_acc(xb, acc, ev, options, spec, propose=propose)
+    return _batch_of_one(x, out, spec)
+
+
+def schur_sparse_covariance(x, pair_fn: Callable, obs, cam_idx, mask, *,
+                            rescaled: bool = False, chunk: int = 1024):
+    """Posterior marginal covariance blocks of a sparse-observation BA
+    solution, the companion of :func:`schur_sparse_optimize`: call it at
+    the solution ``x = (a, b)`` with the same observation layout.
+
+    Returns ``(cov_a (n_a, da, da), cov_b (n_b, db, db))``, the per-camera
+    and per-landmark marginal covariance blocks of H(x)⁻¹ (element-major
+    tangent layout in each block), from the reduced camera system: S⁻¹ IS
+    the camera marginal covariance and the landmark blocks follow as
+    C⁻¹ + C⁻¹EᵀS⁻¹EC⁻¹ — one (n_a·da)² inverse and per-point algebra; the
+    (dims)² dense H⁻¹ of the reference (math.h:88-189, output.h:80-93) is
+    never formed.  ``rescaled=True`` applies the reference's
+    overdetermined rescale ``cost²/(n_res − dims)``, as
+    ``Output.covariance(rescaled=True)``.  Non-finite where H is singular
+    (gauge not fixed), NaN for a landmark with no real observation."""
+    x = _schur_pair(x, "schur_sparse_covariance needs x = (a, b)")
+    spec = mf.tangent_spec(x)
+    acc, _, _, _ = schur_obs_system(pair_fn, x[0], x[1], _batch_tree(obs),
+                                    cam_idx, mask, spec, chunk)
+    H, _, cost = acc(mf.flatten_batch(_batch_tree(x), spec))
+    cov_a, cov_b = obs_marginals(H, chunk)
+    if rescaled:
+        f = cov_rescale(cost.cost, cost.num_residuals, spec.dims)
+        cov_a = cov_a * f[:, None, None, None]
+        cov_b = cov_b * f[:, None, None, None]
+    return cov_a[0], cov_b[0]
