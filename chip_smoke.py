@@ -43,7 +43,15 @@ the dense loop with "cholesky" and "cg" (K1 at (1000, 96, 96)) (phase
 closures in float32 by cyclic reduction, a 200-pose float64 graph on the
 card against the CPU port's scan, ms an LM iteration, one solve by each
 method, the marginals, and launches an iteration and the busy share
-under torch.profiler (phase 17, ``[chain]`` lines) — each with the
+under torch.profiler (phase 17, ``[chain]`` lines); the sparse-observation
+Schur system — bench_ba_sparse's 1,000 cameras x 50,000 landmarks in
+float32 by each reduced-solve route, the card against the CPU port in
+float64, the covariance and the committed BAL excerpt (phase 18,
+``[ba_sparse]`` lines); the K-bucketed sparse-observation BA at BAL
+Trafalgar-257's size (257 cameras, 65,132 landmarks, ~226,000
+heavy-tailed observations) in float32, a float64 cut against the padded
+layout and the CPU port, the excerpt bucketed, and bench_bal_robust's
+Geman-McClure anneal (phase 19, ``[ba_buckets]`` lines) — each with the
 launch counts set to 0 just before it and
 read just after, and checks what comes out (the flagship's poses against
 the true ones, the curves' costs against float64 solves and their fits
@@ -59,7 +67,8 @@ any result.
 
     python3 chip_smoke.py
 
-Output: one line per phase, then a line ``{"kernels": [...]}`` with each
+Output: one line per phase (``[time]`` lines: the seconds of each part as
+it ends), then a line ``{"kernels": [...]}`` with each
 kernel's launches on the main path (and on each path in
 ``path_launches``), its largest disagreement with its twin, its time
 beside the twin's, and its memory bound (``bound_ms``) and the share of it
@@ -219,6 +228,8 @@ def k2_se3_bound(out, opts, n_points, itemsize, dogleg=False):
 # 12), the damping (8), a Cholesky solve of the 4 x 4 system (75) and the
 # step (4); the dogleg adds g'Hg, the step norms and the blend (70).
 MC_MIN_FLOPS = dict(powell=156, wood=176, dogleg=70)
+MC_EDGE_ITERS = 50           # 4c's small batches and NaN starts
+MC_HOLD_ITERS = 50           # 4c's twin hold of the 10k cells (timed: 200)
 MC_STARTS = {"powell": (3.0, -1.0, 0.0, 1.0),
              "wood": (-3.0, -1.0, -3.0, -1.0)}
 
@@ -445,9 +456,11 @@ def mlp_runs(to):
     }
 
 
-# Card against CPU on the same float64 curves.  The sums of the card's
-# kernels and the CPU's run in other orders, and over 500 iterations of a
-# nonconvex fit the rounding can grow: Barzilai-Borwein rates and L-BFGS
+# Card against CPU on the same float64 curves, over the first
+# FO_HOLD_ITERS iterations (the CPU's host loop is most of phase 8's time;
+# the readings below are of 500).  The sums of the card's kernels and the
+# CPU's run in other orders, and over the iterations of a nonconvex fit
+# the rounding can grow: Barzilai-Borwein rates and L-BFGS
 # curvature pairs amplify it (on an H100 80GB HBM3, 700 W, the card
 # against itself from starts scaled by 1 + 1e-15, the probe, parted 244
 # and 256 of 256 curves, first 1e-9 apart at iterations 38 and 28 at the
@@ -465,6 +478,7 @@ def mlp_runs(to):
 # - every curve a success on both sides.
 FO_COST_RTOL = 1e-6
 FO_HORIZON = 25
+FO_HOLD_ITERS = 100          # the float64 hold's depth (the timed runs: 500)
 FO_PROBE_FEW = 12
 FO_PARTED_SLACK = 5
 FO_MEDIAN_RTOL = 0.05
@@ -524,12 +538,13 @@ def phase8(to, dev, record, path_launches, cuda_cg, cuda_solver):
         assert bool(torch.all(out.succeeded())), key
         stops = torch.bincount(out.stop_reason.clamp(min=0),
                                minlength=8).tolist()
-        card = to.batched_optimize(p64, mse, opts, data_batch=y64,
+        hold = opts.replace(max_iters=FO_HOLD_ITERS)
+        card = to.batched_optimize(p64, mse, hold, data_batch=y64,
                                    mode="cost")
         cpu = to.batched_optimize({k: v.cpu() for k, v in p64.items()}, mse,
-                                  opts, data_batch=y64.cpu(), mode="cost")
+                                  hold, data_batch=y64.cpu(), mode="cost")
         probe = to.batched_optimize(
-            {k: v * (1 + 1e-15) for k, v in p64.items()}, mse, opts,
+            {k: v * (1 + 1e-15) for k, v in p64.items()}, mse, hold,
             data_batch=y64, mode="cost")
         idx, first = fo_parted(card, cpu)
         idx_p, first_p = fo_parted(card, probe)
@@ -558,7 +573,8 @@ def phase8(to, dev, record, path_launches, cuda_cg, cuda_solver):
             f"({BATCH} curves, {ms:.1f} ms), mean iters "
             f"{r['mean_iters']:.2f}, stops {stops}, median final MSE "
             f"{r['median_mse']:.4e}; float64 card vs CPU on "
-            f"{y64.shape[0]} curves: largest cost gap "
+            f"{y64.shape[0]} curves, {FO_HOLD_ITERS} iterations: largest "
+            f"cost gap "
             f"{r['f64_max_cost_gap']:.3e}, {held}; first 1e-9 apart at "
             f"iteration {r['f64_first_apart']} (held >= {FO_HORIZON}; -1 "
             f"never); the 1 + 1e-15 probe parted {len(idx_p)}, first apart "
@@ -2395,6 +2411,396 @@ def phase18(to, dev, record, path_launches, cuda_cg, cuda_solver):
     rec["phase_s"] = time.perf_counter() - t_phase
 
 
+# ---- phase 19: the K-bucketed sparse-observation BA (ROADMAP Queue 1,
+# item 16c) and the robust-BAL row ----
+
+# BAL's Trafalgar-257 (problem-257-65132-pre, grail.cs.washington.edu/
+# projects/bal): 257 cameras, 65,132 landmarks, 225,911 observations.  The
+# file is not in the repo, so the instance is synthetic: make_bal_problem's
+# corridor at k_obs = 128, each landmark thinned to the
+# clip(zipf(TRAF_ZIPF), 2, TRAF_CAP) cameras of its window nearest it
+# (tests/test_bal.py:512-529's recipe keeps the first slots), TRAF_ZIPF
+# chosen so the total lies within 2 % of the published count.  TRAF_CAP
+# is 32, not 128: a landmark seen by 128 cameras of the 0.5-spaced rail
+# sees some 32 units off-axis at depth 3-5, where BAL's k2 term turns the
+# projection non-monotonic, and from the perturbed start the solve stalls
+# at 12-14 px in float32 and float64 alike
+TRAF_CAMS, TRAF_PTS, TRAF_OBS, TRAF_K = 257, 65_132, 225_911, 128
+TRAF_CAP, TRAF_ZIPF, TRAF_SEED, BAL_NOISE = 32, 2.05, 257, 0.5
+BKT_F64 = (40, 4000, 32)     # 19b: cameras, landmarks, k_obs, float64
+BKT_REPS = 2                 # fresh starts a max_iters value, the minimum kept
+# bench_bal_robust's row (benchmarks/run_benchmarks.py:443-515)
+ROBUST_BAL = dict(n_cams=300, n_pts=20_000, k_obs=6, noise=0.5,
+                  outlier_frac=0.10, seed=5)
+
+
+def bal_options(to, **kw):
+    """bench_bal_robust's options: 15 iterations, no failure budget, no
+    error floor, two refinement rounds of the reduced solve."""
+    return to.Options(**{**dict(
+        max_iters=15, max_consec_failures=0, min_error=0.0,
+        hessian=to.HessianOptions(save_last=False, schur_refine=2)), **kw})
+
+
+def heavy_tail(data, cam_x, pt_x, cap, a, seed):
+    """tests/test_bal.py:512-529's thinning of a corridor rig: landmark j
+    keeps clip(zipf(a), 2, cap) of its slots (numpy's
+    ``default_rng(seed)``), those of the cameras nearest it along the rail
+    (``cam_x`` the cameras' and ``pt_x`` the landmarks' rail coordinate);
+    the others get mask 0 and camera 0.  Returns (the thinned data,
+    counts)."""
+    import numpy as np
+    obs, ci, mk = data
+    counts = np.clip(np.random.default_rng(seed).zipf(a, ci.shape[0]), 2,
+                     cap)
+    dist = (cam_x[ci.long()] - pt_x[:, None]).abs()
+    rank = torch.argsort(torch.argsort(dist, dim=1, stable=True), dim=1,
+                         stable=True)
+    keep = rank < torch.as_tensor(counts, device=ci.device)[:, None]
+    return (obs, torch.where(keep, ci, torch.zeros_like(ci)),
+            mk * keep.to(mk.dtype)), keep.sum(dim=1).cpu().numpy()
+
+
+def bucket_stats(slabs, n_pts, k_max):
+    """The layout of a bucket list: its caps and sizes, its padded slots
+    against one (n_pts, k_max) slab's, and the reduce's pair products (the
+    strict-lower slot pairs of each padded point: Σ n_g·K_g(K_g − 1)/2,
+    against n_pts·k_max(k_max − 1)/2)."""
+    sizes = [int(s[1].shape[0]) for s in slabs]
+    caps = [int(s[1].shape[1]) for s in slabs]
+    return {"buckets": len(slabs), "caps": caps, "sizes": sizes,
+            "slots": sum(n * k for n, k in zip(sizes, caps)),
+            "single_slots": n_pts * k_max,
+            "pair_products": sum(n * k * (k - 1) // 2
+                                 for n, k in zip(sizes, caps)),
+            "single_pair_products": n_pts * k_max * (k_max - 1) // 2}
+
+
+def phase19(to, dev, record, path_launches, cuda_cg, cuda_solver):
+    """The K-bucketed sparse-observation BA (``ops/schur_obs.bucket_obs``,
+    ``schur_obs_bucket_system`` through ``schur_sparse_optimize_buckets``;
+    no TPU kernel on the path, so neither K1 nor K2 may launch), and the
+    robust-BAL row on the padded layout.  19a: BAL Trafalgar-257's size
+    (257 cameras, 65,132 landmarks, ~225,911 observations, heavy-tailed to
+    32 a landmark), float32, bucketed at bucket_obs's defaults, gated by a
+    success stop at RMSE <= 1.1 x the noise; its buckets, slots and pair
+    products against one padded slab's, the band route, ms an LM
+    iteration by phase 18's marginal protocol, launches and the busy share
+    under torch.profiler, peak memory.  19b: a float64 cut (phase 18's
+    corridor rig at 40 x 4,000, k_obs 32, the same thinning): the card's
+    bucketed solve against its padded solve (the same iterations, x within
+    rtol 1e-6 / atol 1e-8) and against the CPU port's bucketed solve (rtol
+    1e-5, iterations within 1),
+    and schur_sparse_covariance_buckets (0.1 prior) against the padded
+    covariance (relative 1e-9).  19c: the committed BAL excerpt bucketed
+    (min_bucket 32), float64, the card against the CPU port, RMSE < 0.55
+    px.  19d: bench_bal_robust's row as the reference defines it (300 x
+    20,000, K = 6, 0.5 px noise, 10 % outliers, seed 5, float32): a
+    five-stage Geman-McClure gnc_anneal through schur_sparse_optimize and
+    one plain solve, gated by the reference's ok (clean-slot RMSE <= 1.3 x
+    the noise, plain > 2 x the anneal's).  Every line names the card and
+    its power limit."""
+    import numpy as np
+    from torch.utils import _pytree as pytree
+    from tinyopt_tpu_torch.losses import (geman_mcclure, gnc_anneal,
+                                          gnc_schedule)
+    from tinyopt_tpu_torch.models.bal import (bal_residual, bal_rmse,
+                                              load_bal, make_bal_problem)
+    from tinyopt_tpu_torch.models.bundle_adjustment import (
+        make_ba_problem_sparse)
+    from tinyopt_tpu_torch.ops import schur_obs
+    from tinyopt_tpu_torch.output import map_output
+    assert not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off"
+    smi = record["nvidia_smi"]
+    rec = record["ba_buckets"] = {"card": smi}
+    t_phase = time.perf_counter()
+
+    def reset():
+        cuda_cg.cg_solve.launches = 0
+        cuda_solver.fused_solve.launches = 0
+        cuda_solver.fused_solve.warp_launches = 0
+        for k in schur_obs.SOLVES:
+            schur_obs.SOLVES[k] = 0
+
+    def launches(key):
+        path_launches[key] = {"K1": cuda_cg.cg_solve.launches,
+                              "K2": cuda_solver.fused_solve.launches}
+        n = path_launches[key]
+        assert n == {"K1": 0, "K2": 0, "K2 warp": 0}, f"{key}: launches {n}"
+        return n
+
+    def flat(x):
+        return torch.cat([a.reshape(-1).cpu() for a in pytree.tree_leaves(x)])
+
+    def to_dev(tree, where):
+        return pytree.tree_map(lambda a: a.to(where), tree)
+
+    # ---- 19a: Trafalgar-257's size, float32, bucketed ----
+    t0 = time.perf_counter()
+    data, x0, xt, _ = make_bal_problem(
+        n_cams=TRAF_CAMS, n_pts=TRAF_PTS, k_obs=TRAF_K, noise=BAL_NOISE,
+        seed=TRAF_SEED, dtype=torch.float32, device=dev)
+    (obs, ci, mk), counts = heavy_tail(
+        data, -xt[0]["pose"].translation[:, 0], xt[1][:, 0], TRAF_CAP,
+        TRAF_ZIPF, TRAF_SEED)
+    del data, xt
+    slabs = schur_obs.bucket_obs(obs, ci, mk)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    n_obs = int(counts.sum())
+    lay = bucket_stats(slabs, TRAF_PTS, TRAF_CAP)
+    bw = max(schur_obs.detect_camera_bandwidth(s[1], s[2]) for s in slabs)
+    group = schur_obs.pick_band_group(bw, TRAF_CAMS, 9)
+    rec["layout"] = {**lay, "observations": n_obs, "zipf_a": TRAF_ZIPF,
+                     "count_mean": float(counts.mean()),
+                     "count_max": int(counts.max()),
+                     "count_hist": np.bincount(counts).tolist(),
+                     "bandwidth": bw, "band_group": group,
+                     "generate_s": gen_s}
+    log(f"[ba_buckets] Trafalgar-257's size: {TRAF_CAMS} cams x {TRAF_PTS} "
+        f"pts, {n_obs} observations (published {TRAF_OBS}; zipf a = "
+        f"{TRAF_ZIPF}, counts mean {counts.mean():.3f} max {counts.max()}, "
+        f"the nearest of a {TRAF_K}-camera window), {lay['buckets']} "
+        f"buckets, caps {lay['caps']}, points {lay['sizes']}: "
+        f"{lay['slots']} slots against one slab's {lay['single_slots']} "
+        f"({TRAF_PTS * TRAF_K} as drawn), {lay['pair_products']} pair "
+        f"products against {lay['single_pair_products']}; bandwidth {bw}, "
+        f"band group "
+        f"{group} ({'banded' if group else 'dense'} reduced solve); drawn "
+        f"and bucketed in {gen_s:.1f} s | {smi}")
+    assert abs(n_obs / TRAF_OBS - 1.0) <= 0.02, n_obs
+
+    o32 = bal_options(to).for_dtype(torch.float32)
+
+    def solve(pts, o):
+        return to.schur_sparse_optimize_buckets((x0[0], pts), bal_residual,
+                                                slabs, o)
+
+    def rmse_of(x):
+        return bal_rmse(*x, obs, ci, mk).item()
+
+    rmse0 = rmse_of(x0)
+    solve(x0[1] + 1e-3, bas_iter_options(to, 2))  # warm-up, untimed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    x, out = solve(x0[1], o32)
+    rmse = rmse_of(x)
+    wall = time.perf_counter() - t0
+    n = launches("ba_buckets_trafalgar")
+    iters = int(out.num_iters)
+    rec["solve"] = {
+        "wall_s": wall, "iters": iters, "rmse_px": rmse, "rmse0_px": rmse0,
+        "stop": int(out.stop_reason), "succeeded": bool(out.succeeded()),
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "solves": dict(schur_obs.SOLVES), "launches": n}
+    r = rec["solve"]
+    log(f"[ba_buckets] Trafalgar-257's size float32, bucketed: {wall:.3f} s "
+        f"(the system's build included), {iters} iterations, RMSE "
+        f"{rmse0:.3f} -> {rmse:.4f} px (gate {1.1 * BAL_NOISE:.2f}), stop "
+        f"{r['stop']}, reduced solves {r['solves']}, peak "
+        f"{r['peak_gb']:.2f} GB, launches {n} | {smi}")
+    assert r["succeeded"] and rmse <= 1.1 * BAL_NOISE, r
+    assert r["solves"]["banded" if group else "dense"] > 0, r["solves"]
+
+    # ms an LM iteration (phase 18's marginal protocol, max_iters 6
+    # against 2, fresh starts), then launches and the busy share
+    t_iter = time.perf_counter()
+    per_iter, walls, its, fails = marginal_iteration_ms(
+        lambda it, rr: solve(x0[1] + 1e-6 * (rr + 2),
+                             bas_iter_options(to, it))[1], 2, 6, BKT_REPS)
+    rec["iteration"] = {"walls_s": walls, "iters": its, "failures": fails,
+                        "ms_per_iter": per_iter,
+                        "protocol_s": time.perf_counter() - t_iter}
+    log(f"[ba_buckets] Trafalgar-257's size float32 ms an LM iteration "
+        f"(marginal, max_iters 6 against 2, min of {BKT_REPS} fresh "
+        f"starts): {per_iter:.2f} ms ({its} iterations, {fails} failures, "
+        f"walls {walls} s) | {smi}")
+    t_prof = time.perf_counter()
+    traced, per_it, copies_it, dev_it, busy_on = traced_iterations(
+        lambda it: solve(x0[1] + 3e-6 * it, bas_iter_options(to, it))[1])
+    rec["profile"] = {"traced": traced, "kernels_per_iter": per_it,
+                      "copies_per_iter": copies_it,
+                      "device_ms_per_iter": dev_it,
+                      "busy_off": dev_it / per_iter, "busy_on": busy_on,
+                      "profile_s": time.perf_counter() - t_prof}
+    log(f"[ba_buckets] Trafalgar-257's size float32 under torch.profiler: "
+        f"{per_it:.1f} kernel launches an LM iteration (+ {copies_it:.1f} "
+        f"copies), device {dev_it:.2f} ms an iteration; busy share "
+        f"{dev_it / per_iter:.4f} of the profiler-off ms an iteration "
+        f"({busy_on:.4f} of the traced 5-iteration call); traced {traced} "
+        f"| {smi}")
+    rec["a_s"] = time.perf_counter() - t_phase
+    del obs, ci, mk, x0, slabs, x
+    torch.cuda.empty_cache()
+
+    # ---- 19b: a float64 cut, the card's bucketed solve against its padded
+    # solve and the CPU port's, and the covariances: phase 18's corridor
+    # rig (so 18b's 0.1 prior, ba_pair_prior, applies as it is) thinned as
+    # 19a ----
+    t_b = time.perf_counter()
+    nc, npt, kk = BKT_F64
+    data, xc, xt = make_ba_problem_sparse(n_cams=nc, n_pts=npt, k_obs=kk,
+                                          noise=BAS_NOISE, seed=BAS_SEED,
+                                          device="cpu")
+    xc = (xc["poses"], xc["points"])
+    data, counts = heavy_tail(data, -xt["poses"].translation[:, 0],
+                              xt["points"][:, 0], kk, TRAF_ZIPF, TRAF_SEED)
+    slabs_c = schur_obs.bucket_obs(*data, min_bucket=64)
+    o64 = bas_options(to)
+    got = {}
+    for name, where in (("card", dev), ("cpu", "cpu")):
+        reset()
+        sl = [(o.to(where), c.to(where), m.to(where), i)
+              for o, c, m, i in slabs_c]
+        t0 = time.perf_counter()
+        xs, out = to.schur_sparse_optimize_buckets(to_dev(xc, where),
+                                                   ba_pair, sl, o64)
+        out.final_cost.cost.item()
+        got[name] = (xs, map_output(lambda v: v.cpu(), out),
+                     dict(schur_obs.SOLVES), time.perf_counter() - t0)
+        if name == "card":
+            n_b = launches("ba_buckets_f64")
+    reset()
+    xp, op = to.schur_sparse_optimize(to_dev(xc, dev), ba_pair,
+                                      *to_dev(data, dev), o64)
+    n_p = launches("ba_buckets_f64_padded")
+    (xg, og, sg, wg), (xcc, oc, sc, wc) = got["card"], got["cpu"]
+    x_gap = assert_parity((flat(xcc), oc), (flat(xg), og), rtol=1e-5,
+                          atol=1e-9, what="ba_buckets f64 card vs CPU")
+    torch.testing.assert_close(flat(xg), flat(xp), rtol=1e-6, atol=1e-8,
+                               msg="ba_buckets f64 bucketed vs padded")
+    assert int(og.num_iters) == int(op.num_iters), "bucketed vs padded"
+    pad_gap = (flat(xg) - flat(xp)).abs().max().item()
+    covs = [to.schur_sparse_covariance_buckets(
+                to_dev(xg, dev), ba_pair_prior,
+                [(o.to(dev), c.to(dev), m.to(dev), i)
+                 for o, c, m, i in slabs_c]),
+            to.schur_sparse_covariance(to_dev(xg, dev), ba_pair_prior,
+                                       *to_dev(data, dev))]
+    cov_gap = max(((a - b).abs().max() / b.abs().max()).item()
+                  for a, b in zip(*covs))
+    rec["f64"] = {
+        "size": BKT_F64, "observations": int(counts.sum()),
+        "layout": bucket_stats(slabs_c, npt, kk),
+        "stop": [int(og.stop_reason), int(oc.stop_reason),
+                 int(op.stop_reason)],
+        "iters": [int(og.num_iters), int(oc.num_iters), int(op.num_iters)],
+        "solves": [sg, sc], "x_gap_card_cpu": x_gap,
+        "x_gap_bucketed_padded": pad_gap, "cov_rel_gap": cov_gap,
+        "wall_s": [wg, wc], "launches": [n_b, n_p],
+        "phase_s": time.perf_counter() - t_b}
+    f = rec["f64"]
+    log(f"[ba_buckets] corridor {nc} x {npt} (k_obs {kk} thinned, "
+        f"{f['observations']} observations, {len(slabs_c)} buckets) "
+        f"float64: card bucketed / CPU bucketed / card padded stop "
+        f"{f['stop']}, iterations {f['iters']}; max |x_card - x_cpu| "
+        f"{x_gap:.3e}, max |x_bucketed - x_padded| {pad_gap:.3e}; "
+        f"covariance (0.1 prior) bucketed against padded, relative gap "
+        f"{cov_gap:.3e}; solve walls {wg:.2f} / {wc:.2f} s | {smi}")
+    assert bool(og.succeeded()) and len(slabs_c) >= 2, f
+    assert cov_gap <= 1e-9, f"ba_buckets f64 covariance gap {cov_gap}"
+
+    # ---- 19c: the BAL excerpt, bucketed, float64 ----
+    t_c = time.perf_counter()
+    bslabs, bx0 = load_bal(BAL_EXCERPT, layout="bucketed", min_bucket=32,
+                           device="cpu")
+    (bo, bc, bm), _ = load_bal(BAL_EXCERPT, device="cpu")
+    rng = np.random.default_rng(0)
+    bx0 = (bx0[0], bx0[1] + torch.as_tensor(
+        rng.normal(0.0, 5e-3, tuple(bx0[1].shape))))
+    o = to.Options(max_iters=20, max_consec_failures=0,
+                   hessian=to.HessianOptions(save_last=False))
+    got = []
+    for where in (dev, "cpu"):
+        reset()
+        sl = [(a.to(where), c.to(where), m.to(where), i)
+              for a, c, m, i in bslabs]
+        xs, out = to.schur_sparse_optimize_buckets(to_dev(bx0, where),
+                                                   bal_residual, sl, o)
+        got.append((flat(xs), map_output(lambda v: v.cpu(), out),
+                    bal_rmse(*to_dev(xs, "cpu"), bo, bc, bm).item()))
+        if where == dev:
+            n_c = launches("ba_buckets_bal")
+    (xg, og, rg), (xcc, oc, rc) = got
+    x_gap = assert_parity((xcc, oc), (xg, og), rtol=1e-5, atol=1e-9,
+                          what="BAL excerpt bucketed card vs CPU")
+    rec["bal_excerpt"] = {
+        "buckets": bucket_stats(bslabs, 600, 30), "rmse_px": [rg, rc],
+        "stop": [int(og.stop_reason), int(oc.stop_reason)],
+        "iters": [int(og.num_iters), int(oc.num_iters)],
+        "x_max_abs_gap": x_gap, "launches": n_c,
+        "phase_s": time.perf_counter() - t_c}
+    c = rec["bal_excerpt"]
+    log(f"[ba_buckets] BAL excerpt bucketed (min_bucket 32: caps "
+        f"{c['buckets']['caps']}, {c['buckets']['slots']} slots against "
+        f"{c['buckets']['single_slots']}) float64: card / CPU RMSE "
+        f"{rg:.4f} / {rc:.4f} px (gate 0.55), stop {c['stop']}, iterations "
+        f"{c['iters']}, max |x_card - x_cpu| {x_gap:.3e}, launches {n_c} | "
+        f"{smi}")
+    assert bool(og.succeeded()) and rg < 0.55, f"BAL excerpt RMSE {rg}"
+
+    # ---- 19d: the robust-BAL row, padded, float32 ----
+    t_d = time.perf_counter()
+    (obs, ci, mk), x0, _, bad = make_bal_problem(
+        **ROBUST_BAL, dtype=torch.float32, device=dev)
+    (obs_c, _, _), _, _, _ = make_bal_problem(
+        **{**ROBUST_BAL, "outlier_frac": 0.0}, dtype=torch.float32,
+        device=dev)
+    # the bench's clean-slot metric on determined landmarks (fewer than 2
+    # clean rays cannot be recovered under a saturating loss)
+    det = (bad.shape[1] - bad.sum(1)) >= 2
+    good = ((~bad) & det[:, None]).to(torch.float32)
+
+    def clean_rmse(x):
+        return bal_rmse(*x, obs_c, ci, mk * good).item()
+
+    o_r = bal_options(to).for_dtype(torch.float32)
+    stages = []
+
+    def stage(x, th2, rp):
+        x, out = to.schur_sparse_optimize(x, rp, obs, ci, mk, o_r)
+        stages.append({"th2": th2, "iters": int(out.num_iters),
+                       "stop": int(out.stop_reason)})
+        return x, out
+
+    sched = gnc_schedule(50.0, 2.0, steps=5)
+    reset()
+    t0 = time.perf_counter()
+    x_gnc, out = gnc_anneal(stage, x0, sched, residual_fn=bal_residual,
+                            robust_fn=geman_mcclure)
+    r_gnc = clean_rmse(x_gnc)
+    wall = time.perf_counter() - t0
+    n_g = launches("ba_robust_gnc")
+    reset()
+    t0 = time.perf_counter()
+    x_plain, out_p = to.schur_sparse_optimize(x0, bal_residual, obs, ci, mk,
+                                              o_r)
+    r_plain = clean_rmse(x_plain)
+    wall_p = time.perf_counter() - t0
+    n_l = launches("ba_robust_plain")
+    ok = r_gnc <= 1.3 * ROBUST_BAL["noise"] and r_plain > 2.0 * r_gnc
+    rec["robust"] = {"rmse_px_gnc": r_gnc, "rmse_px_plain": r_plain,
+                     "ok": ok, "anneal_wall_s": wall, "plain_wall_s": wall_p,
+                     "stages": stages,
+                     "plain_iters": int(out_p.num_iters),
+                     "plain_stop": int(out_p.stop_reason),
+                     "plain_failures": int(out_p.num_failures),
+                     "launches": [n_g, n_l],
+                     "phase_s": time.perf_counter() - t_d}
+    log(f"[ba_buckets] robust BAL (bench_bal_robust: {ROBUST_BAL}) float32: "
+        f"Geman-McClure anneal over {len(sched)} stages (iterations "
+        f"{[s['iters'] for s in stages]}) {wall:.2f} s, clean-slot RMSE "
+        f"{r_gnc:.4f} px against plain least squares {r_plain:.4f} px "
+        f"({int(out_p.num_iters)} iterations, {int(out_p.num_failures)} "
+        f"failures, stop {int(out_p.stop_reason)}, {wall_p:.2f} s); ok {ok} "
+        f"(RMSE <= {1.3 * ROBUST_BAL['noise']:.2f} and plain > 2 x anneal) "
+        f"| {smi}")
+    assert ok, rec["robust"]
+    rec["phase_s"] = time.perf_counter() - t_phase
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2421,6 +2827,15 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     record = {"python": sys.version.split()[0], "torch": torch.__version__,
               "cuda": torch.version.cuda}
+    # seconds of each part of the run, each printed as it ends
+    part_s = record["phase_s"] = {}
+    t_mark = [t_main]
+
+    def mark(name):
+        now = time.perf_counter()
+        part_s[name] = now - t_mark[0]
+        t_mark[0] = now
+        log(f"[time] {name} {part_s[name]:.1f} s")
 
     # ---- 1. device ----
     smi = subprocess.run(
@@ -2437,6 +2852,7 @@ def main() -> int:
     record["build_s"] = time.perf_counter() - t0
     log(f"[build] {_build.library_path()} built and loaded in "
         f"{record['build_s']:.2f} s")
+    mark("build")
 
     # ---- 3. K1 against its twin ----
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -2640,6 +3056,8 @@ def main() -> int:
             f"({k1[f'd{d}_bound_by{tag}']}), share "
             f"{k1[f'd{d}_share{tag}']:.3f}")
 
+    mark("k1")
+
     # ---- 4. K2 against its twin ----
     def k2_pair(fn, opts, x0, data=None):
         d_ex = None if data is None else type(data)(*(a[0] for a in data))
@@ -2729,7 +3147,9 @@ def main() -> int:
         nfail = got[1].num_failures.sum().item()
         assert nfail > 0, "Jennrich-Sampson produced no rejections"
         k2[f"js_ms_{dtype}"] = gpu_ms(kern, n=5)
-        k2[f"js_plain_ms_{dtype}"] = gpu_ms(plain, n=3)
+        # the twin's host loop takes seconds; the check above has already
+        # run it on these inputs, so one more call times it
+        k2[f"js_plain_ms_{dtype}"] = gpu_ms(plain, n=1, warmup=0)
         k2[f"js_bound_ms_{dtype}"], k2[f"js_bound_by_{dtype}"] = js_bound(
             got[1], 10, x0.element_size())
         k2[f"js_share_{dtype}"] = (k2[f"js_bound_ms_{dtype}"]
@@ -2785,7 +3205,7 @@ def main() -> int:
                           iter_slack=2, fail_slack=2, grad_rtol=2e-2)
         nfail = got[1].num_failures.sum().item()
         k2[f"dl_js_ms_{dtype}"] = gpu_ms(kern, n=5)
-        k2[f"dl_js_plain_ms_{dtype}"] = gpu_ms(plain, n=3)
+        k2[f"dl_js_plain_ms_{dtype}"] = gpu_ms(plain, n=1, warmup=0)
         (k2[f"dl_js_bound_ms_{dtype}"],
          k2[f"dl_js_bound_by_{dtype}"]) = js_bound(got[1], 10,
                                                    x0.element_size(), True)
@@ -2799,6 +3219,7 @@ def main() -> int:
             f"{k2[f'dl_js_bound_ms_{dtype}']:.5f} ms "
             f"({k2[f'dl_js_bound_by_{dtype}']}), share "
             f"{k2[f'dl_js_share_{dtype}']:.4f}")
+    mark("k2_cells")
     # the edges of K2's plans: segments of 2 to 16 lanes, entries past d on
     # a segment's last lanes, the register kernel's largest d and the warp
     # kernel past it, a batch that is no multiple of a block's instances;
@@ -2851,6 +3272,8 @@ def main() -> int:
     log(f"[K2] nan neighbour: instance 5 stops {stops[5].item()}, its "
         f"neighbours {stops[:8].tolist()} as the twin's")
 
+    mark("k2")
+
     # ---- 4b. K2's SE3 family (the retraction branch) against its twin:
     # the flagship's 10k x 16 in float32 and float64 with LM and the
     # dogleg, timed; K = 24 (n_res 72, the warp kernel); B = 1, 3, 257;
@@ -2896,7 +3319,7 @@ def main() -> int:
             conv = out.converged().float().mean().item()
             assert conv == 1.0, f"K2 SE3 {what}{dtype}: conv {conv}"
             k2[f"se3_{what}ms{tag}"] = gpu_ms(kern, n=5)
-            k2[f"se3_{what}plain_ms{tag}"] = gpu_ms(plain, n=1)
+            k2[f"se3_{what}plain_ms{tag}"] = gpu_ms(plain, n=1, warmup=0)
             (k2[f"se3_{what}bound_ms{tag}"],
              k2[f"se3_{what}bound_by{tag}"]) = k2_se3_bound(
                 out, opts, SE3_K, got[0].element_size(), bool(what))
@@ -2924,7 +3347,8 @@ def main() -> int:
         err, di, df = se3_check(ref, got, dtype,
                                 f"K2 warp SE3 {BATCH}x{SE3_WARP_K} {dtype}")
         out = got[1]
-        w = {"ms": gpu_ms(kern, n=5), "plain_ms": gpu_ms(plain, n=1),
+        w = {"ms": gpu_ms(kern, n=5),
+             "plain_ms": gpu_ms(plain, n=1, warmup=0),
              "max_abs_err": err,
              "mean_iters": out.num_iters.float().mean().item(),
              "conv": out.converged().float().mean().item()}
@@ -2989,6 +3413,8 @@ def main() -> int:
             f"{stops[5].item()}, its neighbours {stops[:8].tolist()}, max "
             f"|x_k - x_twin| = {err:.3e}")
 
+    mark("k2_se3")
+
     # ---- 4c. K2's multi-color branch (Curtis-Powell-Reid probes, 2 colors)
     # on the hard suite's coupled problems, Powell singular and Wood:
     # 10,000 perturbed standard starts, max_iters=200, no failure budget,
@@ -2996,9 +3422,9 @@ def main() -> int:
     # bit for bit, and K2 with coloring "auto" against K2 with "off" (a jvp
     # a dimension) bit for bit; timed both ways; B = 1, 3, 257 and a NaN
     # start beside the others ----
-    def mc_options(solver_type, coloring="auto"):
+    def mc_options(solver_type, coloring="auto", iters=200):
         return to.Options(
-            max_iters=200, max_consec_failures=0, solver_type=solver_type,
+            max_iters=iters, max_consec_failures=0, solver_type=solver_type,
             hessian=to.HessianOptions(solver="fused", save_last=False,
                                       carry_system=False,
                                       diag_coloring=coloring))
@@ -3040,7 +3466,12 @@ def main() -> int:
                              f" blocks of {kp.warps * 32} threads, grid "
                              f"<= {kp.grid}")
 
-    mc_twins = {}      # each cell's starts and twin result, for phase 5b
+    # The twin's host loop takes ~0.1 s an iteration of the dogleg, so it
+    # is held to the kernel over the first MC_HOLD_ITERS iterations (timed
+    # there, both sides, as the *_hold_ms and *_plain_ms keys); the kernel's
+    # full-depth call is held to the one with the coloring off and, in
+    # phase 5b, to the path's
+    mc_runs = {}       # each cell's starts and full-depth result, for 5b
     for dtype in (torch.float32, torch.float64):
         tag = "" if dtype == torch.float32 else "_f64"
         for name in ("powell", "wood"):
@@ -3048,18 +3479,25 @@ def main() -> int:
                               ("_dl", to.DogLeg)):
                 x0 = mc_starts(name, BATCH, dtype)
                 key = f"mc_{name}{sname}"
-                kern, plain, kplan = mc_kernel(name, mc_options(st), x0)
+                kern, _, kplan = mc_kernel(name, mc_options(st), x0)
                 got = kern()
-                ref, k2[f"{key}_plain_ms{tag}"] = timed(plain)
+                hkern, hplain, _ = mc_kernel(
+                    name, mc_options(st, iters=MC_HOLD_ITERS), x0)
+                hgot = hkern()
+                ref, k2[f"{key}_plain_ms{tag}"] = timed(hplain)
                 what = f"K2 multi-color {name}{sname} {dtype}"
-                k2[f"{key}_max_abs_err{tag}"] = mc_check(ref, got, what)
-                mc_twins[key + tag] = (x0, ref)
+                k2[f"{key}_max_abs_err{tag}"] = mc_check(ref, hgot, what)
+                mc_runs[key + tag] = (x0, got)
                 kern_off, _, kplan_off = mc_kernel(name, mc_options(st, "off"),
                                                    x0)
                 off = kern_off()
                 mc_check(off, got, what + " auto vs off")
                 k2[f"{key}_ms{tag}"] = gpu_ms(kern, n=3)
                 k2[f"{key}_off_ms{tag}"] = gpu_ms(kern_off, n=3)
+                k2[f"{key}_hold_ms{tag}"] = gpu_ms(hkern, n=3)
+                (k2[f"{key}_hold_bound_ms{tag}"],
+                 k2[f"{key}_hold_bound_by{tag}"]) = mc_bound(
+                    hgot[1], name, x0.element_size(), bool(sname))
                 out = got[1]
                 (k2[f"{key}_bound_ms{tag}"],
                  k2[f"{key}_bound_by{tag}"]) = mc_bound(
@@ -3071,18 +3509,23 @@ def main() -> int:
                 stops = torch.bincount(out.stop_reason.clamp(min=0)).tolist()
                 assert bool(torch.all(out.succeeded())), what
                 log(f"[K2] multi-color {name}{sname} {BATCH}x4 {dtype} "
-                    f"({kplan}; off: {kplan_off}): bit-equal to the twin and "
-                    f"to coloring off; "
-                    f"iterations mean {k2[f'{key}_mean_iters{tag}']:.2f} max "
+                    f"({kplan}; off: {kplan_off}): bit-equal to the twin "
+                    f"over {MC_HOLD_ITERS} iterations (kernel "
+                    f"{k2[f'{key}_hold_ms{tag}']:.4f} ms, twin "
+                    f"{k2[f'{key}_plain_ms{tag}']:.1f} ms) and to coloring "
+                    f"off; iterations mean "
+                    f"{k2[f'{key}_mean_iters{tag}']:.2f} max "
                     f"{out.num_iters.max().item()}, stops {stops}; kernel "
                     f"{k2[f'{key}_ms{tag}']:.4f} ms, off "
-                    f"{k2[f'{key}_off_ms{tag}']:.4f} ms, twin "
-                    f"{k2[f'{key}_plain_ms{tag}']:.1f} ms; bound "
+                    f"{k2[f'{key}_off_ms{tag}']:.4f} ms; bound "
                     f"{k2[f'{key}_bound_ms{tag}']:.5f} ms "
                     f"({k2[f'{key}_bound_by{tag}']}), share "
                     f"{k2[f'{key}_share{tag}']:.4f}")
+    mark("k2_multicolor_cells")
     # small batches and a NaN start beside its warp's other instances (at
-    # 16, the middle of a warp of 32 one-lane instances, and at 5)
+    # 16, the middle of a warp of 32 one-lane instances, and at 5), at
+    # MC_EDGE_ITERS iterations (the twin's host loop costs ~0.1 s an
+    # iteration of the dogleg, whatever the batch)
     for B, name, st, dtype, nan_at in (
             (1, "powell", to.LevenbergMarquardt, torch.float32, None),
             (3, "wood", to.DogLeg, torch.float64, None),
@@ -3093,7 +3536,8 @@ def main() -> int:
             (33, "wood", to.DogLeg, torch.float32, 16),
             (257, "powell", to.LevenbergMarquardt, torch.float64, 16)):
         x0 = mc_starts(name, B, dtype, nan_at)
-        kern, plain, kplan = mc_kernel(name, mc_options(st), x0)
+        kern, plain, kplan = mc_kernel(
+            name, mc_options(st, iters=MC_EDGE_ITERS), x0)
         got, ref = kern(), plain()
         torch.cuda.synchronize()
         what = f"K2 multi-color {name} {st.name} {B}x4 {dtype}"
@@ -3107,6 +3551,8 @@ def main() -> int:
         log(f"[K2] {what[3:]} ({kplan})"
             f"{f' NaN at {nan_at}' if nan_at is not None else ''}: "
             f"bit-equal to the twin, stops {stops[:8].tolist()}")
+
+    mark("k2_multicolor")
 
     # ---- 5. the paths: the main path (LM, fused and cg), then the dogleg
     # through both and the fused LM with the history; the launch counts are
@@ -3173,15 +3619,18 @@ def main() -> int:
             f"{rec['median_ms']:.3f} ms), conv {rec['conv']:.4f}, mean iters "
             f"{rec['mean_iters']:.3f}, ms {times}")
 
+    mark("paths")
+
     # ---- 5b. the multi-color paths: batched_optimize on Powell singular
     # and Wood (solver="fused", the hard suite's 2-color coloring) on phase
     # 4c's 10,000 starts, float32 and float64, LM and the dogleg — one K2
     # launch and no K1 each, the launch counts set to 0 just before and
-    # read just after, held bit for bit against phase 4c's twin result;
-    # then solves/s of a batched_solver built once, over REPS calls on
-    # fresh starts (host work included) ----
+    # read just after, held bit for bit against phase 4c's full-depth
+    # kernel call (itself held to the twin); then solves/s of a
+    # batched_solver built once, over REPS calls on fresh starts (host work
+    # included) ----
     record["mc_paths"] = {}
-    for key, (x0, ref) in mc_twins.items():
+    for key, (x0, ref) in mc_runs.items():
         name = key.split("_")[1]
         st = to.DogLeg if "_dl" in key else to.LevenbergMarquardt
         opts = mc_options(st)
@@ -3214,6 +3663,8 @@ def main() -> int:
                                    "solves_per_s": sps}
         log(f"[main] {key}: launches {n}, bit-equal to the twin; {sps:.1f} "
             f"solves/s ({REPS} reps x {BATCH}, ms {times})")
+
+    mark("multicolor_paths")
 
     # ---- 6. the flagship path: batched SE(3) pose refinement (models/
     # se3_refinement, 10k instances of 16 points, float32) with bench_se3's
@@ -3323,6 +3774,8 @@ def main() -> int:
             f"{rec['median_ms']:.3f} ms), conv {rec['conv']:.4f}, mean iters "
             f"{rec['mean_iters']:.3f}, ms {times}")
 
+    mark("flagship")
+
     # ---- 7. robust curve fits (examples/robust_curve_fit.py's model:
     # y = a exp(b t), 60 points a curve, 25 % gross outliers), 10,000
     # curves made on the card, float32, through the "cg" solver: the loop
@@ -3429,14 +3882,14 @@ def main() -> int:
         log(f"[curves] {name}: {rec['solves_per_s']:.1f} solves/s (2 reps x "
             f"{BATCH}, ms {times})")
 
-    times = record["phase_s"] = {"to_phase8": time.perf_counter() - t_main}
+    mark("curves")
     for phase in (phase8, phase9, phase10, phase11, phase12, phase13,
-                  phase14, phase15, phase16, phase17, phase18):
-        t0 = time.perf_counter()
+                  phase14, phase15, phase16, phase17, phase18, phase19):
         phase(to, dev, record, path_launches, cuda_cg, cuda_solver)
-        times[phase.__name__] = time.perf_counter() - t0
-    log(f"[time] seconds: {', '.join(f'{k} {v:.1f}' for k, v in times.items())}"
-        f", total {time.perf_counter() - t_main:.1f}")
+        mark(phase.__name__)
+    log(f"[time] seconds: "
+        f"{', '.join(f'{k} {v:.1f}' for k, v in part_s.items())}, total "
+        f"{time.perf_counter() - t_main:.1f}")
     # K2's warp kernel (solver_kernel, max(d, n_res) > 64) on each path
     warp = record["k2_warp_path_launches"] = {
         p: n["K2 warp"] for p, n in path_launches.items()}
@@ -3547,11 +4000,15 @@ def main() -> int:
                            if "K2 one lane" in n},
          "max_abs_err": max(v for k, v in k2.items()
                             if k.startswith("mc_") and "max_abs_err" in k),
-         "ms": k2["mc_powell_dl_ms"],
+         # the kernel and the twin at the twin's depth (MC_HOLD_ITERS);
+         # the full-depth call (200 iterations) as mc_powell_dl_ms...
+         "ms": k2["mc_powell_dl_hold_ms"],
          "plain_ms": k2["mc_powell_dl_plain_ms"],
-         "bound_ms": k2["mc_powell_dl_bound_ms"],
-         "bound_by": k2["mc_powell_dl_bound_by"],
-         "share": k2["mc_powell_dl_share"], "library_ms": None,
+         "bound_ms": k2["mc_powell_dl_hold_bound_ms"],
+         "bound_by": k2["mc_powell_dl_hold_bound_by"],
+         "share": (k2["mc_powell_dl_hold_bound_ms"]
+                   / k2["mc_powell_dl_hold_ms"]),
+         "hold_iters": MC_HOLD_ITERS, "library_ms": None,
          **{k: v for k, v in k2.items() if k.startswith("mc_")}},
     ]
     record.update(k1=k1, k2=k2, kernels=kernels)

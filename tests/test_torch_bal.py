@@ -117,7 +117,8 @@ class TestLoader:
     def test_write_load_round_trip(self, tmp_path):
         """write_bal then load_bal (plain and .bz2) gives the problem back;
         a K below the densest landmark's count raises; the bucketed layout
-        is not ported and raises."""
+        of the written file equals the JAX package's; an unknown layout
+        raises."""
         (obs, ci, mk), _, xt, _ = tbal.make_bal_problem(
             n_cams=6, n_pts=40, k_obs=3, noise=0.1, seed=1, device="cpu")
         path = str(tmp_path / "prob.txt")
@@ -142,8 +143,13 @@ class TestLoader:
         _close((jo, jc, jm), (obs, ci, mk), atol=1e-12)
         with pytest.raises(ValueError, match="densest"):
             tbal.load_bal(path, K=2, device="cpu")
-        with pytest.raises(NotImplementedError, match="16c"):
-            tbal.load_bal(path, layout="bucketed", device="cpu")
+        jslabs, _ = jbal.load_bal(path, layout="bucketed", min_bucket=4)
+        tslabs, _ = tbal.load_bal(path, layout="bucketed", min_bucket=4,
+                                  device="cpu")
+        assert len(tslabs) == len(jslabs)
+        for js, ts in zip(jslabs, tslabs):
+            _close(js[:3], ts[:3])
+            np.testing.assert_array_equal(ts[3], np.asarray(js[3]))
         with pytest.raises(ValueError, match="padded"):
             tbal.load_bal(path, layout="ragged", device="cpu")
 

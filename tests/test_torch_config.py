@@ -151,18 +151,13 @@ def test_port_never_imports_jax():
     assert proc.stdout.strip() == "ok"
 
 
-#: Public names of ported modules that the port does not have yet, by the
-#: ROADMAP Queue 1 item that owes them (16: the parts of the
-#: sparse-observation Schur solver that wait — its K-buckets, and the
-#: window reduce, band storage, planned reduce and landmark sort of the
-#: TPU layout; 17: multi-device solving).
+#: Public names of ported modules that the port does not have, by the
+#: ROADMAP Queue 1 item that owes them (16: the window reduce, band
+#: storage, planned reduce and landmark sort of the sparse-observation
+#: Schur solver's TPU layout; 17: multi-device solving).
 OWED = {
-    "": {16: ["schur_sparse_covariance_buckets",
-              "schur_sparse_optimize_buckets"],
-         17: ["sharded_optimize", "sharded_schur_optimize",
+    "": {17: ["sharded_optimize", "sharded_schur_optimize",
               "sharded_schur_sparse_covariance"]},
-    "sparse": {16: ["schur_sparse_covariance_buckets",
-                    "schur_sparse_optimize_buckets"]},
     "parallel": {17: [
         "init_distributed", "local_mesh", "make_block_system", "make_mesh",
         "make_sharded_schur_obs_system", "make_sharded_schur_system",
@@ -171,9 +166,6 @@ OWED = {
         "sharded_schur_sparse_optimize",
         "sharded_schur_sparse_optimize_buckets"]},
     "ops.schur_obs": {16: [
-        # buckets
-        "SchurObsBuckets", "bucket_caps", "bucket_obs",
-        "obs_marginals_buckets", "schur_obs_bucket_system",
         # window reduce, band storage, planned reduce, the landmark sort
         "band_to_tridiag", "banded_cov_plan", "banded_reduced_solve_band",
         "camera_sort_perm", "make_banded_window_chunk_loop",

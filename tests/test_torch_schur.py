@@ -135,7 +135,93 @@ class TestSpdInvBlocks:
             assert np.any(np.isnan(out[1])) and np.any(np.isnan(ref[1]))
 
 
+def _acc_pair(xp):
+    """A 2 x 2 least squares in ``mode="acc"`` for numpy-like module ``xp``
+    (torch or jax.numpy), whose H is JᵀJ with H[0, 1] 1e-3 above H[1, 0]."""
+    stack = torch.stack if xp is torch else jnp.stack
+
+    def acc(x):
+        r = stack([x[0] - 1.0, x[1] - 2.0, x[0] * x[1] - 3.0])
+        z = x[0] * 0.0
+        J = stack([stack([z + 1.0, z]), stack([z, z + 1.0]),
+                   stack([x[1], x[0]])])
+        H = J.T @ J + stack([stack([z, z + 1e-3]), stack([z, z])])
+        return (xp.sum(r * r), 3), J.T @ r, H
+    return acc
+
+
+@pytest.mark.parametrize("case", ["solve_psd", "spd_inv_blocks",
+                                  "optimize_acc"])
+def test_asymmetric_blocks_factor_their_symmetric_part(case):
+    """Blocks whose upper triangle differs from the lower one: every
+    Cholesky factors the symmetric part (H + Hᵀ)/2, as JAX's ``cholesky``
+    does, not the lower triangle alone — ``solve_psd`` on 6 x 6 blocks
+    whose strict upper triangle is scaled by 1 + 1e-6, ``spd_inv_blocks`` at
+    db = 4 (its Cholesky branch), and one LM step of ``optimize(mode="acc")``
+    on an H with H[0, 1] 1e-3 above H[1, 0], each against the JAX package
+    (on the lower triangle alone they part by ~6e-7, ~1e-6 and ~1.5e-3)."""
+    rng = np.random.default_rng(11)
+    if case == "optimize_acc":
+        o = jto.Options(max_iters=1, max_consec_failures=0)
+        ref, _ = jto.optimize(jnp.asarray([0.5, 1.5]), _acc_pair(jnp), o,
+                              mode="acc")
+        got, _ = to.optimize(_t([0.5, 1.5]), _acc_pair(torch),
+                             options_from_reference(o), mode="acc")
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-12,
+                                   atol=1e-14)
+        return
+    d = 6 if case == "solve_psd" else 4
+    A = rng.normal(size=(4, d, d))
+    H = A @ np.swapaxes(A, -1, -2) + 0.5 * np.eye(d)
+    H = H + np.triu(H, 1) * 1e-6
+    if case == "solve_psd":
+        b = rng.normal(size=(4, d))
+        got, ok = solve_psd(_t(H), _t(b))
+        ref, ok_ref = jlinalg.solve_psd(jnp.asarray(H), jnp.asarray(b))
+        assert bool(ok.all()) and bool(jnp.all(ok_ref))
+    else:
+        got = spd_inv_blocks(_t(H))
+        ref = j_spd_inv_blocks(jnp.asarray(H))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-12,
+                               atol=1e-14)
+
+
 class TestRefine:
+    def test_refine_stops_where_corrections_grow(self):
+        """Past cond ~ 1/eps32 (eigenvalues 10^-8.5 .. 1, float32) the
+        refinement rounds diverge: taking every finite correction, as the
+        JAX package does, moves the solution ~40x farther from the float64
+        solve of the same matrix in two rounds (the JAX package's own
+        rounds: ~850x); the port takes a correction only while it is
+        shorter than the one before (the first: than x), so here it keeps
+        its first solve."""
+        rng = np.random.default_rng(5)
+        n = 64
+        Q, _ = np.linalg.qr(rng.normal(size=(n, n)))
+        S32 = ((Q * np.logspace(-8.5, 0, n)) @ Q.T).astype(np.float32)
+        b32 = rng.normal(size=n).astype(np.float32)
+        x64 = np.linalg.solve(S32.astype(np.float64), b32.astype(np.float64))
+        S, b = torch.from_numpy(S32), torch.from_numpy(b32)
+        x0, ok = solve_psd(S, b)
+        assert bool(ok)
+        x, sizes = x0, []
+        for _ in range(2):                  # every finite correction taken
+            r = (b.double() - S.double() @ x.double()).float()
+            c, _ = solve_psd(S, r)
+            sizes.append(float(c.norm()))
+            x = x + c
+
+        def err(v):
+            return float(np.linalg.norm(np.asarray(v, np.float64) - x64))
+
+        assert sizes[0] > float(x0.norm()), sizes
+        assert err(x.numpy()) > 10 * err(x0.numpy())
+        assert torch.equal(refine_psd_solve(S, b, x0, 2), x0)
+        jx0, _ = jlinalg.solve_psd(jnp.asarray(S32), jnp.asarray(b32))
+        jx2 = jlinalg.refine_psd_solve(jnp.asarray(S32), jnp.asarray(b32),
+                                       jx0, 2)
+        assert err(jx2) > 100 * err(jx0)
+
     def test_refine_recovers_stored_f32_solution(self):
         """tests/test_schur.py::TestSchurRefine on ``refine_psd_solve``
         itself: on a cond ~1e6 float32 system the plain factorization's

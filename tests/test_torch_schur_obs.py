@@ -507,6 +507,16 @@ def solves():
             routes = {k: tso.SOLVES[k] - before[k] for k in before}
             out[case, "lm_refine"] = (ref, got, routes, None,
                                       (tobs, tci, tmk))
+            # the block-Jacobi PCG reduced solve (hessian.schur_cg_iters)
+            o = jto.Options(max_iters=15, max_consec_failures=0,
+                            hessian=jto.HessianOptions(save_last=False,
+                                                       schur_cg_iters=24))
+            ref = jto.schur_sparse_optimize(jx, jpair, obs, ci, mk, o)
+            before = dict(tso.SOLVES)
+            got = to.schur_sparse_optimize(tx, tpair, tobs, tci, tmk,
+                                           options_from_reference(o))
+            routes = {k: tso.SOLVES[k] - before[k] for k in before}
+            out[case, "lm_cg"] = (ref, got, routes, None, (tobs, tci, tmk))
     return out
 
 
@@ -539,6 +549,17 @@ class TestSchurSparseOptimize:
         assert bool(got[1].succeeded())
         assert int(got[1].stop_reason) == int(ref[1].stop_reason)
         assert routes["banded"] > 0 and routes["dense"] == 0
+
+    def test_cg_iters_matches_reference(self, solves):
+        """LM with ``schur_cg_iters=24`` (24 block-Jacobi PCG iterations for
+        each reduced solve, an inexact step) on the banded rig: the whole
+        solve against the JAX package's, x, cost, iterations and stop."""
+        ref, got, routes, _, _ = solves["banded", "lm_cg"]
+        assert_parity(ref, got)
+        assert int(got[1].num_iters) == int(ref[1].num_iters)
+        assert int(got[1].stop_reason) == int(ref[1].stop_reason)
+        assert bool(got[1].succeeded())
+        assert routes["pcg"] > 0 and routes["banded"] == 0
 
     def test_reduced_solve_options_converge(self):
         """schur_banded="off" (the dense route on the banded rig),

@@ -13,7 +13,9 @@ block-diagonal, general-sparse, matrix-free and Schur-complement
 (bundle adjustment) solves of ``sparse`` (``block_optimize``,
 ``sparse_optimize``, ``matfree_optimize``, ``schur_optimize``, and for
 sparse visibility ``schur_sparse_optimize`` with
-``schur_sparse_covariance``), and the
+``schur_sparse_covariance``, K-bucketed for heavy-tailed visibility in
+``schur_sparse_optimize_buckets`` / ``schur_sparse_covariance_buckets``),
+and the
 chain solver of pose graphs (``chain_optimize``, ``chain_marginals``:
 block-tridiagonal Cholesky or cyclic reduction with Woodbury loop
 closures, ``ops/tridiag.py``).  It never imports JAX.
@@ -44,7 +46,8 @@ from .output import Output
 from .parallel.batched import batched_optimize, batched_solver
 from .profiling import dispatch_floor, profile_iterations
 from .sparse import (block_optimize, matfree_optimize, schur_optimize,
-                     schur_sparse_covariance, schur_sparse_optimize,
+                     schur_sparse_covariance, schur_sparse_covariance_buckets,
+                     schur_sparse_optimize, schur_sparse_optimize_buckets,
                      sparse_optimize)
 from .stop_reasons import StopReason, stop_reason_description
 from .version import __version__
@@ -79,6 +82,7 @@ __all__ = [
     "gn", "implicit", "implicit_solver", "lbfgs", "lm", "losses",
     "matfree_optimize", "multi_start_optimize", "nlls", "optimize",
     "profile_iterations", "schur_optimize", "schur_sparse_covariance",
-    "schur_sparse_optimize", "sgd", "sparse",
+    "schur_sparse_covariance_buckets", "schur_sparse_optimize",
+    "schur_sparse_optimize_buckets", "sgd", "sparse",
     "sparse_optimize", "stepper", "stop_reason_description", "unconstrained",
 ]

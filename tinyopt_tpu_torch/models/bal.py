@@ -22,11 +22,11 @@ first, as the JAX package's; the makers insert the keys in that order
 too, so ``torch.utils._pytree`` lists the leaves as JAX does.
 
 :func:`load_bal` reads the published text format into the point-major
-padded layout (obs (n_pts, K, 2), cam_idx, mask); :func:`write_bal`
-emits it.  :func:`make_bal_problem` draws synthetic instances in the same
-convention from ``numpy.random.default_rng(seed)`` in the JAX package's
-order, so one seed gives the same problem.  Tensors are made on
-``device``, the card unless the caller asks for another.
+padded layout (obs (n_pts, K, 2), cam_idx, mask) or into its K-buckets;
+:func:`write_bal` emits it.  :func:`make_bal_problem` draws synthetic
+instances in the same convention from ``numpy.random.default_rng(seed)``
+in the JAX package's order, so one seed gives the same problem.  Tensors
+are made on ``device``, the card unless the caller asks for another.
 """
 
 from __future__ import annotations
@@ -136,7 +136,8 @@ def _to_point_major(cam_i: np.ndarray, pt_i: np.ndarray, xy: np.ndarray,
 
 
 def load_bal(path: str, dtype=torch.float64, K: int | None = None,
-             layout: str = "padded", device="cuda"):
+             layout: str = "padded", bucket_growth: float = 2.0,
+             min_bucket: int = 256, device="cuda"):
     """Read a BAL problem file into the point-major layout.
 
     Format (grail.cs.washington.edu/projects/bal): a header ``n_cams n_pts
@@ -148,20 +149,35 @@ def load_bal(path: str, dtype=torch.float64, K: int | None = None,
     ``layout="padded"`` returns ``((obs, cam_idx, mask), x0)`` for
     :func:`tinyopt_tpu_torch.schur_sparse_optimize`: one slab padded to
     ``K`` (default: the densest landmark's count; raises if capped below
-    it).  ``x0 = (cameras, points)`` in the file's order.
-    ``layout="bucketed"`` (landmarks grouped by observation count, for
-    ``schur_sparse_optimize_buckets``) is not ported yet (ROADMAP Queue
-    1, item 16c) and raises."""
-    if layout == "bucketed":
-        raise NotImplementedError(
-            "load_bal(layout='bucketed') needs the K-bucketed solver, not "
-            "ported yet (ROADMAP Queue 1, item 16c); use layout='padded'")
-    if layout != "padded":
+    it).  Published BAL visibility is heavy-tailed (a few observations a
+    landmark, hundreds for the densest), so that slab is mostly padding:
+    ``layout="bucketed"`` returns ``(slabs, x0)`` for
+    :func:`tinyopt_tpu_torch.schur_sparse_optimize_buckets` instead, the
+    landmarks grouped by observation count into padded slabs whose caps
+    grow by ``bucket_growth`` (``ops.schur_obs.bucket_caps``; buckets under
+    ``min_bucket`` points merge), each slab ``(obs, cam_idx, mask, ids)``
+    built straight from the observation triplets, never through an (n_pts,
+    K_max) array.  ``x0 = (cameras, points)`` in the file's order for both
+    layouts."""
+    if layout not in ("padded", "bucketed"):
         raise ValueError(f"layout must be padded|bucketed, got {layout!r}")
     cam_i, pt_i, xy, params9, pts = _parse_bal(path)
+    n_pts = pts.shape[0]
     x0 = (cameras_from_bal(params9, dtype, device), _t(pts, dtype, device))
-    return _to_point_major(cam_i, pt_i, xy, pts.shape[0], K, dtype,
-                           device), x0
+    if layout == "padded":
+        return _to_point_major(cam_i, pt_i, xy, n_pts, K, dtype, device), x0
+    from ..ops.schur_obs import bucket_caps
+    cap_of, used = bucket_caps(np.bincount(pt_i, minlength=n_pts),
+                               bucket_growth, min_bucket)
+    cap_of_rows = cap_of[pt_i]
+    slabs = []
+    for cap in used:
+        ids = np.nonzero(cap_of == cap)[0]
+        sel = cap_of_rows == cap
+        slabs.append(_to_point_major(
+            cam_i[sel], np.searchsorted(ids, pt_i[sel]), xy[sel], len(ids),
+            cap, dtype, device) + (ids,))
+    return slabs, x0
 
 
 def _parse_bal(path: str):

@@ -31,9 +31,16 @@ E C⁻¹ g_b and C⁻¹ stored for each point — the same sums as the JAX
 package's planned and scatter reduces, up to summation order.  The
 reduced solve is the dense Cholesky, its mixed-precision refinement, a
 block-Jacobi PCG, or, where the cameras are banded (a corridor rig), block
-cyclic reduction over groups of cameras (``ops/tridiag.py``).  The JAX
-package's window reduce, band storage, landmark sort and K-buckets are TPU
-layouts and are not here (ROADMAP Queue 1, items 16b and 16c).
+cyclic reduction over groups of cameras (``ops/tridiag.py``).
+
+Heavy-tailed visibility (published BAL problems: a few observations a
+landmark, hundreds for the densest) runs K-bucketed: :func:`bucket_obs`
+groups the landmarks by observation count into slabs with caps growing
+geometrically, and :func:`schur_obs_bucket_system` /
+:class:`SchurObsBuckets` run each slab through the same per-point passes
+and sum the reduced camera system over them.  The JAX package's window
+reduce, its band storage and its landmark sort are layouts of the TPU,
+which it runs on the TPU alone; they are not here.
 
 Same loop contract as ``ops/schur.py``: ``accumulate`` returns a
 :class:`SchurObsSystem` as the loop's Hessian, ``propose`` eliminates
@@ -84,9 +91,10 @@ def spd_inv_blocks(C: torch.Tensor) -> torch.Tensor:
     db ≤ 3: the closed-form adjugate inverse, elementwise arithmetic with
     positive-definiteness decided by Sylvester's leading principal minors,
     so a non-PD block comes out NaN as a failed Cholesky would.  db > 3: a
-    Cholesky inverse; ``torch.linalg.cholesky`` raises on a non-PD block
-    where JAX returns NaN, so ``cholesky_ex`` runs and the blocks whose
-    ``info`` is not 0 are set to NaN.  Either way the NaN reaches the
+    Cholesky inverse of the symmetric part (C + Cᵀ)/2, as JAX's
+    ``cholesky`` factors it; ``torch.linalg.cholesky`` raises on a non-PD
+    block where JAX returns NaN, so ``cholesky_ex`` runs and the blocks
+    whose ``info`` is not 0 are set to NaN.  Either way the NaN reaches the
     proposal's ``ok`` and the loop escalates λ."""
     db = C.shape[-1]
     nan = torch.full((), float("nan"), dtype=C.dtype, device=C.device)
@@ -119,7 +127,7 @@ def spd_inv_blocks(C: torch.Tensor) -> torch.Tensor:
         Ci = (torch.stack([A, B, Cc, B, D, E, Cc, E, F], dim=-1)
               .reshape(C.shape) * inv_det[..., None, None])
         return torch.where(pd[..., None, None], Ci, nan)
-    L, info = torch.linalg.cholesky_ex(C)
+    L, info = torch.linalg.cholesky_ex((C + C.mT) / 2)
     eye = torch.eye(db, dtype=C.dtype, device=C.device).expand(C.shape)
     Ci = torch.cholesky_solve(eye, L)
     return torch.where((info == 0)[..., None, None], Ci, nan)
@@ -228,9 +236,12 @@ class ObsLayout:
     maps (None where they coincide, see ``ops/schur.bipartite_perms``),
     and the camera sum of the slots for :meth:`SchurObsSystem.matvec`.
     Pytree context of the system, compared by identity, so a per-instance
-    select of the loop touches the blocks only."""
+    select of the loop touches the blocks only.  As one bucket of a
+    :class:`SchurObsBuckets` it also holds ``ids``, the bucket's landmarks
+    (a device index tensor; None for the whole landmark axis in order)."""
 
-    def __init__(self, cam_idx, mask=None, em2gl=None, gl2em=None):
+    def __init__(self, cam_idx, mask=None, em2gl=None, gl2em=None,
+                 ids=None):
         self.cam_np = _host(cam_idx).astype(np.int64)
         self.mask_np = (np.ones(self.cam_np.shape, bool) if mask is None
                         else _host(mask) != 0)
@@ -238,6 +249,7 @@ class ObsLayout:
         self.cam_idx = torch.as_tensor(cam_idx, device=dev)
         self.cam = torch.as_tensor(self.cam_np, device=dev)
         self.em2gl, self.gl2em = em2gl, gl2em
+        self.ids = ids
         self._slot_sum = None
 
     def slot_sum(self, n_a: int) -> _RowSum:
@@ -299,24 +311,9 @@ class SchurObsSystem:
     def matvec(self, v: torch.Tensor) -> torch.Tensor:
         """H·v from the sparse blocks (H is never assembled); ``v``
         (..., dims) and the result in the loop's global layout."""
-        n_a, da, n_b, db, K = self._dims()
-        lead = tuple(v.shape[:-1])
-        if self.gl2em is not None:
-            v = v[..., self.gl2em]
-        v_a = v[..., :n_a * da].reshape(lead + (n_a, da))
-        v_b = v[..., n_a * da:].reshape(lead + (n_b, db))
-        E4 = self.E.reshape(self.E.shape[:-1] + (K, da, db))
-        C3 = self.C.reshape(self.C.shape[:-1] + (db, db))
-        o_a = _einsum("iab,ib->ia", self.Ba, v_a)
-        Evb = _einsum("jkab,jb->jka", E4, v_b)       # (..., n_b, K, da)
-        o_a = o_a + self.layout.slot_sum(n_a)(
-            Evb.reshape(Evb.shape[:-3] + (n_b * K, da)))
-        va_g = v_a[..., self.layout.cam, :]          # (..., n_b, K, da)
-        o_b = (_einsum("jab,jb->ja", C3, v_b)
-               + _einsum("jkab,jka->jb", E4, va_g))
-        out = torch.cat([o_a.reshape(lead + (-1,)),
-                         o_b.reshape(lead + (-1,))], dim=-1)
-        return out if self.em2gl is None else out[..., self.em2gl]
+        _, _, n_b, db, _ = self._dims()
+        return _arrow_matvec(self.Ba, [(self.E, self.C, self.layout)],
+                             None, self.layout, v, n_b, db)
 
     def to_dense(self) -> torch.Tensor:
         """The full arrow H (..., dims, dims) in the global layout (testing
@@ -343,6 +340,105 @@ pytree.register_pytree_node(
     SchurObsSystem, lambda s: ([s.Ba, s.C, s.E], s.layout),
     lambda v, layout: SchurObsSystem(*v, layout),
     serialized_type_name="tinyopt_tpu_torch.ops.schur_obs.SchurObsSystem")
+
+
+def _arrow_matvec(Ba, slabs, inv_order, maps, v, n_b: int, db: int):
+    """H·v of an arrow system whose landmarks lie in point-major slabs
+    ``[(E, C, ObsLayout)]``, their rows concatenated in slab order and put
+    back in landmark order by the gather ``inv_order`` (None: one slab in
+    order); ``maps`` carries the em2gl / gl2em tangent maps; ``v`` and the
+    result (..., dims) in the loop's global layout."""
+    n_a, da = Ba.shape[-3], Ba.shape[-1]
+    lead = tuple(v.shape[:-1])
+    if maps.gl2em is not None:
+        v = v[..., maps.gl2em]
+    v_a = v[..., :n_a * da].reshape(lead + (n_a, da))
+    v_b = v[..., n_a * da:].reshape(lead + (n_b, db))
+    o_a = _einsum("iab,ib->ia", Ba, v_a)
+    o_b = []
+    for E, C, lay in slabs:
+        n, K = lay.cam_np.shape
+        E4 = E.reshape(E.shape[:-1] + (K, da, db))
+        C3 = C.reshape(C.shape[:-1] + (db, db))
+        v_g = v_b if lay.ids is None else v_b[..., lay.ids, :]
+        Evb = _einsum("jkab,jb->jka", E4, v_g)       # (..., n, K, da)
+        o_a = o_a + lay.slot_sum(n_a)(
+            Evb.reshape(Evb.shape[:-3] + (n * K, da)))
+        va_g = v_a[..., lay.cam, :]                  # (..., n, K, da)
+        o_b.append(_einsum("jab,jb->ja", C3, v_g)
+                   + _einsum("jkab,jka->jb", E4, va_g))
+    o_b = torch.cat(o_b, dim=-2)
+    if inv_order is not None:
+        o_b = o_b[..., inv_order, :]
+    out = torch.cat([o_a.reshape(lead + (-1,)),
+                     o_b.reshape(lead + (-1,))], dim=-1)
+    return out if maps.em2gl is None else out[..., maps.em2gl]
+
+
+class BucketLayout:
+    """The static topology of a :class:`SchurObsBuckets`: one
+    :class:`ObsLayout` a bucket (its ``cam_idx`` (n_g, K_g), real slots and
+    landmark ``ids``), the gather ``inv_order`` that puts the buckets'
+    concatenated landmark rows back in the original order, and the
+    element-major <-> global tangent maps.  Pytree context of the system,
+    compared by identity."""
+
+    def __init__(self, buckets, inv_order, em2gl=None, gl2em=None):
+        self.buckets = tuple(buckets)
+        self.inv_order = inv_order
+        self.em2gl, self.gl2em = em2gl, gl2em
+
+
+@dataclasses.dataclass
+class SchurObsBuckets:
+    """Arrow system over K-bucketed landmarks (the loop's Hessian).
+
+    Published BAL visibility is heavy-tailed (a few observations a
+    landmark on average, hundreds for the densest), so one (n_b, K_max)
+    padded slab would hold mostly padding.  The landmarks are grouped into
+    buckets by observation count instead, each its own padded slab with
+    its own cap K_g.  ``C`` and ``E`` hold one entry a bucket, each in the
+    flat layout of :class:`SchurObsSystem` ((..., n_g, db²) and (..., n_g,
+    K_g·da·db)); the leading axes are the instances.  ``layout``
+    (:class:`BucketLayout`) holds the static per-bucket topology.
+    ``matvec`` uses the loop's global tangent layout."""
+
+    Ba: torch.Tensor     #: (..., n_a, da, da) camera diagonal blocks
+    C: tuple             #: per bucket (..., n_g, db*db) landmark blocks
+    E: tuple             #: per bucket (..., n_g, K_g*da*db) couplings
+    layout: BucketLayout
+
+    @property
+    def cam_idx(self) -> tuple:
+        return tuple(b.cam_idx for b in self.layout.buckets)
+
+    @property
+    def em2gl(self):
+        return self.layout.em2gl
+
+    @property
+    def gl2em(self):
+        return self.layout.gl2em
+
+    @property
+    def dtype(self):
+        return self.Ba.dtype
+
+    def matvec(self, v: torch.Tensor) -> torch.Tensor:
+        """H·v from the sparse blocks; ``v`` (..., dims) and the result in
+        the loop's global layout."""
+        db = math.isqrt(self.C[0].shape[-1])
+        n_b = sum(c.shape[-2] for c in self.C)
+        return _arrow_matvec(self.Ba, list(zip(self.E, self.C,
+                                               self.layout.buckets)),
+                             self.layout.inv_order, self.layout, v, n_b, db)
+
+
+pytree.register_pytree_node(
+    SchurObsBuckets, lambda s: ([s.Ba, s.C, s.E], s.layout),
+    lambda v, layout: SchurObsBuckets(v[0], tuple(v[1]), tuple(v[2]),
+                                      layout),
+    serialized_type_name="tinyopt_tpu_torch.ops.schur_obs.SchurObsBuckets")
 
 
 def _damp_flat(M_flat: torch.Tensor, db: int, lam) -> torch.Tensor:
@@ -622,14 +718,16 @@ def pick_band_group(bw_cams: int, n_a: int, da: int, max_block: int = 384,
 def _tridiag_cr_refine(D, B, b2, refine: int, dtype):
     """Cyclic-reduction solve of the (D, B) block-tridiagonal system, with
     ``refine`` rounds of float64-residual iterative refinement through the
-    banded matvec; a round whose correction is not finite is skipped for
-    that instance."""
+    banded matvec; a correction is taken only where it is finite and
+    shorter than the one before it (the first: than x), as in
+    ``ops/linalg.refine_psd_solve``."""
     from .tridiag import block_tridiag_cr_solve
 
     Ng = D.shape[-3]
     x = block_tridiag_cr_solve(D, B, b2)
     if refine > 0:
         D64, B64, b64 = D.double(), B.double(), b2.double()
+        prev = torch.linalg.vector_norm(x.flatten(-2), dim=-1)
         for _ in range(refine):
             x64 = x.double()
             Sx = _einsum("nab,nb->na", D64, x64)
@@ -639,9 +737,11 @@ def _tridiag_cr_refine(D, B, b2, refine: int, dtype):
                 Sx[..., :-1, :] += _einsum("nba,nb->na", B64,
                                            x64[..., 1:, :])
             corr = block_tridiag_cr_solve(D, B, (b64 - Sx).to(dtype))
-            good = torch.isfinite(corr).all(dim=-1).all(dim=-1)
-            x = x + torch.where(good[..., None, None], corr,
+            size = torch.linalg.vector_norm(corr.flatten(-2), dim=-1)
+            take = torch.isfinite(corr).all(dim=-1).all(dim=-1) & (size < prev)
+            x = x + torch.where(take[..., None, None], corr,
                                 torch.zeros_like(corr))
+            prev = torch.where(take, size, torch.zeros_like(size))
     return x
 
 
@@ -784,6 +884,40 @@ def make_landmark_marginal_pass(n_a: int, K: int, da: int, db: int, dtype,
     return marginal_pass
 
 
+def _slab_marginals(Ba, slabs, chunk: int):
+    """The marginals of an arrow system whose landmarks lie in point-major
+    slabs ``[(E, C, ObsLayout)]``: the reduced camera system S summed over
+    the slabs, ``cov_a`` from its inverse, then each slab's landmark blocks
+    (a landmark with no real observation NaN).  Returns ``(cov_a,
+    [cov_b of each slab])``."""
+    n_a, da = Ba.shape[-3], Ba.shape[-1]
+    dtype, dev = Ba.dtype, Ba.device
+    S_f, stash = None, []
+    for E, C, lay in slabs:
+        n, K = lay.cam_np.shape
+        db = math.isqrt(C.shape[-1])
+        n_p = _padded_points(n, chunk)
+        pad, CH = n_p - n, _pick_chunk(n_p, chunk)
+        cam_np = np.concatenate([lay.cam_np, np.zeros((pad, K), np.int64)])
+        mask_np = np.concatenate([lay.mask_np, np.zeros((pad, K), bool)])
+        E_p, C_p = _pad_rows(E, pad), _pad_rows(C, pad)
+        cam_p = torch.as_tensor(cam_np, device=dev)
+        S_g, _, Cinv_p = make_reduce_pass(n_a, K, da, db, dtype, CH, cam_np,
+                                          mask_np, dev)(
+            E_p, C_p, cam_p, E_p.new_zeros(E_p.shape[:-1] + (db,)))
+        S_f = S_g if S_f is None else S_f + S_g
+        stash.append((E_p, Cinv_p, cam_p, C, K, CH, db))
+    cov_a, Sinv = camera_marginals_from_S(S_f, Ba)
+    rows = []
+    for E_p, Cinv_p, cam_p, C, K, CH, db in stash:
+        cov = make_landmark_marginal_pass(n_a, K, da, db, dtype, CH)(
+            E_p, Cinv_p, cam_p, Sinv)[..., :C.shape[-2], :, :]
+        dead = torch.all(C == 0, dim=-1)
+        rows.append(torch.where(dead[..., None, None],
+                                torch.full_like(cov, float("nan")), cov))
+    return cov_a, rows
+
+
 def obs_marginals(H: SchurObsSystem, chunk: int = 1024):
     """Posterior marginal covariance blocks of a sparse-observation BA
     solution.
@@ -796,39 +930,116 @@ def obs_marginals(H: SchurObsSystem, chunk: int = 1024):
     never a (dims)² solve.  A landmark with no real observation is NaN
     (its H row is singular).  Rescaling (reference output.h:80-93) is the
     ``schur_sparse_covariance`` entry's."""
-    n_a, da, n_b, db, K = H._dims()
-    lay = H.layout
-    dev = H.Ba.device
-    n_bp = _padded_points(n_b, chunk)
-    pad = n_bp - n_b
-    CH = _pick_chunk(n_bp, chunk)
-
-    def pad_rows(t):
-        if not pad:
-            return t
-        return torch.cat([t, t.new_zeros(t.shape[:-2] + (pad,)
-                                         + t.shape[-1:])], dim=-2)
-
-    cam_np = np.concatenate([lay.cam_np, np.zeros((pad, K), np.int64)])
-    mask_np = np.concatenate([lay.mask_np, np.zeros((pad, K), bool)])
-    E_p, C_p = pad_rows(H.E), pad_rows(H.C)
-    cam_p = torch.as_tensor(cam_np, device=dev)
-    reduce_pass = make_reduce_pass(n_a, K, da, db, H.dtype, CH, cam_np,
-                                   mask_np, dev)
-    S_f, _, Cinv_p = reduce_pass(
-        E_p, C_p, cam_p, E_p.new_zeros(E_p.shape[:-1] + (db,)))
-    cov_a, Sinv = camera_marginals_from_S(S_f, H.Ba)
-    cov_b = make_landmark_marginal_pass(n_a, K, da, db, H.dtype, CH)(
-        E_p, Cinv_p, cam_p, Sinv)[..., :n_b, :, :]
-    dead = torch.all(H.C == 0, dim=-1)
-    cov_b = torch.where(dead[..., None, None],
-                        torch.full_like(cov_b, float("nan")), cov_b)
+    cov_a, (cov_b,) = _slab_marginals(H.Ba, [(H.E, H.C, H.layout)], chunk)
     return cov_a, cov_b
 
 
+def obs_marginals_buckets(H: SchurObsBuckets, ids_list, chunk: int = 1024):
+    """Posterior marginal covariance blocks of a K-bucketed solution:
+    :func:`obs_marginals`' algebra with the reduced camera system summed
+    over the buckets.  ``ids_list`` gives each bucket's original landmark
+    indices (the ``ids`` of the slabs the system was built from).  Returns
+    ``(cov_a (..., n_a, da, da), cov_b (..., n_b, db, db))`` with ``cov_b``
+    in the original landmark order; a landmark with no real observation is
+    NaN."""
+    ids_all = np.concatenate([_host(i).astype(np.int64).reshape(-1)
+                              for i in ids_list])
+    inv_order = torch.as_tensor(np.argsort(ids_all), device=H.Ba.device)
+    cov_a, rows = _slab_marginals(
+        H.Ba, list(zip(H.E, H.C, H.layout.buckets)), chunk)
+    return cov_a, torch.cat(rows, dim=-3)[..., inv_order, :, :]
+
+
 # --------------------------------------------------------------------------
-# The system
+# The systems
 # --------------------------------------------------------------------------
+
+def _pad_rows(t: torch.Tensor, pad: int) -> torch.Tensor:
+    """``t`` (..., n, w) with ``pad`` zero rows appended."""
+    if not pad:
+        return t
+    return torch.cat([t, t.new_zeros(t.shape[:-2] + (pad,) + t.shape[-1:])],
+                     dim=-2)
+
+
+def _point_slab(pair_fn, a0, spec_a, spec_b, dtype, n_a: int, obs, cam_idx,
+                mask, chunk: int):
+    """One point-major slab of a system, built once: its data with the point
+    axis padded to a multiple of ``chunk`` (padded points: mask 0, camera 0,
+    zero obs) on the parameters' device, and its per-point passes
+    (:func:`make_obs_kernels`, planned from the host indices)."""
+    dev = pytree.tree_leaves(a0)[0].device
+    cam_np = _host(cam_idx).astype(np.int64)
+    real = _host(mask) != 0
+    n, K = cam_np.shape
+    n_p = _padded_points(n, chunk)
+    pad, CH = n_p - n, _pick_chunk(n_p, chunk)
+    cam_pad = np.concatenate([cam_np, np.zeros((pad, K), np.int64)])
+    real_pad = np.concatenate([real, np.zeros((pad, K), bool)])
+    obs_p = pytree.tree_map(lambda l: torch.cat(
+        [l, l.new_zeros((l.shape[0], pad) + tuple(l.shape[2:]))], dim=1),
+        obs) if pad else obs
+    return types.SimpleNamespace(
+        n=n, pad=pad, cam_np=cam_np, real=real, obs=obs_p,
+        cam=torch.as_tensor(cam_pad, device=dev),
+        mask=torch.as_tensor(real_pad, device=dev).to(dtype),
+        kernels=make_obs_kernels(pair_fn, a0, spec_a, spec_b, dtype, n_a, K,
+                                 CH, cam_pad, real_pad))
+
+
+def _residual_dims(pair_fn, a_ex, b_ex, obs) -> int:
+    """m, the residuals of one observation."""
+    d_ex = pytree.tree_map(lambda l: l[0, 0, 0], obs)
+    return int(flatten_residuals(pair_fn(a_ex, b_ex, d_ex)).numel())
+
+
+def _propose(stages, em2gl, damp_C):
+    """``propose(H, g, lam, opts) -> (dx, ok)``, the damped Schur
+    elimination of each solver type, from a system's elimination stages:
+    ``stages.reduce_inputs(H, Cd, g)`` → ``stages.reduce`` →
+    :func:`assemble_reduced` (at ``stages.band_group`` where
+    ``hessian.schur_banded="auto"``) → ``stages.backsub``; ``damp_C(C, λ)``
+    damps the landmark blocks.  The stages stay on it as
+    ``propose.stages``, for timing them one by one."""
+    from ..solvers.step import dogleg_core
+    from .schur import _damp_blocks
+
+    def eliminate(H, Bd, Cd, g, use_cholesky=True, refine: int = 0,
+                  cg_iters: int = 0, band_group=None):
+        """(dx, ok) of the damped arrow system [Bd, E; Eᵀ, Cd] dx = −g: the
+        reduce, the reduced solve, the back-substitution; g and dx in the
+        loop's global layout."""
+        g_a, g_b, E_p, Cd_p = stages.reduce_inputs(H, Cd, g)
+        S_f, rhs_acc, Cinv = stages.reduce(E_p, Cd_p, g_b)
+        dx_a, ok = assemble_reduced(S_f, rhs_acc, Bd, g_a, use_cholesky,
+                                    refine, cg_iters, band_group)
+        dx_b = stages.backsub(E_p, Cinv, g_b, dx_a)
+        dx = torch.cat([dx_a.flatten(-2), dx_b.flatten(-2)], dim=-1)
+        ok = ok & torch.isfinite(dx).all(dim=-1)
+        if em2gl is not None:
+            dx = dx[:, em2gl]
+        return dx, ok
+
+    def propose(H, g, lam, opts):
+        hs = opts.hessian
+        kw = dict(use_cholesky=hs.use_ldlt, refine=hs.schur_refine,
+                  cg_iters=hs.schur_cg_iters,
+                  band_group=(stages.band_group if hs.schur_banded == "auto"
+                              else None))
+        if opts.solver_type == SolverType.DOGLEG:
+            dx_gn, ok_gn = eliminate(H, H.Ba, H.C, g, **kw)
+            return dogleg_core(
+                g, lam, dx_gn, ok_gn, torch.sum(g * H.matvec(g), dim=-1),
+                lambda le: eliminate(H, _damp_blocks(H.Ba, le),
+                                     damp_C(H.C, le), g, **kw))
+        if opts.solver_type == SolverType.LEVENBERG_MARQUARDT:
+            return eliminate(H, _damp_blocks(H.Ba, lam), damp_C(H.C, lam), g,
+                             **kw)
+        return eliminate(H, H.Ba, H.C, g, **kw)
+
+    propose.stages = stages
+    return propose
+
 
 def schur_obs_system(pair_fn: Callable, a0, b0, obs, cam_idx, mask,
                      spec: mf.TangentSpec, chunk: int = 1024):
@@ -845,9 +1056,11 @@ def schur_obs_system(pair_fn: Callable, a0, b0, obs, cam_idx, mask,
     residuals only, m · count_nonzero(mask).  The banded route
     (``hessian.schur_banded="auto"``) is taken where
     :func:`detect_camera_bandwidth` / :func:`pick_band_group` find a band
-    in the host indices."""
-    from ..solvers.step import dogleg_core
-    from .schur import _damp_blocks, bipartite_perms
+    in the host indices.  ``propose.stages`` holds the elimination's
+    stages: ``reduce_inputs(H, Cd, g) -> (g_a, g_b, E_p, Cd_p)``,
+    ``reduce(E_p, Cd_p, g_b) -> (S_f, rhs, Cinv)``, ``backsub(E_p, Cinv,
+    g_b, dx_a) -> dx_b`` and ``band_group``."""
+    from .schur import bipartite_perms
 
     a0, b0 = mf.as_pytree(a0), mf.as_pytree(b0)
     n_a = pytree.tree_leaves(a0)[0].shape[0]
@@ -858,59 +1071,34 @@ def schur_obs_system(pair_fn: Callable, a0, b0, obs, cam_idx, mask,
     da, db = spec_a.dims, spec_b.dims
     dtype = spec.dtype
     dev = pytree.tree_leaves(a0)[0].device
-    cam_np = _host(cam_idx).astype(np.int64)
-    mask_np = _host(mask)
-    K = cam_np.shape[1]
     Bn = pytree.tree_leaves(obs)[0].shape[0]
-
-    n_bp = _padded_points(n_b, chunk)
-    pad = n_bp - n_b
-    CH = _pick_chunk(n_bp, chunk)
-    cam_pad = np.concatenate([cam_np, np.zeros((pad, K), np.int64)])
-    real_pad = np.concatenate([mask_np != 0, np.zeros((pad, K), bool)])
-    obs_p = pytree.tree_map(lambda l: torch.cat(
-        [l, l.new_zeros((l.shape[0], pad) + tuple(l.shape[2:]))], dim=1),
-        obs) if pad else obs
-    cam_p = torch.as_tensor(cam_pad, device=dev)
-    mask_p = torch.as_tensor(real_pad, device=dev).to(dtype)
-
-    def pair_r(a_i, b_j, d_ij):
-        return flatten_residuals(pair_fn(a_i, b_j, d_ij)).to(dtype)
-
-    d_ex = pytree.tree_map(lambda l: l[0, 0, 0], obs)
-    m = int(pair_r(a_ex, b_ex, d_ex).numel())
-    n_res = torch.full((Bn,), int(np.count_nonzero(mask_np)) * m,
+    sl = _point_slab(pair_fn, a0, spec_a, spec_b, dtype, n_a, obs, cam_idx,
+                     mask, chunk)
+    acc_slab, eval_slab, reduce_pass, backsub_pass = sl.kernels
+    m = _residual_dims(pair_fn, a_ex, b_ex, obs)
+    n_res = torch.full((Bn,), int(np.count_nonzero(sl.real)) * m,
                        dtype=torch.int32, device=dev)
-
-    acc_slab, eval_slab, reduce_pass, backsub_pass = make_obs_kernels(
-        pair_fn, a0, spec_a, spec_b, dtype, n_a, K, CH, cam_pad, real_pad)
     # static banded-structure detection (hessian.schur_banded="auto")
-    band_g = pick_band_group(detect_camera_bandwidth(cam_np, mask_np), n_a,
-                             da)
+    band_g = pick_band_group(detect_camera_bandwidth(sl.cam_np, sl.real),
+                             n_a, da)
     em2gl, gl2em = bipartite_perms(a0, b0, n_a, n_b, da, db, dev)
-    layout = ObsLayout(torch.as_tensor(cam_np, device=dev), mask_np != 0,
+    layout = ObsLayout(torch.as_tensor(sl.cam_np, device=dev), sl.real,
                        em2gl, gl2em)
 
     def split(x):
         return mf.unflatten(x, spec)
 
     def pad_b(b):
-        if not pad:
+        if not sl.pad:
             return b
         return pytree.tree_map(lambda l: torch.cat(
-            [l, l[:, :1].expand((l.shape[0], pad) + tuple(l.shape[2:]))],
+            [l, l[:, :1].expand((l.shape[0], sl.pad) + tuple(l.shape[2:]))],
             dim=1), b)
-
-    def pad_rows(t):
-        if not pad:
-            return t
-        return torch.cat([t, t.new_zeros(t.shape[:-2] + (pad,)
-                                         + t.shape[-1:])], dim=-2)
 
     def accumulate(x):
         a, b = split(x)
-        Ba, g_a, E_f, C_f, g_b, rss = acc_slab(a, pad_b(b), obs_p, cam_p,
-                                               mask_p)
+        Ba, g_a, E_f, C_f, g_b, rss = acc_slab(a, pad_b(b), sl.obs, sl.cam,
+                                               sl.mask)
         g = torch.cat([g_a.flatten(-2), g_b[:, :n_b].flatten(-2)], dim=-1)
         if em2gl is not None:
             g = g[:, em2gl]
@@ -919,7 +1107,8 @@ def schur_obs_system(pair_fn: Callable, a0, b0, obs, cam_idx, mask,
 
     def evaluate(x):
         a, b = split(x)
-        return Cost.make(eval_slab(a, pad_b(b), obs_p, cam_p, mask_p), n_res)
+        return Cost.make(eval_slab(a, pad_b(b), sl.obs, sl.cam, sl.mask),
+                         n_res)
 
     def reduce_inputs(H: SchurObsSystem, Cd_flat, g):
         """(g_a, g_b, E, Cd) in the element-major, point-padded layout of
@@ -927,55 +1116,264 @@ def schur_obs_system(pair_fn: Callable, a0, b0, obs, cam_idx, mask,
         if gl2em is not None:
             g = g[:, gl2em]
         return (g[:, :n_a * da].reshape(-1, n_a, da),
-                pad_rows(g[:, n_a * da:].reshape(-1, n_b, db)),
-                pad_rows(H.E), pad_rows(Cd_flat))
+                _pad_rows(g[:, n_a * da:].reshape(-1, n_b, db), sl.pad),
+                _pad_rows(H.E, sl.pad), _pad_rows(Cd_flat, sl.pad))
 
     def reduce(E_p, Cd_p, g_b):
-        return reduce_pass(E_p, Cd_p, cam_p, g_b)
+        return reduce_pass(E_p, Cd_p, sl.cam, g_b)
 
     def backsub(E_p, Cinv_f, g_b, dx_a):
-        return backsub_pass(E_p, Cinv_f, cam_p, g_b, dx_a)[:, :n_b]
+        return backsub_pass(E_p, Cinv_f, sl.cam, g_b, dx_a)[:, :n_b]
 
-    def eliminate(H: SchurObsSystem, Bd, Cd_flat, g, use_cholesky=True,
-                  refine: int = 0, cg_iters: int = 0, band_group=None):
-        """(dx, ok) of the damped arrow system [Bd, E; Eᵀ, Cd] dx = −g:
-        the reduce, the reduced solve, the back-substitution; g and dx in
-        the loop's global layout."""
-        g_a, g_b, E_p, Cd_p = reduce_inputs(H, Cd_flat, g)
-        S_f, rhs_acc, Cinv_f = reduce(E_p, Cd_p, g_b)
-        dx_a, ok = assemble_reduced(S_f, rhs_acc, Bd, g_a, use_cholesky,
-                                    refine, cg_iters, band_group)
-        dx_b = backsub(E_p, Cinv_f, g_b, dx_a)
-        dx = torch.cat([dx_a.flatten(-2), dx_b.flatten(-2)], dim=-1)
-        ok = ok & torch.isfinite(dx).all(dim=-1)
-        if em2gl is not None:
-            dx = dx[:, em2gl]
-        return dx, ok
-
-    def propose(H: SchurObsSystem, g, lam, opts):
-        """The damped Schur elimination of each solver type: (dx, ok)."""
-        hs = opts.hessian
-        kw = dict(use_cholesky=hs.use_ldlt, refine=hs.schur_refine,
-                  cg_iters=hs.schur_cg_iters,
-                  band_group=band_g if hs.schur_banded == "auto" else None)
-        if opts.solver_type == SolverType.DOGLEG:
-            dx_gn, ok_gn = eliminate(H, H.Ba, H.C, g, **kw)
-            return dogleg_core(
-                g, lam, dx_gn, ok_gn, torch.sum(g * H.matvec(g), dim=-1),
-                lambda le: eliminate(H, _damp_blocks(H.Ba, le),
-                                     _damp_flat(H.C, db, le), g, **kw))
-        if opts.solver_type == SolverType.LEVENBERG_MARQUARDT:
-            return eliminate(H, _damp_blocks(H.Ba, lam),
-                             _damp_flat(H.C, db, lam), g, **kw)
-        return eliminate(H, H.Ba, H.C, g, **kw)
-
-    # the elimination's stages, for timing them one by one: ``eliminate``
-    # is reduce_inputs → reduce → assemble_reduced(..., band_group) →
-    # backsub
-    propose.stages = types.SimpleNamespace(
-        reduce_inputs=reduce_inputs, reduce=reduce, backsub=backsub,
-        band_group=band_g)
+    propose = _propose(
+        types.SimpleNamespace(reduce_inputs=reduce_inputs, reduce=reduce,
+                              backsub=backsub, band_group=band_g),
+        em2gl, lambda C, lam: _damp_flat(C, db, lam))
     return accumulate, evaluate, n_res, propose
+
+
+def schur_obs_bucket_system(pair_fn: Callable, a0, b0, slabs,
+                            spec: mf.TangentSpec, chunk: int = 1024):
+    """Batched ``(accumulate, evaluate, n_res, propose)`` of a K-bucketed
+    sparse-observation BA problem, the contract of
+    :func:`schur_obs_system`.
+
+    ``slabs`` — a list of ``(obs, cam_idx, mask, ids)``, one a bucket: obs
+    leaves (B, n_g, K_g, ...), ``cam_idx`` / ``mask`` (n_g, K_g) (one
+    topology for the batch), and the static original landmark indices
+    ``ids`` (n_g,) of the bucket's rows (:func:`bucket_obs` builds them).
+    Every landmark must lie in exactly one bucket.  ``x`` keeps the
+    original landmark order: each bucket gathers its landmarks by ``ids``
+    and one static gather puts g_b and the back-substituted steps back in
+    that order.  Each bucket is its own padded point axis with its own
+    per-point passes and sums; the reduced camera system and its rhs are
+    summed over the buckets, so a trajectory follows the single-slab
+    layout's of the same problem up to summation order.  The banded route
+    is taken over the union of the buckets' bandwidths.  The JAX package's
+    band-storage reduce (straight into the band of S) needs its TPU window
+    plan, and off the TPU it runs none (its ``_window_enabled`` is False
+    there), so S is the flat camera-pair grid here as on its CPU."""
+    from .schur import bipartite_perms
+
+    a0, b0 = mf.as_pytree(a0), mf.as_pytree(b0)
+    n_a = pytree.tree_leaves(a0)[0].shape[0]
+    n_b = pytree.tree_leaves(b0)[0].shape[0]
+    a_ex = pytree.tree_map(lambda l: l[0], a0)
+    b_ex = pytree.tree_map(lambda l: l[0], b0)
+    spec_a, spec_b = mf.tangent_spec(a_ex), mf.tangent_spec(b_ex)
+    da, db = spec_a.dims, spec_b.dims
+    dtype = spec.dtype
+    dev = pytree.tree_leaves(a0)[0].device
+
+    ids_np = [_host(s[3]).astype(np.int64).reshape(-1) for s in slabs]
+    ids_all = np.concatenate(ids_np)
+    if ids_all.size != n_b or np.any(np.sort(ids_all) != np.arange(n_b)):
+        raise ValueError(
+            "bucket ids must partition the landmark axis: every "
+            f"landmark index 0..{n_b - 1} exactly once "
+            f"(got {ids_all.size} ids)")
+    inv_order = torch.as_tensor(np.argsort(ids_all), device=dev)
+    buckets = [_point_slab(pair_fn, a0, spec_a, spec_b, dtype, n_a, obs, ci,
+                           mk, chunk) for obs, ci, mk, _ in slabs]
+    Bn = pytree.tree_leaves(slabs[0][0])[0].shape[0]
+    m = _residual_dims(pair_fn, a_ex, b_ex, slabs[0][0])
+    n_res = torch.full((Bn,), sum(int(np.count_nonzero(bk.real))
+                                  for bk in buckets) * m,
+                       dtype=torch.int32, device=dev)
+    # the banded route over the union of the buckets' co-observations
+    bw = max((detect_camera_bandwidth(bk.cam_np, bk.real)
+              for bk in buckets), default=0)
+    band_g = pick_band_group(bw, n_a, da)
+    em2gl, gl2em = bipartite_perms(a0, b0, n_a, n_b, da, db, dev)
+    for bk, ids in zip(buckets, ids_np):
+        bk.ids = torch.as_tensor(ids, device=dev)
+    layout = BucketLayout(
+        [ObsLayout(torch.as_tensor(bk.cam_np, device=dev), bk.real,
+                   ids=bk.ids) for bk in buckets], inv_order, em2gl, gl2em)
+
+    def split(x):
+        return mf.unflatten(x, spec)
+
+    def slab_b(b, bk):
+        """The bucket's landmarks, padded with copies of its first."""
+        def leaf(l):
+            l = l[:, bk.ids]
+            if not bk.pad:
+                return l
+            return torch.cat([l, l[:, :1].expand(
+                (l.shape[0], bk.pad) + tuple(l.shape[2:]))], dim=1)
+        return pytree.tree_map(leaf, b)
+
+    def accumulate(x):
+        a, b = split(x)
+        Ba = g_a = rss = None
+        C, E, g_b = [], [], []
+        for bk in buckets:
+            Ba_g, ga_g, E_f, C_f, gb_g, rss_g = bk.kernels[0](
+                a, slab_b(b, bk), bk.obs, bk.cam, bk.mask)
+            Ba, g_a, rss = ((Ba_g, ga_g, rss_g) if Ba is None else
+                            (Ba + Ba_g, g_a + ga_g, rss + rss_g))
+            C.append(C_f[:, :bk.n])
+            E.append(E_f[:, :bk.n])
+            g_b.append(gb_g[:, :bk.n])
+        g_b = torch.cat(g_b, dim=1)[:, inv_order]
+        g = torch.cat([g_a.flatten(-2), g_b.flatten(-2)], dim=-1)
+        if em2gl is not None:
+            g = g[:, em2gl]
+        return (SchurObsBuckets(Ba, tuple(C), tuple(E), layout), g,
+                Cost.make(rss, n_res))
+
+    def evaluate(x):
+        a, b = split(x)
+        rss = None
+        for bk in buckets:
+            r = bk.kernels[1](a, slab_b(b, bk), bk.obs, bk.cam, bk.mask)
+            rss = r if rss is None else rss + r
+        return Cost.make(rss, n_res)
+
+    def reduce_inputs(H: SchurObsBuckets, Cd, g):
+        """(g_a, [g_b], [E], [Cd]): g_a element-major, the rest one entry a
+        bucket, point-padded; g in the loop's global layout."""
+        if gl2em is not None:
+            g = g[:, gl2em]
+        g_b = g[:, n_a * da:].reshape(-1, n_b, db)
+        return (g[:, :n_a * da].reshape(-1, n_a, da),
+                [_pad_rows(g_b[:, bk.ids], bk.pad) for bk in buckets],
+                [_pad_rows(E_g, bk.pad) for bk, E_g in zip(buckets, H.E)],
+                [_pad_rows(C_g, bk.pad) for bk, C_g in zip(buckets, Cd)])
+
+    def reduce(E_p, Cd_p, g_b):
+        """(S_f, rhs_acc) summed over the buckets, and each bucket's C⁻¹."""
+        S_f = rhs = None
+        cinv = []
+        for bk, E_g, Cd_g, gb_g in zip(buckets, E_p, Cd_p, g_b):
+            S_g, rhs_g, Cinv_g = bk.kernels[2](E_g, Cd_g, bk.cam, gb_g)
+            S_f, rhs = ((S_g, rhs_g) if S_f is None else
+                        (S_f + S_g, rhs + rhs_g))
+            cinv.append(Cinv_g)
+        return S_f, rhs, cinv
+
+    def backsub(E_p, Cinv, g_b, dx_a):
+        """dx_b (B, n_b, db) in the original landmark order."""
+        rows = [bk.kernels[3](E_g, Ci_g, bk.cam, gb_g, dx_a)[:, :bk.n]
+                for bk, E_g, Ci_g, gb_g in zip(buckets, E_p, Cinv, g_b)]
+        return torch.cat(rows, dim=1)[:, inv_order]
+
+    propose = _propose(
+        types.SimpleNamespace(reduce_inputs=reduce_inputs, reduce=reduce,
+                              backsub=backsub, band_group=band_g),
+        em2gl, lambda C, lam: tuple(_damp_flat(c, db, lam) for c in C))
+    return accumulate, evaluate, n_res, propose
+
+
+# --------------------------------------------------------------------------
+# Layouts built on the host
+# --------------------------------------------------------------------------
+
+def _assign_caps(counts, caps):
+    """The smallest sufficient cap of each count from a fixed cap list (a
+    count of 0 takes the smallest cap)."""
+    counts = np.asarray(counts)
+    cap_of = np.full(counts.shape, caps[-1], np.int64)
+    for cap in reversed(caps):
+        cap_of[counts <= cap] = cap
+    cap_of[counts == 0] = caps[0]
+    return cap_of, caps
+
+
+def bucket_caps(counts, growth: float = 2.0, min_bucket: int = 256,
+                max_blowup: float = 2.0):
+    """Each landmark's K-bucket cap from its observation count (host-side
+    numpy): ``(cap_of (n_b,) int64, used caps list)``.
+
+    Caps grow geometrically by ``growth`` from the smallest count to the
+    largest.  A bucket of fewer than ``min_bucket`` points merges into the
+    next larger cap, each merge paid from a budget of ``(max_blowup − 1) ×
+    Σ the unmerged caps`` padded slots (an unbudgeted merge cascades on a
+    thin tail with one huge outlier: thousands of tiny classes inheriting
+    the outlier's cap); one that would overrun it keeps its own class.  A
+    small largest bucket cannot merge upward, so the next class is pulled
+    up into it instead (merging down would cut the slots of members whose
+    count exceeds the smaller cap)."""
+    counts = np.asarray(counts)
+    caps = []
+    c = max(int(counts.min()), 1)
+    kmax = max(int(counts.max()), 1)
+    while c < kmax:
+        caps.append(c)
+        c = max(int(math.ceil(c * growth)), c + 1)
+    caps.append(kmax)
+    cap_of, _ = _assign_caps(counts, caps)
+    used = [c0 for c0 in caps if np.any(cap_of == c0)]
+    budget = int((max_blowup - 1.0) * int(cap_of.sum()))
+    for i, c0 in enumerate(used[:-1]):
+        sel = cap_of == c0
+        n_sel = int(sel.sum())
+        if 0 < n_sel < min_bucket:
+            cost = (used[i + 1] - c0) * n_sel
+            if cost <= budget:
+                budget -= cost
+                cap_of[sel] = used[i + 1]
+    used = [c0 for c0 in caps if np.any(cap_of == c0)]
+    if len(used) > 1 and (cap_of == used[-1]).sum() < min_bucket:
+        n2 = int((cap_of == used[-2]).sum())
+        cost = (used[-1] - used[-2]) * n2
+        if cost <= budget:
+            budget -= cost
+            cap_of[cap_of == used[-2]] = used[-1]
+            used = used[:-2] + used[-1:]
+    return cap_of, used
+
+
+def bucket_obs(obs, cam_idx, mask, growth: float = 2.0,
+               min_bucket: int = 256):
+    """Split one problem's padded point-major layout (obs leaves (n_b, K,
+    ...), ``cam_idx`` / ``mask`` (n_b, K)) into K-buckets, on the host.
+
+    Landmarks are grouped by observation count (:func:`bucket_caps`).
+    Within a bucket they are ordered by their primary camera (the least
+    camera of a real slot; the JAX package's order, which keeps its TPU
+    chunks camera-local — here it only sets the summation order), each
+    row's real slots compacted to the front, its columns cut to the cap and
+    its padded slots zeroed (camera 0, mask 0, obs 0).  Returns ``slabs``,
+    a list of ``(obs_g, cam_idx_g, mask_g, ids_g)`` for
+    :func:`schur_obs_bucket_system`: tensors on the inputs' devices
+    (``cam_idx_g`` int32, the rest in their dtypes) and ``ids_g`` the
+    bucket's landmark indices (numpy int64).  The padded slots number
+    about ``growth``× the observations instead of n_b · K_max."""
+    cam_np = _host(cam_idx)
+    mask_np = _host(mask)
+    real = mask_np.astype(bool)
+    cap_of, used = bucket_caps(real.sum(axis=1), growth, min_bucket)
+    big = np.where(real, cam_np, np.iinfo(np.int64).max)
+    primary = np.where(real.any(1), big.min(axis=1), 0)
+
+    def dev_of(t):
+        return t.device if isinstance(t, torch.Tensor) else None
+
+    slabs = []
+    for cap in used:
+        ids = np.nonzero(cap_of == cap)[0]
+        ids = ids[np.argsort(primary[ids], kind="stable")]
+        order = np.argsort(~real[ids], axis=1, kind="stable")
+        cam_g = np.take_along_axis(cam_np[ids], order, 1)[:, :cap]
+        mask_g = np.take_along_axis(mask_np[ids], order, 1)[:, :cap]
+        keep = mask_g.astype(bool)
+        cam_g = np.where(keep, cam_g, 0).astype(np.int32)
+
+        def leaf(l):
+            arr = _host(l)[ids]
+            tail = (1,) * (arr.ndim - 2)
+            g = np.take_along_axis(arr, order.reshape(order.shape + tail),
+                                   1)[:, :cap]
+            return torch.as_tensor(
+                np.where(keep.reshape(keep.shape + tail), g, 0),
+                device=dev_of(l))
+
+        slabs.append((pytree.tree_map(leaf, obs),
+                      torch.as_tensor(cam_g, device=dev_of(cam_idx)),
+                      torch.as_tensor(mask_g, device=dev_of(mask)), ids))
+    return slabs
 
 
 def grid_to_obs(data, mask, K: int | None = None):

@@ -49,7 +49,8 @@ from .ops.block import BlockDiag
 from .ops.coloring import _greedy_color, probe_structure
 from .ops.linalg import cg_to_tol, cov_rescale
 from .ops.schur import schur_system
-from .ops.schur_obs import obs_marginals, schur_obs_system
+from .ops.schur_obs import (obs_marginals, obs_marginals_buckets,
+                            schur_obs_bucket_system, schur_obs_system)
 from .ops.sparse_sym import Pattern, SegmentSum, SparseSym
 from .optimizers.loop import optimize_from_acc
 from .options import FIRST_ORDER_TYPES, Options, SolverType
@@ -540,6 +541,64 @@ def schur_sparse_covariance(x, pair_fn: Callable, obs, cam_idx, mask, *,
                                     cam_idx, mask, spec, chunk)
     H, _, cost = acc(mf.flatten_batch(_batch_tree(x), spec))
     cov_a, cov_b = obs_marginals(H, chunk)
+    if rescaled:
+        f = cov_rescale(cost.cost, cost.num_residuals, spec.dims)
+        cov_a = cov_a * f[:, None, None, None]
+        cov_b = cov_b * f[:, None, None, None]
+    return cov_a[0], cov_b[0]
+
+
+def _batch_slabs(slabs) -> list:
+    """Bucketed slabs ``(obs, cam_idx, mask, ids)`` with a leading instance
+    axis of one on every obs leaf."""
+    return [(_batch_tree(obs), ci, mk, ids) for obs, ci, mk, ids in slabs]
+
+
+def schur_sparse_optimize_buckets(x0: tuple, pair_fn: Callable, slabs,
+                                  options: Options | None = None):
+    """Sparse-observation bundle adjustment over a K-bucketed point-major
+    layout, for heavy-tailed visibility (published BAL problems: a few
+    observations a landmark, hundreds for the densest), where one (n_b,
+    K_max) padded slab would hold mostly padding.
+
+    ``slabs`` groups the landmarks by observation count: each entry
+    ``(obs, cam_idx, mask, ids)`` is a padded slab with its own cap K_g
+    (obs leaves (n_g, K_g, ...), ``cam_idx`` / ``mask`` (n_g, K_g)) and the
+    original landmark indices ``ids`` of its rows;
+    ``ops.schur_obs.bucket_obs`` builds them from a padded layout,
+    ``models.bal.load_bal(layout="bucketed")`` from a BAL file.  The same
+    elimination as :func:`schur_sparse_optimize` (the reduced camera system
+    sums over the buckets), so trajectories follow the single-slab
+    layout's up to summation order.  ``x0 = (a0, b0)`` keeps the original
+    landmark order.  GN / LM / DogLeg.  Returns ``((a, b), Output)``."""
+    options = options or Options()
+    _check_second_order(options, "schur_sparse_optimize_buckets")
+    x0 = _schur_pair(x0, "schur_sparse_optimize_buckets needs x0 = (a0, b0)")
+    spec = mf.tangent_spec(x0)
+    acc, ev, _, propose = schur_obs_bucket_system(
+        pair_fn, x0[0], x0[1], _batch_slabs(slabs), spec)
+    xb = mf.flatten_batch(_batch_tree(x0), spec)
+    x, out = optimize_from_acc(xb, acc, ev, options, spec, propose=propose)
+    return _batch_of_one(x, out, spec)
+
+
+def schur_sparse_covariance_buckets(x, pair_fn: Callable, slabs, *,
+                                    rescaled: bool = False,
+                                    chunk: int = 1024):
+    """Posterior marginal covariance blocks of a K-bucketed solution, the
+    companion of :func:`schur_sparse_optimize_buckets` with
+    :func:`schur_sparse_covariance`'s semantics: the camera marginals are
+    the diagonal blocks of S⁻¹ with S summed over the buckets, the landmark
+    blocks follow bucket by bucket, ``rescaled`` as there.  Returns
+    ``(cov_a (n_a, da, da), cov_b (n_b, db, db))`` with ``cov_b`` in the
+    original landmark order."""
+    x = _schur_pair(x, "schur_sparse_covariance_buckets needs x = (a, b)")
+    spec = mf.tangent_spec(x)
+    acc, _, _, _ = schur_obs_bucket_system(pair_fn, x[0], x[1],
+                                           _batch_slabs(slabs), spec, chunk)
+    H, _, cost = acc(mf.flatten_batch(_batch_tree(x), spec))
+    cov_a, cov_b = obs_marginals_buckets(H, [ids for *_, ids in slabs],
+                                         chunk)
     if rescaled:
         f = cov_rescale(cost.cost, cost.num_residuals, spec.dims)
         cov_a = cov_a * f[:, None, None, None]
