@@ -51,8 +51,13 @@ float64, the covariance and the committed BAL excerpt (phase 18,
 Trafalgar-257's size (257 cameras, 65,132 landmarks, ~226,000
 heavy-tailed observations) in float32, a float64 cut against the padded
 layout and the CPU port, the excerpt bucketed, and bench_bal_robust's
-Geman-McClure anneal (phase 19, ``[ba_buckets]`` lines) — each with the
-launch counts set to 0 just before it and
+Geman-McClure anneal (phase 19, ``[ba_buckets]`` lines); multi-device
+solving (``tinyopt_tpu_torch.parallel``) on a one-rank NCCL mesh —
+batched_optimize(mesh=) on the bench problem bit for bit against the
+unsharded call, sharded_optimize through "cg", phase 18a's and 19a's BA
+sharded against their unsharded solves — and the six dryrun axes on two
+gloo ranks sharing the card (phase 20, ``[mesh]`` and ``[dryrun]`` lines) —
+each with the launch counts set to 0 just before it and
 read just after, and checks what comes out (the flagship's poses against
 the true ones, the curves' costs against float64 solves and their fits
 against the true curve, the sparse paths against x = 0.2, the dense
@@ -2801,6 +2806,378 @@ def phase19(to, dev, record, path_launches, cuda_cg, cuda_solver):
     rec["phase_s"] = time.perf_counter() - t_phase
 
 
+# ---- phase 20: multi-device solving on the card (ROADMAP Queue 1, item 17)
+# on a one-rank NCCL mesh (the smoke run needs one card, and NCCL
+# takes one rank a card), then two gloo ranks on the one card ----
+
+MESH_TURNS = 10              # 20a: rounds of (mesh, plain, plain, mesh)
+MESH_BLOCKS, MESH_BLOCK_D = 8192, 16
+MESH_REPS = 3                # 20c / 20d: fresh starts a max_iters value
+DRYRUN_RANKS, DRYRUN_TIMEOUT = 2, 300
+DRYRUN_AXES = ("dp", "block", "schur", "schur_obs", "bucketed", "chain")
+
+
+def same(a, b) -> bool:
+    """Bit for bit, NaN where NaN (``torch.equal`` but for NaNs)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+    return torch.equal(a, b)
+
+
+def output_tensors(out):
+    """Every tensor of an ``Output``, by field name."""
+    got = {f"final_cost.{f.name}": getattr(out.final_cost, f.name)
+           for f in dataclasses.fields(out.final_cost)}
+    got.update((f.name, getattr(out, f.name))
+               for f in dataclasses.fields(out))
+    return {k: v for k, v in got.items() if isinstance(v, torch.Tensor)}
+
+
+def phase20(to, dev, record, path_launches, cuda_cg, cuda_solver):
+    """Multi-device solving (``tinyopt_tpu_torch.parallel``) on the card.
+    20a-20d run on a one-rank NCCL mesh, set up in this process on a file
+    store and destroyed at the phase's end: the sharded code paths with
+    their real collectives and device placement.  20a: batched_optimize
+    with a mesh on the bench problem (prior-50, 10,000 instances, float32,
+    fused, bench.py's options): x and every Output tensor bit for bit
+    against the unsharded call, K2 launched once and K1 never, the call's
+    wall in turns with the unsharded call (the mesh's host cost).  20b:
+    sharded_optimize on 8,192 prior blocks of 16 residuals (d = 16) with
+    solver="cg" (K1), held to the dense optimize of the stacked residual
+    with the JAX dryrun's block tolerances.  20c: sharded_schur_sparse_
+    optimize on phase 18a's instance and options (1,000 x 50,000 float32)
+    held to the unsharded solve (success class, iterations within 1, RMSE
+    <= 1.2e-3 and within 1 %), ms an LM iteration in turns with it,
+    launches and the busy share; phase 19b's float64 corridor sharded
+    against unsharded, x and the covariance to 1e-10.  20d: the K-bucketed
+    BA at phase 19a's Trafalgar-257 size, held to the unsharded bucketed
+    solve (success, iterations within 1, RMSE within 1 %), ms an iteration
+    and launches.  20e: the dryrun's six axes on two gloo ranks sharing
+    the card, as a subprocess.  Every line names the card and its power
+    limit."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch.distributed as dist
+    from torch.utils import _pytree as pytree
+    from tinyopt_tpu_torch.models.bal import bal_residual, bal_rmse
+    from tinyopt_tpu_torch.models.bal import make_bal_problem
+    from tinyopt_tpu_torch.models.bundle_adjustment import (
+        make_ba_problem_sparse, reprojection_rmse_sparse)
+    from tinyopt_tpu_torch.models.problems import (make_prior_batch,
+                                                   prior_residual)
+    from tinyopt_tpu_torch.ops import schur_obs
+    from tinyopt_tpu_torch.parallel import (
+        init_distributed, local_mesh, sharded_optimize,
+        sharded_schur_sparse_covariance, sharded_schur_sparse_optimize,
+        sharded_schur_sparse_optimize_buckets)
+    assert not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off"
+    smi = record["nvidia_smi"]
+    rec = record["mesh"] = {"card": smi}
+    t_phase = time.perf_counter()
+
+    def reset():
+        cuda_cg.cg_solve.launches = 0
+        cuda_solver.fused_solve.launches = 0
+        cuda_solver.fused_solve.warp_launches = 0
+        for k in schur_obs.SOLVES:
+            schur_obs.SOLVES[k] = 0
+
+    def launches(key):
+        path_launches[key] = {"K1": cuda_cg.cg_solve.launches,
+                              "K2": cuda_solver.fused_solve.launches}
+        return path_launches[key]
+
+    def part(name, t0):
+        rec[f"{name}_s"] = time.perf_counter() - t0
+        log(f"[time] phase20{name} {rec[f'{name}_s']:.1f} s")
+
+    def flat(x):
+        return torch.cat([a.reshape(-1).cpu() for a in pytree.tree_leaves(x)])
+
+    store = tempfile.mkdtemp()
+    init_distributed(device="cuda", init_method=f"file://{store}/store",
+                     rank=0, world_size=1)
+    try:
+        # ---- 20a: the bench problem, instances over the mesh ----
+        t0 = time.perf_counter()
+        mesh = local_mesh("batch")
+        rec["backend"] = dist.get_backend()
+        assert rec["backend"] == "nccl", rec["backend"]
+        gen = torch.Generator(device=dev).manual_seed(20)
+        data, x0 = make_prior_batch(BATCH, DIMS, torch.float32,
+                                    generator=gen, device=dev)
+        opts = bench_options(to)
+
+        def call(m):
+            out = to.batched_optimize(x0, prior_residual, opts,
+                                      data_batch=data, mesh=m)
+            torch.cuda.synchronize()
+            return out
+
+        call(mesh)                           # warm-up (NCCL's first call)
+        reset()
+        x_m, out_m = call(mesh)
+        n = launches("dp_fused")
+        x_u, out_u = call(None)
+        assert n == {"K1": 0, "K2": 1, "K2 warp": 0}, f"dp_fused: {n}"
+        assert same(x_m, x_u), "dp: x differs from the unsharded call"
+        tm, tu = output_tensors(out_m), output_tensors(out_u)
+        differ = [k for k in tu if not same(tm[k], tu[k])]
+        assert tm.keys() == tu.keys() and not differ, f"dp: {differ}"
+        walls = {"mesh": [], "plain": []}
+        for _ in range(MESH_TURNS):
+            for name in ("mesh", "plain", "plain", "mesh"):
+                t1 = time.perf_counter()
+                call(mesh if name == "mesh" else None)
+                walls[name].append((time.perf_counter() - t1) * 1e3)
+        med = {k: statistics.median(v) for k, v in walls.items()}
+        rec["dp"] = {"launches": n, "bit_equal": True,
+                     "outputs": sorted(tm), "walls_ms": walls,
+                     "median_ms": med,
+                     "mesh_cost_ms": med["mesh"] - med["plain"],
+                     "conv": out_m.converged().float().mean().item()}
+        log(f"[mesh] 20a dp: batched_optimize(mesh=local_mesh('batch')) "
+            f"on prior-50 x {BATCH} float32 fused, one-rank NCCL: x and "
+            f"{len(tm)} Output tensors bit for bit against the unsharded "
+            f"call, launches {n}, conv {rec['dp']['conv']:.4f}; wall in "
+            f"turns (mesh, plain, plain, mesh) x {MESH_TURNS}: median "
+            f"{med['mesh']:.3f} ms with the mesh, {med['plain']:.3f} ms "
+            f"without ({med['mesh'] - med['plain']:+.3f} ms, the mesh's "
+            f"host cost); walls {walls} | {smi}")
+        del data, x0, x_m, x_u, out_m, out_u
+        part("a", t0)
+
+        # ---- 20b: one problem's residual blocks over the mesh, "cg" ----
+        t0 = time.perf_counter()
+        bmesh = local_mesh("block")
+        pdata, px0 = make_prior_batch(MESH_BLOCKS, MESH_BLOCK_D,
+                                      torch.float32, generator=gen,
+                                      device=dev)
+        bopts = to.Options(max_iters=10,
+                           hessian=to.HessianOptions(solver="cg"))
+        reset()
+        xb, ob = sharded_optimize(px0[0], prior_residual, pdata, bopts,
+                                  mesh=bmesh, axis="block")
+        ob.final_cost.cost.item()
+        n = launches("block_cg")
+        xd, od = to.optimize(px0[0],
+                             lambda x: prior_residual(x, pdata).reshape(-1),
+                             bopts)
+        gap = (xb - xd).abs().max().item()
+        rec["block"] = {
+            "blocks": MESH_BLOCKS, "d": MESH_BLOCK_D, "launches": n,
+            "iters": [int(ob.num_iters), int(od.num_iters)],
+            "stop": [int(ob.stop_reason), int(od.stop_reason)],
+            "cost": [ob.final_cost.cost.item(), od.final_cost.cost.item()],
+            "x_max_abs_gap": gap}
+        log(f"[mesh] 20b block: sharded_optimize of {MESH_BLOCKS} prior "
+            f"blocks x {MESH_BLOCK_D} residuals (d = {MESH_BLOCK_D}) float32"
+            f" \"cg\": iterations {rec['block']['iters']} (sharded / dense"
+            f"), stop {rec['block']['stop']}, cost {rec['block']['cost']}, "
+            f"max |x - x_dense| {gap:.3e} (gate 5e-4), launches {n} | {smi}")
+        assert bool(ob.succeeded()) and bool(ob.converged()), rec["block"]
+        assert n["K1"] > 0 and n["K2"] == 0, f"block_cg: {n}"
+        assert gap <= 5e-4, rec["block"]
+        torch.testing.assert_close(ob.final_cost.cost, od.final_cost.cost,
+                                   rtol=1e-3, atol=1e-6)
+        del pdata, px0
+        part("b", t0)
+
+        # ---- 20c: phase 18a's instance over the mesh ----
+        t0 = time.perf_counter()
+        (obs, ci, mk), x0, _ = make_ba_problem_sparse(
+            n_cams=BAS_CAMS, n_pts=BAS_PTS, k_obs=BAS_K, noise=BAS_NOISE,
+            seed=BAS_SEED, dtype=torch.float32, device=dev)
+        o32 = bas_options(to).for_dtype(torch.float32)
+
+        def solve(pts, o, m):
+            if m is None:
+                return to.schur_sparse_optimize((x0["poses"], pts), ba_pair,
+                                                obs, ci, mk, o)
+            return sharded_schur_sparse_optimize(
+                (x0["poses"], pts), ba_pair, obs, ci, mk, o, mesh=m)
+
+        def rmse_of(x):
+            return reprojection_rmse_sparse({"poses": x[0], "points": x[1]},
+                                            obs, ci, mk).item()
+
+        solve(x0["points"] + 1e-3, bas_iter_options(to, 2), bmesh)
+        runs = {}
+        for name, m in (("mesh", bmesh), ("plain", None)):
+            torch.cuda.synchronize()
+            reset()
+            t1 = time.perf_counter()
+            x, out = solve(x0["points"], o32, m)
+            rmse = rmse_of(x)
+            runs[name] = {
+                "wall_s": time.perf_counter() - t1,
+                "iters": int(out.num_iters), "rmse": rmse,
+                "stop": int(out.stop_reason),
+                "succeeded": bool(out.succeeded()),
+                "solves": dict(schur_obs.SOLVES),
+                "launches": launches(f"ba_sparse_{name}_20c")}
+        r, u = runs["mesh"], runs["plain"]
+        ref18 = record.get("ba_sparse", {}).get("runs", {}).get("banded")
+        per_iter = {"mesh": [], "plain": []}
+        for name in ("mesh", "plain", "plain", "mesh"):
+            ms, walls, its, fails = marginal_iteration_ms(
+                lambda it, rr, m=(bmesh if name == "mesh" else None):
+                solve(x0["points"] + 1e-6 * (rr + 2),
+                      bas_iter_options(to, it), m)[1], 2, 6, MESH_REPS)
+            per_iter[name].append(ms)
+        traced, per_it, copies_it, dev_it, busy_on = traced_iterations(
+            lambda it: solve(x0["points"] + 3e-6 * it,
+                             bas_iter_options(to, it), bmesh)[1])
+        ms_mesh = statistics.mean(per_iter["mesh"])
+        rec["ba_sparse"] = {
+            "runs": runs, "ms_per_iter": per_iter,
+            "rmse_18a": None if ref18 is None else ref18["rmse"],
+            "kernels_per_iter": per_it, "copies_per_iter": copies_it,
+            "device_ms_per_iter": dev_it, "busy_off": dev_it / ms_mesh,
+            "busy_on": busy_on}
+        log(f"[mesh] 20c sharded_schur_sparse_optimize {BAS_CAMS} x "
+            f"{BAS_PTS} float32 (18a's options), one-rank NCCL: "
+            f"{r['wall_s']:.3f} s, {r['iters']} iterations, RMSE "
+            f"{r['rmse']:.4e}, stop {r['stop']}, reduced solves "
+            f"{r['solves']}; unsharded {u['wall_s']:.3f} s, {u['iters']} "
+            f"iterations, RMSE {u['rmse']:.4e}, stop {u['stop']}; ms an LM "
+            f"iteration in turns (mesh, plain, plain, mesh): mesh "
+            f"{per_iter['mesh']}, plain {per_iter['plain']}; "
+            f"{per_it:.1f} launches (+ {copies_it:.1f} copies) and "
+            f"{dev_it:.2f} device ms an iteration, busy share "
+            f"{dev_it / ms_mesh:.4f}; launches {r['launches']} | {smi}")
+        assert r["succeeded"] == u["succeeded"] and r["succeeded"], runs
+        assert abs(r["iters"] - u["iters"]) <= 1, runs
+        assert r["rmse"] <= BA_CRIT, runs
+        assert abs(r["rmse"] / u["rmse"] - 1.0) <= 0.01, runs
+        if ref18 is not None:
+            assert abs(r["rmse"] / ref18["rmse"] - 1.0) <= 0.01, (r, ref18)
+        assert r["launches"] == {"K1": 0, "K2": 0, "K2 warp": 0}, r
+        assert r["solves"]["banded"] > 0, r["solves"]
+        del obs, ci, mk, x0, x
+        torch.cuda.empty_cache()
+
+        # 19b's float64 corridor: sharded against unsharded, x and the
+        # covariance (0.1 prior) at the solution
+        nc, npt, kk = BKT_F64
+        cdata, xc, xt = make_ba_problem_sparse(
+            n_cams=nc, n_pts=npt, k_obs=kk, noise=BAS_NOISE, seed=BAS_SEED,
+            device=dev)
+        xc = (xc["poses"], xc["points"])
+        cdata, _ = heavy_tail(cdata, -xt["poses"].translation[:, 0],
+                              xt["points"][:, 0], kk, TRAF_ZIPF, TRAF_SEED)
+        o64 = bas_options(to)
+        xs, os_ = sharded_schur_sparse_optimize(xc, ba_pair, *cdata, o64,
+                                                mesh=bmesh)
+        xu, ou = to.schur_sparse_optimize(xc, ba_pair, *cdata, o64)
+        x_gap = (flat(xs) - flat(xu)).abs().max().item()
+        cs = sharded_schur_sparse_covariance(xu, ba_pair_prior, *cdata,
+                                             mesh=bmesh)
+        cu = to.schur_sparse_covariance(xu, ba_pair_prior, *cdata)
+        cov_gap = max(((a - b).abs().max() / b.abs().max()).item()
+                      for a, b in zip(cs, cu))
+        rec["ba_sparse"]["f64"] = {
+            "size": BKT_F64, "iters": [int(os_.num_iters),
+                                       int(ou.num_iters)],
+            "stop": [int(os_.stop_reason), int(ou.stop_reason)],
+            "x_max_abs_gap": x_gap, "cov_rel_gap": cov_gap}
+        log(f"[mesh] 20c corridor {nc} x {npt} float64 (19b's rig, padded):"
+            f" sharded / unsharded iterations "
+            f"{rec['ba_sparse']['f64']['iters']}, stop "
+            f"{rec['ba_sparse']['f64']['stop']}, max |x_mesh - x| "
+            f"{x_gap:.3e}, covariance (0.1 prior) relative gap "
+            f"{cov_gap:.3e} (gates 1e-10) | {smi}")
+        assert int(os_.stop_reason) == int(ou.stop_reason), "20c f64 stop"
+        assert x_gap <= 1e-10 and cov_gap <= 1e-10, rec["ba_sparse"]["f64"]
+        del cdata, xc, xt, xs, xu, cs, cu
+        part("c", t0)
+
+        # ---- 20d: phase 19a's Trafalgar-257 size, bucketed, over the mesh
+        t0 = time.perf_counter()
+        data, x0, xt, _ = make_bal_problem(
+            n_cams=TRAF_CAMS, n_pts=TRAF_PTS, k_obs=TRAF_K, noise=BAL_NOISE,
+            seed=TRAF_SEED, dtype=torch.float32, device=dev)
+        (obs, ci, mk), _ = heavy_tail(
+            data, -xt[0]["pose"].translation[:, 0], xt[1][:, 0], TRAF_CAP,
+            TRAF_ZIPF, TRAF_SEED)
+        del data, xt
+        slabs = schur_obs.bucket_obs(obs, ci, mk)
+        o32 = bal_options(to).for_dtype(torch.float32)
+
+        def bsolve(pts, o, m):
+            if m is None:
+                return to.schur_sparse_optimize_buckets(
+                    (x0[0], pts), bal_residual, slabs, o)
+            return sharded_schur_sparse_optimize_buckets(
+                (x0[0], pts), bal_residual, slabs, o, mesh=m)
+
+        bsolve(x0[1] + 1e-3, bas_iter_options(to, 2), bmesh)
+        runs = {}
+        for name, m in (("mesh", bmesh), ("plain", None)):
+            torch.cuda.synchronize()
+            reset()
+            t1 = time.perf_counter()
+            x, out = bsolve(x0[1], o32, m)
+            rmse = bal_rmse(*x, obs, ci, mk).item()
+            runs[name] = {
+                "wall_s": time.perf_counter() - t1,
+                "iters": int(out.num_iters), "rmse_px": rmse,
+                "stop": int(out.stop_reason),
+                "succeeded": bool(out.succeeded()),
+                "launches": launches(f"ba_buckets_{name}_20d")}
+        per_iter, walls, its, fails = marginal_iteration_ms(
+            lambda it, rr: bsolve(x0[1] + 1e-6 * (rr + 2),
+                                  bas_iter_options(to, it), bmesh)[1],
+            2, 6, MESH_REPS)
+        r, u = runs["mesh"], runs["plain"]
+        rec["ba_buckets"] = {"buckets": len(slabs), "runs": runs,
+                             "ms_per_iter": per_iter, "walls_s": walls}
+        log(f"[mesh] 20d sharded_schur_sparse_optimize_buckets at "
+            f"Trafalgar-257's size ({TRAF_CAMS} x {TRAF_PTS}, {len(slabs)} "
+            f"buckets) float32, one-rank NCCL: {r['wall_s']:.3f} s, "
+            f"{r['iters']} iterations, RMSE {r['rmse_px']:.4f} px, stop "
+            f"{r['stop']}; unsharded {u['wall_s']:.3f} s, {u['iters']} "
+            f"iterations, RMSE {u['rmse_px']:.4f} px; {per_iter:.2f} ms an "
+            f"LM iteration (marginal, max_iters 6 against 2, min of "
+            f"{MESH_REPS}); launches {r['launches']} | {smi}")
+        assert r["succeeded"] and u["succeeded"], runs
+        assert abs(r["iters"] - u["iters"]) <= 1, runs
+        assert abs(r["rmse_px"] / u["rmse_px"] - 1.0) <= 0.01, runs
+        assert r["launches"] == {"K1": 0, "K2": 0, "K2 warp": 0}, r
+        del obs, ci, mk, x0, slabs, x
+        torch.cuda.empty_cache()
+        part("d", t0)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+    # ---- 20e: the dryrun's six axes, two gloo ranks on the one card ----
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tinyopt_tpu_torch.parallel.dryrun",
+         str(DRYRUN_RANKS), "--device", "cuda", "--timeout",
+         str(DRYRUN_TIMEOUT)], cwd=HERE, capture_output=True, text=True,
+        timeout=DRYRUN_TIMEOUT + 60)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("[dryrun]")]
+    for ln in lines:
+        log(ln)
+    seen = {a: sum(ln.startswith(f"[dryrun] {a}:") for ln in lines)
+            for a in DRYRUN_AXES}
+    rec["dryrun"] = {"ranks": DRYRUN_RANKS, "rc": proc.returncode,
+                     "axis_lines": seen, "wall_s": time.perf_counter() - t0}
+    log(f"[mesh] 20e dryrun: {DRYRUN_RANKS} gloo ranks on the one card, "
+        f"exit {proc.returncode}, axis lines {seen}, "
+        f"{rec['dryrun']['wall_s']:.1f} s | {smi}")
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert all(v == DRYRUN_RANKS for v in seen.values()), seen
+    part("e", t0)
+    rec["phase_s"] = time.perf_counter() - t_phase
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3884,7 +4261,8 @@ def main() -> int:
 
     mark("curves")
     for phase in (phase8, phase9, phase10, phase11, phase12, phase13,
-                  phase14, phase15, phase16, phase17, phase18, phase19):
+                  phase14, phase15, phase16, phase17, phase18, phase19,
+                  phase20):
         phase(to, dev, record, path_launches, cuda_cg, cuda_solver)
         mark(phase.__name__)
     log(f"[time] seconds: "

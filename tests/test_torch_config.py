@@ -140,6 +140,9 @@ def test_port_never_imports_jax():
         " lambda p, q, o: project(p, q[None])[0] - o, so, sc, sm,"
         " to.Options(max_iters=2))\n"
         "import tinyopt_tpu_torch.models.bal\n"
+        "import tinyopt_tpu_torch.parallel, tinyopt_tpu_torch.parallel.dryrun\n"
+        "from tinyopt_tpu_torch.parallel import pad_instances\n"
+        "pad_instances([torch.ones(2), torch.ones(3)])\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules"
         " if m.startswith('jax'))\n"
         "assert 'tinyopt_tpu' not in sys.modules\n"
@@ -154,17 +157,8 @@ def test_port_never_imports_jax():
 #: Public names of ported modules that the port does not have, by the
 #: ROADMAP Queue 1 item that owes them (16: the window reduce, band
 #: storage, planned reduce and landmark sort of the sparse-observation
-#: Schur solver's TPU layout; 17: multi-device solving).
+#: Schur solver's TPU layout, which the port does not port).
 OWED = {
-    "": {17: ["sharded_optimize", "sharded_schur_optimize",
-              "sharded_schur_sparse_covariance"]},
-    "parallel": {17: [
-        "init_distributed", "local_mesh", "make_block_system", "make_mesh",
-        "make_sharded_schur_obs_system", "make_sharded_schur_system",
-        "masked_residuals", "pad_instances", "sharded_optimize",
-        "sharded_schur_optimize", "sharded_schur_sparse_covariance",
-        "sharded_schur_sparse_optimize",
-        "sharded_schur_sparse_optimize_buckets"]},
     "ops.schur_obs": {16: [
         # window reduce, band storage, planned reduce, the landmark sort
         "band_to_tridiag", "banded_cov_plan", "banded_reduced_solve_band",
@@ -201,7 +195,7 @@ def _public_names(mod) -> set:
 
 def test_public_names_match_reference():
     """Every public name of a module the port has is there in the port,
-    but the names that items 16–18 still owe (``OWED``); and no owed name
+    but the names the port owes or leaves out (``OWED``); and no owed name
     is there already."""
     import importlib
     import importlib.util

@@ -18,7 +18,10 @@ sparse visibility ``schur_sparse_optimize`` with
 and the
 chain solver of pose graphs (``chain_optimize``, ``chain_marginals``:
 block-tridiagonal Cholesky or cyclic reduction with Woodbury loop
-closures, ``ops/tridiag.py``).  It never imports JAX.
+closures, ``ops/tridiag.py``).  ``parallel`` splits a batch or one large
+problem over the ranks of ``torch.distributed`` (``sharded_optimize``,
+``sharded_schur_optimize``, ``sharded_schur_sparse_optimize``...).  It
+never imports JAX.
 
     import torch, tinyopt_tpu_torch as to
     x, out = to.optimize(torch.tensor(1.0), lambda x: x * x - 2)
@@ -43,7 +46,9 @@ from .options import (LBFGS, SGD, Adam, AdamOptions, AdamW,
 from .ops.block import BlockDiag
 from .ops.sparse_sym import SparseSym
 from .output import Output
-from .parallel.batched import batched_optimize, batched_solver
+from .parallel import (batched_optimize, batched_solver, sharded_optimize,
+                       sharded_schur_optimize,
+                       sharded_schur_sparse_covariance)
 from .profiling import dispatch_floor, profile_iterations
 from .sparse import (block_optimize, matfree_optimize, schur_optimize,
                      schur_sparse_covariance, schur_sparse_covariance_buckets,
@@ -83,6 +88,7 @@ __all__ = [
     "matfree_optimize", "multi_start_optimize", "nlls", "optimize",
     "profile_iterations", "schur_optimize", "schur_sparse_covariance",
     "schur_sparse_covariance_buckets", "schur_sparse_optimize",
-    "schur_sparse_optimize_buckets", "sgd", "sparse",
+    "schur_sparse_optimize_buckets", "sgd", "sharded_optimize",
+    "sharded_schur_optimize", "sharded_schur_sparse_covariance", "sparse",
     "sparse_optimize", "stepper", "stop_reason_description", "unconstrained",
 ]

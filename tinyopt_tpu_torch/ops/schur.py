@@ -403,8 +403,16 @@ def schur_system(pair_fn: Callable, a0, b0, data, mask,
             dx = dx[..., em2gl]
         return dx, ok & torch.all(torch.isfinite(dx_b.flatten(-2)), dim=-1)
 
-    def propose(H: SchurSystem, g, lam, opts):
-        """The damped Schur elimination of each solver type: (dx, ok)."""
+    return accumulate, evaluate, n_res, _schur_propose(
+        eliminate, lambda H, v: H.matvec(v))
+
+
+def _schur_propose(eliminate: Callable, matvec: Callable) -> Callable:
+    """``propose(H, g, lam, opts) -> (dx, ok)``, the damped Schur
+    elimination of each solver type, from ``eliminate(H, Bd, Cd, g,
+    use_cholesky, refine, cg_iters) -> (dx, ok)`` and the arrow matvec
+    ``matvec(H, v)`` (g, v and dx in the loop's global layout)."""
+    def propose(H, g, lam, opts):
         hs = opts.hessian
         kw = dict(use_cholesky=hs.use_ldlt, refine=hs.schur_refine,
                   cg_iters=hs.schur_cg_iters)
@@ -414,7 +422,7 @@ def schur_system(pair_fn: Callable, a0, b0, data, mask,
             # re-eliminated with λ_eff block damping
             dx_gn, ok_gn = eliminate(H, H.Ba, H.C, g, **kw)
             return dogleg_core(
-                g, lam, dx_gn, ok_gn, torch.sum(g * H.matvec(g), dim=-1),
+                g, lam, dx_gn, ok_gn, torch.sum(g * matvec(H, g), dim=-1),
                 lambda le: eliminate(H, _damp_blocks(H.Ba, le),
                                      _damp_blocks(H.C, le), g, **kw))
         if opts.solver_type == SolverType.LEVENBERG_MARQUARDT:
@@ -422,4 +430,4 @@ def schur_system(pair_fn: Callable, a0, b0, data, mask,
                              _damp_blocks(H.C, lam), g, **kw)
         return eliminate(H, H.Ba, H.C, g, **kw)
 
-    return accumulate, evaluate, n_res, propose
+    return propose

@@ -884,12 +884,13 @@ def make_landmark_marginal_pass(n_a: int, K: int, da: int, db: int, dtype,
     return marginal_pass
 
 
-def _slab_marginals(Ba, slabs, chunk: int):
+def _slab_marginals(Ba, slabs, chunk: int, complete=None):
     """The marginals of an arrow system whose landmarks lie in point-major
     slabs ``[(E, C, ObsLayout)]``: the reduced camera system S summed over
-    the slabs, ``cov_a`` from its inverse, then each slab's landmark blocks
-    (a landmark with no real observation NaN).  Returns ``(cov_a,
-    [cov_b of each slab])``."""
+    the slabs (and completed by ``complete(S)`` where the slabs are one
+    rank's share of the landmarks), ``cov_a`` from its inverse, then each
+    slab's landmark blocks (a landmark with no real observation NaN).
+    Returns ``(cov_a, [cov_b of each slab])``."""
     n_a, da = Ba.shape[-3], Ba.shape[-1]
     dtype, dev = Ba.dtype, Ba.device
     S_f, stash = None, []
@@ -907,6 +908,8 @@ def _slab_marginals(Ba, slabs, chunk: int):
             E_p, C_p, cam_p, E_p.new_zeros(E_p.shape[:-1] + (db,)))
         S_f = S_g if S_f is None else S_f + S_g
         stash.append((E_p, Cinv_p, cam_p, C, K, CH, db))
+    if complete is not None:
+        S_f = complete(S_f)
     cov_a, Sinv = camera_marginals_from_S(S_f, Ba)
     rows = []
     for E_p, Cinv_p, cam_p, C, K, CH, db in stash:
@@ -993,13 +996,19 @@ def _residual_dims(pair_fn, a_ex, b_ex, obs) -> int:
     return int(flatten_residuals(pair_fn(a_ex, b_ex, d_ex)).numel())
 
 
+def _matvec_ghg(H, g) -> torch.Tensor:
+    """gᵀHg by the system's arrow matvec."""
+    return torch.sum(g * H.matvec(g), dim=-1)
+
+
 def _propose(stages, em2gl, damp_C):
     """``propose(H, g, lam, opts) -> (dx, ok)``, the damped Schur
     elimination of each solver type, from a system's elimination stages:
     ``stages.reduce_inputs(H, Cd, g)`` → ``stages.reduce`` →
     :func:`assemble_reduced` (at ``stages.band_group`` where
-    ``hessian.schur_banded="auto"``) → ``stages.backsub``; ``damp_C(C, λ)``
-    damps the landmark blocks.  The stages stay on it as
+    ``hessian.schur_banded="auto"``) → ``stages.backsub``, and the dogleg's
+    gᵀHg from ``stages.ghg(H, g)``; ``damp_C(C, λ)`` damps the landmark
+    blocks.  The stages stay on it as
     ``propose.stages``, for timing them one by one."""
     from ..solvers.step import dogleg_core
     from .schur import _damp_blocks
@@ -1029,7 +1038,7 @@ def _propose(stages, em2gl, damp_C):
         if opts.solver_type == SolverType.DOGLEG:
             dx_gn, ok_gn = eliminate(H, H.Ba, H.C, g, **kw)
             return dogleg_core(
-                g, lam, dx_gn, ok_gn, torch.sum(g * H.matvec(g), dim=-1),
+                g, lam, dx_gn, ok_gn, stages.ghg(H, g),
                 lambda le: eliminate(H, _damp_blocks(H.Ba, le),
                                      damp_C(H.C, le), g, **kw))
         if opts.solver_type == SolverType.LEVENBERG_MARQUARDT:
@@ -1059,7 +1068,7 @@ def schur_obs_system(pair_fn: Callable, a0, b0, obs, cam_idx, mask,
     in the host indices.  ``propose.stages`` holds the elimination's
     stages: ``reduce_inputs(H, Cd, g) -> (g_a, g_b, E_p, Cd_p)``,
     ``reduce(E_p, Cd_p, g_b) -> (S_f, rhs, Cinv)``, ``backsub(E_p, Cinv,
-    g_b, dx_a) -> dx_b`` and ``band_group``."""
+    g_b, dx_a) -> dx_b``, ``ghg(H, g)`` and ``band_group``."""
     from .schur import bipartite_perms
 
     a0, b0 = mf.as_pytree(a0), mf.as_pytree(b0)
@@ -1127,7 +1136,8 @@ def schur_obs_system(pair_fn: Callable, a0, b0, obs, cam_idx, mask,
 
     propose = _propose(
         types.SimpleNamespace(reduce_inputs=reduce_inputs, reduce=reduce,
-                              backsub=backsub, band_group=band_g),
+                              backsub=backsub, band_group=band_g,
+                              ghg=_matvec_ghg),
         em2gl, lambda C, lam: _damp_flat(C, db, lam))
     return accumulate, evaluate, n_res, propose
 
@@ -1261,7 +1271,8 @@ def schur_obs_bucket_system(pair_fn: Callable, a0, b0, slabs,
 
     propose = _propose(
         types.SimpleNamespace(reduce_inputs=reduce_inputs, reduce=reduce,
-                              backsub=backsub, band_group=band_g),
+                              backsub=backsub, band_group=band_g,
+                              ghg=_matvec_ghg),
         em2gl, lambda C, lam: tuple(_damp_flat(c, db, lam) for c in C))
     return accumulate, evaluate, n_res, propose
 
