@@ -100,6 +100,7 @@ the card's name and power limit; and last ``{"ok": true, "device":
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import statistics
@@ -3178,6 +3179,377 @@ def phase20(to, dev, record, path_launches, cuda_cg, cuda_solver):
     rec["phase_s"] = time.perf_counter() - t_phase
 
 
+# ---- phase 21: K2 for any traced residual (ROADMAP Queue 2, K2-c): the
+# residual families generated from the traced function
+# (ops/residual_codegen.py) in K2's one-instance-a-thread kernel ----
+
+GEN_TURNS = 2                # 21c: rounds of (fused, cg, cg, fused) a fit
+#: the float64 least cost of each phase-7 curve (seed 5), by residual name,
+#: filled by phase 7 and read by phase 21's gate
+CURVE_F64 = {}
+
+
+def curve_options(to, solver="cg"):
+    """The curve fits' options (phase 7): 100 iterations, no failure
+    budget; on "fused" also the envelope's save_last / carry_system off."""
+    if solver == "fused":
+        return to.Options(max_iters=100, max_consec_failures=0,
+                          hessian=to.HessianOptions(solver="fused",
+                                                    save_last=False,
+                                                    carry_system=False))
+    return to.Options(max_iters=100, max_consec_failures=0,
+                      hessian=to.HessianOptions(solver=solver))
+
+
+def suite_residuals():
+    """The residuals of the JAX package's fused suite that only a
+    generated family takes, with their options and starts: the
+    Huber-whitened prior (tests/test_fused.py:90-108), a residual closed
+    over constants with no data (:183-191), dict parameters (:194-211), the
+    2-color banded residual (:445-474, LM) and the banded residual with
+    data (:137-150, the dogleg).  Each maker takes (B, dtype, generator,
+    device) and returns (x0, data or None)."""
+    from tinyopt_tpu_torch.losses.robust_norms import huber, robust_whiten
+    from tinyopt_tpu_torch.models.problems import PriorProblem
+
+    def robust_prior(x, data):
+        r = (x - data.y) * data.inv_std
+        return torch.func.vmap(
+            lambda ri: robust_whiten(ri[None], huber, 0.5))(r)
+
+    def no_data(x):
+        return torch.stack([x[0] * x[0] - 2.0, 0.5 * (x[0] - 1.0)])
+
+    def dict_params(x, data):
+        return torch.cat([x["a"] - data["ta"], 2.0 * (x["b"] - data["tb"])])
+
+    def banded(x):
+        return torch.cat([x[:-1] - 0.5 * x[1:], x - 1.0])
+
+    def banded_data(x, y):
+        return torch.cat([x[:-1] + 0.5 * x[1:], x[-1:]]) - y
+
+    def rnd(B, n, dtype, g, dev):
+        return torch.randn((B, n), generator=g, dtype=dtype, device=dev)
+
+    return {
+        "robust_prior": (robust_prior, {}, lambda B, dt, g, dev: (
+            rnd(B, 6, dt, g, dev), PriorProblem(
+                rnd(B, 6, dt, g, dev),
+                1.0 / (0.1 + torch.rand((B, 6), generator=g, dtype=dt,
+                                        device=dev))))),
+        "no_data": (no_data, {}, lambda B, dt, g, dev: (
+            torch.linspace(0.5, 3.0, B, dtype=dt, device=dev)[:, None],
+            None)),
+        "dict": (dict_params, {}, lambda B, dt, g, dev: (
+            {"a": rnd(B, 3, dt, g, dev), "b": rnd(B, 2, dt, g, dev)},
+            {"ta": torch.ones((B, 3), dtype=dt, device=dev),
+             "tb": torch.full((B, 2), 0.5, dtype=dt, device=dev)})),
+        "banded": (banded, {}, lambda B, dt, g, dev: (
+            1.0 + 0.3 * rnd(B, 8, dt, g, dev), None)),
+        "banded_data_dl": (banded_data, {"dogleg": True},
+                           lambda B, dt, g, dev: (
+            torch.zeros((B, 6), dtype=dt, device=dev), rnd(B, 6, dt, g,
+                                                           dev))),
+    }
+
+
+def suite_options(to, dogleg=False):
+    """tests/test_fused.py's ``_opts`` with the fused solver."""
+    return to.Options(
+        max_iters=10, min_error=0.0, min_rerr_dec=1e-12,
+        min_step_norm2=1e-16, max_consec_failures=3, save_history=False,
+        solver_type=to.DogLeg if dogleg else to.LevenbergMarquardt,
+        hessian=to.HessianOptions(save_last=False, solver="fused",
+                                  cg_iters=8, carry_system=False))
+
+
+def gen_bound(out, plan, opts, itemsize):
+    """Least time in ms of a generated family's K2 solve of this run's
+    instances, and what sets it: the bytes (x0 and the data rows in; x, g,
+    8 scalars an instance and the history rows out) over the memory rate,
+    or the least operations over the peak rate — for each instance's outer
+    iterations (``num_iters``) the residual, g by one vjp, diag(JᵀJ) by its
+    jvps (one a color, or one a tangent dimension without a coloring) and,
+    unless the coloring makes the step closed form, one PCG solve of
+    ``cg_iters`` steps of a jvp and a vjp (the dogleg one more of each for
+    gᵀHg); the operations of each function are the emitter's counts
+    (``GeneratedFamily.ops``).  Retried proposals are not counted."""
+    gen = plan.generated
+    B = out.num_iters.shape[0]
+    d, ops = gen.d, gen.ops
+    col = plan.coloring
+    n_jvp = d if col is None else (1 if col.identity else col.n_colors)
+    closed = col is not None and col.n_colors == 1
+    cg = opts.hessian.cg_iters or d
+    per_iter = (ops["residual"] + ops["vjp"] + n_jvp * ops["jvp"]
+                + (0 if closed else cg * (ops["jvp"] + ops["vjp"])))
+    if opts.solver_type.name == "DOGLEG":
+        per_iter += ops["jvp"] + ops["vjp"]
+    t_ops = (float(out.num_iters.double().sum()) * per_iter
+             / PEAK_FLOPS[itemsize] * 1e3)
+    cap = opts.max_iters + 1 if opts.save_history else 0
+    t_bytes = ((3 * d + gen.q + 8) * B * itemsize
+               + B * cap * (2 * itemsize + 1)) / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase21(to, dev, record, path_launches, cuda_cg, cuda_solver):
+    """K2 for any traced residual (generated families, ROADMAP Queue 2,
+    K2-c).  21a: every family the phase runs is planned (traced and
+    emitted) and its library built, all nvcc runs started together; the
+    build's seconds and each kernel's ptxas registers and spills
+    (k2_bench.ptxas_generated).  21b: phase 7's robust curve fits (10,000
+    curves of 60 points, float32, seed 5) through batched_optimize with
+    solver="fused" — least squares, Huber, and Geman-McClure from the Huber
+    fit — each one generated K2 launch and no K1 launch; every curve's cost
+    within 1e-5 of the float64 least cost (phase 7's gate); each held to
+    the twin on the card per instance (same stop reason, iterations within
+    1, x within rtol 1e-5).  21c: solves/s of each fit on "fused" against
+    phase 7's "cg" path, in turns (fused, cg, cg, fused) on fresh curves.
+    21d: the JAX fused suite's residuals that need a generated family
+    (suite_residuals) at 10,000 instances in float32 and float64, through
+    batched_optimize (one generated K2 launch, no K1) and against the twin
+    (float64 x within 1e-10).  Every line names the card and its power
+    limit."""
+    import k2_bench
+    from torch.utils import _pytree as pytree
+    from tinyopt_tpu_torch import _build
+    from tinyopt_tpu_torch import manifold as mf
+    from tinyopt_tpu_torch.models import curve_fit
+    from tinyopt_tpu_torch.ops import residual_codegen
+    assert not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off"
+    smi = record["nvidia_smi"]
+    rec = record["gen"] = {"card": smi}
+    gen = torch.Generator(device=dev).manual_seed(21)
+    CurveData = curve_fit.CurveData
+
+    def reset():
+        cuda_cg.cg_solve.launches = 0
+        cuda_solver.fused_solve.launches = 0
+        cuda_solver.fused_solve.warp_launches = 0
+        cuda_solver.fused_solve.generated_launches = 0
+
+    def launches(key):
+        n = path_launches[key] = {
+            "K1": cuda_cg.cg_solve.launches,
+            "K2": cuda_solver.fused_solve.launches,
+            "K2 generated": cuda_solver.fused_solve.generated_launches}
+        return n
+
+    def example(x0, data):
+        return (pytree.tree_map(lambda a: a[0], x0),
+                None if data is None else pytree.tree_map(lambda a: a[0],
+                                                          data))
+
+    def planned(fn, opts, x0, data):
+        x_ex, d_ex = example(x0, data)
+        plan, why = cuda_solver.fused_envelope(
+            opts, "residuals", x_ex, residual_fn=fn, data_example=d_ex)
+        assert plan is not None and plan.generated is not None, why
+        return plan
+
+    def instance(plan, opts):
+        kind = cuda_solver.coloring_kind(plan.coloring)
+        return (plan.generated, _build.GenInstance(
+            "float" if plan.spec.dtype == torch.float32 else "double",
+            opts.solver_type == to.DogLeg, opts.save_history,
+            cuda_solver.COLORING_CODES[kind]))
+
+    def hold(fn, opts, x, out, x0, data, plan, what, rtol):
+        """The path's result against the twin on the same inputs: equal
+        stop reasons, iterations within 1, x within rtol; returns (max
+        |x - x_twin|, bit-equal, the twin's seconds)."""
+        xf = mf.flatten_batch(x0, plan.spec)
+        xk = mf.flatten_batch(x, plan.spec)
+        t0 = time.perf_counter()
+        xt, ot = cuda_solver.fused_solve_plain(fn, opts, xf, data, plan)
+        torch.cuda.synchronize()
+        twin_s = time.perf_counter() - t0
+        assert torch.equal(out.stop_reason, ot.stop_reason), what
+        gap = (out.num_iters - ot.num_iters).abs().max().item()
+        assert gap <= 1, f"{what}: iteration gap {gap}"
+        torch.testing.assert_close(xk, xt, rtol=rtol, atol=rtol,
+                                   msg=f"{what}: x against the twin")
+        bits = bool(torch.equal(xk, xt) and torch.equal(out.num_iters,
+                                                        ot.num_iters))
+        return (xk - xt).abs().max().item(), bits, twin_s
+
+    # ---- 21a: plan every cell, build every library together ----
+    t0 = time.perf_counter()
+    cdata, cx0 = curve_fit.make_curve_batch(BATCH, seed=5, device=dev)
+    c_opts = curve_options(to, "fused")
+    curve_fns = {"ls": curve_fit.exp_residuals,
+                 "huber": curve_fit.huber_residuals,
+                 "gm": curve_fit.geman_mcclure_residuals}
+    c_plans = {k: planned(fn, c_opts, cx0, cdata)
+               for k, fn in curve_fns.items()}
+    suite = suite_residuals()
+    cells = {}
+    for name, (fn, kw, make) in suite.items():
+        for dtype in (torch.float32, torch.float64):
+            x0, data = make(BATCH, dtype, gen, dev)
+            opts = suite_options(to, **kw)
+            cells[(name, dtype)] = (fn, opts, x0, data,
+                                    planned(fn, opts, x0, data))
+    rec["plan_s"] = time.perf_counter() - t0
+    # the sources traced on the card against traces of CPU copies
+    on_cpu = functools.partial(pytree.tree_map, lambda a: a.cpu())
+    same = 0
+    for fn, x0, data, plan in ([(curve_fns[k], cx0, cdata, p)
+                                for k, p in c_plans.items()]
+                               + [(c[0], c[2], c[3], c[4])
+                                  for c in cells.values()]):
+        x_ex, d_ex = example(x0, data)
+        fam, _ = residual_codegen.generated_family(
+            fn, on_cpu(x_ex), None if d_ex is None else on_cpu(d_ex))
+        same += fam is not None and fam.hash == plan.generated.hash
+    rec["hashes"] = [p.generated.hash for p in c_plans.values()] + [
+        c[4].generated.hash for c in cells.values()]
+    rec["same_source_as_cpu_trace"] = same
+    log(f"[curves_fused] sources traced on the card equal to a trace of "
+        f"CPU copies: {same} of {len(rec['hashes'])}")
+    items = ([instance(p, c_opts) for p in c_plans.values()]
+             + [instance(c[4], c[1]) for c in cells.values()])
+    t0 = time.perf_counter()
+    libs = _build.build_generated(items)
+    rec["build_s"] = time.perf_counter() - t0
+    rec["libraries"] = len(set(libs))
+    log(f"[curves_fused] {smi}: {len(items)} cells planned (traced, "
+        f"emitted) in {rec['plan_s']:.2f} s; {rec['libraries']} generated "
+        f"libraries built in {rec['build_s']:.2f} s (one nvcc each, all "
+        f"together)")
+    ptxas = {}
+    for ln in k2_bench.ptxas_se3(k2_bench.ptxas_generated(_build, libs[:3]),
+                                 keep=lambda n: True):
+        lib, rest = ln.split(" ", 1)
+        ptxas[lib] = rest
+    rec["ptxas"] = {k: ptxas.get(os.path.basename(libs[i]))
+                    for i, k in enumerate(curve_fns)}
+    for k, v in rec["ptxas"].items():
+        log(f"[curves_fused] ptxas {k} (float32, LM, history, no coloring): "
+            f"{v[v.rindex('{'):] if v else v}")
+
+    # ---- 21b: the curve fits through batched_optimize, "fused" ----
+    fits, rec["curves"] = {}, {}
+    for key, fn in curve_fns.items():
+        start = cx0 if key != "gm" else fits["huber"][0]
+        reset()
+        x, out = to.batched_optimize(start, fn, c_opts, data_batch=cdata)
+        torch.cuda.synchronize()
+        n = launches(f"curve_{key}_fused")
+        log(f"[curves_fused] {key}: launches {n}")
+        assert n == {"K1": 0, "K2": 1, "K2 generated": 1}, (key, n)
+        assert x.shape == (BATCH, 2) and bool(torch.all(torch.isfinite(x)))
+        assert bool(torch.all(out.succeeded())), key
+        fits[key] = (x, out)
+        name7 = {"ls": "curve_ls_cg", "huber": "curve_huber_cg",
+                 "gm": "curve_gm_cg"}[key]
+        if name7 not in CURVE_F64:       # phase 7 did not run: its solve
+            x7 = cx0.double() if key != "gm" else CURVE_F64["x_huber"]
+            x64, out64 = to.batched_optimize(
+                x7, fn, curve_options(to, "cholesky"),
+                data_batch=CurveData(*(a.double() for a in cdata)))
+            CURVE_F64[name7] = out64.final_cost.cost
+            if key == "huber":
+                CURVE_F64["x_huber"] = x64
+        best = CURVE_F64[name7]
+        gap = ((out.final_cost.cost.double() - best) / best).abs().max().item()
+        assert gap < 1e-5, f"{key}: cost {gap} from the float64 solve"
+        err, bits, twin_s = hold(fn, c_opts, x, out, start, cdata,
+                                 c_plans[key], f"curves {key}", 1e-5)
+        params = cuda_solver.k2_params(cuda_solver.GENERATED, c_opts,
+                                       c_plans[key])
+        xf = mf.flatten_batch(start, c_plans[key].spec)
+        ms = gpu_ms(lambda: cuda_solver.fused_solve(  # noqa: B023
+            fn, c_opts, xf, cdata, c_plans[key], params), n=3)
+        bound, by = gen_bound(out, c_plans[key], c_opts, 4)
+        stops = torch.bincount(out.stop_reason.clamp(min=0)).tolist()
+        r = rec["curves"][key] = {
+            "launches": n, "max_cost_gap_to_f64": gap, "max_abs_err": err,
+            "bit_equal": bits, "ms": ms, "plain_ms": twin_s * 1e3,
+            "bound_ms": bound, "bound_by": by, "share": bound / ms,
+            "mean_iters": out.num_iters.float().mean().item(),
+            "stops": stops, "ops": c_plans[key].generated.ops}
+        log(f"[curves_fused] {key} {BATCH}x60 float32 ({smi}): cost gap to "
+            f"the float64 solve {gap:.3e}; against the twin max|x - x_twin| "
+            f"{err:.3e} (bit-equal: {bits}), stops {stops}, iterations "
+            f"mean {r['mean_iters']:.2f}; kernel {ms:.4f} ms, twin "
+            f"{twin_s * 1e3:.1f} ms; bound {bound:.5f} ms ({by}), share "
+            f"{bound / ms:.5f}")
+
+    # ---- 21c: solves/s on "fused" against "cg", in turns ----
+    cg_opts = curve_options(to)
+    cex = CurveData(cdata.t[0], cdata.y[0])
+    rec["turns"] = {}
+    for key, fn in curve_fns.items():
+        solvers = {s: to.batched_solver(fn, o, "auto", cx0[0], cex)
+                   for s, o in (("fused", c_opts), ("cg", cg_opts))}
+        ms = {"fused": [], "cg": []}
+        for rep in range(GEN_TURNS):
+            d_rep, x_rep = curve_fit.make_curve_batch(BATCH, seed=2100 + rep,
+                                                      device=dev)
+            if key == "gm":      # from the Huber fit of this rep's curves
+                x_rep, _ = to.batched_optimize(
+                    x_rep, curve_fit.huber_residuals, c_opts,
+                    data_batch=d_rep)
+            for side in ("fused", "cg", "cg", "fused"):
+                (_, out), t = timed(
+                    lambda: solvers[side](x_rep, d_rep))  # noqa: B023
+                ms[side].append(t)
+        r = rec["turns"][key] = {
+            side: {"ms": v, "solves_per_s": len(v) * BATCH / (sum(v) / 1e3)}
+            for side, v in ms.items()}
+        log(f"[curves_fused] {key} ({smi}): fused "
+            f"{r['fused']['solves_per_s']:.1f} solves/s (ms {v_fmt(ms['fused'])}), "
+            f"cg {r['cg']['solves_per_s']:.1f} solves/s (ms "
+            f"{v_fmt(ms['cg'])}), in turns (fused, cg, cg, fused) x "
+            f"{GEN_TURNS}, the solver built once a side")
+
+    # ---- 21d: the JAX fused suite's residuals, float32 and float64 ----
+    rec["suite"] = {}
+    for (name, dtype), (fn, opts, x0, data, plan) in cells.items():
+        tag = "" if dtype == torch.float32 else "_f64"
+        reset()
+        x, out = to.batched_optimize(x0, fn, opts, data_batch=data)
+        torch.cuda.synchronize()
+        n = launches(f"gen_{name}{tag}")
+        assert n == {"K1": 0, "K2": 1, "K2 generated": 1}, (name, n)
+        assert all(bool(torch.all(torch.isfinite(a)))
+                   for a in pytree.tree_leaves(x)), name
+        what = f"suite {name} {dtype}"
+        err, bits, twin_s = hold(fn, opts, x, out, x0, data, plan, what,
+                                 1e-5 if dtype == torch.float32 else 1e-10)
+        params = cuda_solver.k2_params(cuda_solver.GENERATED, opts, plan)
+        tables = (cuda_solver.color_tables(plan.coloring, dtype, dev)
+                  if cuda_solver.coloring_kind(plan.coloring) == "multi"
+                  else None)
+        xf = mf.flatten_batch(x0, plan.spec)
+        ms = gpu_ms(lambda: cuda_solver.fused_solve(  # noqa: B023
+            fn, opts, xf, data, plan, params, tables), n=3)
+        bound, by = gen_bound(out, plan, opts, xf.element_size())
+        stops = torch.bincount(out.stop_reason.clamp(min=0)).tolist()
+        rec["suite"][name + tag] = {
+            "launches": n, "max_abs_err": err, "bit_equal": bits, "ms": ms,
+            "plain_ms": twin_s * 1e3, "bound_ms": bound, "bound_by": by,
+            "share": bound / ms, "stops": stops,
+            "coloring": cuda_solver.coloring_kind(plan.coloring),
+            "d": plan.generated.d, "n_res": plan.generated.n_res}
+        log(f"[generated] {name} {BATCH} instances {dtype} ({smi}; d "
+            f"{plan.generated.d}, n_res {plan.generated.n_res}, coloring "
+            f"{cuda_solver.coloring_kind(plan.coloring)}): launches {n}; "
+            f"max|x - x_twin| {err:.3e} (bit-equal: {bits}), stops {stops}; "
+            f"kernel {ms:.4f} ms, twin {twin_s * 1e3:.1f} ms; bound "
+            f"{bound:.5f} ms ({by}), share {bound / ms:.5f}")
+    rec["max_abs_err"] = max(
+        [v["max_abs_err"] for v in rec["curves"].values()]
+        + [v["max_abs_err"] for v in rec["suite"].values()])
+
+
+def v_fmt(ms):
+    return "[" + ", ".join(f"{m:.2f}" for m in ms) + "]"
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4163,10 +4535,6 @@ def main() -> int:
     # before each path and read just after ----
     CurveData = curve_fit.CurveData
 
-    def curve_options(solver="cg"):
-        return to.Options(max_iters=100, max_consec_failures=0,
-                          hessian=to.HessianOptions(solver=solver))
-
     curve_paths = {
         "curve_ls_cg": (curve_fit.exp_residuals, "auto", None),
         "curve_huber_cg": (curve_fit.huber_residuals, "auto", None),
@@ -4185,7 +4553,7 @@ def main() -> int:
         cuda_cg.cg_solve.launches = 0
         cuda_solver.fused_solve.launches = 0
         cuda_solver.fused_solve.warp_launches = 0
-        x, out = to.batched_optimize(x_start, fn, curve_options(),
+        x, out = to.batched_optimize(x_start, fn, curve_options(to),
                                      data_batch=cdata, mode=mode)
         torch.cuda.synchronize()
         n = path_launches[name] = {"K1": cuda_cg.cg_solve.launches,
@@ -4197,9 +4565,12 @@ def main() -> int:
         # the float64 least cost of each curve: the same function from the
         # same start, float64, through "cholesky"
         x64, out64 = to.batched_optimize(
-            x_start64, fn, curve_options("cholesky"), data_batch=c64,
+            x_start64, fn, curve_options(to, "cholesky"), data_batch=c64,
             mode="residuals" if mode == "auto" else mode)
         fits64[name] = x64
+        CURVE_F64[name] = out64.final_cost.cost
+        if name == "curve_huber_cg":
+            CURVE_F64["x_huber"] = x64
         assert x.shape == (BATCH, 2) and bool(torch.all(torch.isfinite(x)))
         assert bool(torch.all(out.succeeded())), name
         assert bool(torch.all(out64.succeeded())), name + " float64"
@@ -4242,7 +4613,7 @@ def main() -> int:
         f"max |x_nd - x_ad| = {nd_gap:.3e}")
     assert nd_gap < 2e-3, f"numdiff x {nd_gap} from automatic differentiation"
     for name, (fn, mode, start) in curve_paths.items():
-        solve = to.batched_solver(fn, curve_options(), mode, cx0[0],
+        solve = to.batched_solver(fn, curve_options(to), mode, cx0[0],
                                   CurveData(cdata.t[0], cdata.y[0]))
         times = []
         for rep in range(2):
@@ -4250,7 +4621,7 @@ def main() -> int:
                                                       device=dev)
             if start is not None:      # the Huber fit of this rep's curves
                 x_rep, _ = to.batched_optimize(
-                    x_rep, curve_fit.huber_residuals, curve_options(),
+                    x_rep, curve_fit.huber_residuals, curve_options(to),
                     data_batch=d_rep)
             (_, out), ms = timed(lambda: solve(x_rep, d_rep))
             times.append(ms)
@@ -4262,7 +4633,7 @@ def main() -> int:
     mark("curves")
     for phase in (phase8, phase9, phase10, phase11, phase12, phase13,
                   phase14, phase15, phase16, phase17, phase18, phase19,
-                  phase20):
+                  phase20, phase21):
         phase(to, dev, record, path_launches, cuda_cg, cuda_solver)
         mark(phase.__name__)
     log(f"[time] seconds: "
@@ -4388,6 +4759,36 @@ def main() -> int:
                    / k2["mc_powell_dl_hold_ms"]),
          "hold_iters": MC_HOLD_ITERS, "library_ms": None,
          **{k: v for k, v in k2.items() if k.startswith("mc_")}},
+        # the generated families (ops/residual_codegen.py) in the same
+        # kernel, one instance a thread, each built into a library of its
+        # own: phase 21's paths (launches) and times; the headline numbers
+        # are the Huber curve fit, 10k x 60 float32, every cell as gen_*
+        {"name": "K2 generated (solver_seg_kernel on a family generated "
+                 "from the traced residual)", "route": "cuda",
+         "source": "tinyopt_tpu_torch/csrc/solver_gen.cuh",
+         "replaces": "tinyopt_tpu/ops/pallas_solver.py:150",
+         "launches": path_launches["curve_huber_fused"]["K2 generated"],
+         "path_launches": {p: n["K2 generated"]
+                           for p, n in path_launches.items()
+                           if "K2 generated" in n},
+         "max_abs_err": record["gen"]["max_abs_err"],
+         "ms": record["gen"]["curves"]["huber"]["ms"],
+         "plain_ms": record["gen"]["curves"]["huber"]["plain_ms"],
+         "bound_ms": record["gen"]["curves"]["huber"]["bound_ms"],
+         "bound_by": record["gen"]["curves"]["huber"]["bound_by"],
+         "share": record["gen"]["curves"]["huber"]["share"],
+         "library_ms": None, "ptxas": record["gen"]["ptxas"],
+         "build_s": record["gen"]["build_s"],
+         **{f"gen_curve_{k}_{f}": v[f]
+            for k, v in record["gen"]["curves"].items()
+            for f in ("ms", "plain_ms", "bound_ms", "bound_by", "share",
+                      "max_abs_err", "bit_equal")},
+         **{f"gen_curve_{k}_{side}_solves_per_s": v[side]["solves_per_s"]
+            for k, v in record["gen"]["turns"].items()
+            for side in ("fused", "cg")},
+         **{f"gen_{k}_{f}": v[f] for k, v in record["gen"]["suite"].items()
+            for f in ("ms", "plain_ms", "bound_ms", "bound_by", "share",
+                      "max_abs_err", "bit_equal")}},
     ]
     record.update(k1=k1, k2=k2, kernels=kernels)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

@@ -23,9 +23,11 @@ tinyopt_tpu_torch/_build/parent``.  That package is imported beside this
 one under another name, so its ``ops.cuda_solver.fused_solve`` builds and
 calls its own kernels with its own entry points.  ``--ptxas``: print
 nvcc's registers, stack frame and spills for every kernel of this tree's
-K2 sources (the SE3 family's instances once more as ``[ptxas se3]``), and
-as ``[ptxas diff]`` the kernels whose registers or stack frame differ from
-the earlier tree's.
+K2 sources (the SE3 family's instances once more as ``[ptxas se3]``), as
+``[ptxas diff]`` the kernels whose registers or stack frame differ from
+the earlier tree's, and as ``[ptxas generated]`` the kernels of the curve
+fits' generated families (``ops/residual_codegen``; float32, LM with the
+history).
 
 Device times are milliseconds per call, from CUDA events around
 launches queued behind a device sleep (``chip_smoke.gpu_ms``).  Host
@@ -85,10 +87,17 @@ def ptxas_report(build) -> list[str]:
                                   check=True).stderr
         with concurrent.futures.ThreadPoolExecutor(len(srcs)) as ex:
             errs = list(ex.map(one, srcs))
+    return ptxas_lines("\n".join(errs), build)
+
+
+def ptxas_lines(text: str, build) -> list[str]:
+    """One line per kernel of nvcc's ``-Xptxas -v`` output ``text``: its
+    registers, stack frame and spills, its name demangled where cu++filt
+    is found."""
     filt = shutil.which("cu++filt") or os.path.join(
         os.path.dirname(build._nvcc()), "cu++filt")
     lines, name = [], None
-    for ln in "\n".join(errs).splitlines():
+    for ln in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             name = m.group(1)
@@ -99,6 +108,17 @@ def ptxas_report(build) -> list[str]:
         elif name and ("registers" in ln or "spill" in ln):
             lines.append(f"{name}: {ln.split(':', 1)[-1].strip()}")
     return lines
+
+
+def ptxas_generated(build, libraries) -> list[str]:
+    """ptxas's report of generated families' libraries (``_build.
+    build_generated`` keeps it beside each), one line per kernel."""
+    out = []
+    for path in libraries:
+        with open(path + ".ptxas.txt") as f:
+            out += [f"{os.path.basename(path)} {ln}"
+                    for ln in ptxas_lines(f.read(), build)]
+    return out
 
 
 def ptxas_diff(old: list[str], new: list[str]) -> list[str]:
@@ -119,14 +139,18 @@ def ptxas_diff(old: list[str], new: list[str]) -> list[str]:
             + [f"this tree only: {k}" for k in sorted(n.keys() - o.keys())])
 
 
-def ptxas_se3(lines: list[str]) -> list[str]:
-    """One line per SE3 instance of a report: registers, stack frame and
-    spills (the largest of the kernel's lines: a double kernel's trig
-    slow path prints a frame of its own after the kernel's)."""
+def ptxas_se3(lines: list[str], keep=None) -> list[str]:
+    """One line per SE3 instance of a report (per kernel whose name
+    ``keep`` takes, when given): registers, stack frame and spills (the
+    largest of the kernel's lines: a double kernel's trig slow path prints
+    a frame of its own after the kernel's)."""
     got: dict = {}
     for ln in lines:
         name, text = ln.rsplit(": ", 1)
-        if "SE3" not in name and "se3" not in name:
+        if keep is not None:
+            if not keep(name):
+                continue
+        elif "SE3" not in name and "se3" not in name:
             continue
         m = re.search(r"Used (\d+) registers", text)
         if m:
@@ -139,6 +163,25 @@ def ptxas_se3(lines: list[str]) -> list[str]:
                             m.groups()):
                 k[f] = max(k.get(f, 0), int(v))
     return [f"{k}: {v}" for k, v in sorted(got.items())]
+
+
+def curve_fit_libraries(pkg) -> list[str]:
+    """The libraries of the curve fits' generated families (float32, LM
+    with the history, coloring None), built together."""
+    cf = importlib.import_module(f"{pkg.__name__}.models.curve_fit")
+    cs = importlib.import_module(f"{pkg.__name__}.ops.cuda_solver")
+    rc = importlib.import_module(f"{pkg.__name__}.ops.residual_codegen")
+    build = importlib.import_module(f"{pkg.__name__}._build")
+    data, x0 = cf.make_curve_batch(1, dtype=torch.float32, device="cpu")
+    d_ex = cf.CurveData(data.t[0], data.y[0])
+    fams = []
+    for fn in (cf.exp_residuals, cf.huber_residuals,
+               cf.geman_mcclure_residuals):
+        fam, why = rc.generated_family(fn, x0[0], d_ex)
+        assert fam is not None, why
+        fams.append((fam, build.GenInstance("float", False, True,
+                                            cs.COLORING_CODES[None])))
+    return build.build_generated(fams)
 
 
 def parent_package(root: str):
@@ -298,6 +341,12 @@ def main() -> int:
             log(f"[ptxas se3 parent] {ln}")
         for ln in ptxas_diff(rec["ptxas_parent"], rec["ptxas"]):
             log(f"[ptxas diff] {ln}")
+        # the generated families of the curve fits (float32, LM with the
+        # history, no coloring: what phase 21 of chip_smoke.py runs)
+        rec["ptxas_generated"] = ptxas_generated(
+            _build, curve_fit_libraries(new_pkg))
+        for ln in ptxas_se3(rec["ptxas_generated"], keep=lambda n: True):
+            log(f"[ptxas generated] {ln}")
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)

@@ -8,6 +8,15 @@ next to this file under a name keyed by a hash of the sources and flags,
 and loaded with ``ctypes``.  Nothing is compiled when the package is
 imported, and nothing here runs on a machine without CUDA unless a CUDA
 tensor reaches a kernel wrapper.
+
+K2's families generated from a traced residual (``ops/residual_codegen``)
+are built apart: one translation unit per family and instance (type,
+dogleg, history, coloring) — the emitted header, then
+``csrc/solver_gen.cuh`` — compiled by one ``nvcc`` at first use into a
+library of its own under ``_build/``, keyed by a hash of the emitted source,
+the instance, K2's sources and the flags, and loaded with ``ctypes``
+(:func:`generated_library`; :func:`build_generated` starts several builds
+together).
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from typing import NamedTuple
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -95,6 +105,102 @@ def build() -> str:
     return path
 
 
+#: K2's sources a generated family's library is compiled from.
+GEN_SOURCES = ("common.cuh", "solver.cuh", "solver_seg.cuh", "solver_gen.cuh")
+
+
+class GenInstance(NamedTuple):
+    """One instance of a generated family's kernel: ``ctype`` "float" or
+    "double", the dogleg or GN / LM, with or without the history rows, and
+    the coloring's code (``enum Coloring``, csrc/solver.cuh)."""
+    ctype: str
+    dogleg: bool
+    hist: bool
+    coloring: int
+
+
+def _generated_unit(family, inst: GenInstance) -> str:
+    return (f"// K2 on the generated family {family.hash}, one instance.\n"
+            f"#define K2G_T {inst.ctype}\n#define K2G_DL {int(inst.dogleg)}\n"
+            f"#define K2G_HIST {int(inst.hist)}\n"
+            f"#define K2G_COLOR {inst.coloring}\n"
+            f'#include "k2gen_{family.hash}.cuh"\n#include "solver_gen.cuh"\n')
+
+
+def generated_library_path(family, inst: GenInstance) -> str:
+    """Where the library of ``family`` (a ``residual_codegen.
+    GeneratedFamily``) at instance ``inst`` is built: a name keyed by the
+    hash of its emitted source, the instance, K2's sources and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(_generated_unit(family, inst).encode())
+    h.update(family.source.encode())
+    for name in GEN_SOURCES:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libtinyopt_k2gen_{h.hexdigest()[:16]}.so")
+
+
+def build_generated(items) -> list[str]:
+    """Build the generated families' libraries that are missing, one
+    ``nvcc`` each, all started together; ``items``: (family, GenInstance)
+    pairs.  ptxas's report of each (registers, spills) is kept beside its
+    library as ``<library>.ptxas.txt``.  A failed build raises.  Returns
+    the libraries' paths."""
+    paths = [generated_library_path(f, i) for f, i in items]
+    todo = {p: (f, i) for p, (f, i) in zip(paths, items)
+            if not os.path.exists(p)}
+    if not todo:
+        return paths
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for k, (path, (family, inst)) in enumerate(todo.items()):
+            unit = os.path.join(tmp, f"gen{k}")
+            os.makedirs(unit)
+            with open(os.path.join(unit, f"k2gen_{family.hash}.cuh"), "w") as f:
+                f.write(family.source)
+            src = os.path.join(unit, "family.cu")
+            with open(src, "w") as f:
+                f.write(_generated_unit(family, inst))
+            cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-I", CSRC, "-I",
+                   unit, "-o", os.path.join(unit, "lib.so"), src]
+            procs.append((path, unit, cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        outs = [(path, unit, cmd, p, p.communicate()[0])
+                for path, unit, cmd, p in procs]
+        for path, unit, cmd, p, out in outs:
+            if p.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}")
+        for path, unit, cmd, p, out in outs:
+            with open(path + ".ptxas.txt", "w") as f:
+                f.write(out)
+            os.replace(os.path.join(unit, "lib.so"), path)
+    return paths
+
+
+@functools.lru_cache(maxsize=None)
+def _load_generated(path: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(path)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    # params, io, the multi-color probes and recovery (or null), B, then
+    # ops.cuda_solver.K2Plan's S, E, warps, grid, then the stream
+    lib.tinyopt_gen_solver.argtypes = [
+        ctypes.POINTER(SolverParams), ctypes.POINTER(SolverIO), vp, vp, ci,
+        ci, ci, ci, ci, vp]
+    lib.tinyopt_gen_solver.restype = ci
+    lib.tinyopt_gen_error_string.argtypes = [ci]
+    lib.tinyopt_gen_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def generated_library(family, inst: GenInstance) -> ctypes.CDLL:
+    """The loaded library of ``family`` at instance ``inst``, built first
+    if it is missing."""
+    return _load_generated(build_generated([(family, inst)])[0])
+
+
 class SolverParams(ctypes.Structure):
     """Mirror of ``struct SolverParams`` in csrc/solver.cuh."""
     _fields_ = [(n, ctypes.c_int) for n in (
@@ -141,8 +247,10 @@ def load() -> ctypes.CDLL:
     return lib
 
 
-def check(err: int, what: str) -> None:
-    """Raise if a kernel entry point returned a CUDA error code."""
+def check(err: int, what: str, lib: ctypes.CDLL | None = None) -> None:
+    """Raise if a kernel entry point returned a CUDA error code (``lib``:
+    a generated family's library, which names its own errors)."""
     if err != 0:
-        msg = load().tinyopt_cuda_error_string(err).decode()
+        msg = (load().tinyopt_cuda_error_string(err) if lib is None
+               else lib.tinyopt_gen_error_string(err)).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

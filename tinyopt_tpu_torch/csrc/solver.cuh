@@ -48,7 +48,12 @@ struct SolverIO {
 };
 
 enum Solver { kSolverGN = 0, kSolverLM = 1, kSolverDogLeg = 2 };
-enum Family { kPrior = 0, kJennrichSampson = 1, kSE3 = 2, kPowell = 3, kWood = 4 };
+// kGenerated: a family generated from a traced residual
+// (ops/residual_codegen.py), built into a library of its own (_build.py).
+enum Family {
+  kPrior = 0, kJennrichSampson = 1, kSE3 = 2, kPowell = 3, kWood = 4,
+  kGenerated = 5
+};
 // kColorNone: one jvp a tangent dimension for diag(H), then Jacobi-PCG;
 // kColorIdentity: J diagonal, one jvp of the all-ones probe and the
 // closed-form step; kColorMulti: Curtis-Powell-Reid probes, one jvp a
@@ -419,6 +424,47 @@ struct WoodFamily {
                                         T (&out)[E]) const {
       vjp_rows(x, q, out);
       out[4] = out[5] = T(0);
+    }
+  };
+};
+
+// A family generated from a traced residual (ops/residual_codegen.py):
+// Gen is the emitted struct (the header k2gen_<hash>.cuh, built with
+// csrc/solver_gen.cuh into a library of its own), whose kD, kNRes and kQ
+// are the tangent width, the residuals and the values of an instance's
+// data row, and whose rows / jvp_rows / vjp_rows are the residual, the jvp
+// and the vjp of one instance traced from torch.func.  Register form only,
+// one instance a thread (S = 1) as PowellFamily, with the tangent-wide and
+// the residual-wide vectors sized apart (kSplitWidths,
+// csrc/solver_seg.cuh); the data row is read through the cache where the
+// emitted code reads it, never held in registers.
+template <typename T, typename Gen>
+struct GeneratedFamily {
+  const T* data;   // (B, kQ), or null when kQ == 0
+  static constexpr int kD = Gen::kD, kNRes = Gen::kNRes;
+  static constexpr int kSegE = kD > kNRes ? kD : kNRes;
+  static constexpr int kMaxM = kSegE;
+  static constexpr bool kManifold = false;
+  static constexpr bool kSplitWidths = true;
+
+  template <int S, int E>
+  struct Lanes {
+    static_assert(S == 1 && E == kSegE, "one instance a lane");
+    const T* row;
+    __device__ __forceinline__ void start(const GeneratedFamily& f, int b, int) {
+      row = Gen::kQ > 0 ? f.data + (size_t)b * Gen::kQ : nullptr;
+    }
+    __device__ __forceinline__ void residual(const T (&x)[kD],
+                                             T (&r)[kNRes]) const {
+      Gen::template rows<T>(x, row, r);
+    }
+    __device__ __forceinline__ void jvp(const T (&x)[kD], const T (&p)[kD],
+                                        T (&out)[kNRes]) const {
+      Gen::template jvp_rows<T>(x, row, p, out);
+    }
+    __device__ __forceinline__ void vjp(const T (&x)[kD], const T (&q)[kNRes],
+                                        T (&out)[kD]) const {
+      Gen::template vjp_rows<T>(x, row, q, out);
     }
   };
 };

@@ -155,12 +155,37 @@ __device__ __forceinline__ int seg_n_res(int n_res) {
     return n_res;
 }
 
+// Entries a lane holds of the tangent-wide vectors (x, best_x, g, diag(H),
+// the steps, the damping, the PCG vectors) and of the residual-wide ones
+// (r, J v): E both, or for a family with kSplitWidths (the generated
+// families, one instance a thread) its kD and kNRes, so a curve fit of 2
+// parameters and 60 residuals keeps 2-wide steps and gradients.
+template <typename Fam, typename = void>
+struct SplitWidths : std::false_type {};
+template <typename Fam>
+struct SplitWidths<Fam, std::void_t<decltype(Fam::kSplitWidths)>>
+    : std::integral_constant<bool, Fam::kSplitWidths> {};
+template <typename Fam, int E>
+__host__ __device__ constexpr int tangent_entries() {
+  if constexpr (SplitWidths<Fam>::value)
+    return Fam::kD;
+  else
+    return E;
+}
+template <typename Fam, int E>
+__host__ __device__ constexpr int residual_entries() {
+  if constexpr (SplitWidths<Fam>::value)
+    return Fam::kNRes;
+  else
+    return E;
+}
+
 // The Powell dogleg of one retry for the segment's instance, in the trust
 // radius ref / lam_try: the twin's GN step, g'Hg, then solvers/step.
 // dogleg_core, same operations in the same order.  `solve(damped, lam,
 // out)` is the kernel's damped solve.  Only the kDogLeg instances call it,
 // so the GN / LM instances compile none of it.
-template <typename T, int S, int E, typename Lanes, typename Solve>
+template <typename T, int S, int E, int ER, typename Lanes, typename Solve>
 __device__ __forceinline__ bool propose_dogleg(
     const Lanes& fl, const T (&x)[E], const T (&g)[E], const bool (&vt)[E],
     unsigned bits, T lam_try, const Solve& solve, T (&dxn)[E]) {
@@ -168,7 +193,7 @@ __device__ __forceinline__ bool propose_dogleg(
   T gn[E], reg[E], ta[E], tb[E], tc[E];
   const bool ok_gn = solve(false, T(0), gn);
   {
-    T jp[E], hg[E];
+    T jp[ER], hg[E];
     fl.jvp(x, g, jp);
     fl.vjp(x, jp, hg);
 #pragma unroll
@@ -270,6 +295,11 @@ solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
   static_assert(kColor != kColorMulti || S == 1,
                 "the multi-color coloring runs one instance a lane");
   constexpr int W = 32 / S;   // instances a warp
+  // entries a lane of the tangent-wide and of the residual-wide vectors
+  constexpr int ET = tangent_entries<Fam, E>();
+  constexpr int ER = residual_entries<Fam, E>();
+  static_assert(S == 1 || (ET == E && ER == E),
+                "split widths run one instance a lane");
   const int lane = threadIdx.x & 31;
   const int sl = lane & (S - 1);
   const int seg = lane / S;
@@ -292,16 +322,16 @@ solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
   const bool lam_sched = kDogLeg || is_lm;
   const int max_tries = p.max_consec_failures > 0 ? p.max_consec_failures : 255;
 
-  bool vt[E];   // entry k is a tangent entry (index < d)
-  bool vx[E];   // entry k is a parameter entry (index < P; vt when P = d)
+  bool vt[ET];   // entry k is a tangent entry (index < d)
+  bool vx[ET];   // entry k is a parameter entry (index < P; vt when P = d)
 #pragma unroll
-  for (int k = 0; k < E; ++k) {
+  for (int k = 0; k < ET; ++k) {
     vt[k] = sl + k * S < d;
     vx[k] = sl + k * S < P;
   }
 
   typename Fam::template Lanes<S, E> fl;
-  T x[E], best_x[E], g[E], diagH[E];
+  T x[ET], best_x[ET], g[ET], diagH[ET];
   T best_cost, final_rerr, lam, bad;
   int has_last, it, nfail, nconsec, stop, best_nres;
   int nhist = 0;
@@ -313,7 +343,7 @@ solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
     fl.start(fam, bl, sl);
     const T* x0 = static_cast<const T*>(io.x0) + (size_t)bl * P;
 #pragma unroll
-    for (int k = 0; k < E; ++k) {
+    for (int k = 0; k < ET; ++k) {
       const int i = sl + k * S;
       const T v = x0[i < P ? i : P - 1];
       x[k] = vx[k] ? v : T(0);
@@ -331,10 +361,10 @@ solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
 
   // dxn = solve((H + diag(dampl)) dxn = -g), dampl = damp * lam_eff when
   // damped, else 0; returns all(isfinite(dxn)).
-  auto solve = [&](bool damped, T lam_eff, T (&dxn)[E]) -> bool {
-    T dampl[E], dinv[E];
+  auto solve = [&](bool damped, T lam_eff, T (&dxn)[ET]) -> bool {
+    T dampl[ET], dinv[ET];
 #pragma unroll
-    for (int k = 0; k < E; ++k) {
+    for (int k = 0; k < ET; ++k) {
       const T damp = diagH[k] == T(0) ? T(1) : diagH[k];
       const T dl = damped ? damp * lam_eff : T(0);
       dampl[k] = dl;
@@ -346,47 +376,47 @@ solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
       // exactly diagonal, the damped system solves in closed form (the JAX
       // kernel's n_colors == 1 branch).
 #pragma unroll
-      for (int k = 0; k < E; ++k) dxn[k] = (-g[k]) * dinv[k];
+      for (int k = 0; k < ET; ++k) dxn[k] = (-g[k]) * dinv[k];
     } else {
       // Jacobi-PCG, ops/linalg.pcg_core formulas.
-      T cr[E], cz[E], cp[E], t[E];
+      T cr[ET], cz[ET], cp[ET], t[ET];
 #pragma unroll
-      for (int k = 0; k < E; ++k) {
+      for (int k = 0; k < ET; ++k) {
         dxn[k] = 0;
         cr[k] = -g[k];
         cz[k] = cr[k] * dinv[k];
         cp[k] = cz[k];
         t[k] = cr[k] * cz[k];
       }
-      T rz = seg_sum<S>(lane_part<S, E>(t));
+      T rz = seg_sum<S>(lane_part<S, ET>(t));
       for (int c = 0; c < p.cg_iters; ++c) {
-        T jp[E], hp[E];
+        T jp[ER], hp[ET];
         fl.jvp(x, cp, jp);
         fl.vjp(x, jp, hp);
 #pragma unroll
-        for (int k = 0; k < E; ++k) {
+        for (int k = 0; k < ET; ++k) {
           hp[k] = hp[k] + dampl[k] * cp[k];
           t[k] = cp[k] * hp[k];
         }
-        const T denom = seg_sum<S>(lane_part<S, E>(t));
+        const T denom = seg_sum<S>(lane_part<S, ET>(t));
         const T alpha = denom > tiny ? rz / denom : T(0);
 #pragma unroll
-        for (int k = 0; k < E; ++k) {
+        for (int k = 0; k < ET; ++k) {
           dxn[k] = dxn[k] + alpha * cp[k];
           cr[k] = cr[k] - alpha * hp[k];
           cz[k] = cr[k] * dinv[k];
           t[k] = cr[k] * cz[k];
         }
-        const T rz_new = seg_sum<S>(lane_part<S, E>(t));
+        const T rz_new = seg_sum<S>(lane_part<S, ET>(t));
         const T beta = rz_new / (rz > tiny ? rz : tiny);
 #pragma unroll
-        for (int k = 0; k < E; ++k) cp[k] = cz[k] + beta * cp[k];
+        for (int k = 0; k < ET; ++k) cp[k] = cz[k] + beta * cp[k];
         rz = rz_new;
       }
     }
     bool f = true;
 #pragma unroll
-    for (int k = 0; k < E; ++k) f = f && (!vt[k] || isfinite(dxn[k]));
+    for (int k = 0; k < ET; ++k) f = f && (!vt[k] || isfinite(dxn[k]));
     return seg_all<S>(f, bits);
   };
 
@@ -408,20 +438,22 @@ solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
     // ---- linearize at x: g, diag(H), and this lane's part of r'r ----
     T e_part;
     {
-      T r[E], rr[E];
+      T r[ER], rr[ER];
       fl.residual(x, r);
 #pragma unroll
-      for (int k = 0; k < E; ++k) rr[k] = r[k] * r[k];
-      e_part = lane_part<S, E>(rr);
+      for (int k = 0; k < ER; ++k) rr[k] = r[k] * r[k];
+      e_part = lane_part<S, ER>(rr);
       fl.vjp(x, r, g);
     }
     if constexpr (kColor == kColorIdentity) {
-      T ones[E], jp[E];
+      // J diagonal: n_res >= d, residual k the one of tangent entry k
+      static_assert(ER >= ET, "the identity coloring has n_res >= d");
+      T ones[ET], jp[ER];
 #pragma unroll
-      for (int k = 0; k < E; ++k) ones[k] = vt[k] ? T(1) : T(0);
+      for (int k = 0; k < ET; ++k) ones[k] = vt[k] ? T(1) : T(0);
       fl.jvp(x, ones, jp);
 #pragma unroll
-      for (int k = 0; k < E; ++k) diagH[k] = vt[k] ? jp[k] * jp[k] : T(0);
+      for (int k = 0; k < ET; ++k) diagH[k] = vt[k] ? jp[k] * jp[k] : T(0);
     } else if constexpr (kColor == kColorMulti) {
       // Curtis-Powell-Reid: a jvp of each color's probe row, the squares,
       // then diag_j = sum over the recovery's rows (c, i) in ascending
@@ -431,22 +463,40 @@ solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
       const T* tab_probes = seg_tables<T>();
       const T* tab_rec = tab_probes + p.n_colors * d;
 #pragma unroll
-      for (int k = 0; k < E; ++k) diagH[k] = T(0);
+      for (int k = 0; k < ET; ++k) diagH[k] = T(0);
       for (int c = 0; c < p.n_colors; ++c) {
-        T pv[E], jp[E];
+        T pv[ET], jp[ER];
 #pragma unroll
-        for (int k = 0; k < E; ++k) pv[k] = vt[k] ? tab_probes[c * d + k] : T(0);
+        for (int k = 0; k < ET; ++k) pv[k] = vt[k] ? tab_probes[c * d + k] : T(0);
         fl.jvp(x, pv, jp);
 #pragma unroll
-        for (int i = 0; i < E; ++i) {
+        for (int i = 0; i < ER; ++i) {
           if (i < nr) {
             const T sq = jp[i] * jp[i];
             const T* row = tab_rec + (c * nr + i) * d;
 #pragma unroll
-            for (int k = 0; k < E; ++k)
+            for (int k = 0; k < ET; ++k)
               if (vt[k]) diagH[k] = diagH[k] + sq * row[k];
           }
         }
+      }
+    } else if constexpr (SplitWidths<Fam>::value) {
+      // a jvp a tangent dimension, in a loop the compiler keeps (one copy
+      // of the generated jvp, however wide d): column j of J, then its
+      // squared norm into diag(H)_j by selects
+#pragma unroll
+      for (int k = 0; k < ET; ++k) diagH[k] = T(0);
+#pragma unroll 1
+      for (int j = 0; j < ET; ++j) {
+        T tv[ET], jp[ER];
+#pragma unroll
+        for (int kk = 0; kk < ET; ++kk) tv[kk] = kk == j ? T(1) : T(0);
+        fl.jvp(x, tv, jp);
+#pragma unroll
+        for (int kk = 0; kk < ER; ++kk) jp[kk] = jp[kk] * jp[kk];
+        const T dj = lane_part<S, ER>(jp);
+#pragma unroll
+        for (int kk = 0; kk < ET; ++kk) diagH[kk] = kk == j ? dj : diagH[kk];
       }
     } else {
 #pragma unroll
@@ -468,23 +518,24 @@ solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
     if (p.grad_clipping > 0) {
       const T v = T(p.grad_clipping);
 #pragma unroll
-      for (int k = 0; k < E; ++k) g[k] = fmin(fmax(g[k], -v), v);
+      for (int k = 0; k < ET; ++k) g[k] = fmin(fmax(g[k], -v), v);
     }
 
     // ---- propose, retry with lambda escalation (optimizer.h:356-399) ----
     bool ok = false, give_up = false;
     T r_lam = lam, r_bad = bad;
     int nf = nfail, nc = nconsec;
-    T dx[E];
+    T dx[ET];
 #pragma unroll
-    for (int k = 0; k < E; ++k) dx[k] = 0;
+    for (int k = 0; k < ET; ++k) dx[k] = 0;
     while (true) {
       const bool upd = act && !ok && !give_up && nc <= max_tries;
       if (!warp_any<S>(upd)) break;
-      T dxn[E];
+      T dxn[ET];
       bool ok_new;
       if constexpr (kDogLeg)
-        ok_new = propose_dogleg<T, S, E>(fl, x, g, vt, bits, r_lam, solve, dxn);
+        ok_new = propose_dogleg<T, S, ET, ER>(fl, x, g, vt, bits, r_lam, solve,
+                                              dxn);
       else
         ok_new = solve(is_lm, r_lam, dxn);
       if (upd) {
@@ -496,7 +547,7 @@ solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
                             nc >= p.max_consec_failures;
         if (ok_new) {
 #pragma unroll
-          for (int k = 0; k < E; ++k) dx[k] = vt[k] ? dxn[k] : T(0);
+          for (int k = 0; k < ET; ++k) dx[k] = vt[k] ? dxn[k] : T(0);
         }
         ok = ok_new;
         if (!ok_new && !gu_new && lam_sched) {
@@ -515,15 +566,15 @@ solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
     T dx_part, g_part;
     bool g_fin = true;
     {
-      T dd[E], gg[E];
+      T dd[ET], gg[ET];
 #pragma unroll
-      for (int k = 0; k < E; ++k) {
+      for (int k = 0; k < ET; ++k) {
         dd[k] = dx[k] * dx[k];
         gg[k] = g[k] * g[k];
         g_fin = g_fin && (!vt[k] || isfinite(g[k]));
       }
-      dx_part = lane_part<S, E>(dd);
-      g_part = lane_part<S, E>(gg);
+      dx_part = lane_part<S, ET>(dd);
+      g_part = lane_part<S, ET>(gg);
     }
 #pragma unroll
     for (int off = S / 2; off > 0; off >>= 1) {
@@ -629,7 +680,7 @@ solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
       const bool apply = (success || probe) && cascade == kNone &&
                          it + 1 < p.max_iters_total;
 #pragma unroll
-      for (int k = 0; k < E; ++k) {
+      for (int k = 0; k < ET; ++k) {
         const T xb = roll ? best_x[k] : x[k];
         const T xn = xb + (apply ? dx[k] : T(0));
         if (success) best_x[k] = x[k];
@@ -647,7 +698,7 @@ solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
       T* xo = static_cast<T*>(io.x) + (size_t)b * P;
       T* go = static_cast<T*>(io.g) + (size_t)b * d;
 #pragma unroll
-      for (int k = 0; k < E; ++k) {
+      for (int k = 0; k < ET; ++k) {
         if (vx[k]) xo[sl + k * S] = x[k];
         if (vt[k]) go[sl + k * S] = it > 0 ? g[k] : T(0);
       }

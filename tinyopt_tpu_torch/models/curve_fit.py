@@ -5,9 +5,12 @@ points (25 % by default) moved by a gross outlier of 3 to 12 either way;
 the true (a, b) is (1.7, 0.8).  Three residual functions of one curve:
 plain least squares, and the residuals whitened by Huber and by
 Geman–McClure at the inlier scale th² = 0.09 (``losses.robust_norms.
-robust_whiten``), whose squared norm is Σ ρ(rᵢ²).  None has a K2 family:
-on the card they run the batch-native loop, with K1 at d = 2 when the
-solver is "cg".
+robust_whiten``), whose squared norm is Σ ρ(rᵢ²).  None has a
+hand-written K2 family: on the card, with ``solver="fused"`` (and
+``save_last`` / ``carry_system`` off, the fused envelope), each runs K2 on
+a family generated from its trace (``ops/residual_codegen.py``: d = 2, 60
+residuals, the data row t then y), one launch a batch; with "cg" the
+batch-native loop, with K1 at d = 2.
 """
 
 from __future__ import annotations

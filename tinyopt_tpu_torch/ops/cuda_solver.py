@@ -17,11 +17,14 @@ manifold (7 and 6 for an SE3 pose).
 :func:`fused_solve_plain`, a batch-native torch version of the same
 algorithm with the kernel's op order, differentiating ANY residual with
 ``torch.func``.  On a CUDA device it launches K2, which has no automatic
-differentiation: the residual must have a hand-written family, which the
-module defining it registers (:func:`register_family`; the models'
+differentiation: the residual has a hand-written family, which the module
+defining it registers (:func:`register_family`; the models'
 prior_residual, jennrich_sampson_residuals, powell_singular_residuals,
 wood_residuals and se3_residual, the last on an SE3 pose, whose family
-holds the retraction too).  diag(JᵀJ) comes from the coloring the
+holds the retraction too), or else a family generated from its trace
+(``ops/residual_codegen.py``: Euclidean parameters, max(d, n_res) ≤ 64,
+the ops of its table), which K2 runs one instance a thread from a library
+built for it (:func:`k2_envelope`).  diag(JᵀJ) comes from the coloring the
 example's Jacobian structure admits (ops/coloring.py): one jvp of the
 all-ones probe for the identity, one jvp a color and the recovery sum for
 Curtis–Powell–Reid probes (Powell's and Wood's 2 colors), else one jvp a
@@ -52,6 +55,7 @@ from ..stop_reasons import StopReason
 from ..utils import float_epsilon, where_tree
 from .coloring import DiagColoring, detect_diag_coloring
 from .linalg import jacobi_inverse, pcg_core
+from .residual_codegen import GeneratedFamily, generated_family
 
 _I32 = torch.int32
 
@@ -71,16 +75,19 @@ FAMILIES: dict = {}
 #: The SE3 family's parameter and tangent widths (one pose).
 SE3_P, SE3_D = 7, 6
 
-#: Per-warp shared-memory budget of K2's warp kernel (one warp per
-#: instance needs 2·P + 12·D + 2·n_res values, :func:`warp_values`; a
-#: block may use at most 227 KB).
+#: Shared memory a block of K2 may use (227 KB, opted in): the budget of
+#: one warp's instance in the warp kernel (2·P + 12·D + 2·n_res values,
+#: :func:`warp_values`) and of a multi-color coloring's tables in the
+#: register kernel (:func:`k2_table_bytes`).
 _MAX_SMEM = 232448
 #: Shared memory a block may use without opting in (csrc/common.cuh).
 _DEFAULT_SMEM = 48 * 1024
 #: K2's register kernel covers max(d, n_res) up to this.
 SEG_MAX = 64
-#: K2's residual families (``enum Family``, csrc/solver.cuh).
-FAMILY_IDS = (0, 1, 2, 3, 4)
+#: K2's residual families (``enum Family``, csrc/solver.cuh); 5 is
+#: ``kGenerated``, a family generated from a traced residual.
+FAMILY_IDS = (0, 1, 2, 3, 4, 5)
+GENERATED = 5
 #: Points a lane of the SE3 family's register kernel serves, by itemsize
 #: (csrc/solver_se3.cuh, ``se3_points``): a segment is the least power of
 #: two of lanes, from 1, that holds the K points, and each of its lanes
@@ -99,8 +106,11 @@ SEG_E = {0: 4, 1: 2, 3: 4, 4: 6}
 #: (a jvp a dimension, PCG).  The warp kernel takes ``None`` and
 #: "identity".
 SEG_COLORINGS = {0: (None, "identity"), 1: (None,), 2: (None,),
-                 3: (None, "multi"), 4: (None, "multi")}
-#: (d, n_res) of the families of fixed shape: Powell's and Wood's.
+                 3: (None, "multi"), 4: (None, "multi"),
+                 5: (None, "identity", "multi")}
+#: (d, n_res) of the families of fixed shape: Powell's and Wood's.  A
+#: generated family's shape is fixed too, but by its trace: it runs one
+#: instance a thread at any max(d, n_res) ≤ 64 (E = max(d, n_res)).
 FIXED_SHAPES = {3: (4, 4), 4: (4, 6)}
 #: ``SolverParams.coloring`` (``enum Coloring``, csrc/solver.cuh).
 COLORING_CODES = {None: 0, "identity": 1, "multi": 2}
@@ -117,10 +127,12 @@ SOLVER_CODES = {SolverType.GAUSS_NEWTON: 0, SolverType.LEVENBERG_MARQUARDT: 1,
 
 class FusedPlan(NamedTuple):
     """What the fused path fixes when it is built: the parameter layout,
-    the residual count and the diag(JᵀJ) coloring of the example."""
+    the residual count and the diag(JᵀJ) coloring of the example, and on
+    the card a residual without a hand-written family its generated one."""
     spec: mf.TangentSpec
     n_res: int
     coloring: DiagColoring | None
+    generated: GeneratedFamily | None = None
 
 
 def coloring_kind(coloring: DiagColoring | None) -> str | None:
@@ -148,10 +160,120 @@ def register_family(residual_fn, family: int, accepts=None) -> None:
     FAMILIES[residual_fn] = Family(family, accepts)
 
 
+def k2_envelope(residual_fn, x_example, data_example=None
+                ) -> tuple[int | None, GeneratedFamily | None, str]:
+    """K2's family for this residual at one instance's example, from the
+    example alone (no card needed): (the family id, the generated family or
+    ``None``, "") — a hand-written family that accepts the instance first,
+    else one generated from the trace (``residual_codegen.
+    generated_family``) — or (``None``, ``None``, the reason)."""
+    fam = FAMILIES.get(residual_fn)
+    if fam is not None:
+        spec = mf.tangent_spec(x_example)
+        if fam.accepts is not None and not fam.accepts(x_example, spec,
+                                                       data_example):
+            return None, None, (f"K2 family {fam.id} does not take this "
+                                "instance")
+        return fam.id, None, ""
+    gen, why = generated_family(residual_fn, x_example, data_example)
+    if gen is None:
+        return None, None, f"no K2 family can be generated: {why}"
+    return GENERATED, gen, ""
+
+
+def k2_table_bytes(n_colors: int, d: int, n_res: int, itemsize: int) -> int:
+    """Shared memory a block of K2's register kernel holds for a
+    multi-color coloring's tables (``launch_seg_family``,
+    csrc/solver_seg.cuh): C·d probe entries and C·n_res·d recovery
+    entries."""
+    return n_colors * d * (1 + n_res) * itemsize
+
+
+def k2_refusal(family: int, spec: mf.TangentSpec, n_res: int,
+               coloring: DiagColoring | None) -> str:
+    """Why K2 cannot run family ``family`` at this layout, residual count
+    and coloring on the card, from shapes alone ("" when it can): a shape
+    or coloring it is not built for (:func:`k2_supports`), or a
+    multi-color coloring whose tables exceed a block's shared memory
+    (:func:`k2_table_bytes`)."""
+    kind = coloring_kind(coloring)
+    if not k2_supports(family, spec.dims, n_res, kind, spec.params):
+        return (f"K2 family {family} is not built for (P, D, n_res) = "
+                f"({spec.params}, {spec.dims}, {n_res}) with coloring "
+                f"{kind!r}")
+    if kind == "multi":
+        itemsize = torch.empty((), dtype=spec.dtype).element_size()
+        nbytes = k2_table_bytes(coloring.n_colors, spec.dims, n_res,
+                                itemsize)
+        if nbytes > _MAX_SMEM:
+            return (f"a coloring of {coloring.n_colors} colors whose tables "
+                    f"({nbytes} bytes) exceed a block's shared memory "
+                    f"({_MAX_SMEM} bytes)")
+    return ""
+
+
+def fused_envelope(options: Options, mode: str, x_example,
+                   n_res: int | None = None, *, residual_fn,
+                   data_example=None) -> tuple[FusedPlan | None, str]:
+    """:func:`fused_plan` and the reason it gives ``None`` ("" when it
+    plans the configuration)."""
+    o = options
+    if o.solver_type not in SOLVER_CODES:
+        return None, f"solver type {o.solver_type.name}"
+    if mode != "residuals":
+        return None, f"mode {mode!r}"
+    for flag, bad in (("hessian.save_last", o.hessian.save_last),
+                      ("hessian.carry_system", o.hessian.carry_system),
+                      ("check_final_cost", o.check_final_cost),
+                      ("log.enable", o.log.enable),
+                      ("max_duration_ms", o.max_duration_ms > 0),
+                      ("stop_callback", o.stop_callback is not None
+                       or o.stop_callback2 is not None),
+                      ("hessian.check_min_H_diag",
+                       o.hessian.check_min_H_diag > 0)):
+        if bad:
+            return None, f"option {flag}"
+    leaves = [torch.as_tensor(l) for l in pytree.tree_leaves(x_example)]
+    if not leaves or any(not l.is_floating_point() for l in leaves) \
+            or any(l.dtype != leaves[0].dtype for l in leaves):
+        return None, "parameters that are not tensors of one float dtype"
+    device = leaves[0].device.type
+    spec = mf.tangent_spec(x_example)
+    if spec.dims == 0 or device not in ("cpu", "cuda"):
+        return None, f"no tangent dimension or device {device}"
+    fam_id, generated = None, None
+    if device == "cuda":
+        if spec.dtype not in (torch.float32, torch.float64):
+            return None, f"parameters of type {spec.dtype}"
+        fam_id, generated, why = k2_envelope(residual_fn, x_example,
+                                             data_example)
+        if fam_id is None:
+            return None, why
+    if n_res is None:
+        n_res = (generated.n_res if generated is not None else
+                 num_residuals(residual_fn, x_example, data_example))
+    if n_res == 0:
+        return None, "no residuals"
+    itemsize = torch.empty((), dtype=spec.dtype).element_size()
+    if device == "cuda" and warp_values(spec.params, spec.dims,
+                                        n_res) * itemsize > _MAX_SMEM:
+        return None, "an instance larger than a warp's shared memory"
+    coloring = None
+    if o.hessian.diag_coloring == "auto":
+        coloring = detect_diag_coloring(residual_fn, x_example, data_example,
+                                        spec, n_res, spec.dims, spec.dtype)
+    if device == "cuda":
+        why = k2_refusal(fam_id, spec, n_res, coloring)
+        if why:
+            return None, why
+    return FusedPlan(spec, n_res, coloring, generated), ""
+
+
 def fused_plan(options: Options, mode: str, x_example, n_res: int | None = None,
                *, residual_fn, data_example=None) -> FusedPlan | None:
     """The fused path's plan on the device of ``x_example``, or ``None``
-    when the configuration lies outside its envelope.
+    when the configuration lies outside its envelope
+    (:func:`fused_envelope` also says why).
 
     The envelope is everything ``tinyopt_tpu``'s ``fused_supported``
     requires (residuals mode, GN/LM/DogLeg, carry_system=False, no
@@ -160,54 +282,17 @@ def fused_plan(options: Options, mode: str, x_example, n_res: int | None = None,
     included —, a non-empty residual), with any coloring
     ``detect_diag_coloring`` returns.  ``log.print_failure`` is inside it,
     as in the JAX envelope: the fused path prints nothing.  On a CUDA
-    device also a registered residual family (:func:`register_family`)
-    that accepts the instance, float32/float64, a per-instance footprint
-    that fits one warp's shared memory, and a shape and coloring K2 is
-    built for (:func:`k2_supports`).
+    device also float32/float64, a K2 family for the residual — a
+    registered one (:func:`register_family`) that accepts the instance, or
+    one generated from its trace (:func:`k2_envelope`) —, a per-instance
+    footprint that fits one warp's shared memory, and a shape and coloring
+    K2 is built for whose tables fit a block's shared memory
+    (:func:`k2_refusal`).  Decided before any launch: nothing after it
+    falls back.
     """
-    o = options
-    if o.solver_type not in SOLVER_CODES:
-        return None
-    if mode != "residuals":
-        return None
-    if (o.hessian.save_last or o.hessian.carry_system
-            or o.check_final_cost or o.log.enable
-            or o.max_duration_ms > 0
-            or o.stop_callback is not None or o.stop_callback2 is not None
-            or o.hessian.check_min_H_diag > 0):
-        return None
-    leaves = [torch.as_tensor(l) for l in pytree.tree_leaves(x_example)]
-    if not leaves or any(not l.is_floating_point() for l in leaves) \
-            or any(l.dtype != leaves[0].dtype for l in leaves):
-        return None
-    device = leaves[0].device.type
-    spec = mf.tangent_spec(x_example)
-    if spec.dims == 0 or device not in ("cpu", "cuda"):
-        return None
-    if device == "cuda":
-        fam = FAMILIES.get(residual_fn)
-        if fam is None or spec.dtype not in (torch.float32, torch.float64):
-            return None
-        if fam.accepts is not None and not fam.accepts(x_example, spec,
-                                                       data_example):
-            return None
-    if n_res is None:
-        n_res = num_residuals(residual_fn, x_example, data_example)
-    if n_res == 0:
-        return None
-    itemsize = torch.empty((), dtype=spec.dtype).element_size()
-    if device == "cuda" and warp_values(spec.params, spec.dims,
-                                        n_res) * itemsize > _MAX_SMEM:
-        return None
-    coloring = None
-    if o.hessian.diag_coloring == "auto":
-        coloring = detect_diag_coloring(residual_fn, x_example, data_example,
-                                        spec, n_res, spec.dims, spec.dtype)
-    if device == "cuda" and not k2_supports(fam.id, spec.dims, n_res,
-                                            coloring_kind(coloring),
-                                            spec.params):
-        return None
-    return FusedPlan(spec, n_res, coloring)
+    return fused_envelope(options, mode, x_example, n_res,
+                          residual_fn=residual_fn,
+                          data_example=data_example)[0]
 
 
 def fused_supported(options: Options, mode: str, x_example,
@@ -248,7 +333,9 @@ def k2_supports(family: int, d: int, n_res: int, coloring: str | None,
     Jennrich–Sampson d = 2; SE3 P = 7, D = 6 and 3 residuals a point; P = D
     for a Euclidean family), and no multi-color coloring past the register
     kernel (the warp kernel has no multi-color branch, ROADMAP Queue 2,
-    K2-a).  An id that is no family of K2's raises."""
+    K2-a); a generated family (``GENERATED``) Euclidean at max(d, n_res)
+    ≤ 64, every coloring (the identity with n_res ≥ d).  An id that is no
+    family of K2's raises."""
     P = d if P is None else P
     if family not in FAMILY_IDS:
         raise ValueError(f"k2_supports: unknown residual family {family}")
@@ -260,6 +347,9 @@ def k2_supports(family: int, d: int, n_res: int, coloring: str | None,
         return False
     if family == 2:
         return (P, d) == (SE3_P, SE3_D) and n_res % 3 == 0
+    if family == GENERATED:
+        return (P == d and max(d, n_res) <= SEG_MAX
+                and (coloring != "identity" or n_res >= d))
     return P == d and (coloring != "multi" or max(d, n_res) <= SEG_MAX)
 
 
@@ -279,7 +369,8 @@ def k2_launch_plan(B: int, d: int, n_res: int, itemsize: int, family: int,
     entries a lane, on segments of S = the least power of two (2 to 32)
     with S·E ≥ max(P, D, n_res), for every solver, 4 warps a block; a
     family of fixed shape (Powell's, Wood's) runs one instance a thread
-    (S = 1, E = max(d, n_res)), one warp a block; the SE3 family (K ≤ 21
+    (S = 1, E = max(d, n_res)), one warp a block, and so does a generated
+    family (``GENERATED``, every coloring); the SE3 family (K ≤ 21
     points) E = ``SE3_POINTS[itemsize]`` points a lane on the least power
     of two of lanes S (from 1) with S·E ≥ K, one warp a block at S = 1,
     else 4.
@@ -299,6 +390,8 @@ def k2_launch_plan(B: int, d: int, n_res: int, itemsize: int, family: int,
     if m <= SEG_MAX:
         if family == 2:
             E, S, m = SE3_POINTS[itemsize], 1, n_res // 3   # E points a lane
+        elif family == GENERATED:
+            E, S = m, 1
         else:
             E = SEG_E[family]
             S = 1 if family in FIXED_SHAPES else 2
@@ -726,10 +819,15 @@ def _kernel_outputs(B: int, P: int, d: int, cap: int, dtype, dev,
     return x, out, {k: v.data_ptr() for k, v in ptrs.items()}
 
 
-def _family_data(family: int, data, B: int, P: int, dtype, dev) -> tuple:
+def _family_data(family: int, data, B: int, P: int, dtype, dev,
+                 generated: GeneratedFamily | None = None) -> tuple:
     """K2's data tensors of a family, from the batch's data: the prior's y
-    and inv_std (B, d); the SE3 family's points and targets (B, K, 3);
-    none for Jennrich-Sampson, Powell and Wood."""
+    and inv_std (B, d); the SE3 family's points and targets (B, K, 3); a
+    generated family's data leaves packed into one (B, Q) row an instance
+    (none without data); none for Jennrich-Sampson, Powell and Wood."""
+    if family == GENERATED:
+        packed = generated.pack_data(data, B, dtype, dev)
+        return () if packed is None else (packed,)
     if family in (1, 3, 4):
         if data is not None:
             raise ValueError(f"K2 family {family}: x is (B, d), no data")
@@ -748,12 +846,26 @@ def _family_data(family: int, data, B: int, P: int, dtype, dev) -> tuple:
     return ts
 
 
+@functools.lru_cache(maxsize=64)
+def generated_library(generated: GeneratedFamily, dtype, dogleg: bool,
+                      hist: bool, coloring: str | None):
+    """The library of a generated family's K2 instance (type, dogleg,
+    history, coloring), built at its first use (``_build.
+    generated_library``) and kept for the process."""
+    from .. import _build
+    return _build.generated_library(generated, _build.GenInstance(
+        "float" if dtype == torch.float32 else "double", dogleg, hist,
+        COLORING_CODES[coloring]))
+
+
 def fused_solve_cuda(family: int, opts: Options, x0: torch.Tensor, data,
                      plan: FusedPlan, params=None, tables=None):
     """Launch K2 on flat parameters ``x0`` (B, P), a CUDA tensor, as
     :func:`k2_launch_plan` of the shapes says.  ``params``: the solver's
     :func:`k2_params`; ``tables``: a multi-color plan's
-    :func:`color_tables` on the device (each built here when not given)."""
+    :func:`color_tables` on the device (each built here when not given).
+    A generated family (``GENERATED``, ``plan.generated``) launches from
+    its own library (:func:`generated_library`)."""
     from .. import _build
 
     if x0.dtype not in (torch.float32, torch.float64) or x0.dim() != 2:
@@ -765,6 +877,8 @@ def fused_solve_cuda(family: int, opts: Options, x0: torch.Tensor, data,
     if P != plan.spec.params:
         raise ValueError(f"K2: x0 is (B, {P}), the plan's parameters "
                          f"(B, {plan.spec.params})")
+    if (family == GENERATED) != (plan.generated is not None):
+        raise ValueError("K2: the generated family is the plan's own")
     if params is None:
         params = k2_params(family, opts, plan)
     kp = k2_launch_plan(B, d, plan.n_res, x0.element_size(), family, kind,
@@ -781,7 +895,7 @@ def fused_solve_cuda(family: int, opts: Options, x0: torch.Tensor, data,
                              f"({C * n}, {d}) {dtype} on {dev}")
         table_ptrs = tuple(t.data_ptr() for t in tables)
     x0 = x0.contiguous()
-    data_ts = _family_data(family, data, B, P, dtype, dev)
+    data_ts = _family_data(family, data, B, P, dtype, dev, plan.generated)
     data_ptrs = [t.data_ptr() for t in data_ts] + [None] * (2 - len(data_ts))
     if params.d != d or params.family != family:
         raise ValueError(f"K2: parameters for d = {params.d}, family "
@@ -791,13 +905,27 @@ def fused_solve_cuda(family: int, opts: Options, x0: torch.Tensor, data,
                                        zero_history=kp.S == 1 and not se3)
     io = _build.SolverIO(x0=x0.data_ptr(), data0=data_ptrs[0],
                          data1=data_ptrs[1], **ptrs)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if family == GENERATED:
+        lib = generated_library(plan.generated, dtype,
+                                params.solver == SOLVER_CODES[SolverType.DOGLEG],
+                                params.cap > 0, kind)
+        with torch.cuda.device(dev):
+            err = lib.tinyopt_gen_solver(ctypes.byref(params), ctypes.byref(io),
+                                         *table_ptrs, B, kp.S, kp.E, kp.warps,
+                                         kp.grid, stream)
+        _build.check(err, "K2 solver kernel (generated family "
+                     f"{plan.generated.hash})", lib)
+        fused_solve.launches += 1
+        fused_solve.generated_launches += 1
+        return x_out, out
     lib = _build.load()
     fn = lib.tinyopt_solver_f32 if dtype == torch.float32 \
         else lib.tinyopt_solver_f64
     with torch.cuda.device(dev):
         err = fn(ctypes.byref(params), ctypes.byref(io), *table_ptrs, B,
                  PATH_CODES[kp.path], kp.S, kp.E, kp.warps, kp.grid,
-                 kp.smem_bytes, torch.cuda.current_stream(dev).cuda_stream)
+                 kp.smem_bytes, stream)
     _build.check(err, "K2 solver kernel")
     fused_solve.launches += 1
     if se3:
@@ -814,25 +942,33 @@ def fused_solve(residual_fn, opts: Options, x0: torch.Tensor, data,
     """The fused whole solve on flat ``x0`` (B, P): the plain twin for a
     CPU tensor, K2 for a CUDA tensor (counted in ``fused_solve.launches``;
     ``params``: the solver's :func:`k2_params`, ``tables``: its
-    :func:`color_tables`, else each built for the call)."""
+    :func:`color_tables`, else each built for the call) — the residual's
+    hand-written family, or the plan's generated one."""
     if x0.device.type == "cpu":
         return fused_solve_plain(residual_fn, opts, x0, data, plan)
     if x0.device.type != "cuda":
         raise ValueError(f"fused_solve: no kernel for device {x0.device}")
+    if plan.generated is not None:
+        return fused_solve_cuda(GENERATED, opts, x0, data, plan, params,
+                                tables)
     if residual_fn not in FAMILIES:
         raise ValueError(
             "fused_solve: K2 has no device family for this residual "
-            "function (register_family); check fused_plan first")
+            "function (register_family, or a generated one in the plan); "
+            "check fused_plan first")
     return fused_solve_cuda(FAMILIES[residual_fn].id, opts, x0, data, plan,
                             params, tables)
 
 
 #: Number of K2 launches in this process, and of those the one-lane
-#: instances' (S = 1: Powell's and Wood's families), the SE3 family's
-#: register kernel's (``solver_se3_kernel``) and the warp kernel's
-#: (``solver_kernel``, max(d, n_res) > 64); reset freely by callers.
+#: instances' (S = 1: Powell's and Wood's families), the generated
+#: families' (one instance a thread, from their own libraries), the SE3
+#: family's register kernel's (``solver_se3_kernel``) and the warp
+#: kernel's (``solver_kernel``, max(d, n_res) > 64); reset freely by
+#: callers.
 fused_solve.launches = 0
 fused_solve.lane_launches = 0
+fused_solve.generated_launches = 0
 fused_solve.se3_launches = 0
 fused_solve.warp_launches = 0
 
@@ -842,23 +978,30 @@ def fused_batched_solver(residual_fn, options: Options, x_example,
     """Build ``solve(x0_batch[, data_batch]) -> (x_opt_batch, Output)`` for
     the fused path; raises outside its envelope (:func:`fused_plan`)."""
     if plan is None:
-        plan = fused_plan(options, "residuals", x_example,
-                          residual_fn=residual_fn, data_example=data_example)
-    if plan is None:
-        raise ValueError(
-            "fused_batched_solver: configuration not supported (see "
-            "fused_plan: residuals mode, GN/LM/DogLeg, carry_system=False, "
-            "no save_last/logging/callbacks; on CUDA a registered residual "
-            "family built for the coloring)")
+        plan, why = fused_envelope(options, "residuals", x_example,
+                                   residual_fn=residual_fn,
+                                   data_example=data_example)
+        if plan is None:
+            raise ValueError(
+                "fused_batched_solver: configuration not supported (see "
+                "fused_plan: residuals mode, GN/LM/DogLeg, carry_system="
+                "False, no save_last/logging/callbacks; on CUDA a registered"
+                " or a generated residual family built for the coloring): "
+                + why)
 
-    family = FAMILIES.get(residual_fn)
-    params = None if family is None else k2_params(family.id, options,
-                                                   plan)
+    family = (GENERATED if plan.generated is not None
+              else getattr(FAMILIES.get(residual_fn), "id", None))
+    params = None if family is None else k2_params(family, options, plan)
     # a multi-color plan's tables, uploaded once a solver
     tables = None
     leaf = pytree.tree_leaves(x_example)[0]
     if coloring_kind(plan.coloring) == "multi" and leaf.device.type == "cuda":
         tables = color_tables(plan.coloring, plan.spec.dtype, leaf.device)
+    if plan.generated is not None:
+        # the family's library, built at the solver's first use
+        generated_library(plan.generated, plan.spec.dtype,
+                          options.solver_type == SolverType.DOGLEG,
+                          options.save_history, coloring_kind(plan.coloring))
 
     def solve(x0_batch, data_batch=None):
         x0 = mf.flatten_batch(x0_batch, plan.spec)
