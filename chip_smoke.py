@@ -56,7 +56,12 @@ solving (``tinyopt_tpu_torch.parallel``) on a one-rank NCCL mesh —
 batched_optimize(mesh=) on the bench problem bit for bit against the
 unsharded call, sharded_optimize through "cg", phase 18a's and 19a's BA
 sharded against their unsharded solves — and the six dryrun axes on two
-gloo ranks sharing the card (phase 20, ``[mesh]`` and ``[dryrun]`` lines) —
+gloo ranks sharing the card (phase 20, ``[mesh]`` and ``[dryrun]`` lines);
+K2 on families generated from the traced residual — the robust curve fits
+and the JAX fused suite's residuals (phase 21, ``[curves_fused]`` and
+``[generated]`` lines) and, traced through the retraction, residuals on
+SO3, SE3, SE23 and SEn3 leaves, a batched SO3 leaf, a {SE3, bias} pytree
+and the robust point-to-point SE3 fit (phase 22, ``[manifold]`` lines) —
 each with the launch counts set to 0 just before it and
 read just after, and checks what comes out (the flagship's poses against
 the true ones, the curves' costs against float64 solves and their fits
@@ -99,6 +104,7 @@ the card's name and power limit; and last ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import functools
 import json
@@ -202,7 +208,7 @@ def se3_options(to, solver="fused", **kw):
                                   carry_system=False)), **kw})
 
 
-def k2_se3_bound(out, opts, n_points, itemsize, dogleg=False):
+def k2_se3_bound(out, opts, n_points, itemsize, dogleg=False, extra=0):
     """Least time in ms of K2's SE3 solve on the card for this run's
     instances, and what sets it: the bytes (x0, points and targets in; x,
     g and 8 scalars an instance out) over the memory rate, or the least
@@ -210,14 +216,14 @@ def k2_se3_bound(out, opts, n_points, itemsize, dogleg=False):
     for each instance its points' sums and H once, and for each of its outer
     iterations (``num_iters``, rejected ones included) a residual and
     gradient over its points, H, one PCG solve of ``cg_iters`` steps (D
-    when 0) and the retraction.  Retried proposals and the dogleg's
-    damped solves are not counted."""
+    when 0), the retraction and ``extra`` flops.  Retried proposals and
+    the dogleg's damped solves are not counted."""
     B = out.num_iters.shape[0]
     K, D, f = n_points, 6, SE3_MIN_FLOPS
     cg = opts.hessian.cg_iters or D
     per_iter = (K * (f["residual"] + f["grad"]) + f["pose"]
                 + cg * f["pcg_step"] + f["retract"]
-                + (f["dogleg"] if dogleg else 0))
+                + (f["dogleg"] if dogleg else 0) + extra)
     ops = (B * (K * f["point_once"] + f["instance_once"])
            + float(out.num_iters.double().sum()) * per_iter)
     t_ops = ops / PEAK_FLOPS[itemsize] * 1e3
@@ -1224,6 +1230,11 @@ def phase13(to, dev, record, path_launches, cuda_cg, cuda_solver):
 ICP_B, ICP_SCAN_B, ICP_SCAN_N = 4096, 8, 10_000
 
 
+#: phase 14's timed calls after the first, fresh pairs each (2 until the
+#: script neared its time limit)
+ICP_REPS = 1
+
+
 def icp_options(to, solver="cholesky"):
     """``models.icp.icp``'s default options, with the inner solver."""
     return to.Options(max_iters=8, max_consec_failures=0,
@@ -1272,18 +1283,19 @@ def phase14(to, dev, record, path_launches, cuda_cg, cuda_solver):
                   (pose.translation[:n_cpu].cpu()
                    - ref.translation).abs().max().item())
         times = []
-        for rep in range(2):
+        for rep in range(ICP_REPS):
             p_rep = make_icp_problem(ICP_B, seed=1400 + rep, device=dev)
             _, t = timed(lambda: icp(p_rep.src, p_rep.dst, options=opts))
             times.append(t)
         r = rec[key] = {
-            "ms": [ms] + times, "pairs_per_s": 2 * ICP_B / (sum(times) / 1e3),
+            "ms": [ms] + times,
+            "pairs_per_s": len(times) * ICP_B / (sum(times) / 1e3),
             "share_within_1e-3": ok_share,
             "median_pose_err": errs.median().item(),
             "max_pose_err": errs.max().item(),
             "max_abs_to_cpu_first_64": gap, "launches": n}
         log(f"[icp] {ICP_B} pairs 128 -> 160 {solver}: {r['pairs_per_s']:.1f}"
-            f" pairs/s (2 reps, ms {times}; first call {ms:.1f} ms), pose "
+            f" pairs/s ({ICP_REPS} rep, ms {times}; first call {ms:.1f} ms), pose "
             f"error median {r['median_pose_err']:.3e} max "
             f"{r['max_pose_err']:.3e}, within 1e-3 of the true pose: "
             f"{ok_share:.4f}; first {n_cpu} pairs against the CPU port: max "
@@ -3270,10 +3282,11 @@ def gen_bound(out, plan, opts, itemsize):
     8 scalars an instance and the history rows out) over the memory rate,
     or the least operations over the peak rate — for each instance's outer
     iterations (``num_iters``) the residual, g by one vjp, diag(JᵀJ) by its
-    jvps (one a color, or one a tangent dimension without a coloring) and,
-    unless the coloring makes the step closed form, one PCG solve of
+    jvps (one a color, or one a tangent dimension without a coloring),
+    unless the coloring makes the step closed form one PCG solve of
     ``cg_iters`` steps of a jvp and a vjp (the dogleg one more of each for
-    gᵀHg); the operations of each function are the emitter's counts
+    gᵀHg), and on manifold parameters (P > D) the retraction; the
+    operations of each function are the emitter's counts
     (``GeneratedFamily.ops``).  Retried proposals are not counted."""
     gen = plan.generated
     B = out.num_iters.shape[0]
@@ -3283,13 +3296,14 @@ def gen_bound(out, plan, opts, itemsize):
     closed = col is not None and col.n_colors == 1
     cg = opts.hessian.cg_iters or d
     per_iter = (ops["residual"] + ops["vjp"] + n_jvp * ops["jvp"]
-                + (0 if closed else cg * (ops["jvp"] + ops["vjp"])))
+                + (0 if closed else cg * (ops["jvp"] + ops["vjp"]))
+                + (ops["retract"] if gen.p > d else 0))
     if opts.solver_type.name == "DOGLEG":
         per_iter += ops["jvp"] + ops["vjp"]
     t_ops = (float(out.num_iters.double().sum()) * per_iter
              / PEAK_FLOPS[itemsize] * 1e3)
     cap = opts.max_iters + 1 if opts.save_history else 0
-    t_bytes = ((3 * d + gen.q + 8) * B * itemsize
+    t_bytes = ((2 * gen.p + d + gen.q + 8) * B * itemsize
                + B * cap * (2 * itemsize + 1)) / HBM_BYTES_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -3544,6 +3558,412 @@ def phase21(to, dev, record, path_launches, cuda_cg, cuda_solver):
     rec["max_abs_err"] = max(
         [v["max_abs_err"] for v in rec["curves"].values()]
         + [v["max_abs_err"] for v in rec["suite"].values()])
+
+
+# ---- phase 22: K2 on manifold parameters (ROADMAP Queue 2, K2-b): the
+# generated families traced through the retraction (SO3, SE3, SE23 and
+# SEn3 leaves, a batched SO3 leaf, a {SE3, bias} pytree, the robust
+# point-to-point SE3 fit) in K2's one-instance-a-thread kernel ----
+
+MF_TURNS = 2                 # 22b: rounds of (fused, cg, cg, fused) a cell
+MF_OUTLIERS = 3              # icp_huber: targets displaced of each instance's 16
+MF_TH = 0.05                 # icp_huber: the Huber threshold on a point's distance
+
+
+def manifold_residuals():
+    """Phase 22's residuals on manifold parameters, each with its
+    (P, D, n_res) and a maker of (x0, data) from (B, dtype, generator,
+    device): the JAX fused suite's SE3 pose prior (tests/test_fused.py:317-
+    319) and its {SE3, bias} pytree (:350-351), one batched SO3 leaf of 4
+    rotations (an anchor prior and the 4 relative-rotation logs of a
+    cycle), (prior⁻¹ @ X).log() on SE23 and on SEn3 (n = 2), the priors'
+    and the relative rotations' inverses as data, and the
+    point-to-point SE3 fit (models/icp.icp_residual) on the flagship's
+    points and targets (make_se3_refinement at 16 points), with Huber
+    whitening at ``MF_TH`` and ``MF_OUTLIERS`` targets of each instance
+    displaced by 0.5·N(0, 1), and without it on the clean targets."""
+    from tinyopt_tpu_torch.manifolds import SE3, SE23, SO3, SEn3
+    from tinyopt_tpu_torch.models.icp import icp_residual
+    from tinyopt_tpu_torch.models.se3_refinement import (SE3RefinementData,
+                                                         make_se3_refinement)
+
+    def se3_prior(T, d):
+        q_inv, t_inv = d
+        return (SE3(SO3(q_inv), t_inv) @ T).log()
+
+    def se3_bias(x, d):
+        return torch.cat([x["T"].log(), 2.0 * (x["bias"] - d)])
+
+    def so3_cycle(R, d):
+        # d: the anchor's and the relative rotations' inverses; R_i⁻¹ as
+        # the conjugate, as tests/torch_manifold_cases.py writes it for
+        # the JAX kernel
+        anchor_inv, rel_inv = d
+        w = R.wxyz
+        w_inv = torch.cat([w[:, :1], -w[:, 1:]], -1)
+        first = (SO3(anchor_inv) @ SO3(w[0])).log()
+        step = SO3(w_inv) @ SO3(torch.cat([w[1:], w[:1]]))
+        return torch.cat([first, (SO3(rel_inv) @ step).log().reshape(-1)])
+
+    def se23_prior(X, d):
+        return (SE23(SO3(d[0]), d[1], d[2]) @ X).log()
+
+    def sen3_prior(X, d):
+        return (SEn3(SO3(d[0]), d[1]) @ X).log()
+
+    def icp_huber(T, d):
+        return icp_residual(T, d.points, d.targets, robust_th=MF_TH)
+
+    def icp_plain(T, d):
+        return icp_residual(T, d.points, d.targets)
+
+    def rn(B, shape, dt, g, dev, s=1.0):
+        return s * torch.randn((B,) + shape, generator=g, dtype=dt,
+                               device=dev)
+
+    def icp_data(robust):
+        def make(B, dt, g, dev):
+            data, x0, _ = make_se3_refinement(B, 16, dtype=dt, generator=g,
+                                              device=dev)
+            tgt = data.targets
+            if robust:
+                tgt = torch.cat([tgt[:, :MF_OUTLIERS] + rn(
+                    B, (MF_OUTLIERS, 3), dt, g, dev, 0.5),
+                    tgt[:, MF_OUTLIERS:]], 1)
+            return x0, SE3RefinementData(data.points, tgt)
+        return make
+
+    def prior(cls, n):
+        def make(B, dt, g, dev):
+            p = cls.exp(rn(B, (n,), dt, g, dev, 0.3)).inverse()
+            x0 = cls.exp(rn(B, (n,), dt, g, dev, 0.2))
+            parts = ((p.rotation.wxyz, p.velocity, p.position)
+                     if cls is SE23 else (p.rotation.wxyz, p.vectors))
+            return x0, parts
+        return make
+
+    def se3_prior_make(B, dt, g, dev):
+        inv = SE3.exp(rn(B, (6,), dt, g, dev, 0.4)).inverse()
+        return (SE3.exp(rn(B, (6,), dt, g, dev, 0.2)),
+                (inv.rotation.wxyz, inv.translation))
+
+    return {
+        "se3_prior": (se3_prior, (7, 6, 6), se3_prior_make),
+        "se3_bias": (se3_bias, (9, 8, 8), lambda B, dt, g, dev: (
+            {"T": SE3.exp(rn(B, (6,), dt, g, dev, 0.1)),
+             "bias": rn(B, (2,), dt, g, dev)}, rn(B, (2,), dt, g, dev))),
+        "so3_cycle": (so3_cycle, (16, 12, 15), lambda B, dt, g, dev: (
+            SO3.exp(rn(B, (4, 3), dt, g, dev, 0.3)),
+            (SO3.exp(rn(B, (3,), dt, g, dev, 0.2)).inverse().wxyz,
+             SO3.exp(rn(B, (4, 3), dt, g, dev, 0.3)).inverse().wxyz))),
+        "se23_prior": (se23_prior, (10, 9, 9), prior(SE23, 9)),
+        "sen3_prior": (sen3_prior, (10, 9, 9), prior(SEn3, 9)),
+        "icp_huber": (icp_huber, (7, 6, 48), icp_data(True)),
+        "icp_plain": (icp_plain, (7, 6, 48), icp_data(False)),
+    }
+
+
+# The least arithmetic phase 22's cells need (flops; a multiply and an add
+# count one each, a square root, sine, cosine, arctangent or division one),
+# whatever way a kernel computes it.  Parts on SE_n(3), n vectors beside the
+# rotation (0 for SO3, 1 for SE3, 2 for SE23 and SEn3 at n = 2): a product
+# 28 + 33n (quaternions 28; a vector rotated by a unit quaternion 30 and
+# added 3); the log 12 (SO3's: the vector part's norm 6, atan2 1, the scale
+# 5) + 6 + 30n (V(ω)⁻¹ on each vector: two cross products and a blend, its
+# coefficients once); the retraction 41 (exp 13, a product 28) + 6 + 63n
+# (V(ω)ρ 30, rotated 30, added 3); the Jacobian of log(A·X·exp δ) at 0,
+# Jr(r)⁻¹, 30 (I + ½[ω]× + c[ω]×²) + 90n (each coupling block, two 3 × 3
+# products at least).
+def _sen3_flops(n):
+    return dict(product=28 + 33 * n, log=12 + (6 + 30 * n if n else 0),
+                retract=41 + (6 + 63 * n if n else 0), jac=30 + 90 * n)
+
+
+def _mf_min_flops():
+    """Each non-ICP residual of phase 22: (its residual, its Jacobian in
+    closed form, the retraction, the non-zeros of each Jacobian row, the
+    non-zeros of JᵀJ) in flops.  so3_cycle's relative rotation i is
+    log(C_i⁻¹ R_i⁻¹ R_(i+1)): two products and a log; its Jacobian Jr(r)⁻¹
+    for R_(i+1) and, for R_i, that block times the rotation matrix of R_(i+1)⁻¹
+    R_i (28 from its quaternion, 45 the 3 × 3 product); each rotation
+    meets its two neighbours of the cycle, so JᵀJ has 12 of its 16 3 × 3
+    blocks."""
+    s0, s1, s2 = (_sen3_flops(n) for n in (0, 1, 2))
+    prior2 = (s2["product"] + s2["log"], s2["jac"], s2["retract"],
+              (9,) * 9, 81)
+    return {
+        "se3_prior": (s1["product"] + s1["log"], s1["jac"], s1["retract"],
+                      (6,) * 6, 36),
+        "se3_bias": (s1["log"] + 4, s1["jac"], s1["retract"] + 2,
+                     (6,) * 6 + (1,) * 2, 38),
+        "so3_cycle": (s0["product"] + s0["log"]
+                      + 4 * (2 * s0["product"] + s0["log"]),
+                      s0["jac"] + 4 * (s0["jac"] + 28 + 45),
+                      4 * s0["retract"], (3,) * 3 + (6,) * 12, 108),
+        "se23_prior": prior2, "sen3_prior": prior2}
+
+
+MF_MIN_FLOPS = _mf_min_flops()
+# icp_huber beyond SE3_MIN_FLOPS, an iteration: each point's test against
+# the threshold (1); each displaced point (an outlier wherever it lies
+# past the threshold) its weight and the weight's gradient (14), the
+# whitened residual (3), its rows (w I + r ∇wᵀ) J (111), their part of JᵀJ
+# (126) and of g (36).  The clean points' weights are not counted.
+HUBER_MIN_FLOPS = dict(point=1, outlier=290)
+
+
+def mf_bound(name, out, plan, opts, itemsize):
+    """Least time in ms of one of phase 22's K2 solves on the card for this
+    run's instances, and what sets it: the bytes (x0 and the data in; x, g
+    and 8 scalars an instance out) over the memory rate, or the least
+    operations over the peak rate.  The ICP cells are the SE3 solve
+    (``k2_se3_bound``, ``SE3_MIN_FLOPS``), icp_huber with its weights
+    (``HUBER_MIN_FLOPS`` an iteration); each other cell's outer iterations
+    (``num_iters``) count ``MF_MIN_FLOPS``' residual, Jacobian and
+    retraction, g = Jᵀr and JᵀJ over the rows' non-zeros, the cost, one
+    PCG solve of ``cg_iters`` steps (D when 0) on JᵀJ's non-zeros and the
+    dogleg's 110 (``SE3_MIN_FLOPS``).  Retried proposals are not counted.
+    Not the emitter's counts (``gen_bound``): those count a jvp a tangent
+    dimension, the PCG's jvps and vjps and both sides of every select."""
+    dogleg = opts.solver_type.name == "DOGLEG"
+    if name.startswith("icp_"):
+        h = HUBER_MIN_FLOPS
+        return k2_se3_bound(out, opts, SE3_K, itemsize, dogleg, extra=(
+            0 if name == "icp_plain"
+            else SE3_K * h["point"] + MF_OUTLIERS * h["outlier"]))
+    gen = plan.generated
+    B, d, n_res = out.num_iters.shape[0], gen.d, gen.n_res
+    residual, jac, retract, rows, h_nz = MF_MIN_FLOPS[name]
+    cg = opts.hessian.cg_iters or d
+    per_iter = (residual + jac + 2 * sum(rows)
+                + sum(k * (k + 1) for k in rows) + 2 * n_res
+                + cg * (2 * h_nz + 11 * d) + retract
+                + (SE3_MIN_FLOPS["dogleg"] if dogleg else 0))
+    t_ops = (float(out.num_iters.double().sum()) * per_iter
+             / PEAK_FLOPS[itemsize] * 1e3)
+    t_bytes = ((2 * gen.p + d + gen.q + 8) * B * itemsize
+               / HBM_BYTES_PER_S * 1e3)
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+#: phase 22's cells: (residual, dtype, the dogleg)
+MF_CELLS = (("se3_prior", torch.float32, False),
+            ("se3_prior", torch.float64, False),
+            ("se3_prior", torch.float32, True),
+            ("se3_bias", torch.float32, False),
+            ("se3_bias", torch.float64, False),
+            ("so3_cycle", torch.float32, False),
+            ("so3_cycle", torch.float64, False),
+            ("se23_prior", torch.float32, False),
+            ("se23_prior", torch.float64, False),
+            ("sen3_prior", torch.float32, False),
+            ("icp_huber", torch.float32, False),
+            ("icp_plain", torch.float32, False))
+
+
+def phase22(to, dev, record, path_launches, cuda_cg, cuda_solver):
+    """K2 on manifold parameters (generated families traced through the
+    retraction, ROADMAP Queue 2, K2-b), 10,000 instances a cell at
+    ``bench_se3``'s options on "fused" (``MF_CELLS``, the residuals of
+    ``manifold_residuals``).  22a: every cell planned (traced, emitted)
+    and its library built, all nvcc runs started together; each library's
+    ptxas registers, stack and spills.  22b: each cell through
+    the fused solver of batched_solver (built from 22a's plan) — one
+    generated K2 launch, no K1 and no K2 warp launch — held to the twin on
+    the card per instance (the twins run while nvcc builds; equal stop
+    reasons, iterations within 1, x within rtol 1e-5 in float32 and 1e-10
+    in float64; bit-equal or not), the kernel's and the twin's times and
+    the least bound (mf_bound; the emitter's, gen_bound, beside it);
+    icp_huber succeeds on at least 99 % of its instances.  22c: se3_prior, icp_huber and icp_plain, "fused" against
+    "cg" solves/s in turns (fused, cg, cg, fused).  22d: icp_plain's
+    generated kernel against se3_residual's hand-written one
+    (solver_se3_kernel) on identical inputs, in turns.  Every line names
+    the card and its power limit."""
+    import k2_bench
+    from torch.utils import _pytree as pytree
+    from tinyopt_tpu_torch import _build
+    from tinyopt_tpu_torch import manifold as mf
+    from tinyopt_tpu_torch.models.se3_refinement import se3_residual
+    assert not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off"
+    smi = record["nvidia_smi"]
+    rec = record["mf"] = {"card": smi}
+    gen = torch.Generator(device=dev).manual_seed(22)
+    cases = manifold_residuals()
+
+    def reset():
+        cuda_cg.cg_solve.launches = 0
+        cuda_solver.fused_solve.launches = 0
+        cuda_solver.fused_solve.warp_launches = 0
+        cuda_solver.fused_solve.generated_launches = 0
+
+    def example(x0, data):
+        return (pytree.tree_map(lambda a: a[0], x0),
+                pytree.tree_map(lambda a: a[0], data))
+
+    # ---- 22a: plan every cell, build every library together ----
+    t0 = time.perf_counter()
+    cells, items = {}, []
+    for name, dtype, dogleg in MF_CELLS:
+        fn, widths, make = cases[name]
+        x0, data = make(BATCH, dtype, gen, dev)
+        opts = se3_options(to, **({"solver_type": to.DogLeg} if dogleg
+                                  else {}))
+        x_ex, d_ex = example(x0, data)
+        plan, why = cuda_solver.fused_envelope(
+            opts, "residuals", x_ex, residual_fn=fn, data_example=d_ex)
+        assert plan is not None and plan.generated is not None, why
+        g_ = plan.generated
+        assert (g_.p, g_.d, g_.n_res) == widths, (name, g_.p, g_.d, g_.n_res)
+        key = (name + ("_dl" if dogleg else "")
+               + ("" if dtype == torch.float32 else "_f64"))
+        cells[key] = (fn, opts, x0, data, plan)
+        items.append((g_, _build.GenInstance(
+            "float" if dtype == torch.float32 else "double", dogleg,
+            opts.save_history, cuda_solver.COLORING_CODES[
+                cuda_solver.coloring_kind(plan.coloring)])))
+    rec["plan_s"] = time.perf_counter() - t0
+
+    def build():
+        t = time.perf_counter()
+        return _build.build_generated(items), time.perf_counter() - t
+
+    # the twins on the card while nvcc builds the libraries
+    twins = {}
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        building = pool.submit(build)
+        for key, (fn, opts, x0, data, plan) in cells.items():
+            t0 = time.perf_counter()
+            xt, ot = cuda_solver.fused_solve_plain(
+                fn, opts, mf.flatten_batch(x0, plan.spec), data, plan)
+            torch.cuda.synchronize()
+            twins[key] = (xt, ot, time.perf_counter() - t0)
+        libs, rec["build_s"] = building.result()
+    log(f"[manifold] {smi}: {len(items)} cells planned (traced through the "
+        f"retraction, emitted) in {rec['plan_s']:.2f} s; {len(set(libs))} "
+        f"generated libraries built in {rec['build_s']:.2f} s (one nvcc "
+        f"each, all together, while the twins ran)")
+    ptxas = {}
+    for ln in k2_bench.ptxas_se3(k2_bench.ptxas_generated(_build, libs),
+                                 keep=lambda n: True):
+        lib, rest = ln.split(" ", 1)
+        ptxas[lib] = rest[rest.index("{"):]
+    rec["ptxas"] = {k: ptxas.get(os.path.basename(lib))
+                    for k, lib in zip(cells, libs)}
+
+    # ---- 22b: each cell through the fused solver batched_solver builds
+    # (from 22a's plan: no second trace), against the twin ----
+    rec["cells"] = {}
+    for key, (fn, opts, x0, data, plan) in cells.items():
+        solve = cuda_solver.fused_batched_solver(fn, opts, *example(x0, data),
+                                                 plan=plan)
+        reset()
+        x, out = solve(x0, data)
+        torch.cuda.synchronize()
+        path_launches[f"mf_{key}"] = {
+            "K1": cuda_cg.cg_solve.launches,
+            "K2": cuda_solver.fused_solve.launches,
+            "K2 generated": cuda_solver.fused_solve.generated_launches}
+        n = path_launches[f"mf_{key}"]
+        assert n == {"K1": 0, "K2": 1, "K2 generated": 1, "K2 warp": 0}, (
+            key, n)
+        assert all(bool(torch.all(torch.isfinite(a)))
+                   for a in pytree.tree_leaves(x)), key
+        xf = mf.flatten_batch(x0, plan.spec)
+        xk = mf.flatten_batch(x, plan.spec)
+        xt, ot, twin_s = twins[key]
+        assert torch.equal(out.stop_reason, ot.stop_reason), key
+        gap = (out.num_iters - ot.num_iters).abs().max().item()
+        assert gap <= 1, f"{key}: iteration gap {gap}"
+        rtol = 1e-5 if xf.dtype == torch.float32 else 1e-10
+        torch.testing.assert_close(xk, xt, rtol=rtol, atol=rtol,
+                                   msg=f"{key}: x against the twin")
+        bits = bool(torch.equal(xk, xt)
+                    and torch.equal(out.num_iters, ot.num_iters))
+        err = (xk - xt).abs().max().item()
+        succ = out.succeeded().float().mean().item()
+        if key.startswith("icp_huber"):
+            assert succ >= 0.99, f"{key}: succeeded on {succ}"
+        params = cuda_solver.k2_params(cuda_solver.GENERATED, opts, plan)
+        ms = gpu_ms(lambda: cuda_solver.fused_solve(  # noqa: B023
+            fn, opts, xf, data, plan, params), n=3)
+        bound, by = mf_bound(key.removesuffix("_f64").removesuffix("_dl"),
+                             out, plan, opts, xf.element_size())
+        ebound, eby = gen_bound(out, plan, opts, xf.element_size())
+        stops = torch.bincount(out.stop_reason.clamp(min=0)).tolist()
+        g_ = plan.generated
+        rec["cells"][key] = {
+            "launches": n, "max_abs_err": err, "bit_equal": bits, "ms": ms,
+            "plain_ms": twin_s * 1e3, "bound_ms": bound, "bound_by": by,
+            "share": bound / ms, "emitter_bound_ms": ebound,
+            "emitter_bound_by": eby, "stops": stops, "succeeded": succ,
+            "mean_iters": out.num_iters.float().mean().item(),
+            "P": g_.p, "D": g_.d, "n_res": g_.n_res, "ops": g_.ops,
+            "coloring": cuda_solver.coloring_kind(plan.coloring),
+            "ptxas": rec["ptxas"][key]}
+        log(f"[manifold] {key} {BATCH} instances ({smi}; P {g_.p}, D "
+            f"{g_.d}, n_res {g_.n_res}, coloring "
+            f"{cuda_solver.coloring_kind(plan.coloring)}): launches {n}; "
+            f"max|x - x_twin| {err:.3e} (bit-equal: {bits}), stops {stops}, "
+            f"succeeded {succ:.4f}, iterations mean "
+            f"{rec['cells'][key]['mean_iters']:.2f}; kernel {ms:.4f} ms, "
+            f"twin {twin_s * 1e3:.1f} ms; bound {bound:.6f} ms ({by}), "
+            f"share {bound / ms:.6f}; the emitter's counts {ebound:.5f} ms "
+            f"({eby}); ptxas {rec['ptxas'][key]}")
+
+    # ---- 22c: solves/s on "fused" against "cg", in turns ----
+    rec["turns"] = {}
+    for key in ("se3_prior", "icp_huber", "icp_plain"):
+        fn, opts, x0, data, plan = cells[key]
+        x_ex, d_ex = example(x0, data)
+        solvers = {s: to.batched_solver(fn, o, "auto", x_ex, d_ex)
+                   for s, o in (("fused", opts),
+                                ("cg", se3_options(to, "cg")))}
+        ms = {"fused": [], "cg": []}
+        for _ in range(MF_TURNS):
+            for side in ("fused", "cg", "cg", "fused"):
+                _, t = timed(lambda: solvers[side](x0, data))  # noqa: B023
+                ms[side].append(t)
+        r = rec["turns"][key] = {
+            side: {"ms": v, "solves_per_s": len(v) * BATCH / (sum(v) / 1e3)}
+            for side, v in ms.items()}
+        log(f"[manifold] {key} ({smi}): fused "
+            f"{r['fused']['solves_per_s']:.1f} solves/s (ms "
+            f"{v_fmt(ms['fused'])}), cg {r['cg']['solves_per_s']:.1f} "
+            f"solves/s (ms {v_fmt(ms['cg'])}), in turns (fused, cg, cg, "
+            f"fused) x {MF_TURNS}, the solver built once a side")
+
+    # ---- 22d: icp_plain's generated kernel against the hand-written SE3
+    # kernel (se3_residual, the same map) on identical inputs ----
+    fn, opts, x0, data, plan = cells["icp_plain"]
+    x_ex, d_ex = example(x0, data)
+    hplan = cuda_solver.fused_plan(opts, "residuals", x_ex,
+                                   residual_fn=se3_residual,
+                                   data_example=d_ex)
+    assert hplan is not None and hplan.generated is None
+    xf = mf.flatten_batch(x0, plan.spec)
+    sides = {
+        "generated": lambda: cuda_solver.fused_solve(fn, opts, xf, data,
+                                                     plan),
+        "hand": lambda: cuda_solver.fused_solve(se3_residual, opts, xf, data,
+                                                hplan)}
+    xg, og = sides["generated"]()
+    xh, oh = sides["hand"]()
+    torch.cuda.synchronize()
+    hand_err = (xg - xh).abs().max().item()
+    same_stop = (og.stop_reason == oh.stop_reason).float().mean().item()
+    torch.testing.assert_close(xg, xh, rtol=1e-4, atol=1e-5,
+                               msg="icp_plain against se3_residual's kernel")
+    t = {"generated": [], "hand": []}
+    for _ in range(MF_TURNS):
+        for side in ("generated", "hand", "hand", "generated"):
+            t[side].append(gpu_ms(sides[side], n=3))
+    rec["icp_plain_vs_hand"] = {"ms": t, "max_abs_diff": hand_err,
+                                "same_stop_share": same_stop}
+    log(f"[manifold] icp_plain {BATCH}x16 float32 ({smi}): generated kernel "
+        f"ms {t['generated']}, hand-written solver_se3_kernel ms "
+        f"{t['hand']}, in turns; max|x_gen - x_hand| "
+        f"{hand_err:.3e}, same stop reason on {same_stop:.4f}")
+    rec["max_abs_err"] = max(v["max_abs_err"] for v in rec["cells"].values())
 
 
 def v_fmt(ms):
@@ -4633,7 +5053,7 @@ def main() -> int:
     mark("curves")
     for phase in (phase8, phase9, phase10, phase11, phase12, phase13,
                   phase14, phase15, phase16, phase17, phase18, phase19,
-                  phase20, phase21):
+                  phase20, phase21, phase22):
         phase(to, dev, record, path_launches, cuda_cg, cuda_solver)
         mark(phase.__name__)
     log(f"[time] seconds: "
@@ -4789,6 +5209,36 @@ def main() -> int:
          **{f"gen_{k}_{f}": v[f] for k, v in record["gen"]["suite"].items()
             for f in ("ms", "plain_ms", "bound_ms", "bound_by", "share",
                       "max_abs_err", "bit_equal")}},
+        # the generated families on manifold parameters (the retraction
+        # traced into the family), the same kernel: phase 22's paths
+        # (launches) and times; the headline numbers are the robust
+        # point-to-point SE3 fit, 10k x 16 float32, every cell as gen_mf_*
+        {"name": "K2 generated on manifold parameters (solver_seg_kernel "
+                 "on a family traced through the retraction)",
+         "route": "cuda",
+         "source": "tinyopt_tpu_torch/csrc/solver_seg.cuh",
+         "replaces": "tinyopt_tpu/ops/pallas_solver.py:150",
+         "launches": path_launches["mf_icp_huber"]["K2 generated"],
+         "path_launches": {p: n["K2 generated"]
+                           for p, n in path_launches.items()
+                           if p.startswith("mf_")},
+         "max_abs_err": record["mf"]["max_abs_err"],
+         "ms": record["mf"]["cells"]["icp_huber"]["ms"],
+         "plain_ms": record["mf"]["cells"]["icp_huber"]["plain_ms"],
+         "bound_ms": record["mf"]["cells"]["icp_huber"]["bound_ms"],
+         "bound_by": record["mf"]["cells"]["icp_huber"]["bound_by"],
+         "share": record["mf"]["cells"]["icp_huber"]["share"],
+         "library_ms": None, "build_s": record["mf"]["build_s"],
+         **{f"gen_mf_{k}_{f}": v[f]
+            for k, v in record["mf"]["cells"].items()
+            for f in ("ms", "plain_ms", "bound_ms", "bound_by", "share",
+                      "emitter_bound_ms", "max_abs_err", "bit_equal",
+                      "ptxas")},
+         **{f"gen_mf_{k}_{side}_solves_per_s": v[side]["solves_per_s"]
+            for k, v in record["mf"]["turns"].items()
+            for side in ("fused", "cg")},
+         "gen_mf_icp_plain_vs_hand_ms": record["mf"]["icp_plain_vs_hand"][
+             "ms"]},
     ]
     record.update(k1=k1, k2=k2, kernels=kernels)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

@@ -12,7 +12,10 @@ dogleg and LM at ``max_iters=0``; and the
 multi-color cells, Powell's singular function and Wood's at 10,000 x 4
 (``max_iters=200``, no failure budget), LM and the dogleg, coloring
 "auto" and "off", each held bit for bit to this tree's twin of "auto";
-float32 and float64, in turns.
+float32 and float64, in turns.  First, the generated families of
+``chip_smoke.py`` phase 21 (the curve fits and the JAX suite's
+residuals, 10,000 instances), each tree's library bit for bit against
+this tree's twin, in turns.
 
     python3 k2_bench.py --parent DIR [--ptxas]
 
@@ -60,8 +63,9 @@ from torch.utils import _pytree as pytree
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
-from chip_smoke import (MC_STARTS, bench_options, gpu_ms, se3_check,  # noqa: E402
-                        se3_options)
+from chip_smoke import (MC_STARTS, bench_options, curve_options,  # noqa: E402
+                        gpu_ms, se3_check, se3_options, suite_options,
+                        suite_residuals)
 
 B, D, N_LAUNCH = 10_000, 50, 20
 JS_B = 4096
@@ -195,7 +199,7 @@ def parent_package(root: str):
     mod = importlib.util.module_from_spec(spec)
     sys.modules["k2_parent"] = mod
     spec.loader.exec_module(mod)
-    for sub in ("ops.cuda_solver", "models.problems"):
+    for sub in ("ops.cuda_solver", "models.problems", "manifold", "_build"):
         importlib.import_module(f"k2_parent.{sub}")
     return mod
 
@@ -303,6 +307,87 @@ def check_bits(side, ref, what):
     return 0.0
 
 
+def generated_cells(dev):
+    """Phase 21's cells of chip_smoke.py (the Euclidean generated
+    families): the three curve fits, 10,000 curves of 60 points, float32
+    (Geman-McClure from the start), and the JAX suite's residuals at
+    10,000 instances in float32 and float64; (label, residual, options
+    kwargs maker, x0, data)."""
+    from tinyopt_tpu_torch.models import curve_fit
+    cdata, cx0 = curve_fit.make_curve_batch(B, seed=5, device=dev)
+    cells = [(f"curve_{k}", fn, lambda p: curve_options(p, "fused"), cx0,
+              cdata)
+             for k, fn in (("ls", curve_fit.exp_residuals),
+                           ("huber", curve_fit.huber_residuals),
+                           ("gm", curve_fit.geman_mcclure_residuals))]
+    gen = torch.Generator(device=dev).manual_seed(21)
+    for name, (fn, kw, make) in suite_residuals().items():
+        for dtype in (torch.float32, torch.float64):
+            x0, data = make(B, dtype, gen, dev)
+            cells.append((name + ("" if dtype == torch.float32 else "_f64"),
+                          fn, lambda p, kw=kw: suite_options(p, **kw), x0,
+                          data))
+    return cells
+
+
+class GenSide:
+    """One tree's generated K2 on one of :func:`generated_cells`: the plan
+    (the tree's own trace and emitter), parameters and tables built once;
+    ``run`` launches the tree's library, ``twin`` runs its twin."""
+
+    def __init__(self, pkg, fn, opts_of, x0, data):
+        cs = pkg.ops.cuda_solver
+        opts = opts_of(pkg)
+        x_ex = pytree.tree_map(lambda a: a[0], x0)
+        d_ex = None if data is None else pytree.tree_map(lambda a: a[0],
+                                                         data)
+        plan = cs.fused_plan(opts, "residuals", x_ex, residual_fn=fn,
+                             data_example=d_ex)
+        assert plan is not None and plan.generated is not None
+        xf = pkg.manifold.flatten_batch(x0, plan.spec)
+        params = cs.k2_params(cs.GENERATED, opts, plan)
+        tables = (cs.color_tables(plan.coloring, xf.dtype, xf.device)
+                  if cs.coloring_kind(plan.coloring) == "multi" else None)
+        self.item = (plan.generated, pkg._build.GenInstance(
+            "float" if xf.dtype == torch.float32 else "double",
+            opts.solver_type.name == "DOGLEG", opts.save_history,
+            cs.COLORING_CODES[cs.coloring_kind(plan.coloring)]))
+        self.build = pkg._build
+        self.run = lambda: cs.fused_solve(  # noqa: E731
+            fn, opts, xf, data, plan, params, tables)
+        self.twin = lambda: cs.fused_solve_plain(fn, opts, xf, data, plan)  # noqa
+
+
+def generated_ab(old_pkg, new_pkg, dev, rec):
+    """Phase 21's cells on both trees' generated K2, each bit for bit
+    against this tree's twin (x, stop reasons, iterations), then timed in
+    turns (old, new, new, old); each tree's libraries built together."""
+    sides = {}
+    for label, fn, opts_of, x0, data in generated_cells(dev):
+        sides[label] = {w: GenSide(p, fn, opts_of, x0, data)
+                        for w, p in (("old", old_pkg), ("new", new_pkg))}
+    for w in ("old", "new"):
+        t0 = time.perf_counter()
+        ss = [s[w] for s in sides.values()]
+        ss[0].build.build_generated([s.item for s in ss])
+        log(f"[generated] {w} tree: {len(ss)} libraries built in "
+            f"{time.perf_counter() - t0:.1f} s")
+    r = rec["generated"] = {}
+    for label, pair in sides.items():
+        xr, outr = pair["new"].twin()
+        for w, side in pair.items():
+            x, out = side.run()
+            torch.cuda.synchronize()
+            assert torch.equal(x, xr), f"{label} {w}: x"
+            assert torch.equal(out.stop_reason, outr.stop_reason), label
+            assert torch.equal(out.num_iters, outr.num_iters), label
+        t = [[w, gpu_ms(pair[w].run, n=5)] for w in ("old", "new", "new",
+                                                     "old")]
+        r[label] = {"turns_ms": t}
+        log(f"[A/B generated] {label}: bit-equal to the twin both; turns {t} "
+            "ms")
+
+
 def turns(sides):
     """Device ms of each side's K2 in turns: old, new, new, old."""
     return [[w, gpu_ms(sides[w].run, n=N_LAUNCH)]
@@ -349,6 +434,7 @@ def main() -> int:
             log(f"[ptxas generated] {ln}")
 
     dev = torch.device("cuda", 0)
+    generated_ab(old_pkg, new_pkg, dev, rec)
     gen = torch.Generator(device=dev).manual_seed(0)
     cs = new_pkg.ops.cuda_solver
     for dtype in (torch.float32, torch.float64):

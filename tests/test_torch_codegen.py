@@ -243,23 +243,23 @@ def test_curve_fit_family_layout():
 
 
 def test_refusals_give_their_reason():
-    """Outside the generated envelope: an op outside the table, max(d,
-    n_res) > 64, a manifold leaf, mixed dtypes, integer data, a value read
-    back to the host (data-dependent control flow), a residual that does
-    not run — each refused with its reason."""
+    """Outside the generated envelope: an op outside the table, max(P, D,
+    n_res) > 64, a leaf that is no tensor, mixed dtypes, integer data, a
+    value read back to the host (data-dependent control flow), a residual
+    that does not run — each refused with its reason."""
     gf = residual_codegen.generated_family
     x = torch.tensor([0.3, 0.4])
 
     def atan(v):
-        return torch.atan2(v, torch.ones_like(v))
+        return torch.atan(v)
     fam, why = gf(atan, x)
-    assert fam is None and "aten.atan2" in why and "OP_TABLE" in why
+    assert fam is None and "aten.atan" in why and "OP_TABLE" in why
     fam, why = gf(lambda v: v.repeat(33), x)
-    assert fam is None and "max(d, n_res) = 66 > 64" in why
+    assert fam is None and "max(P, D, n_res) = 66 > 64" in why
     fam, why = gf(lambda v: v - 1.0, torch.zeros(65))
-    assert fam is None and "max(d, n_res) = 65" in why
-    fam, why = gf(lambda R: R.log(), SO3.identity())
-    assert fam is None and "manifold leaf" in why
+    assert fam is None and "max(P, D, n_res) = 65" in why
+    fam, why = gf(lambda p: p["a"] - 1.0, {"a": torch.zeros(2), "k": 3.0})
+    assert fam is None and "not tensors" in why
     fam, why = gf(lambda p: torch.cat([p["a"], p["b"].float()]),
                   {"a": torch.zeros(2), "b": torch.zeros(2, dtype=torch.float64)})
     assert fam is None and "mixed dtypes" in why
@@ -317,12 +317,12 @@ def test_k2_plan_of_a_generated_family(B, d, n_res, coloring):
 
 
 def test_k2_supports_bounds_of_a_generated_family():
-    """Past 64 (the warp kernel's form, K2-a), a manifold (P ≠ D, K2-b) or
-    the identity with fewer residuals than dimensions: refused, and
-    ``k2_launch_plan`` raises."""
+    """Past 64 (the warp kernel's form, K2-a; P too), fewer parameters
+    than tangent dimensions or the identity with fewer residuals than
+    dimensions: refused, and ``k2_launch_plan`` raises."""
     G = cuda_solver.GENERATED
     for args in [(65, 65, None), (2, 65, "multi"), (65, 2, None),
-                 (6, 4, "identity"), (6, 12, None, 7)]:
+                 (6, 4, "identity"), (6, 12, None, 5), (6, 12, None, 65)]:
         assert not cuda_solver.k2_supports(G, *args), args
         with pytest.raises(ValueError, match="not built for"):
             cuda_solver.k2_launch_plan(3, args[0], args[1], 4, G, args[2], 1,
@@ -331,8 +331,9 @@ def test_k2_supports_bounds_of_a_generated_family():
 
 def test_k2_envelope_from_the_example():
     """``k2_envelope`` on CPU examples: a hand-written family first, a
-    generated one for the curve fits and the JAX suite's residuals, and the
-    reason for a residual outside both."""
+    generated one for the curve fits, the JAX suite's residuals and a
+    residual on a manifold leaf, and the reason for a residual outside
+    both."""
     fn, x0, data = _case("prior", torch.float32)
     assert cuda_solver.k2_envelope(fn, *_example(x0, data)) == (0, None, "")
     for name in ("exp", "huber", "geman_mcclure", "robust_prior", "no_data",
@@ -342,7 +343,9 @@ def test_k2_envelope_from_the_example():
         assert fid == cuda_solver.GENERATED and fam is not None, (name, why)
     fid, fam, why = cuda_solver.k2_envelope(lambda R: R.log(),
                                             SO3.identity())
-    assert fid is None and "manifold leaf" in why
+    assert fid == cuda_solver.GENERATED and (fam.p, fam.d) == (4, 3), why
+    fid, fam, why = cuda_solver.k2_envelope(lambda v: torch.atan(v), x0[0])
+    assert fid is None and "aten.atan" in why
 
 
 def test_fused_plan_refusal_reasons():

@@ -430,22 +430,28 @@ struct WoodFamily {
 
 // A family generated from a traced residual (ops/residual_codegen.py):
 // Gen is the emitted struct (the header k2gen_<hash>.cuh, built with
-// csrc/solver_gen.cuh into a library of its own), whose kD, kNRes and kQ
-// are the tangent width, the residuals and the values of an instance's
-// data row, and whose rows / jvp_rows / vjp_rows are the residual, the jvp
-// and the vjp of one instance traced from torch.func.  Register form only,
-// one instance a thread (S = 1) as PowellFamily, with the tangent-wide and
-// the residual-wide vectors sized apart (kSplitWidths,
+// csrc/solver_gen.cuh into a library of its own), whose kP, kD, kNRes and
+// kQ are the widths of the flat parameters, of the tangent and of the
+// residual and the values of an instance's data row, kManifold whether
+// the parameters hold a manifold leaf (kP > kD then), and whose rows /
+// jvp_rows / vjp_rows / retract_rows are the residual, the jvp and the vjp
+// of d -> r(x (+) d) at 0, and the retraction x (+) dx, of one instance,
+// traced from torch.func and manifold.retract_flat.  Register form only,
+// one instance a thread (S = 1) as PowellFamily, with the parameters, the
+// tangent-wide and the residual-wide vectors sized apart (kSplitWidths,
 // csrc/solver_seg.cuh); the data row is read through the cache where the
 // emitted code reads it, never held in registers.
 template <typename T, typename Gen>
 struct GeneratedFamily {
   const T* data;   // (B, kQ), or null when kQ == 0
-  static constexpr int kD = Gen::kD, kNRes = Gen::kNRes;
-  static constexpr int kSegE = kD > kNRes ? kD : kNRes;
+  static constexpr int kP = Gen::kP, kD = Gen::kD, kNRes = Gen::kNRes;
+  static constexpr int kPD = kP > kD ? kP : kD;
+  static constexpr int kSegE = kPD > kNRes ? kPD : kNRes;
   static constexpr int kMaxM = kSegE;
-  static constexpr bool kManifold = false;
+  static constexpr bool kManifold = Gen::kManifold;
   static constexpr bool kSplitWidths = true;
+  static_assert(kManifold ? kP > kD : kP == kD,
+                "P > D on manifold parameters, P = D on Euclidean ones");
 
   template <int S, int E>
   struct Lanes {
@@ -454,17 +460,22 @@ struct GeneratedFamily {
     __device__ __forceinline__ void start(const GeneratedFamily& f, int b, int) {
       row = Gen::kQ > 0 ? f.data + (size_t)b * Gen::kQ : nullptr;
     }
-    __device__ __forceinline__ void residual(const T (&x)[kD],
+    __device__ __forceinline__ void residual(const T (&x)[kP],
                                              T (&r)[kNRes]) const {
       Gen::template rows<T>(x, row, r);
     }
-    __device__ __forceinline__ void jvp(const T (&x)[kD], const T (&p)[kD],
+    __device__ __forceinline__ void jvp(const T (&x)[kP], const T (&p)[kD],
                                         T (&out)[kNRes]) const {
       Gen::template jvp_rows<T>(x, row, p, out);
     }
-    __device__ __forceinline__ void vjp(const T (&x)[kD], const T (&q)[kNRes],
+    __device__ __forceinline__ void vjp(const T (&x)[kP], const T (&q)[kNRes],
                                         T (&out)[kD]) const {
       Gen::template vjp_rows<T>(x, row, q, out);
+    }
+    // xn = x (+) dx (kManifold only; a Euclidean family adds)
+    __device__ __forceinline__ void retract(const T (&x)[kP], const T (&dx)[kD],
+                                            T (&xn)[kP]) const {
+      Gen::template retract_rows<T>(x, dx, xn);
     }
   };
 };

@@ -19,16 +19,17 @@ namespace tinyopt {
 
 using GenFam = GeneratedFamily<K2G_T, k2gen::Residual>;
 
-// The plan (ops/cuda_solver.k2_launch_plan: S = 1, E = max(d, n_res), one
-// warp a block, a grid that covers B) and the parameters the family and this
-// instance were built for; anything else is refused with
-// cudaErrorInvalidValue.
+// The plan (ops/cuda_solver.k2_launch_plan: S = 1, E = max(P, d, n_res),
+// one warp a block, a grid that covers B) and the parameters the family and
+// this instance were built for (P arrives as fam_m, ops/cuda_solver.
+// k2_params); anything else is refused with cudaErrorInvalidValue.
 inline int launch_generated(const SolverParams* p, const SolverIO* io,
                             const ColorTables& tables, int B, int S, int E,
                             int warps, int grid, cudaStream_t stream) {
   if (B <= 0) return 0;
   if (p->family != kGenerated || p->d != GenFam::kD ||
-      p->n_res != GenFam::kNRes || p->coloring != K2G_COLOR ||
+      p->fam_m != GenFam::kP || p->n_res != GenFam::kNRes ||
+      p->coloring != K2G_COLOR ||
       (p->solver == kSolverDogLeg) != (K2G_DL != 0) ||
       p->solver < kSolverGN || p->solver > kSolverDogLeg ||
       (p->cap > 0) != (K2G_HIST != 0) ||

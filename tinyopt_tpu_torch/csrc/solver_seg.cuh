@@ -179,15 +179,26 @@ __host__ __device__ constexpr int residual_entries() {
   else
     return E;
 }
+// Entries a lane holds of the parameters (x, best_x): the tangent's, or a
+// split-width family's kP (kD on Euclidean parameters, so an SE3 pose
+// keeps its 7 stored values beside 6-wide steps).
+template <typename Fam, int E>
+__host__ __device__ constexpr int param_entries() {
+  if constexpr (SplitWidths<Fam>::value)
+    return Fam::kP;
+  else
+    return E;
+}
 
 // The Powell dogleg of one retry for the segment's instance, in the trust
 // radius ref / lam_try: the twin's GN step, g'Hg, then solvers/step.
 // dogleg_core, same operations in the same order.  `solve(damped, lam,
 // out)` is the kernel's damped solve.  Only the kDogLeg instances call it,
 // so the GN / LM instances compile none of it.
-template <typename T, int S, int E, int ER, typename Lanes, typename Solve>
+template <typename T, int S, int E, int ER, int EP, typename Lanes,
+          typename Solve>
 __device__ __forceinline__ bool propose_dogleg(
-    const Lanes& fl, const T (&x)[E], const T (&g)[E], const bool (&vt)[E],
+    const Lanes& fl, const T (&x)[EP], const T (&g)[E], const bool (&vt)[E],
     unsigned bits, T lam_try, const Solve& solve, T (&dxn)[E]) {
   const T kappa2 = T(1e6);
   T gn[E], reg[E], ta[E], tb[E], tc[E];
@@ -298,7 +309,8 @@ solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
   // entries a lane of the tangent-wide and of the residual-wide vectors
   constexpr int ET = tangent_entries<Fam, E>();
   constexpr int ER = residual_entries<Fam, E>();
-  static_assert(S == 1 || (ET == E && ER == E),
+  constexpr int EP = param_entries<Fam, E>();   // of the parameters
+  static_assert(S == 1 || (ET == E && ER == E && EP == E),
                 "split widths run one instance a lane");
   const int lane = threadIdx.x & 31;
   const int sl = lane & (S - 1);
@@ -322,16 +334,19 @@ solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
   const bool lam_sched = kDogLeg || is_lm;
   const int max_tries = p.max_consec_failures > 0 ? p.max_consec_failures : 255;
 
+  // EP >= ET: a loop over the parameters' entries handles the tangent's
+  // first ET of them (k < ET is constant in the unrolled loop)
+  static_assert(EP >= ET, "P >= D");
   bool vt[ET];   // entry k is a tangent entry (index < d)
-  bool vx[ET];   // entry k is a parameter entry (index < P; vt when P = d)
+  bool vx[EP];   // entry k is a parameter entry (index < P; vt when P = d)
 #pragma unroll
-  for (int k = 0; k < ET; ++k) {
-    vt[k] = sl + k * S < d;
+  for (int k = 0; k < EP; ++k) {
+    if (k < ET) vt[k] = sl + k * S < d;
     vx[k] = sl + k * S < P;
   }
 
   typename Fam::template Lanes<S, E> fl;
-  T x[ET], best_x[ET], g[ET], diagH[ET];
+  T x[EP], best_x[EP], g[ET], diagH[ET];
   T best_cost, final_rerr, lam, bad;
   int has_last, it, nfail, nconsec, stop, best_nres;
   int nhist = 0;
@@ -343,12 +358,12 @@ solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
     fl.start(fam, bl, sl);
     const T* x0 = static_cast<const T*>(io.x0) + (size_t)bl * P;
 #pragma unroll
-    for (int k = 0; k < ET; ++k) {
+    for (int k = 0; k < EP; ++k) {
       const int i = sl + k * S;
       const T v = x0[i < P ? i : P - 1];
       x[k] = vx[k] ? v : T(0);
       best_x[k] = x[k];
-      g[k] = T(0);
+      if (k < ET) g[k] = T(0);
     }
     best_cost = inf;
     final_rerr = inf;
@@ -679,12 +694,29 @@ solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
       const bool roll = !success && has_last;
       const bool apply = (success || probe) && cascade == kNone &&
                          it + 1 < p.max_iters_total;
+      if constexpr (Fam::kManifold) {
+        // x (+) dx from the rollback point, dx = 0 where no step applies:
+        // the retraction on every iteration, as the twin's retract_flat of
+        // the whole batch (solver_kernel's manifold branch)
+        T xb[EP], dd[ET], xn[EP];
 #pragma unroll
-      for (int k = 0; k < ET; ++k) {
-        const T xb = roll ? best_x[k] : x[k];
-        const T xn = xb + (apply ? dx[k] : T(0));
-        if (success) best_x[k] = x[k];
-        x[k] = xn;
+        for (int k = 0; k < EP; ++k) xb[k] = roll ? best_x[k] : x[k];
+#pragma unroll
+        for (int k = 0; k < ET; ++k) dd[k] = apply ? dx[k] : T(0);
+        fl.retract(xb, dd, xn);
+#pragma unroll
+        for (int k = 0; k < EP; ++k) {
+          if (success) best_x[k] = x[k];
+          x[k] = xn[k];
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < ET; ++k) {
+          const T xb = roll ? best_x[k] : x[k];
+          const T xn = xb + (apply ? dx[k] : T(0));
+          if (success) best_x[k] = x[k];
+          x[k] = xn;
+        }
       }
       has_last = success ? 1 : (has_last ? 0 : (probe ? 1 : 0));
       ++it;
@@ -698,9 +730,9 @@ solver_seg_kernel(const SolverParams p, const SegIO<kHist> io, const Fam fam,
       T* xo = static_cast<T*>(io.x) + (size_t)b * P;
       T* go = static_cast<T*>(io.g) + (size_t)b * d;
 #pragma unroll
-      for (int k = 0; k < ET; ++k) {
+      for (int k = 0; k < EP; ++k) {
         if (vx[k]) xo[sl + k * S] = x[k];
-        if (vt[k]) go[sl + k * S] = it > 0 ? g[k] : T(0);
+        if (k < ET && vt[k]) go[sl + k * S] = it > 0 ? g[k] : T(0);
       }
       if constexpr (kHist && S > 1) {
         const size_t row = (size_t)b * p.cap;

@@ -3,13 +3,14 @@
 ``options_from_reference`` copies any ``tinyopt_tpu.Options`` (or any
 dataclass with its fields) into this package's ``Options``, nested option
 groups and the solver-type enum included.  ``prior_problem_from_numpy``,
-``so3_from_numpy``, ``se3_from_numpy``, ``sen3_from_numpy``,
-``se3_refinement_data_from_numpy``, ``icp_problem_from_numpy``,
-``ba_problem_from_numpy``, ``bal_cameras_from_numpy`` and
-``pose_graph_data_from_numpy`` build the port's problems and poses from
-host arrays, e.g. the ones a JAX ``PriorProblem``, ``SO3``, ``SE3``,
-``SEn3``, ``ICPProblem``, bundle-adjustment problem, BAL camera pytree or
-``PoseGraphData`` holds after ``np.asarray``;
+``so3_from_numpy``, ``se3_from_numpy``, ``se23_from_numpy``,
+``sen3_from_numpy``, ``se3_refinement_data_from_numpy``,
+``icp_problem_from_numpy``, ``ba_problem_from_numpy``,
+``bal_cameras_from_numpy`` and ``pose_graph_data_from_numpy`` build the
+port's problems and poses from host arrays, e.g. the ones a JAX
+``PriorProblem``, ``SO3``, ``SE3``, ``SE23``, ``SEn3``, ``ICPProblem``,
+bundle-adjustment problem, BAL camera pytree or ``PoseGraphData`` holds
+after ``np.asarray``;
 ``perceptron_from_numpy`` the perceptron's parameter dict
 (``models/nn.py``).
 """
@@ -23,7 +24,7 @@ import numpy as np
 import torch
 
 from . import options as _opt
-from .manifolds import SE3, SO3, SEn3
+from .manifolds import SE3, SE23, SO3, SEn3
 from .models.bundle_adjustment import BAData
 from .models.icp import ICPProblem
 from .models.pose_graph import PoseGraphData
@@ -100,6 +101,15 @@ def se3_refinement_data_from_numpy(points, targets, device="cuda",
     """``SE3RefinementData`` on ``device`` from host arrays (..., K, 3)."""
     return SE3RefinementData(points=_tensor(points, device, dtype),
                              targets=_tensor(targets, device, dtype))
+
+
+def se23_from_numpy(wxyz, velocity, position, device="cuda",
+                    dtype=torch.float32) -> SE23:
+    """``SE23`` on ``device`` from host quaternions (..., 4), velocities
+    (..., 3) and positions (..., 3)."""
+    return SE23(so3_from_numpy(wxyz, device, dtype),
+                _tensor(velocity, device, dtype),
+                _tensor(position, device, dtype))
 
 
 def sen3_from_numpy(wxyz, vectors, device="cuda",

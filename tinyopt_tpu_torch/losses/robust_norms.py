@@ -119,7 +119,10 @@ def robust_whiten(r, robust_fn, th2):
     gradient at rejection (ρ = 0) and at r = 0.
     """
     r = torch.as_tensor(r).reshape(-1)
-    n2 = torch.dot(r, r)
+    # a sum, not torch.dot: vmapped, dot becomes a batched matmul, whose
+    # CUDA library sums in an order that changes with the batch size; a
+    # sum keeps one order at every size (K2's generated families sum so)
+    n2 = torch.sum(r * r)
     loss, _ = robust_fn(n2, th2)
     tiny = torch.finfo(n2.dtype).tiny
     one = torch.ones_like(n2)

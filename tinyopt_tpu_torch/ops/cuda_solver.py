@@ -22,9 +22,10 @@ defining it registers (:func:`register_family`; the models'
 prior_residual, jennrich_sampson_residuals, powell_singular_residuals,
 wood_residuals and se3_residual, the last on an SE3 pose, whose family
 holds the retraction too), or else a family generated from its trace
-(``ops/residual_codegen.py``: Euclidean parameters, max(d, n_res) ≤ 64,
-the ops of its table), which K2 runs one instance a thread from a library
-built for it (:func:`k2_envelope`).  diag(JᵀJ) comes from the coloring the
+(``ops/residual_codegen.py``: tensors and registered manifold leaves,
+max(P, D, n_res) ≤ 64, the ops of its table; the retraction traced with
+the residual), which K2 runs one instance a thread from a library built
+for it (:func:`k2_envelope`).  diag(JᵀJ) comes from the coloring the
 example's Jacobian structure admits (ops/coloring.py): one jvp of the
 all-ones probe for the identity, one jvp a color and the recovery sum for
 Curtis–Powell–Reid probes (Powell's and Wood's 2 colors), else one jvp a
@@ -110,7 +111,7 @@ SEG_COLORINGS = {0: (None, "identity"), 1: (None,), 2: (None,),
                  5: (None, "identity", "multi")}
 #: (d, n_res) of the families of fixed shape: Powell's and Wood's.  A
 #: generated family's shape is fixed too, but by its trace: it runs one
-#: instance a thread at any max(d, n_res) ≤ 64 (E = max(d, n_res)).
+#: instance a thread at any max(P, D, n_res) ≤ 64 (E = max(P, D, n_res)).
 FIXED_SHAPES = {3: (4, 4), 4: (4, 6)}
 #: ``SolverParams.coloring`` (``enum Coloring``, csrc/solver.cuh).
 COLORING_CODES = {None: 0, "identity": 1, "multi": 2}
@@ -333,9 +334,10 @@ def k2_supports(family: int, d: int, n_res: int, coloring: str | None,
     Jennrich–Sampson d = 2; SE3 P = 7, D = 6 and 3 residuals a point; P = D
     for a Euclidean family), and no multi-color coloring past the register
     kernel (the warp kernel has no multi-color branch, ROADMAP Queue 2,
-    K2-a); a generated family (``GENERATED``) Euclidean at max(d, n_res)
-    ≤ 64, every coloring (the identity with n_res ≥ d).  An id that is no
-    family of K2's raises."""
+    K2-a); a generated family (``GENERATED``) at P ≥ D — P > D on manifold
+    parameters, whose retraction it holds — and max(P, D, n_res) ≤ 64,
+    every coloring (the identity with n_res ≥ d).  An id that is no family
+    of K2's raises."""
     P = d if P is None else P
     if family not in FAMILY_IDS:
         raise ValueError(f"k2_supports: unknown residual family {family}")
@@ -348,7 +350,7 @@ def k2_supports(family: int, d: int, n_res: int, coloring: str | None,
     if family == 2:
         return (P, d) == (SE3_P, SE3_D) and n_res % 3 == 0
     if family == GENERATED:
-        return (P == d and max(d, n_res) <= SEG_MAX
+        return (P >= d and max(P, d, n_res) <= SEG_MAX
                 and (coloring != "identity" or n_res >= d))
     return P == d and (coloring != "multi" or max(d, n_res) <= SEG_MAX)
 
@@ -370,7 +372,8 @@ def k2_launch_plan(B: int, d: int, n_res: int, itemsize: int, family: int,
     with S·E ≥ max(P, D, n_res), for every solver, 4 warps a block; a
     family of fixed shape (Powell's, Wood's) runs one instance a thread
     (S = 1, E = max(d, n_res)), one warp a block, and so does a generated
-    family (``GENERATED``, every coloring); the SE3 family (K ≤ 21
+    family (``GENERATED``, every coloring, E = max(P, D, n_res)); the SE3
+    family (K ≤ 21
     points) E = ``SE3_POINTS[itemsize]`` points a lane on the least power
     of two of lanes S (from 1) with S·E ≥ K, one warp a block at S = 1,
     else 4.
@@ -411,13 +414,16 @@ def k2_launch_plan(B: int, d: int, n_res: int, itemsize: int, family: int,
 
 def k2_params(family: int, opts: Options, plan: FusedPlan):
     """K2's ``SolverParams`` for a solver: everything but the batch size,
-    so a solver builds it once."""
+    so a solver builds it once.  ``fam_m``: Jennrich–Sampson's residuals,
+    the SE3 family's points, a generated family's P (its library checks
+    it)."""
     from .. import _build
     lm = opts.lm
     d = plan.spec.dims
     return _build.SolverParams(
         d=d, n_res=plan.n_res, family=family,
-        fam_m={1: plan.n_res, 2: plan.n_res // 3}.get(family, 0),
+        fam_m={1: plan.n_res, 2: plan.n_res // 3,
+               GENERATED: plan.spec.params}.get(family, 0),
         solver=SOLVER_CODES[opts.solver_type],
         coloring=COLORING_CODES[coloring_kind(plan.coloring)],
         n_colors=0 if plan.coloring is None else plan.coloring.n_colors,

@@ -35,6 +35,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import hashlib
+import itertools
 import math
 import operator
 from typing import Any
@@ -66,6 +67,7 @@ _BINARY = {
     "add": "({a} + {b})", "sub": "({a} - {b})", "mul": "({a} * {b})",
     "div": "({a} / {b})",
     "tanh_backward": "k2g_tanh_backward({a}, {b})",
+    "atan2": "atan2({a}, {b})",
 }
 _COMPARE = {"gt": ">", "ge": ">=", "lt": "<", "le": "<=", "eq": "==",
             "ne": "!="}
@@ -85,8 +87,9 @@ _SHAPE_ONLY = ("zeros_like", "ones_like", "full_like", "new_zeros",
 #: The elementwise ops (one output element from the inputs' elements at
 #: its index).
 _ELEMENTWISE = tuple(list(_UNARY) + list(_BINARY) + list(_COMPARE)
-                     + list(_LOGICAL) + ["rsub", "pow", "where", "clamp",
-                                         "clamp_min", "clamp_max"])
+                     + list(_LOGICAL) + ["rsub", "pow", "where",
+                                         "masked_fill", "clamp", "clamp_min",
+                                         "clamp_max"])
 
 
 def _core(shape) -> tuple:
@@ -98,7 +101,8 @@ OP_TABLE = frozenset(
     list(_UNARY) + list(_BINARY) + list(_COMPARE) + list(_LOGICAL)
     + list(_VIEWS)
     + list(_SHAPE_ONLY)
-    + ["rsub", "pow", "where", "clamp", "clamp_min", "clamp_max", "cat", "stack",
+    + ["rsub", "pow", "where", "masked_fill", "clamp", "clamp_min",
+       "clamp_max", "cat", "stack",
        "select_backward", "slice_backward", "sum", "mean", "dot", "mv",
        "mm", "bmm"])
 
@@ -112,15 +116,17 @@ class GeneratedFamily:
     """A residual family generated from a traced residual: what K2's
     ``kGenerated`` family is built from.
 
-    ``d`` and ``n_res``: the tangent and residual widths (the family's
-    ``kD`` and ``kNRes``); ``data_treedef`` / ``data_shapes``: the layout
+    ``p``, ``d`` and ``n_res``: the widths of the flat parameters, of the
+    tangent and of the residual (the family's ``kP``, ``kD`` and
+    ``kNRes``; ``p`` = ``d`` on Euclidean parameters); ``data_treedef`` / ``data_shapes``: the layout
     of one instance's data leaves, packed row-major one after the other
     into one row of ``q`` values (``q`` = 0 without data); ``dtype``: the
     traced type; ``source``: the emitted C++ header; ``hash``: 16 hex
     digits of its SHA-256; ``ops``: the arithmetic operations of one
-    instance's residual, jvp and vjp (a multiply, an add, an exponential
-    or a comparison count one each).  Compared and hashed by identity:
+    instance's residual, jvp, vjp and retraction (a multiply, an add, an
+    exponential or a comparison count one each).  Compared and hashed by identity:
     a solver keeps the one its plan traced."""
+    p: int
     d: int
     n_res: int
     data_treedef: Any
@@ -528,10 +534,11 @@ class _Emitter:
         return out
 
     def reduce_sum(self, node, a: _Val, dims, keepdim, mean=False) -> _Val:
-        """A sum over ``dims``: over trailing dims (the summands of each
-        output contiguous) in the order of the twin's CUDA row sums,
-        ``k2g_warp_sum`` (csrc/solver.cuh's lane_part on one lane), else
-        in ascending order."""
+        """A sum over ``dims`` in the order torch adds on CUDA, measured on
+        an H100 (PERF.md): over trailing dims (size-1 dims aside: the
+        summands of each output contiguous, the fastest dim) the row-sum
+        order ``k2g_warp_sum`` (csrc/solver.cuh's lane_part on one lane),
+        over other dims four running sums."""
         nd = len(a.shape)
         dims = (set(range(nd)) if dims is None or (
             isinstance(dims, (list, tuple)) and len(dims) == 0)
@@ -557,7 +564,12 @@ class _Emitter:
             return (f"{expr} / {self.literal(count, dtype)}" if mean
                     else expr)
 
-        if red == list(range(len(kept), nd)) and count > 1:
+        # the summands of each output are the fastest dim: no kept dim of
+        # more than one entry after a reduced one
+        big = [k for k in range(nd) if a.shape[k] > 1]
+        fastest = all(k < j for k in big if k in kept
+                      for j in big if j in dims)
+        if fastest and count > 1:
             if not a.contiguous() or a.conv is not None:
                 a = self.materialize(a)
             flat = dataclasses.replace(a, shape=tuple(kshape),
@@ -571,32 +583,29 @@ class _Emitter:
                         + ";")
             self.loop(kshape, body)
             return out
-        zero = self.literal(0.0, dtype)
+        if count == 0:
+            raise Refused("a sum over no entries")
+        # over leading or middle dims: the summands in the order of the
+        # reduced dims, added as torch on CUDA adds a dim that is not the
+        # fastest: four running sums, slot k % 4 of summand k, then
+        # ((s0 + s1) + s2) + s3
         rshape = [a.shape[k] for k in red]
-        acc = self.fresh()
+        acc = self.fresh("s")
+        ct = self.ctype(dtype)
 
         def body(oi):
             full = [None] * nd
             for k, i in zip(kept, oi):
                 full[k] = i
-            inner = []
-            for k, n in zip(red, rshape):
-                full[k] = 0 if n == 1 else f"r{k}"
-            lines = [f"{self.ctype(dtype)} {acc} = {zero};"]
-            depth = 0
-            for k, n in zip(red, rshape):
-                if n == 1:
-                    continue
-                lines.append("  " * depth + "K2G_UNROLL")
-                lines.append("  " * depth
-                             + f"for (int r{k} = 0; r{k} < {n}; ++r{k}) {{")
-                depth += 1
-                inner.append(k)
-            lines.append("  " * depth + f"{acc} = {acc} + {a.at(full)};")
-            for _ in inner:
-                depth -= 1
-                lines.append("  " * depth + "}")
-            lines.append(f"{out.at(out_index(oi))} = {result(acc)};")
+            lines = [f"{ct} " + ", ".join(f"{acc}_{j} = {ct}(0)"
+                                          for j in range(4)) + ";"]
+            for k, ri in enumerate(itertools.product(*map(range, rshape))):
+                for kk, i in zip(red, ri):
+                    full[kk] = i
+                lines.append(f"{acc}_{k % 4} = {acc}_{k % 4} + "
+                             f"{a.at(full)};")
+            lines.append(f"{out.at(out_index(oi))} = " + result(
+                f"(({acc}_0 + {acc}_1) + {acc}_2) + {acc}_3") + ";")
             return "{ " + " ".join(lines) + " }"
 
         self.loop(kshape, body)
@@ -895,6 +904,13 @@ def _emit_op(em: _Emitter, node, op: str, args, kw):
         b = em.cast(em.as_val(args[2], c, out_dtype), out_dtype)
         return em.elementwise(node, [c, a, b],
                               lambda x, y, z: f"({x} ? {y} : {z})")
+    if op == "masked_fill":
+        # where(mask, value, a): atan2's derivative zeroes 1 / (a² + b²)
+        # where a² + b² = 0
+        a = em.cast(args[0], out_dtype)
+        v = em.cast(em.as_val(args[2], a, out_dtype), out_dtype)
+        return em.elementwise(node, [args[1], v, a],
+                              lambda m, y, x: f"({m} ? {y} : {x})")
     if op == "pow":
         if not isinstance(args[1], (int, float)):
             raise Refused("aten.pow with a tensor exponent")
@@ -976,10 +992,21 @@ class _Recorder(torch.fx.Interpreter):
 
 
 def _trace(fn, args):
+    from torch._subclasses.fake_tensor import DataDependentOutputException
     from torch.fx.experimental.proxy_tensor import make_fx
+    from torch.fx.experimental.symbolic_shapes import (
+        GuardOnDataDependentSymNode)
     # functionalized: an in-place op (the vjp of clamp ands its masks in
-    # place) becomes its out-of-place form
-    gm = make_fx(torch.func.functionalize(fn), tracing_mode="real")(*args)
+    # place) becomes its out-of-place form; traced on fake tensors (shapes
+    # and types only, no arithmetic on the device), then run once on the
+    # example for the values the emitter folds
+    try:
+        gm = make_fx(torch.func.functionalize(fn), tracing_mode="fake",
+                     _allow_non_fake_inputs=True)(*args)
+    except (GuardOnDataDependentSymNode, DataDependentOutputException) as e:
+        raise Refused("a value read back to the host (aten."
+                      "_local_scalar_dense: data-dependent control flow)"
+                      ) from e
     gm.graph.eliminate_dead_code()
     gm.recompile()
     rec = _Recorder(gm)
@@ -990,9 +1017,10 @@ def _trace(fn, args):
 
 _HEADER = """\
 // Generated by tinyopt_tpu_torch/ops/residual_codegen.py from the traced
-// residual {fn} ({dtype}): d = {d}, n_res = {n_res}, a data row of {q}
-// values{leaves}.  The residual, its jvp and its vjp (torch.func's, traced)
-// of one instance, for K2's GeneratedFamily (csrc/solver.cuh).
+// residual {fn} ({dtype}): P = {P}, d = {d}, n_res = {n_res}, a data row
+// of {q} values{leaves}.  The residual, its jvp and its vjp (torch.func's,
+// traced through the retraction) and the retraction of one instance, for
+// K2's GeneratedFamily (csrc/solver.cuh).
 #pragma once
 #ifdef __CUDACC__
 #define K2G_HD __host__ __device__ __forceinline__
@@ -1006,7 +1034,8 @@ _HEADER = """\
 namespace tinyopt {{
 namespace k2gen {{
 #ifndef __CUDACC__
-using std::cos; using std::exp; using std::fabs; using std::log;
+using std::atan2; using std::cos; using std::exp; using std::fabs;
+using std::log;
 using std::pow; using std::sin; using std::sqrt; using std::tanh;
 #endif
 
@@ -1049,7 +1078,8 @@ template <typename T>
 K2G_HD T k2g_tanh_backward(T g, T y) {{ return g * (T(1) - y * y); }}
 
 struct Residual {{
-  static constexpr int kD = {d}, kNRes = {n_res}, kQ = {q};
+  static constexpr int kP = {P}, kD = {d}, kNRes = {n_res}, kQ = {q};
+  static constexpr bool kManifold = {manifold};
 """
 
 _FOOTER = """\
@@ -1070,6 +1100,9 @@ void k2g_jvp({ct} const* x, {ct} const* data, {ct} const* p, {ct}* out) {{
 void k2g_vjp({ct} const* x, {ct} const* data, {ct} const* q, {ct}* out) {{
   tinyopt::k2gen::Residual::vjp_rows<{ct}>(x, data, q, out);
 }}
+void k2g_retract({ct} const* x, {ct} const* dx, {ct}* out) {{
+  tinyopt::k2gen::Residual::retract_rows<{ct}>(x, dx, out);
+}}
 }}
 #endif
 """
@@ -1085,9 +1118,12 @@ def _make(residual_fn, x_example, data_example, dtype) -> GeneratedFamily:
     if any(l.dtype != dtype for l in leaves):
         raise Refused("parameters of mixed dtypes")
     spec = mf.tangent_spec(x_example)
-    if spec.has_manifold or spec.params != spec.dims:
-        raise Refused("a manifold leaf (ROADMAP Queue 2, K2-b)")
-    d = spec.dims
+    P, d = spec.params, spec.dims
+    if spec.has_manifold and P == d:
+        # GeneratedFamily keeps x in kP values beside a tangent of kD only
+        # where the two differ (csrc/solver.cuh's static_assert)
+        raise Refused(f"a manifold whose stored width equals its tangent "
+                      f"width ({P})")
     detach = functools.partial(pytree.tree_map,
                                lambda a: a.detach()
                                if isinstance(a, torch.Tensor) else a)
@@ -1113,14 +1149,20 @@ def _make(residual_fn, x_example, data_example, dtype) -> GeneratedFamily:
     def res(x, *dl):
         return R(x, dl)
 
+    # the twin's linearization (cuda_solver.fused_solve_plain): δ ↦
+    # r(x ⊞ δ) at δ = 0, which is r(x + δ) on Euclidean parameters
+    def at(x, dl):
+        return lambda dd: R(mf.retract_flat(x, dd, spec), dl)
+
     def jvp(x, p, *dl):
-        z = torch.zeros_like(x)
-        return torch.func.jvp(lambda dd: R(x + dd, dl), (z,), (p,))[1]
+        return torch.func.jvp(at(x, dl), (torch.zeros_like(p),), (p,))[1]
 
     def vjp(x, q, *dl):
-        z = torch.zeros_like(x)
-        _, pull = torch.func.vjp(lambda dd: R(x + dd, dl), z)
-        return pull(q)[0]
+        z = torch.zeros((d,), dtype=x.dtype, device=x.device)
+        return torch.func.vjp(at(x, dl), z)[1](q)[0]
+
+    def retract(x, dx):
+        return mf.retract_flat(x, dx, spec)
 
     try:
         with torch.no_grad():
@@ -1131,34 +1173,38 @@ def _make(residual_fn, x_example, data_example, dtype) -> GeneratedFamily:
     n_res = int(r0.numel())
     if n_res == 0:
         raise Refused("no residuals")
-    if max(d, n_res) > SEG_MAX:
-        raise Refused(f"max(d, n_res) = {max(d, n_res)} > {SEG_MAX} "
+    if max(P, d, n_res) > SEG_MAX:
+        raise Refused(f"max(P, D, n_res) = {max(P, d, n_res)} > {SEG_MAX} "
                       "(ROADMAP Queue 2, K2-a)")
     shapes = tuple(_shape_of(l) for l in dleaves)
     q_len = sum(math.prod(s) for s in shapes)
-    x_in = _Val((d,), dtype, "x", (1,), 0)
+    x_in = _Val((P,), dtype, "x", (1,), 0)
     p_in = _Val((d,), dtype, "p", (1,), 0)
     q_in = _Val((n_res,), dtype, "q", (1,), 0)
+    dx_in = _Val((d,), dtype, "dx", (1,), 0)
     d_ins, off = [], 0
     for s in shapes:
         d_ins.append(_Val(s, dtype, "data", _contiguous_strides(s), off))
         off += math.prod(s)
-    tangent = torch.ones_like(xv)
+    tangent = torch.ones((d,), dtype=dtype, device=xv.device)
     cotangent = torch.ones((n_res,), dtype=dtype, device=xv.device)
     sig = "const T* __restrict__ x, const T* __restrict__ data, "
     parts, ops = [], {}
-    for name, fn, args, ins, extra in (
-            ("rows", res, (xv, *dleaves), [x_in, *d_ins], ""),
+    for name, fn, args, ins, head, want in (
+            ("rows", res, (xv, *dleaves), [x_in, *d_ins], sig, n_res),
             ("jvp_rows", jvp, (xv, tangent, *dleaves), [x_in, p_in, *d_ins],
-             "const T* __restrict__ p, "),
+             sig + "const T* __restrict__ p, ", n_res),
             ("vjp_rows", vjp, (xv, cotangent, *dleaves),
-             [x_in, q_in, *d_ins], "const T* __restrict__ q, ")):
+             [x_in, q_in, *d_ins], sig + "const T* __restrict__ q, ", d),
+            ("retract_rows", retract, (xv, tangent), [x_in, dx_in],
+             "const T* __restrict__ x, const T* __restrict__ dx, ", P)):
         try:
             gm, values = _trace(fn, args)
+        except Refused:
+            raise
         except Exception as e:                  # noqa: BLE001
             raise Refused(f"the {name} trace failed ({type(e).__name__}: "
                           f"{e})") from e
-        want = n_res if name != "vjp_rows" else d
         out = [n for n in gm.graph.nodes if n.op == "output"][0].args[0]
         if not isinstance(out, torch.fx.Node) or not isinstance(
                 out.meta.get("val"), torch.Tensor) or math.prod(
@@ -1166,20 +1212,21 @@ def _make(residual_fn, x_example, data_example, dtype) -> GeneratedFamily:
             raise Refused(f"a {name} that is not one tensor of {want} "
                           "values")
         src, n_ops = _emit_function(gm, dtype, ins, values, name,
-                                    sig + extra + "T* __restrict__ out")
+                                    head + "T* __restrict__ out")
         parts.append(src)
-        ops[{"rows": "residual", "jvp_rows": "jvp",
-             "vjp_rows": "vjp"}[name]] = n_ops
+        ops[{"rows": "residual", "jvp_rows": "jvp", "vjp_rows": "vjp",
+             "retract_rows": "retract"}[name]] = n_ops
     leaf_text = "".join(f", {tuple(s)}" for s in shapes)
     ct = "float" if dtype == torch.float32 else "double"
     source = (_HEADER.format(
         fn=getattr(residual_fn, "__qualname__", "residual"),
-        dtype=str(dtype).replace("torch.", ""), d=d, n_res=n_res, q=q_len,
-        leaves=f" (leaves {leaf_text[2:]})" if shapes else "")
+        dtype=str(dtype).replace("torch.", ""), P=P, d=d, n_res=n_res,
+        q=q_len, leaves=f" (leaves {leaf_text[2:]})" if shapes else "",
+        manifold=str(spec.has_manifold).lower())
         + "\n".join(parts) + _FOOTER.format(ct=ct))
     return GeneratedFamily(
-        d=d, n_res=n_res, data_treedef=dtree, data_shapes=shapes, q=q_len,
-        dtype=dtype, source=source,
+        p=P, d=d, n_res=n_res, data_treedef=dtree, data_shapes=shapes,
+        q=q_len, dtype=dtype, source=source,
         hash=hashlib.sha256(source.encode()).hexdigest()[:16], ops=ops)
 
 
