@@ -61,7 +61,11 @@ K2 on families generated from the traced residual — the robust curve fits
 and the JAX fused suite's residuals (phase 21, ``[curves_fused]`` and
 ``[generated]`` lines) and, traced through the retraction, residuals on
 SO3, SE3, SE23 and SEn3 leaves, a batched SO3 leaf, a {SE3, bias} pytree
-and the robust point-to-point SE3 fit (phase 22, ``[manifold]`` lines) —
+and the robust point-to-point SE3 fit (phase 22, ``[manifold]`` lines),
+and past max(P, D, n_res) = 64 in K2's warp kernel, the residual emitted
+for one warp — the robust point-to-point SE3 fit at ICP's 128 points a
+pair, the banded residual at d = 128 with its 2-color branch and without,
+the Huber curve fit at 256 samples (phase 23, ``[wide]`` lines) —
 each with the launch counts set to 0 just before it and
 read just after, and checks what comes out (the flagship's poses against
 the true ones, the curves' costs against float64 solves and their fits
@@ -92,7 +96,9 @@ SE3 family's register kernel in an entry of its own, as ``se3_ms``,
 K2's one-lane instance, in an entry of its own, as ``mc_powell_ms``,
 ``mc_wood_dl_ms_f64``, ``mc_powell_off_ms``..., with its twin's time,
 bound and share, and the solves/s of its path through
-``batched_optimize`` as ``mc_powell_path_solves_per_s``...; K1 at
+``batched_optimize`` as ``mc_powell_path_solves_per_s``...; the
+generated families on the warp kernel in an entry of their own, as
+``wide_icp_huber_ms``, ``wide_banded_dl_plain_ms``...; K1 at
 d = 6 as ``d6_ms`` and its
 launches on the curve fits as ``curve_launches``, and at ICP's
 (4096, 6, 6) as ``icp_ms``, ``icp_launches``..., and at the batched
@@ -107,6 +113,7 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import functools
+import hashlib
 import json
 import os
 import statistics
@@ -3966,6 +3973,377 @@ def phase22(to, dev, record, path_launches, cuda_cg, cuda_solver):
     rec["max_abs_err"] = max(v["max_abs_err"] for v in rec["cells"].values())
 
 
+# ---- phase 23: K2's warp kernel on generated families past max(P, D,
+# n_res) = 64 (ROADMAP Queue 2, K2-a): the residual, its jvp and its vjp
+# emitted for one warp (ops/residual_codegen.py's warp form) in
+# csrc/solver_warp.cuh's solver_kernel, with its multi-color branch ----
+
+WIDE_POINTS = 128            # ICP's points a pair (phase 14)
+WIDE_OUTLIERS = 24           # icp_huber: phase 22's 3 of 16, scaled to 128
+WIDE_ICP_B = 4096            # ICP's pairs (phase 14)
+WIDE_D = 128                 # the banded residual's width
+WIDE_SAMPLES = 256           # the Huber curve fit's samples
+WIDE_HOLD = 1024             # instances of a cell the twin is held on
+WIDE_TURNS = 2               # 23c / 23d: rounds of (a, b, b, a)
+#: phase 23's cells: (residual, dtype, the dogleg)
+WIDE_CELLS = (("icp_huber", torch.float32, False),
+              ("icp_huber", torch.float64, False),
+              ("icp_plain", torch.float32, False),
+              ("banded", torch.float32, False),
+              ("banded", torch.float64, False),
+              ("banded", torch.float32, True),
+              ("banded_off", torch.float32, False),
+              ("curve_huber", torch.float32, False))
+
+
+def wide_residuals():
+    """Phase 23's residuals, each with its (P, D, n_res), its options'
+    maker and a maker of (x0, data) from (dtype, generator, device): the
+    point-to-point SE3 fit (models/icp.icp_residual) on the flagship's
+    points at ICP's 128 a pair, with Huber whitening at ``MF_TH`` and
+    ``WIDE_OUTLIERS`` targets of each pair displaced by 0.5·N(0, 1), and
+    without it on the clean targets; the JAX suite's banded residual with
+    data (tests/test_fused.py:143-144) at d = 128 from x = 0, its 2-color
+    coloring on ("banded") and off ("banded_off"); phase 7's Huber curve
+    fit at 256 samples."""
+    from tinyopt_tpu_torch.models import curve_fit
+    from tinyopt_tpu_torch.models.icp import icp_residual
+    from tinyopt_tpu_torch.models.se3_refinement import (SE3RefinementData,
+                                                         make_se3_refinement)
+
+    def icp_huber(T, d):
+        return icp_residual(T, d.points, d.targets, robust_th=MF_TH)
+
+    def icp_plain(T, d):
+        return icp_residual(T, d.points, d.targets)
+
+    def banded(x, y):
+        return torch.cat([x[:-1] + 0.5 * x[1:], x[-1:]]) - y
+
+    def icp_data(robust):
+        def make(dt, g, dev):
+            data, x0, _ = make_se3_refinement(WIDE_ICP_B, WIDE_POINTS,
+                                              dtype=dt, generator=g,
+                                              device=dev)
+            tgt = data.targets
+            if robust:
+                tgt = torch.cat([tgt[:, :WIDE_OUTLIERS] + 0.5 * torch.randn(
+                    (WIDE_ICP_B, WIDE_OUTLIERS, 3), generator=g, dtype=dt,
+                    device=dev), tgt[:, WIDE_OUTLIERS:]], 1)
+            return x0, SE3RefinementData(data.points, tgt)
+        return make
+
+    def banded_data(dt, g, dev):
+        return (torch.zeros((BATCH, WIDE_D), dtype=dt, device=dev),
+                torch.randn((BATCH, WIDE_D), generator=g, dtype=dt,
+                            device=dev))
+
+    def curve_data(dt, g, dev):
+        data, x0 = curve_fit.make_curve_batch(BATCH, n=WIDE_SAMPLES, seed=23,
+                                              dtype=dt, device=dev)
+        return x0, data
+
+    def off(to, **kw):
+        o = se3_options(to, **kw)
+        return dataclasses.replace(o, hessian=dataclasses.replace(
+            o.hessian, diag_coloring="off"))
+
+    n = 3 * WIDE_POINTS
+    return {
+        "icp_huber": (icp_huber, (7, 6, n), se3_options, icp_data(True)),
+        "icp_plain": (icp_plain, (7, 6, n), se3_options, icp_data(False)),
+        "banded": (banded, (WIDE_D,) * 3, se3_options, banded_data),
+        "banded_off": (banded, (WIDE_D,) * 3, off, banded_data),
+        "curve_huber": (curve_fit.huber_residuals, (2, 2, WIDE_SAMPLES),
+                        lambda to, **kw: curve_options(to, "fused"),
+                        curve_data),
+    }
+
+
+#: phase 23's cells planned and their libraries building, started by
+#: ``phase23_prepare`` right after the package's build
+WIDE_PREP = {}
+
+
+def phase23_prepare(to, dev, cuda_solver):
+    """Plan phase 23's cells on the card (traced, the warp form emitted)
+    and start building their libraries in the background, one nvcc each,
+    all together at a lower priority, so the builds run beside phases
+    3–22; fills ``WIDE_PREP``."""
+    from torch.utils import _pytree as pytree
+    from tinyopt_tpu_torch import _build
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(23)
+    cases = wide_residuals()
+    cells, items = {}, []
+    for name, dtype, dogleg in WIDE_CELLS:
+        fn, widths, options, make = cases[name]
+        x0, data = make(dtype, gen, dev)
+        opts = options(to, **({"solver_type": to.DogLeg} if dogleg else {}))
+        x_ex, d_ex = (pytree.tree_map(lambda a: a[0], x0),
+                      pytree.tree_map(lambda a: a[0], data))
+        plan, why = cuda_solver.fused_envelope(
+            opts, "residuals", x_ex, residual_fn=fn, data_example=d_ex)
+        assert plan is not None and plan.generated is not None, why
+        g_ = plan.generated
+        assert (g_.p, g_.d, g_.n_res) == widths and g_.warp, (name, widths)
+        kind = cuda_solver.coloring_kind(plan.coloring)
+        if name == "banded":
+            assert kind == "multi" and plan.coloring.n_colors == 2, kind
+        key = (name + ("_dl" if dogleg else "")
+               + ("" if dtype == torch.float32 else "_f64"))
+        cells[key] = (fn, opts, x0, data, plan)
+        items.append((g_, cuda_solver.generated_instance(
+            g_, dtype, dogleg, opts.save_history, kind)))
+    plan_s = time.perf_counter() - t0
+
+    def build():
+        t = time.perf_counter()
+        return _build.build_generated(items, nice=10), \
+            time.perf_counter() - t
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    WIDE_PREP.update(cells=cells, items=items, plan_s=plan_s,
+                     building=pool.submit(build))
+    pool.shutdown(wait=False)
+    log(f"[wide] {len(cells)} cells planned in {plan_s:.2f} s; their "
+        f"{len(items)} warp libraries building in the background")
+
+
+def phase23(to, dev, record, path_launches, cuda_cg, cuda_solver):
+    """K2's warp kernel on generated families past max(P, D, n_res) = 64
+    (ROADMAP Queue 2, K2-a), the cells of ``WIDE_CELLS``
+    (``wide_residuals``): the robust point-to-point SE3 fit at ICP's 128
+    points a pair (4,096 pairs, 384 residuals; the headline) and without
+    Huber, the banded residual at d = 128 (10,000; the multi-color branch,
+    2 colors, and "off"), the Huber curve fit at 256 samples (10,000), at
+    ``bench_se3``'s options on "fused" (the curve fit at phase 7's).  23a:
+    every cell planned (traced, the warp form emitted) on the warp path and
+    its library built, all nvcc runs started together right after the
+    package's build (``phase23_prepare``); the twins on each cell's first
+    ``WIDE_HOLD`` instances; each library's ptxas registers, stack and
+    spills.  23b: each cell through the fused solver
+    of batched_solver (built from 23a's plan) twice — one generated K2
+    launch on the warp kernel, no K1, the two runs' outputs equal — held to
+    the twin per instance on the first ``WIDE_HOLD`` (equal stop reasons,
+    iterations within 1, x within rtol 1e-5 in float32 and 1e-10 in
+    float64; bit-equal or not), the kernel's time on the batch and on the
+    held instances, the twin's, and the least bound (``k2_se3_bound`` at
+    128 points for the ICP cells, with the displaced points' Huber weights
+    for icp_huber; ``gen_bound`` for the rest) with the share; icp_huber
+    succeeds on at least 99 % of its pairs.  23c: icp_plain's generated
+    kernel against se3_residual's hand-written warp form (``SE3Family``,
+    the same map) on identical inputs, in turns.  23d: icp_huber and the
+    banded residual, "fused" against "cg" solves/s in turns.  Every line
+    names the card and its power limit."""
+    import k2_bench
+    from torch.utils import _pytree as pytree
+    from tinyopt_tpu_torch import _build
+    from tinyopt_tpu_torch import manifold as mf
+    from tinyopt_tpu_torch.models.se3_refinement import se3_residual
+    from tinyopt_tpu_torch.output import map_output
+    assert not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off"
+    smi = record["nvidia_smi"]
+    rec = record["wide"] = {"card": smi}
+
+    def reset():
+        cuda_cg.cg_solve.launches = 0
+        cuda_solver.fused_solve.launches = 0
+        cuda_solver.fused_solve.warp_launches = 0
+        cuda_solver.fused_solve.generated_launches = 0
+
+    def example(x0, data):
+        return (pytree.tree_map(lambda a: a[0], x0),
+                pytree.tree_map(lambda a: a[0], data))
+
+    def head(t, n=WIDE_HOLD):
+        return pytree.tree_map(lambda a: a[:n].contiguous(), t)
+
+    # ---- 23a: every cell planned and its library built (started by
+    # phase23_prepare, else here) ----
+    if not WIDE_PREP:
+        phase23_prepare(to, dev, cuda_solver)
+    cells, items = WIDE_PREP["cells"], WIDE_PREP["items"]
+    rec["plan_s"] = WIDE_PREP["plan_s"]
+    # the twins on the card, on each cell's held instances, while nvcc
+    # builds the libraries (if it still does)
+    twins = {}
+    for key, (fn, opts, x0, data, plan) in cells.items():
+        t0 = time.perf_counter()
+        xt, ot = cuda_solver.fused_solve_plain(
+            fn, opts, head(mf.flatten_batch(x0, plan.spec)), head(data),
+            plan)
+        torch.cuda.synchronize()
+        twins[key] = (xt, ot, time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    libs, rec["build_s"] = WIDE_PREP["building"].result()
+    rec["build_wait_s"] = time.perf_counter() - t0
+    log(f"[wide] {smi}: {len(items)} cells planned (traced, the warp form "
+        f"emitted) in {rec['plan_s']:.2f} s; {len(set(libs))} warp "
+        f"libraries built in {rec['build_s']:.2f} s (one nvcc each, all "
+        f"together, at a lower priority beside phases 3-22), waited for "
+        f"{rec['build_wait_s']:.2f} s after the twins")
+    ptxas = {}
+    for ln in k2_bench.ptxas_se3(k2_bench.ptxas_generated(_build, libs),
+                                 keep=lambda n: True):
+        lib, rest = ln.split(" ", 1)
+        ptxas[lib] = rest[rest.index("{"):]
+    rec["ptxas"] = {k: ptxas.get(os.path.basename(lib))
+                    for k, lib in zip(cells, libs)}
+
+    # ---- 23b: each cell through the fused solver batched_solver builds
+    # (from 23a's plan), twice, against the twin ----
+    rec["cells"] = {}
+    for key, (fn, opts, x0, data, plan) in cells.items():
+        solve = cuda_solver.fused_batched_solver(fn, opts, *example(x0, data),
+                                                 plan=plan)
+        reset()
+        x, out = solve(x0, data)
+        torch.cuda.synchronize()
+        path_launches[f"wide_{key}"] = {
+            "K1": cuda_cg.cg_solve.launches,
+            "K2": cuda_solver.fused_solve.launches,
+            "K2 generated": cuda_solver.fused_solve.generated_launches}
+        n = path_launches[f"wide_{key}"]
+        assert n == {"K1": 0, "K2": 1, "K2 generated": 1, "K2 warp": 1}, (
+            key, n)
+        x2, out2 = solve(x0, data)
+        torch.cuda.synchronize()
+        xf = mf.flatten_batch(x0, plan.spec)
+        xk = mf.flatten_batch(x, plan.spec)
+        same = all(torch.equal(a, b) for a, b in (
+            (xk, mf.flatten_batch(x2, plan.spec)),
+            (out.num_iters, out2.num_iters),
+            (out.stop_reason, out2.stop_reason),
+            (out.final_cost.cost, out2.final_cost.cost),
+            (out.final_grad, out2.final_grad)))
+        assert same, f"{key}: two runs of the kernel differ"
+        # the outputs' bytes, to hold one run of the script to another
+        digest = hashlib.sha256(b"".join(
+            t.cpu().numpy().tobytes() for t in (
+                xk, out.num_iters, out.stop_reason, out.final_cost.cost,
+                out.final_grad))).hexdigest()[:16]
+        assert all(bool(torch.all(torch.isfinite(a)))
+                   for a in pytree.tree_leaves(x)), key
+        xt, ot, twin_s = twins[key]
+        xh, oh = head(xk), map_output(head, out)
+        assert torch.equal(oh.stop_reason, ot.stop_reason), key
+        gap = (oh.num_iters - ot.num_iters).abs().max().item()
+        assert gap <= 1, f"{key}: iteration gap {gap}"
+        rtol = 1e-5 if xf.dtype == torch.float32 else 1e-10
+        torch.testing.assert_close(xh, xt, rtol=rtol, atol=rtol,
+                                   msg=f"{key}: x against the twin")
+        bits = bool(torch.equal(xh, xt)
+                    and torch.equal(oh.num_iters, ot.num_iters)
+                    and torch.equal(oh.final_cost.cost, ot.final_cost.cost))
+        err = (xh - xt).abs().max().item()
+        succ = out.succeeded().float().mean().item()
+        if key.startswith("icp_huber"):
+            assert succ >= 0.99, f"{key}: succeeded on {succ}"
+        params = cuda_solver.k2_params(cuda_solver.GENERATED, opts, plan)
+        ms = gpu_ms(lambda: cuda_solver.fused_solve(  # noqa: B023
+            fn, opts, xf, data, plan, params), n=2)
+        xfh, dh = head(xf), head(data)
+        ms_hold = gpu_ms(lambda: cuda_solver.fused_solve(  # noqa: B023
+            fn, opts, xfh, dh, plan, params), n=2)
+        itemsize = xf.element_size()
+        if key.startswith("icp"):
+            h = HUBER_MIN_FLOPS
+            bound, by = k2_se3_bound(out, opts, WIDE_POINTS, itemsize, extra=(
+                0 if key.startswith("icp_plain") else
+                WIDE_POINTS * h["point"] + WIDE_OUTLIERS * h["outlier"]))
+        else:
+            bound, by = gen_bound(out, plan, opts, itemsize)
+        stops = torch.bincount(out.stop_reason.clamp(min=0)).tolist()
+        g_ = plan.generated
+        kp = cuda_solver.k2_launch_plan(
+            xf.shape[0], g_.d, g_.n_res, itemsize, cuda_solver.GENERATED,
+            cuda_solver.coloring_kind(plan.coloring), params.solver, g_.p,
+            g_.scratch)
+        rec["cells"][key] = {
+            "launches": n, "max_abs_err": err, "bit_equal": bits,
+            "runs_equal": same, "digest": digest, "B": xf.shape[0],
+            "ms": ms,
+            "ms_hold": ms_hold, "hold": WIDE_HOLD, "plain_ms": twin_s * 1e3,
+            "bound_ms": bound, "bound_by": by, "share": bound / ms,
+            "stops": stops, "succeeded": succ,
+            "mean_iters": out.num_iters.float().mean().item(),
+            "P": g_.p, "D": g_.d, "n_res": g_.n_res, "ops": g_.ops,
+            "scratch": g_.scratch, "plan": kp._asdict(),
+            "coloring": cuda_solver.coloring_kind(plan.coloring),
+            "n_colors": getattr(plan.coloring, "n_colors", None),
+            "ptxas": rec["ptxas"][key]}
+        log(f"[wide] {key} {xf.shape[0]} instances ({smi}; P {g_.p}, D "
+            f"{g_.d}, n_res {g_.n_res}, coloring "
+            f"{cuda_solver.coloring_kind(plan.coloring)} "
+            f"({rec['cells'][key]['n_colors']} colors), scratch {g_.scratch}"
+            f" values, plan {kp}): launches {n}; two runs equal (outputs "
+            f"{digest}); max|x - "
+            f"x_twin| {err:.3e} on the first {WIDE_HOLD} (bit-equal: {bits}),"
+            f" stops {stops}, succeeded {succ:.4f}, iterations mean "
+            f"{rec['cells'][key]['mean_iters']:.2f}; kernel {ms:.4f} ms "
+            f"({ms_hold:.4f} on the first {WIDE_HOLD}), twin "
+            f"{twin_s * 1e3:.1f} ms on those; bound {bound:.6f} ms ({by}), "
+            f"share {bound / ms:.6f}; ptxas {rec['ptxas'][key]}")
+
+    # ---- 23c: icp_plain's generated kernel against the hand-written SE3
+    # family's warp form (se3_residual, the same map) on identical inputs
+    fn, opts, x0, data, plan = cells["icp_plain"]
+    x_ex, d_ex = example(x0, data)
+    hplan = cuda_solver.fused_plan(opts, "residuals", x_ex,
+                                   residual_fn=se3_residual,
+                                   data_example=d_ex)
+    assert hplan is not None and hplan.generated is None
+    xf = mf.flatten_batch(x0, plan.spec)
+    sides = {
+        "generated": lambda: cuda_solver.fused_solve(fn, opts, xf, data,
+                                                     plan),
+        "hand": lambda: cuda_solver.fused_solve(se3_residual, opts, xf, data,
+                                                hplan)}
+    reset()
+    xg, og = sides["generated"]()
+    xh, oh = sides["hand"]()
+    torch.cuda.synchronize()
+    assert cuda_solver.fused_solve.warp_launches == 2
+    hand_err = (xg - xh).abs().max().item()
+    same_stop = (og.stop_reason == oh.stop_reason).float().mean().item()
+    torch.testing.assert_close(xg, xh, rtol=1e-4, atol=1e-5,
+                               msg="icp_plain against SE3Family")
+    t = {"generated": [], "hand": []}
+    for _ in range(WIDE_TURNS):
+        for side in ("generated", "hand", "hand", "generated"):
+            t[side].append(gpu_ms(sides[side], n=2))
+    rec["icp_plain_vs_hand"] = {"ms": t, "max_abs_diff": hand_err,
+                                "same_stop_share": same_stop}
+    log(f"[wide] icp_plain {WIDE_ICP_B}x{WIDE_POINTS} float32 ({smi}): "
+        f"generated warp kernel ms {t['generated']}, hand-written SE3Family "
+        f"warp kernel ms {t['hand']}, in turns; max|x_gen - x_hand| "
+        f"{hand_err:.3e}, same stop reason on {same_stop:.4f}")
+
+    # ---- 23d: solves/s on "fused" against "cg", in turns ----
+    rec["turns"] = {}
+    for key in ("icp_huber", "banded"):
+        fn, opts, x0, data, plan = cells[key]
+        x_ex, d_ex = example(x0, data)
+        solvers = {s: to.batched_solver(fn, o, "auto", x_ex, d_ex)
+                   for s, o in (("fused", opts),
+                                ("cg", se3_options(to, "cg")))}
+        ms = {"fused": [], "cg": []}
+        B = x0.shape[0] if isinstance(x0, torch.Tensor) else WIDE_ICP_B
+        for _ in range(WIDE_TURNS):
+            for side in ("fused", "cg", "cg", "fused"):
+                _, t_ = timed(lambda: solvers[side](x0, data))  # noqa: B023
+                ms[side].append(t_)
+        r = rec["turns"][key] = {
+            side: {"ms": v, "solves_per_s": len(v) * B / (sum(v) / 1e3)}
+            for side, v in ms.items()}
+        log(f"[wide] {key} ({smi}): fused {r['fused']['solves_per_s']:.1f} "
+            f"solves/s (ms {v_fmt(ms['fused'])}), cg "
+            f"{r['cg']['solves_per_s']:.1f} solves/s (ms {v_fmt(ms['cg'])}),"
+            f" in turns (fused, cg, cg, fused) x {WIDE_TURNS}, the solver "
+            f"built once a side")
+    rec["max_abs_err"] = max(v["max_abs_err"] for v in rec["cells"].values())
+
+
 def v_fmt(ms):
     return "[" + ", ".join(f"{m:.2f}" for m in ms) + "]"
 
@@ -4021,6 +4399,8 @@ def main() -> int:
     record["build_s"] = time.perf_counter() - t0
     log(f"[build] {_build.library_path()} built and loaded in "
         f"{record['build_s']:.2f} s")
+    # phase 23's generated libraries build in the background from here
+    phase23_prepare(to, dev, cuda_solver)
     mark("build")
 
     # ---- 3. K1 against its twin ----
@@ -4448,6 +4828,11 @@ def main() -> int:
     # dogleg, timed; K = 24 (n_res 72, the warp kernel); B = 1, 3, 257;
     # K = 3, 4, 8 and 21, every geometry launch_se3 can pick; an instance
     # whose target is NaN ----
+    # the twin's wall in ms, host-synchronized, of k2_se3's last call (its
+    # one run of the twin, reused as plain_ms: a second run only to time it
+    # cost ~15 s of the script)
+    twin_ms = {}
+
     def k2_se3(opts, B, K, dtype, seed, nan_at=None):
         data, xb, _ = make_se3_refinement(B, K, dtype=dtype, seed=seed,
                                           device=dev)
@@ -4467,8 +4852,12 @@ def main() -> int:
         plain64 = lambda: cuda_solver.fused_solve_plain(  # noqa: E731
             se3_residual, opts, x0.double(),
             type(data)(*(a.double() for a in data)), plan)[0]
-        got, ref = kern(), plain()
+        got = kern()
         torch.cuda.synchronize()
+        t_twin = time.perf_counter()
+        ref = plain()
+        torch.cuda.synchronize()
+        twin_ms["last"] = (time.perf_counter() - t_twin) * 1e3
         kp = cuda_solver.k2_launch_plan(B, 6, 3 * K, x0.element_size(), 2,
                                         None, cuda_solver.SOLVER_CODES[
                                             opts.solver_type], 7)
@@ -4488,7 +4877,7 @@ def main() -> int:
             conv = out.converged().float().mean().item()
             assert conv == 1.0, f"K2 SE3 {what}{dtype}: conv {conv}"
             k2[f"se3_{what}ms{tag}"] = gpu_ms(kern, n=5)
-            k2[f"se3_{what}plain_ms{tag}"] = gpu_ms(plain, n=1, warmup=0)
+            k2[f"se3_{what}plain_ms{tag}"] = twin_ms["last"]
             (k2[f"se3_{what}bound_ms{tag}"],
              k2[f"se3_{what}bound_by{tag}"]) = k2_se3_bound(
                 out, opts, SE3_K, got[0].element_size(), bool(what))
@@ -4517,7 +4906,7 @@ def main() -> int:
                                 f"K2 warp SE3 {BATCH}x{SE3_WARP_K} {dtype}")
         out = got[1]
         w = {"ms": gpu_ms(kern, n=5),
-             "plain_ms": gpu_ms(plain, n=1, warmup=0),
+             "plain_ms": twin_ms["last"],
              "max_abs_err": err,
              "mean_iters": out.num_iters.float().mean().item(),
              "conv": out.converged().float().mean().item()}
@@ -5053,7 +5442,7 @@ def main() -> int:
     mark("curves")
     for phase in (phase8, phase9, phase10, phase11, phase12, phase13,
                   phase14, phase15, phase16, phase17, phase18, phase19,
-                  phase20, phase21, phase22):
+                  phase20, phase21, phase22, phase23):
         phase(to, dev, record, path_launches, cuda_cg, cuda_solver)
         mark(phase.__name__)
     log(f"[time] seconds: "
@@ -5238,6 +5627,34 @@ def main() -> int:
             for k, v in record["mf"]["turns"].items()
             for side in ("fused", "cg")},
          "gen_mf_icp_plain_vs_hand_ms": record["mf"]["icp_plain_vs_hand"][
+             "ms"]},
+        # the generated families past max(P, D, n_res) = 64 in K2's warp
+        # kernel (the warp form, and the multi-color branch): phase 23's
+        # paths (launches) and times; the headline numbers are the robust
+        # point-to-point SE3 fit, 4,096 pairs x 128 points float32, every
+        # cell as wide_*
+        {"name": "K2 generated, warp kernel (solver_kernel on a family "
+                 "generated from the traced residual, past 64)",
+         "route": "cuda",
+         "source": "tinyopt_tpu_torch/csrc/solver_warp.cuh",
+         "replaces": "tinyopt_tpu/ops/pallas_solver.py:150",
+         "launches": path_launches["wide_icp_huber"]["K2 warp"],
+         "path_launches": {p: n["K2 warp"] for p, n in path_launches.items()
+                           if p.startswith("wide_")},
+         "max_abs_err": record["wide"]["max_abs_err"],
+         **{f: record["wide"]["cells"]["icp_huber"][f]
+            for f in ("ms", "plain_ms", "bound_ms", "bound_by", "share")},
+         "library_ms": None, "ptxas": record["wide"]["ptxas"],
+         "build_s": record["wide"]["build_s"],
+         **{f"wide_{k}_{f}": v[f]
+            for k, v in record["wide"]["cells"].items()
+            for f in ("ms", "ms_hold", "plain_ms", "bound_ms", "bound_by",
+                      "share", "max_abs_err", "bit_equal", "runs_equal",
+                      "launches", "ptxas")},
+         **{f"wide_{k}_{side}_solves_per_s": v[side]["solves_per_s"]
+            for k, v in record["wide"]["turns"].items()
+            for side in ("fused", "cg")},
+         "wide_icp_plain_vs_hand_ms": record["wide"]["icp_plain_vs_hand"][
              "ms"]},
     ]
     record.update(k1=k1, k2=k2, kernels=kernels)

@@ -15,9 +15,16 @@ multi-color cells, Powell's singular function and Wood's at 10,000 x 4
 float32 and float64, in turns.  First, the generated families of
 ``chip_smoke.py`` phase 21 (the curve fits and the JAX suite's
 residuals, 10,000 instances), each tree's library bit for bit against
-this tree's twin, in turns.
+this tree's twin, in turns.  Then K2's warp kernel (``solver_kernel``,
+csrc/solver_warp.cuh) on the hand-written families — the prior at d = 100
+(``bench.py``'s options) and the SE3 family at K = 24 (``bench_se3``'s),
+10,000 instances — in turns; and phase 23's cells (generated families
+past max(P, D, n_res) = 64 on the warp kernel: ICP's 128 points with and
+without Huber, the banded residual at d = 128, the Huber curve fit at 256
+samples), this tree's "fused" against the earlier tree's "cg" (its fused
+path has no warp form), in turns.
 
-    python3 k2_bench.py --parent DIR [--ptxas]
+    python3 k2_bench.py --parent DIR [--ptxas] [--part warp]
 
 ``--parent DIR``: the root of a tree holding an earlier
 ``tinyopt_tpu_torch/`` package, unpacked for instance with
@@ -28,9 +35,11 @@ calls its own kernels with its own entry points.  ``--ptxas``: print
 nvcc's registers, stack frame and spills for every kernel of this tree's
 K2 sources (the SE3 family's instances once more as ``[ptxas se3]``), as
 ``[ptxas diff]`` the kernels whose registers or stack frame differ from
-the earlier tree's, and as ``[ptxas generated]`` the kernels of the curve
+the earlier tree's or that it lacks (as ``[ptxas new]`` the warp kernel's
+multi-color instances, new since that branch was ported), and as ``[ptxas generated]`` the kernels of the curve
 fits' generated families (``ops/residual_codegen``; float32, LM with the
-history).
+history).  ``--part warp``: the ptxas report and the warp kernel's cells
+alone.
 
 Device times are milliseconds per call, from CUDA events around
 launches queued behind a device sleep (``chip_smoke.gpu_ms``).  Host
@@ -63,13 +72,17 @@ from torch.utils import _pytree as pytree
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
-from chip_smoke import (MC_STARTS, bench_options, curve_options,  # noqa: E402
-                        gpu_ms, se3_check, se3_options, suite_options,
-                        suite_residuals)
+from chip_smoke import (MC_STARTS, MF_TH, WIDE_CELLS,  # noqa: E402
+                        bench_options, curve_options, gpu_ms, se3_check,
+                        se3_options, suite_options, suite_residuals, timed,
+                        wide_residuals)
 
 B, D, N_LAUNCH = 10_000, 50, 20
 JS_B = 4096
 SE3_K = 16
+#: the warp kernel's hand-written cells: the prior's d and the SE3 family's
+#: points past the register kernels
+WARP_D, WARP_K = 100, 24
 
 
 def log(*a):
@@ -125,6 +138,16 @@ def ptxas_generated(build, libraries) -> list[str]:
     return out
 
 
+def _kernel_key(name: str) -> str:
+    """A kernel's name without its parameter list; the warp kernel's
+    instance without the multi-color branch (``solver_kernel<T, Fam,
+    false>``) under the name it had before that branch was a template
+    argument (``solver_kernel<T, Fam>``)."""
+    base = re.sub(r"\(bool\)0", "false", re.sub(r"\(bool\)1", "true", name))
+    base = base.split("(", 1)[0].strip()
+    return re.sub(r"(solver_kernel<.*), false>$", r"\1>", base)
+
+
 def ptxas_diff(old: list[str], new: list[str]) -> list[str]:
     """The kernels whose ptxas registers or stack frame differ between two
     reports, and those in one report only."""
@@ -133,7 +156,8 @@ def ptxas_diff(old: list[str], new: list[str]) -> list[str]:
         for ln in lines:
             if "registers" in ln or "stack frame" in ln:
                 name, text = ln.rsplit(": ", 1)
-                key = name + (" [stack]" if "stack frame" in ln else "")
+                key = _kernel_key(name) + (" [stack]" if "stack frame" in ln
+                                           else "")
                 got[key] = got.get(key, ()) + (text,)
         return got
     o, n = regs(old), regs(new)
@@ -226,7 +250,7 @@ class Side:
     ``SE3_K``, seed 11, of type ``dtype`` on ``device``)."""
 
     def __init__(self, pkg, problem, opts_kw, x0=None, y=None, inv_std=None,
-                 coloring="auto", dtype=None, device=None):
+                 coloring="auto", dtype=None, device=None, k=SE3_K):
         cs = pkg.ops.cuda_solver
         probs = pkg.models.problems
         opts = bench_options(pkg)
@@ -249,7 +273,7 @@ class Side:
             se3 = pkg.models.se3_refinement
             fn = se3.se3_residual
             opts = se3_options(pkg)
-            data, xb, _ = se3.make_se3_refinement(B, SE3_K, dtype=dtype,
+            data, xb, _ = se3.make_se3_refinement(B, k, dtype=dtype,
                                                   seed=11, device=device)
             d_ex = type(data)(*(a[0] for a in data))
         if opts_kw:
@@ -388,6 +412,99 @@ def generated_ab(old_pkg, new_pkg, dev, rec):
             "ms")
 
 
+def warp_ab(old_pkg, new_pkg, dev, rec):
+    """K2's warp kernel on the hand-written families, each tree against
+    this tree's twin, then in turns (old, new, new, old): the prior at
+    ``WARP_D`` dims and the SE3 family at ``WARP_K`` points, float32 and
+    float64."""
+    from tinyopt_tpu_torch.models.problems import make_prior_batch
+    cs = new_pkg.ops.cuda_solver
+    gen = torch.Generator(device=dev).manual_seed(1)
+    r = rec["warp"] = {}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[-1]
+        data, x0 = make_prior_batch(B, WARP_D, dtype, generator=gen,
+                                    device=dev)
+        sides = {w: Side(p, "prior", {}, x0, data.y, data.inv_std)
+                 for w, p in (("old", old_pkg), ("new", new_pkg))}
+        ref = sides["new"].twin()
+        errs = {w: check(s, ref, f"{w} prior {WARP_D} {name}")
+                for w, s in sides.items()}
+        kp = cs.k2_launch_plan(B, WARP_D, WARP_D, x0.element_size(), 0,
+                               "identity")
+        assert kp.path == "warp", kp
+        t = turns(sides)
+        r[f"prior_{WARP_D}_{name}"] = {"turns_ms": t, "max_err": errs,
+                                       "plan": kp._asdict()}
+        log(f"[A/B warp] prior {B}x{WARP_D} {name} (plan {tuple(kp)}): "
+            f"turns {t} ms; max|x - x_twin| {errs}")
+        sides = {w: Side(p, "se3", {}, dtype=dtype, device=dev, k=WARP_K)
+                 for w, p in (("old", old_pkg), ("new", new_pkg))}
+        ref = sides["new"].twin()
+        errs = {w: se3_check(ref, side.run(), dtype, f"se3 {WARP_K} {w}")[0]
+                for w, side in sides.items()}
+        kp = cs.k2_launch_plan(B, 6, 3 * WARP_K, ref[0].element_size(), 2,
+                               None, 1, 7)
+        assert kp.path == "warp", kp
+        t = turns(sides)
+        r[f"se3_{WARP_K}_{name}"] = {"turns_ms": t, "max_err": errs,
+                                     "plan": kp._asdict()}
+        log(f"[A/B warp] SE3 {B}x{WARP_K} {name} (plan {tuple(kp)}): turns "
+            f"{t} ms; max|x - x_twin| {errs}")
+
+
+def wide_ab(old_pkg, new_pkg, dev, rec):
+    """``chip_smoke.py`` phase 23's cells (``WIDE_CELLS``) through
+    ``batched_solver``, one solver a side built once: this tree's "fused"
+    (one K2 launch on the warp kernel) against the earlier tree's "cg" (the
+    loop and K1), ms a call in turns (old, new, new, old), each call
+    synchronized; this tree's result within rtol 1e-4 of the other's
+    cost."""
+    cases = wide_residuals()
+    gen = torch.Generator(device=dev).manual_seed(23)
+    r = rec["wide"] = {}
+    for name, dtype, dogleg in WIDE_CELLS:
+        fn, _, options, make = cases[name]
+        x0, data = make(dtype, gen, dev)
+        x_ex = pytree.tree_map(lambda a: a[0], x0)
+        d_ex = pytree.tree_map(lambda a: a[0], data)
+        kw = {"solver_type": new_pkg.DogLeg} if dogleg else {}
+        new = new_pkg.batched_solver(fn, options(new_pkg, **kw), "auto",
+                                     x_ex, d_ex)
+        kw = {"solver_type": old_pkg.DogLeg} if dogleg else {}
+        old_opts = se3_options(old_pkg, "cg", **kw)
+        if name == "curve_huber":
+            old_opts = curve_options(old_pkg, "cg")
+        ofn, ox0 = fn, x0
+        if name.startswith("icp"):
+            # the earlier tree's own SE3 pose and ICP residual
+            om = importlib.import_module("k2_parent.manifolds")
+            oicp = importlib.import_module("k2_parent.models.icp")
+            ox0 = om.SE3(om.SO3(x0.rotation.wxyz), x0.translation)
+            th = MF_TH if name == "icp_huber" else None
+
+            def ofn(T, d, th=th):
+                return oicp.icp_residual(T, d.points, d.targets,
+                                         robust_th=th)
+        old = old_pkg.batched_solver(ofn, old_opts, "auto",
+                                     pytree.tree_map(lambda a: a[0], ox0),
+                                     d_ex)
+        sides = {"old": lambda: old(ox0, data), "new": lambda: new(x0, data)}
+        cs = new_pkg.ops.cuda_solver
+        cs.fused_solve.warp_launches = 0
+        outs = {w: sides[w]() for w in ("old", "new")}
+        assert cs.fused_solve.warp_launches == 1, name
+        key = (name + ("_dl" if dogleg else "")
+               + ("" if dtype == torch.float32 else "_f64"))
+        t = [[w, timed(sides[w])[1]] for w in ("old", "new", "new", "old")]
+        cost = {w: o[1].final_cost.cost for w, o in outs.items()}
+        gap = ((cost["new"] - cost["old"]).abs()
+               / cost["old"].abs().clamp(min=1e-30)).median().item()
+        r[key] = {"turns_ms": t, "median_cost_gap": gap}
+        log(f"[A/B wide] {key}: this tree's fused against the earlier "
+            f"tree's cg, turns {t} ms; median relative cost gap {gap:.3e}")
+
+
 def turns(sides):
     """Device ms of each side's K2 in turns: old, new, new, old."""
     return [[w, gpu_ms(sides[w].run, n=N_LAUNCH)]
@@ -398,6 +515,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True)
     ap.add_argument("--ptxas", action="store_true")
+    ap.add_argument("--part", choices=("all", "warp"), default="all")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("k2_bench: no CUDA device", file=sys.stderr)
@@ -425,7 +543,10 @@ def main() -> int:
         for ln in ptxas_se3(rec["ptxas_parent"]):
             log(f"[ptxas se3 parent] {ln}")
         for ln in ptxas_diff(rec["ptxas_parent"], rec["ptxas"]):
-            log(f"[ptxas diff] {ln}")
+            # the warp kernel's multi-color instances (kMulti = true) are
+            # new in this tree; every other line is a kernel that changed
+            new = ln.startswith("this tree only") and ", true>" in ln
+            log(f"[ptxas {'new' if new else 'diff'}] {ln}")
         # the generated families of the curve fits (float32, LM with the
         # history, no coloring: what phase 21 of chip_smoke.py runs)
         rec["ptxas_generated"] = ptxas_generated(
@@ -434,10 +555,13 @@ def main() -> int:
             log(f"[ptxas generated] {ln}")
 
     dev = torch.device("cuda", 0)
-    generated_ab(old_pkg, new_pkg, dev, rec)
+    warp_ab(old_pkg, new_pkg, dev, rec)
+    wide_ab(old_pkg, new_pkg, dev, rec)
     gen = torch.Generator(device=dev).manual_seed(0)
     cs = new_pkg.ops.cuda_solver
-    for dtype in (torch.float32, torch.float64):
+    if args.part == "all":
+        generated_ab(old_pkg, new_pkg, dev, rec)
+    for dtype in (torch.float32, torch.float64) if args.part == "all" else ():
         name = str(dtype).split(".")[-1]
         r = rec[name] = {}
         data, x0 = make_prior_batch(B, D, dtype, generator=gen, device=dev)

@@ -243,10 +243,11 @@ def test_curve_fit_family_layout():
 
 
 def test_refusals_give_their_reason():
-    """Outside the generated envelope: an op outside the table, max(P, D,
-    n_res) > 64, a leaf that is no tensor, mixed dtypes, integer data, a
-    value read back to the host (data-dependent control flow), a residual
-    that does not run — each refused with its reason."""
+    """Outside the generated envelope: an op outside the table, a warp
+    whose state and scratch exceed a block's shared memory (past max(P, D,
+    n_res) = 64, the warp form), a leaf that is no tensor, mixed dtypes,
+    integer data, a value read back to the host (data-dependent control
+    flow), a residual that does not run — each refused with its reason."""
     gf = residual_codegen.generated_family
     x = torch.tensor([0.3, 0.4])
 
@@ -255,9 +256,9 @@ def test_refusals_give_their_reason():
     fam, why = gf(atan, x)
     assert fam is None and "aten.atan" in why and "OP_TABLE" in why
     fam, why = gf(lambda v: v.repeat(33), x)
-    assert fam is None and "max(P, D, n_res) = 66 > 64" in why
-    fam, why = gf(lambda v: v - 1.0, torch.zeros(65))
-    assert fam is None and "max(P, D, n_res) = 65" in why
+    assert fam is None and "aten.repeat" in why
+    fam, why = gf(lambda v, t: v[0] * t - v[1], x, torch.zeros(30_000))
+    assert fam is None and "exceed a block's shared memory" in why
     fam, why = gf(lambda p: p["a"] - 1.0, {"a": torch.zeros(2), "k": 3.0})
     assert fam is None and "not tensors" in why
     fam, why = gf(lambda p: torch.cat([p["a"], p["b"].float()]),
@@ -317,12 +318,19 @@ def test_k2_plan_of_a_generated_family(B, d, n_res, coloring):
 
 
 def test_k2_supports_bounds_of_a_generated_family():
-    """Past 64 (the warp kernel's form, K2-a; P too), fewer parameters
-    than tangent dimensions or the identity with fewer residuals than
-    dimensions: refused, and ``k2_launch_plan`` raises."""
+    """Past 64 (P too) a generated family takes K2's warp kernel, with any
+    coloring (K2-a): S = 32, E = ⌈65 / 32⌉ = 3.  Fewer parameters than
+    tangent dimensions or the identity with fewer residuals than
+    dimensions, at any width: refused, and ``k2_launch_plan`` raises."""
     G = cuda_solver.GENERATED
     for args in [(65, 65, None), (2, 65, "multi"), (65, 2, None),
-                 (6, 4, "identity"), (6, 12, None, 5), (6, 12, None, 65)]:
+                 (6, 12, None, 65)]:
+        assert cuda_solver.k2_supports(G, *args), args
+        plan = cuda_solver.k2_launch_plan(3, args[0], args[1], 4, G, args[2],
+                                          1, *args[3:])
+        assert (plan.path, plan.S, plan.E) == ("warp", 32, 3), args
+    for args in [(6, 4, "identity"), (6, 12, None, 5),
+                 (100, 80, "identity"), (128, 128, None, 100)]:
         assert not cuda_solver.k2_supports(G, *args), args
         with pytest.raises(ValueError, match="not built for"):
             cuda_solver.k2_launch_plan(3, args[0], args[1], 4, G, args[2], 1,
@@ -456,14 +464,15 @@ def test_generated_entry_point_matches_its_declaration():
                        src).group(1)
     decl = inspect.getsource(_build._load_generated)
     declared = re.search(r"argtypes = \[([^\]]*)\]", decl).group(1)
-    assert params.count(",") + 1 == declared.count(",") + 1 == 10
+    assert params.count(",") + 1 == declared.count(",") + 1 == 11
     assert int(re.search(r"kGenerated = (\d+)", hdr).group(1)) \
         == cuda_solver.GENERATED
     unit = _build._generated_unit(
         type("F", (), {"hash": "0" * 16})(),
-        _build.GenInstance("float", True, False, 2))
-    for macro in ("K2G_T", "K2G_DL", "K2G_HIST", "K2G_COLOR"):
+        _build.GenInstance("float", True, False, 2, _build.GEN_WARP))
+    for macro in ("K2G_T", "K2G_DL", "K2G_HIST", "K2G_COLOR", "K2G_PATH"):
         assert f"#define {macro} " in unit and macro in src
+    assert "#define K2G_PATH 0" in unit
     assert set(_build.GEN_SOURCES) <= {
         s.rsplit("/", 1)[-1] for s in _build.sources()}
 

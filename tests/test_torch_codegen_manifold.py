@@ -137,17 +137,18 @@ def test_euclidean_family_keeps_its_widths(host_build):
 
 
 def test_refusals_at_the_envelope_edges():
-    """Refused with their reasons: max(P, D, n_res) > 64 (an SE3 pose
-    with 22 points, 66 residuals), an op outside the table, mixed dtypes
-    in a mixed pytree; no longer refused: a manifold leaf, a batched one,
-    a mixed pytree."""
+    """Refused with their reasons: an op outside the table, mixed dtypes
+    in a mixed pytree; no longer refused: past max(P, D, n_res) = 64 (an
+    SE3 pose with 22 points, 66 residuals: the warp form), a manifold
+    leaf, a batched one, a mixed pytree."""
     gf = residual_codegen.generated_family
     fn = cases.residual("icp_plain")
     x0, data = cases.inputs("icp_plain", 1, 2)
     wide = type(data)(torch.cat([data.points, data.points[:, :6]], 1),
                       torch.cat([data.targets, data.targets[:, :6]], 1))
     fam, why = gf(fn, *_example(x0, wide))
-    assert fam is None and "max(P, D, n_res) = 66 > 64" in why
+    assert fam is not None and fam.warp and (fam.p, fam.d, fam.n_res) == (
+        7, 6, 66), why
     fam, why = gf(lambda R: torch.erf(R.log()), SO3.identity(torch.float64))
     assert fam is None and "aten.erf" in why and "OP_TABLE" in why
     fam, why = gf(lambda x: torch.cat([x["T"].log(), x["b"].double()]),
@@ -217,12 +218,17 @@ def test_k2_plan_at_p_above_d(P, D, n_res, coloring):
 @pytest.mark.parametrize("P,D,n_res", [(65, 60, 6), (5, 6, 6),
                                        (7, 6, 66)])
 def test_k2_refuses_p_past_its_edges(P, D, n_res):
-    """P past 64, P below D and 66 residuals: refused, and the plan
-    raises."""
+    """P below D: refused, and the plan raises; P past 64 and 66
+    residuals: the warp kernel's plan (K2-a), S = 32, E = 3."""
     G = cuda_solver.GENERATED
-    assert not cuda_solver.k2_supports(G, D, n_res, None, P)
-    with pytest.raises(ValueError, match="not built for"):
-        cuda_solver.k2_launch_plan(3, D, n_res, 4, G, None, 1, P)
+    if P < D:
+        assert not cuda_solver.k2_supports(G, D, n_res, None, P)
+        with pytest.raises(ValueError, match="not built for"):
+            cuda_solver.k2_launch_plan(3, D, n_res, 4, G, None, 1, P)
+        return
+    assert cuda_solver.k2_supports(G, D, n_res, None, P)
+    kp = cuda_solver.k2_launch_plan(3, D, n_res, 4, G, None, 1, P)
+    assert (kp.path, kp.S, kp.E) == ("warp", 32, 3)
 
 
 def test_hand_written_se3_family_keeps_precedence():

@@ -11,7 +11,7 @@ tensor reaches a kernel wrapper.
 
 K2's families generated from a traced residual (``ops/residual_codegen``)
 are built apart: one translation unit per family and instance (type,
-dogleg, history, coloring) — the emitted header, then
+dogleg, history, coloring, the kernel's path) — the emitted header, then
 ``csrc/solver_gen.cuh`` — compiled by one ``nvcc`` at first use into a
 library of its own under ``_build/``, keyed by a hash of the emitted source,
 the instance, K2's sources and the flags, and loaded with ``ctypes``
@@ -106,17 +106,24 @@ def build() -> str:
 
 
 #: K2's sources a generated family's library is compiled from.
-GEN_SOURCES = ("common.cuh", "solver.cuh", "solver_seg.cuh", "solver_gen.cuh")
+GEN_SOURCES = ("common.cuh", "solver.cuh", "solver_seg.cuh", "solver_warp.cuh",
+               "solver_gen.cuh")
+#: ``GenInstance.path``: K2's warp kernel (``enum Path``'s kPathWarp,
+#: csrc/solver.cuh) or its register kernel (kPathSegment).
+GEN_WARP, GEN_SEGMENT = 0, 1
 
 
 class GenInstance(NamedTuple):
     """One instance of a generated family's kernel: ``ctype`` "float" or
-    "double", the dogleg or GN / LM, with or without the history rows, and
-    the coloring's code (``enum Coloring``, csrc/solver.cuh)."""
+    "double", the dogleg or GN / LM, with or without the history rows, the
+    coloring's code (``enum Coloring``, csrc/solver.cuh) and the kernel's
+    path (``GEN_WARP`` past max(P, D, n_res) = 64, else
+    ``GEN_SEGMENT``)."""
     ctype: str
     dogleg: bool
     hist: bool
     coloring: int
+    path: int = GEN_SEGMENT
 
 
 def _generated_unit(family, inst: GenInstance) -> str:
@@ -124,6 +131,7 @@ def _generated_unit(family, inst: GenInstance) -> str:
             f"#define K2G_T {inst.ctype}\n#define K2G_DL {int(inst.dogleg)}\n"
             f"#define K2G_HIST {int(inst.hist)}\n"
             f"#define K2G_COLOR {inst.coloring}\n"
+            f"#define K2G_PATH {inst.path}\n"
             f'#include "k2gen_{family.hash}.cuh"\n#include "solver_gen.cuh"\n')
 
 
@@ -140,12 +148,14 @@ def generated_library_path(family, inst: GenInstance) -> str:
     return os.path.join(BUILD_DIR, f"libtinyopt_k2gen_{h.hexdigest()[:16]}.so")
 
 
-def build_generated(items) -> list[str]:
+def build_generated(items, nice: int = 0) -> list[str]:
     """Build the generated families' libraries that are missing, one
-    ``nvcc`` each, all started together; ``items``: (family, GenInstance)
-    pairs.  ptxas's report of each (registers, spills) is kept beside its
-    library as ``<library>.ptxas.txt``.  A failed build raises.  Returns
-    the libraries' paths."""
+    ``nvcc`` each, all started together (``nice``: their scheduling
+    priority, raised by that much, for a build that runs beside other
+    work); ``items``: (family, GenInstance) pairs.  ptxas's report of each
+    (registers, spills) is kept beside its library as
+    ``<library>.ptxas.txt``.  A failed build raises.  Returns the
+    libraries' paths."""
     paths = [generated_library_path(f, i) for f, i in items]
     todo = {p: (f, i) for p, (f, i) in zip(paths, items)
             if not os.path.exists(p)}
@@ -166,7 +176,8 @@ def build_generated(items) -> list[str]:
                    unit, "-o", os.path.join(unit, "lib.so"), src]
             procs.append((path, unit, cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
+                text=True, preexec_fn=(lambda: os.nice(nice)) if nice
+                else None)))
         outs = [(path, unit, cmd, p, p.communicate()[0])
                 for path, unit, cmd, p in procs]
         for path, unit, cmd, p, out in outs:
@@ -185,10 +196,11 @@ def _load_generated(path: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     # params, io, the multi-color probes and recovery (or null), B, then
-    # ops.cuda_solver.K2Plan's S, E, warps, grid, then the stream
+    # ops.cuda_solver.K2Plan's S, E, warps, grid, smem_bytes, then the
+    # stream
     lib.tinyopt_gen_solver.argtypes = [
         ctypes.POINTER(SolverParams), ctypes.POINTER(SolverIO), vp, vp, ci,
-        ci, ci, ci, ci, vp]
+        ci, ci, ci, ci, ci, vp]
     lib.tinyopt_gen_solver.restype = ci
     lib.tinyopt_gen_error_string.argtypes = [ci]
     lib.tinyopt_gen_error_string.restype = ctypes.c_char_p

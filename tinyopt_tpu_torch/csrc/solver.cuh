@@ -1,5 +1,5 @@
 // K2's parameters, outputs and residual families, shared by its kernels:
-// solver_kernel (csrc/solver.cu, state in shared memory, any d),
+// solver_kernel (csrc/solver_warp.cuh, state in shared memory, any d),
 // solver_seg_kernel (csrc/solver_seg.cuh, state in registers, max(d, n_res)
 // <= 64) and the SE3 family's solver_se3_kernel (csrc/solver_se3.cuh, up to
 // 21 points).  A family's kManifold says whether its
@@ -436,11 +436,20 @@ struct WoodFamily {
 // the parameters hold a manifold leaf (kP > kD then), and whose rows /
 // jvp_rows / vjp_rows / retract_rows are the residual, the jvp and the vjp
 // of d -> r(x (+) d) at 0, and the retraction x (+) dx, of one instance,
-// traced from torch.func and manifold.retract_flat.  Register form only,
-// one instance a thread (S = 1) as PowellFamily, with the parameters, the
-// tangent-wide and the residual-wide vectors sized apart (kSplitWidths,
-// csrc/solver_seg.cuh); the data row is read through the cache where the
-// emitted code reads it, never held in registers.
+// traced from torch.func and manifold.retract_flat.  Two forms, as the
+// header holds them (Gen::kWarp):
+// * the register form (Lanes), max(P, D, n_res) <= 64: one instance a
+//   thread (S = 1) as PowellFamily, with the parameters, the tangent-wide
+//   and the residual-wide vectors sized apart (kSplitWidths,
+//   csrc/solver_seg.cuh);
+// * the warp form (residual / jvp / vjp below), past 64: solver_kernel's
+//   one instance a warp (csrc/solver_warp.cuh), the emitted warp_rows,
+//   warp_jvp_rows and warp_vjp_rows each op a lane-strided loop over its
+//   entries and a __syncwarp, their arrays in kScratch values of T a warp
+//   after the warp's state; the retraction is retract_rows in every lane.
+// The data row is read through the cache where the emitted code reads it,
+// never held in registers.  Its sums are torch's (kTorchRowSums): the
+// kernel is held to its twin bit for bit.
 template <typename T, typename Gen>
 struct GeneratedFamily {
   const T* data;   // (B, kQ), or null when kQ == 0
@@ -450,8 +459,35 @@ struct GeneratedFamily {
   static constexpr int kMaxM = kSegE;
   static constexpr bool kManifold = Gen::kManifold;
   static constexpr bool kSplitWidths = true;
+  static constexpr int kScratch = Gen::kScratch;
+  static constexpr bool kTorchRowSums = true;
   static_assert(kManifold ? kP > kD : kP == kD,
                 "P > D on manifold parameters, P = D on Euclidean ones");
+
+  // Warp form (solver_kernel): lanes stride over each op's entries.  x is
+  // the first value of the warp's region in shared memory, whose state
+  // (2 kP + 12 kD + 2 kNRes values, rounded up to 4) the scratch follows
+  // (warp_stride, csrc/solver_warp.cuh).
+  __device__ __forceinline__ const T* row(int b) const {
+    return Gen::kQ > 0 ? data + (size_t)b * Gen::kQ : nullptr;
+  }
+  __device__ __forceinline__ static unsigned char* scratch(const T* x) {
+    constexpr int state = (2 * kP + 12 * kD + 2 * kNRes + 3) & ~3;
+    return reinterpret_cast<unsigned char*>(const_cast<T*>(x) + state);
+  }
+  __device__ void residual(int b, const T* x, T* r, int lane) const {
+    Gen::template warp_rows<T>(x, row(b), r, scratch(x), lane);
+  }
+  __device__ void jvp(int b, const T* x, const T* p, T* out, int lane) const {
+    Gen::template warp_jvp_rows<T>(x, row(b), p, out, scratch(x), lane);
+  }
+  __device__ void vjp(int b, const T* x, const T* q, T* out, int lane) const {
+    Gen::template warp_vjp_rows<T>(x, row(b), q, out, scratch(x), lane);
+  }
+  // xn = x (+) dx, every lane the same (kManifold only)
+  __device__ void retract(const T* x, const T* dx, T* xn) const {
+    Gen::template retract_rows<T>(x, dx, xn);
+  }
 
   template <int S, int E>
   struct Lanes {
@@ -717,6 +753,20 @@ template <typename T, bool kDogLeg, bool kHist>
 int launch_segment(const SolverParams& p, const SolverIO& io,
                    const ColorTables& tables, int B, int S, int E, int warps,
                    int grid, cudaStream_t stream);
+
+// The warp kernel's launcher for the hand-written families
+// (csrc/solver_warp.cuh), one instantiation a type (csrc/solver_warp_f32.cu,
+// csrc/solver_warp_f64.cu), so that nvcc builds the two beside each other.
+template <typename T>
+int launch_warp_hand(const SolverParams& p, const SolverIO& io,
+                     const ColorTables& tables, int B, int warps, int grid,
+                     int smem, cudaStream_t stream);
+extern template int launch_warp_hand<float>(
+    const SolverParams&, const SolverIO&, const ColorTables&, int, int, int,
+    int, cudaStream_t);
+extern template int launch_warp_hand<double>(
+    const SolverParams&, const SolverIO&, const ColorTables&, int, int, int,
+    int, cudaStream_t);
 
 #define K2_SEG_INSTANCE(spec, T, dl, hist)                                   \
   spec template int launch_segment<T, dl, hist>(                             \

@@ -23,9 +23,11 @@ prior_residual, jennrich_sampson_residuals, powell_singular_residuals,
 wood_residuals and se3_residual, the last on an SE3 pose, whose family
 holds the retraction too), or else a family generated from its trace
 (``ops/residual_codegen.py``: tensors and registered manifold leaves,
-max(P, D, n_res) ≤ 64, the ops of its table; the retraction traced with
-the residual), which K2 runs one instance a thread from a library built
-for it (:func:`k2_envelope`).  diag(JᵀJ) comes from the coloring the
+the ops of its table; the retraction traced with the residual), which K2
+runs from a library built for it (:func:`k2_envelope`): one instance a
+thread up to max(P, D, n_res) = 64, one instance a warp past it, in the
+warp kernel, whose state and the family's scratch must fit a block's
+shared memory.  diag(JᵀJ) comes from the coloring the
 example's Jacobian structure admits (ops/coloring.py): one jvp of the
 all-ones probe for the identity, one jvp a color and the recovery sum for
 Curtis–Powell–Reid probes (Powell's and Wood's 2 colors), else one jvp a
@@ -78,8 +80,10 @@ SE3_P, SE3_D = 7, 6
 
 #: Shared memory a block of K2 may use (227 KB, opted in): the budget of
 #: one warp's instance in the warp kernel (2·P + 12·D + 2·n_res values,
-#: :func:`warp_values`) and of a multi-color coloring's tables in the
-#: register kernel (:func:`k2_table_bytes`).
+#: :func:`warp_values`, and a generated family's scratch) and of a
+#: multi-color coloring's tables in the register kernel
+#: (:func:`k2_table_bytes`; the warp kernel reads them from device
+#: memory).
 _MAX_SMEM = 232448
 #: Shared memory a block may use without opting in (csrc/common.cuh).
 _DEFAULT_SMEM = 48 * 1024
@@ -101,17 +105,18 @@ SE3_POINTS = {4: 4, 8: 8}
 #: whose E holds all of max(d, n_res); csrc/solver_seg.cuh's
 #: ``min_segment``).  The SE3 family's E is ``SE3_POINTS``.
 SEG_E = {0: 4, 1: 2, 3: 4, 4: 6}
-#: The colorings K2's register kernel is built for, by family (the
-#: ``launch_segment`` dispatch in csrc/solver_seg.cuh): "identity" (one
-#: probe, closed form), "multi" (Curtis–Powell–Reid probes) or ``None``
-#: (a jvp a dimension, PCG).  The warp kernel takes ``None`` and
-#: "identity".
+#: The colorings K2 is built for, by family (the ``launch_segment``
+#: dispatch in csrc/solver_seg.cuh, ``launch_solver`` in csrc/solver.cu,
+#: a generated family's library): "identity" (one probe, closed form),
+#: "multi" (Curtis–Powell–Reid probes) or ``None`` (a jvp a dimension,
+#: PCG).  Both kernels take every coloring of a family's.
 SEG_COLORINGS = {0: (None, "identity"), 1: (None,), 2: (None,),
                  3: (None, "multi"), 4: (None, "multi"),
                  5: (None, "identity", "multi")}
 #: (d, n_res) of the families of fixed shape: Powell's and Wood's.  A
 #: generated family's shape is fixed too, but by its trace: it runs one
-#: instance a thread at any max(P, D, n_res) ≤ 64 (E = max(P, D, n_res)).
+#: instance a thread at max(P, D, n_res) ≤ 64 (E = max(P, D, n_res)), one
+#: instance a warp past it.
 FIXED_SHAPES = {3: (4, 4), 4: (4, 6)}
 #: ``SolverParams.coloring`` (``enum Coloring``, csrc/solver.cuh).
 COLORING_CODES = {None: 0, "identity": 1, "multi": 2}
@@ -149,6 +154,14 @@ def warp_values(P: int, d: int, n_res: int) -> int:
     instance: x and best_x (P each), twelve tangent vectors (D each) and
     two residual vectors."""
     return 2 * P + 12 * d + 2 * n_res
+
+
+def warp_state_values(P: int, d: int, n_res: int) -> int:
+    """Values of a generated family's warp state in K2's warp kernel:
+    :func:`warp_values` rounded up to a multiple of 4, so that the
+    family's scratch after it (``GeneratedFamily.scratch``) starts 16-byte
+    aligned (csrc/solver_warp.cuh, ``warp_stride``)."""
+    return -(-warp_values(P, d, n_res) // 4) * 4
 
 
 def register_family(residual_fn, family: int, accepts=None) -> None:
@@ -194,15 +207,16 @@ def k2_refusal(family: int, spec: mf.TangentSpec, n_res: int,
                coloring: DiagColoring | None) -> str:
     """Why K2 cannot run family ``family`` at this layout, residual count
     and coloring on the card, from shapes alone ("" when it can): a shape
-    or coloring it is not built for (:func:`k2_supports`), or a
-    multi-color coloring whose tables exceed a block's shared memory
-    (:func:`k2_table_bytes`)."""
+    or coloring it is not built for (:func:`k2_supports`), or on the
+    register kernel (max(P, D, n_res) ≤ 64) a multi-color coloring whose
+    tables exceed a block's shared memory (:func:`k2_table_bytes`; the
+    warp kernel reads them from device memory)."""
     kind = coloring_kind(coloring)
     if not k2_supports(family, spec.dims, n_res, kind, spec.params):
         return (f"K2 family {family} is not built for (P, D, n_res) = "
                 f"({spec.params}, {spec.dims}, {n_res}) with coloring "
                 f"{kind!r}")
-    if kind == "multi":
+    if kind == "multi" and max(spec.params, spec.dims, n_res) <= SEG_MAX:
         itemsize = torch.empty((), dtype=spec.dtype).element_size()
         nbytes = k2_table_bytes(coloring.n_colors, spec.dims, n_res,
                                 itemsize)
@@ -256,6 +270,7 @@ def fused_envelope(options: Options, mode: str, x_example,
     if n_res == 0:
         return None, "no residuals"
     itemsize = torch.empty((), dtype=spec.dtype).element_size()
+    # (a generated family's state and scratch: refused when it is traced)
     if device == "cuda" and warp_values(spec.params, spec.dims,
                                         n_res) * itemsize > _MAX_SMEM:
         return None, "an instance larger than a warp's shared memory"
@@ -310,12 +325,14 @@ class K2Plan(NamedTuple):
     """How K2 runs one call (the plan arguments of ``tinyopt_solver_f32/f64``).
 
     ``path``: "segment" (``solver_seg_kernel``, csrc/solver_seg.cuh: S lanes
-    an instance — one for Powell's and Wood's families —, E entries of
-    every vector a lane, all state in registers; for the SE3 family
-    ``solver_se3_kernel``, csrc/solver_se3.cuh: S lanes, E points a lane,
-    the pose-side state whole in each lane; a persistent grid, so the
-    entry point launches at most as many blocks as fit the card) or "warp" (``solver_kernel``, csrc/solver.cu: one warp
-    an instance, state in ``smem_bytes`` of shared memory a block; S = 32).
+    an instance — one for Powell's and Wood's families and the generated
+    ones —, E entries of every vector a lane, all state in registers; for
+    the SE3 family ``solver_se3_kernel``, csrc/solver_se3.cuh: S lanes, E
+    points a lane, the pose-side state whole in each lane; a persistent
+    grid, so the entry point launches at most as many blocks as fit the
+    card) or "warp" (``solver_kernel``, csrc/solver_warp.cuh: one warp an
+    instance, state — and a generated family's scratch — in
+    ``smem_bytes`` of shared memory a block; S = 32).
     ``warps`` a block; ``grid``: the blocks that give every instance a
     segment or a warp of its own."""
     path: str
@@ -332,12 +349,11 @@ def k2_supports(family: int, d: int, n_res: int, coloring: str | None,
     coloring (K2's envelope; arguments as :func:`k2_launch_plan`'s): a
     coloring of the family's (``SEG_COLORINGS``), its shape (``FIXED_SHAPES``;
     Jennrich–Sampson d = 2; SE3 P = 7, D = 6 and 3 residuals a point; P = D
-    for a Euclidean family), and no multi-color coloring past the register
-    kernel (the warp kernel has no multi-color branch, ROADMAP Queue 2,
-    K2-a); a generated family (``GENERATED``) at P ≥ D — P > D on manifold
-    parameters, whose retraction it holds — and max(P, D, n_res) ≤ 64,
-    every coloring (the identity with n_res ≥ d).  An id that is no family
-    of K2's raises."""
+    for a Euclidean family); a generated family (``GENERATED``) at P ≥ D —
+    P > D on manifold parameters, whose retraction it holds — and any
+    width, on either kernel, with every coloring (the identity with n_res ≥
+    d).  Whether a warp's state fits shared memory is the plan's to say
+    (:func:`k2_launch_plan`).  An id that is no family of K2's raises."""
     P = d if P is None else P
     if family not in FAMILY_IDS:
         raise ValueError(f"k2_supports: unknown residual family {family}")
@@ -350,15 +366,14 @@ def k2_supports(family: int, d: int, n_res: int, coloring: str | None,
     if family == 2:
         return (P, d) == (SE3_P, SE3_D) and n_res % 3 == 0
     if family == GENERATED:
-        return (P >= d and max(P, d, n_res) <= SEG_MAX
-                and (coloring != "identity" or n_res >= d))
-    return P == d and (coloring != "multi" or max(d, n_res) <= SEG_MAX)
+        return P >= d and (coloring != "identity" or n_res >= d)
+    return P == d
 
 
 @functools.lru_cache(maxsize=256)
 def k2_launch_plan(B: int, d: int, n_res: int, itemsize: int, family: int,
                    coloring: str | None, solver: int = 1,
-                   P: int | None = None) -> K2Plan:
+                   P: int | None = None, scratch: int = 0) -> K2Plan:
     """Pick K2's kernel and geometry from the shapes and the solver alone.
 
     ``d``: the tangent width D (steps, g); ``P``: the width of the flat
@@ -377,9 +392,11 @@ def k2_launch_plan(B: int, d: int, n_res: int, itemsize: int, family: int,
     points) E = ``SE3_POINTS[itemsize]`` points a lane on the least power
     of two of lanes S (from 1) with S·E ≥ K, one warp a block at S = 1,
     else 4.
-    Larger shapes take the
-    warp kernel, with up to 4 warps a block while their shared memory fits
-    48 KB; it has no multi-color branch (ROADMAP Queue 2, K2-a)."""
+    Larger shapes take the warp kernel, one warp an instance, with up to 4
+    warps a block while their shared memory fits 48 KB: each warp's
+    :func:`warp_values`, or for a generated family
+    :func:`warp_state_values` and its ``scratch`` (values,
+    ``GeneratedFamily.scratch``); a warp past 227 KB raises."""
     P = d if P is None else P
     if itemsize not in (4, 8):
         raise ValueError(f"k2_launch_plan: itemsize {itemsize}")
@@ -404,7 +421,11 @@ def k2_launch_plan(B: int, d: int, n_res: int, itemsize: int, family: int,
         warps = max(1, min(1 if S == 1 else SEG_WARPS, -(-B // per_warp)))
         return K2Plan("segment", S, E, warps,
                       max(1, -(-B // (warps * per_warp))), 0)
-    per_warp = warp_values(P, d, n_res) * itemsize
+    per_warp = (warp_state_values(P, d, n_res) + scratch
+                if family == GENERATED else warp_values(P, d, n_res)) * itemsize
+    if per_warp > _MAX_SMEM:
+        raise ValueError(f"k2_launch_plan: a warp's state ({per_warp} bytes)"
+                         f" exceeds a block's shared memory ({_MAX_SMEM})")
     warps = 4
     while warps > 1 and warps * per_warp > _DEFAULT_SMEM:
         warps //= 2
@@ -852,16 +873,28 @@ def _family_data(family: int, data, B: int, P: int, dtype, dev,
     return ts
 
 
+def generated_instance(generated: GeneratedFamily, dtype, dogleg: bool,
+                       hist: bool, coloring: str | None):
+    """``_build.GenInstance`` of a generated family's K2 instance: type,
+    dogleg, history, coloring, and the path of its widths (the warp kernel
+    past max(P, D, n_res) = 64, as :func:`k2_launch_plan` plans it)."""
+    from .. import _build
+    wide = max(generated.p, generated.d, generated.n_res) > SEG_MAX
+    return _build.GenInstance(
+        "float" if dtype == torch.float32 else "double", dogleg, hist,
+        COLORING_CODES[coloring], _build.GEN_WARP if wide
+        else _build.GEN_SEGMENT)
+
+
 @functools.lru_cache(maxsize=64)
 def generated_library(generated: GeneratedFamily, dtype, dogleg: bool,
                       hist: bool, coloring: str | None):
-    """The library of a generated family's K2 instance (type, dogleg,
-    history, coloring), built at its first use (``_build.
+    """The library of a generated family's K2 instance
+    (:func:`generated_instance`), built at its first use (``_build.
     generated_library``) and kept for the process."""
     from .. import _build
-    return _build.generated_library(generated, _build.GenInstance(
-        "float" if dtype == torch.float32 else "double", dogleg, hist,
-        COLORING_CODES[coloring]))
+    return _build.generated_library(generated, generated_instance(
+        generated, dtype, dogleg, hist, coloring))
 
 
 def fused_solve_cuda(family: int, opts: Options, x0: torch.Tensor, data,
@@ -871,7 +904,9 @@ def fused_solve_cuda(family: int, opts: Options, x0: torch.Tensor, data,
     :func:`k2_params`; ``tables``: a multi-color plan's
     :func:`color_tables` on the device (each built here when not given).
     A generated family (``GENERATED``, ``plan.generated``) launches from
-    its own library (:func:`generated_library`)."""
+    its own library (:func:`generated_library`), emitted for the batch
+    (``GeneratedFamily.at_batch``: below ``residual_codegen.BATCH`` torch
+    sums the twin's tensors in another geometry)."""
     from .. import _build
 
     if x0.dtype not in (torch.float32, torch.float64) or x0.dim() != 2:
@@ -888,7 +923,8 @@ def fused_solve_cuda(family: int, opts: Options, x0: torch.Tensor, data,
     if params is None:
         params = k2_params(family, opts, plan)
     kp = k2_launch_plan(B, d, plan.n_res, x0.element_size(), family, kind,
-                        params.solver, P)
+                        params.solver, P, 0 if plan.generated is None
+                        else plan.generated.scratch)
     table_ptrs = (None, None)
     if kind == "multi":
         if tables is None:
@@ -913,17 +949,20 @@ def fused_solve_cuda(family: int, opts: Options, x0: torch.Tensor, data,
                          data1=data_ptrs[1], **ptrs)
     stream = torch.cuda.current_stream(dev).cuda_stream
     if family == GENERATED:
-        lib = generated_library(plan.generated, dtype,
+        gen = plan.generated.at_batch(B)
+        lib = generated_library(gen, dtype,
                                 params.solver == SOLVER_CODES[SolverType.DOGLEG],
                                 params.cap > 0, kind)
         with torch.cuda.device(dev):
             err = lib.tinyopt_gen_solver(ctypes.byref(params), ctypes.byref(io),
                                          *table_ptrs, B, kp.S, kp.E, kp.warps,
-                                         kp.grid, stream)
-        _build.check(err, "K2 solver kernel (generated family "
-                     f"{plan.generated.hash})", lib)
+                                         kp.grid, kp.smem_bytes, stream)
+        _build.check(err, f"K2 solver kernel (generated family {gen.hash})",
+                     lib)
         fused_solve.launches += 1
         fused_solve.generated_launches += 1
+        if kp.path == "warp":
+            fused_solve.warp_launches += 1
         return x_out, out
     lib = _build.load()
     fn = lib.tinyopt_solver_f32 if dtype == torch.float32 \
@@ -968,10 +1007,10 @@ def fused_solve(residual_fn, opts: Options, x0: torch.Tensor, data,
 
 #: Number of K2 launches in this process, and of those the one-lane
 #: instances' (S = 1: Powell's and Wood's families), the generated
-#: families' (one instance a thread, from their own libraries), the SE3
+#: families' (from their own libraries, on either kernel), the SE3
 #: family's register kernel's (``solver_se3_kernel``) and the warp
-#: kernel's (``solver_kernel``, max(d, n_res) > 64); reset freely by
-#: callers.
+#: kernel's (``solver_kernel``, max(P, d, n_res) > 64, a generated family's
+#: included); reset freely by callers.
 fused_solve.launches = 0
 fused_solve.lane_launches = 0
 fused_solve.generated_launches = 0

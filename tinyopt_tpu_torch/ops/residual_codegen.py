@@ -4,30 +4,47 @@ residual inside the generated envelope.
 Counterpart of what ``tinyopt_tpu/ops/pallas_solver.py`` traces into its
 kernel (``_x_layout``, ``res_flat``, ``linearize_at``): there the user's
 residual is traced into ``_solver_kernel``; here it is traced with
-``make_fx`` and emitted as C++ into K2's register kernel, one instance a
-thread (``csrc/solver_seg.cuh``, the ``GeneratedFamily`` of
-``csrc/solver.cuh``).  :func:`generated_family` traces one instance, on
-the example's own device (where the residual's closed-over tensors live)
-at its static shapes, three functions: the
-residual r(x, data), and ``torch.func.jvp`` / ``torch.func.vjp`` of
-δ ↦ r(x + δ, data) at δ = 0 (the twin's linearization,
-``cuda_solver.fused_solve_plain``), so the emitter differentiates nothing
-itself.  Each graph becomes a straight-line C++ function templated on the
-scalar type T and marked host-and-device: every value a flat array of its
-static shape, the views (``view``, ``expand``, ``select``, ``slice``,
-``transpose``...) index maps over another value's array with no copy,
-elementwise ops and reductions loops over static extents (fully unrolled
-on the card, so the arrays live in registers), and every value that
-depends on no input — a closed-over tensor, ``arange``, ``zeros_like``, an
-op on such values — folded to a literal, up to ``MAX_CONST`` entries.
+``make_fx`` and emitted as C++ into one of K2's kernels through the
+``GeneratedFamily`` of ``csrc/solver.cuh``.  :func:`generated_family`
+traces one instance, on the example's own device (where the residual's
+closed-over tensors live) at its static shapes, four functions: the
+residual r(x, data), ``torch.func.jvp`` / ``torch.func.vjp`` of δ ↦ r(x ⊞
+δ, data) at δ = 0 (the twin's linearization,
+``cuda_solver.fused_solve_plain``), and the retraction x ⊞ δ, so the
+emitter differentiates nothing itself.  Each graph becomes a C++ function
+templated on the scalar type T, in one of two forms:
 
-The envelope: Euclidean parameters (one tensor, or a pytree of tensors of
-one dtype), float32 or float64, per-instance data leaves of the same dtype
-(packed into one row of Q values an instance) or none, max(d, n_res) ≤
-``SEG_MAX``, and only the ops of ``OP_TABLE``.  Anything else — a manifold
-leaf, mixed dtypes, an op outside the table, a trace that fails — is
-refused with its reason, once, when the fused path is planned; the loop
-then runs.  No code generator but this module's own is used.
+* the register form, up to max(P, D, n_res) = ``SEG_MAX`` (K2's register
+  kernel, one instance a thread, ``csrc/solver_seg.cuh``): straight-line
+  code, host-and-device, every value a flat array of its static shape,
+  elementwise ops and reductions loops over static extents (fully unrolled
+  on the card, so the arrays live in registers);
+* the warp form, past it (K2's warp kernel, one instance a warp,
+  ``csrc/solver_warp.cuh``): device code for the 32 lanes of a warp, each
+  op one loop over its output entries, entry e on lane e % 32, then a
+  ``__syncwarp`` (so an op may read any lane's entries of the ops before
+  it), every array in a per-warp scratch of shared memory whose room
+  arrays reuse once no later op reads them; the host build runs the lanes
+  one after another (the tests).  The retraction keeps the register form:
+  every lane retracts the whole x.
+
+In both, the views (``view``, ``expand``, ``select``, ``slice``,
+``transpose``...) are index maps over another value's array with no copy,
+a sum adds in the order torch's CUDA sum adds the twin's tensor (the
+twin's bits) at the twin's batch — one source for a batch of ``BATCH`` or
+more, another below it where an order differs (:meth:`GeneratedFamily.
+at_batch`) —, and every value that depends on no input — a closed-over
+tensor, ``arange``, ``zeros_like``, an op on such values — is folded to a
+literal, up to ``MAX_CONST`` entries.
+
+The envelope: parameters of tensors and registered manifold leaves of one
+dtype, float32 or float64, per-instance data leaves of the same dtype
+(packed into one row of Q values an instance) or none, only the ops of
+``OP_TABLE``, and past ``SEG_MAX`` a warp state and scratch that fit a
+block's shared memory.  Anything else — mixed dtypes, an op outside the
+table, a trace that fails — is refused with its reason, once, when the
+fused path is planned; the loop then runs.  No code generator but this
+module's own is used.
 """
 
 from __future__ import annotations
@@ -35,9 +52,9 @@ from __future__ import annotations
 import dataclasses
 import functools
 import hashlib
-import itertools
 import math
 import operator
+import re
 from typing import Any
 
 import torch
@@ -46,9 +63,14 @@ from torch.utils import _pytree as pytree
 from .. import manifold as mf
 from ..diff.auto import instance_residuals
 
-#: Largest max(d, n_res) of a generated family: K2's register kernel, one
-#: instance a thread (past it the warp kernel, which has no generated
-#: families: ROADMAP Queue 2, K2-a).
+#: The batch from which torch's CUDA sums add the twin's tensors in one
+#: geometry whatever the batch (:func:`_row_split`, :func:`_outer_split`):
+#: a family's source for a batch of ``BATCH`` serves every batch from it.
+BATCH = 32
+
+#: Largest max(P, D, n_res) of a generated family's register form (K2's
+#: register kernel, one instance a thread); past it the warp form (K2's
+#: warp kernel, one instance a warp).
 SEG_MAX = 64
 #: Largest constant (closed-over tensor, or a value that depends on no
 #: input) emitted as a literal array; a larger one is refused.
@@ -124,8 +146,13 @@ class GeneratedFamily:
     traced type; ``source``: the emitted C++ header; ``hash``: 16 hex
     digits of its SHA-256; ``ops``: the arithmetic operations of one
     instance's residual, jvp, vjp and retraction (a multiply, an add, an
-    exponential or a comparison count one each).  Compared and hashed by identity:
-    a solver keeps the one its plan traced."""
+    exponential or a comparison count one each); ``warp``: whether the
+    header holds the warp form (one instance a warp, for K2's warp kernel;
+    emitted past ``SEG_MAX``), whose arrays take ``scratch`` values of the
+    traced type a warp; ``batch``: the twin's batch whose sum orders the
+    source copies (``BATCH`` stands for ``BATCH`` or more;
+    :meth:`at_batch`).  Compared and hashed by identity: a solver keeps
+    the one its plan traced."""
     p: int
     d: int
     n_res: int
@@ -136,6 +163,25 @@ class GeneratedFamily:
     source: str
     hash: str
     ops: dict
+    warp: bool = False
+    scratch: int = 0
+    batch: int = BATCH
+    #: batch -> the family's source at that batch (:meth:`at_batch`)
+    _emit: Any = dataclasses.field(default=None, repr=False)
+    _at: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def at_batch(self, B: int) -> "GeneratedFamily":
+        """The family whose sums add as torch's add the twin's tensors at a
+        batch of ``B``: this one from ``BATCH`` on; below it the source
+        emitted anew at ``B`` (kept for the family), or this one where no
+        order differs at ``B`` (the same source)."""
+        b = min(max(int(B), 1), BATCH)
+        if b == self.batch or self._emit is None:
+            return self
+        if b not in self._at:
+            fam = self._emit(b)
+            self._at[b] = self if fam.source == self.source else fam
+        return self._at[b]
 
     def pack_data(self, data, B: int, dtype, dev) -> torch.Tensor | None:
         """The batch's data leaves as one contiguous (B, q) tensor of the
@@ -233,14 +279,20 @@ class _Val:
 class _Emitter:
     """C++ of one traced graph (:func:`_emit_function`)."""
 
-    def __init__(self, dtype: torch.dtype):
+    def __init__(self, dtype: torch.dtype, warp: bool = False,
+                 batch: int = BATCH):
         self.dtype = dtype
+        self.warp = warp
+        #: the twin's batch, which sets the geometry of its sums
+        self.batch = batch
         self.lines: list[str] = []
         self.count = 0
         self.ops = 0
         self.member: dict = {}          # elementwise node -> fusion group
         self.needs_array: set = set()   # members read outside their group
         self.group: dict | None = None  # the open group
+        #: the warp form's arrays in the scratch: name -> bytes
+        self.scratch: dict = {}
 
     # -- C types and literals --
     def ctype(self, dtype) -> str:
@@ -269,7 +321,12 @@ class _Emitter:
 
     def loop(self, shape, body) -> None:
         """Nested loops over ``shape`` (a dim of size 1 takes index 0 and
-        no loop); ``body(idx)`` gives the innermost statement."""
+        no loop); ``body(idx)`` gives the innermost statement.  In the warp
+        form one loop over the entries, lane-strided (``K2G_LANES``), each
+        dim's index taken from the entry's, then ``K2G_SYNC``."""
+        if self.warp:
+            self.lanes(shape, "i", lambda idx: [body(idx)])
+            return
         idx, depth = [], 2
         for k, n in enumerate(shape):
             if n == 1:
@@ -284,11 +341,73 @@ class _Emitter:
             depth -= 1
             self.emit("}", depth)
 
+    def lanes(self, shape, prefix, body) -> None:
+        """The warp form's loop over ``shape``: entry e of the flattened
+        shape on lane e % 32 (``K2G_LANES``), index ``<prefix>k`` of dim k
+        from e; ``body(idx)`` gives the statements of an entry.  The warp
+        syncs after it (``K2G_SYNC``), so the next op may read any lane's
+        entries."""
+        n = max(1, math.prod(shape))
+        self.emit(f"K2G_LANES(e, {n}) {{", 2)
+        idx, first = [], True
+        for k, m in enumerate(shape):
+            if m == 1:
+                idx.append(0)
+                continue
+            stride = math.prod(shape[k + 1:])
+            e = "e" if stride == 1 else f"e / {stride}"
+            self.emit(f"const int {prefix}{k} = {e}"
+                      f"{'' if first else f' % {m}'};", 3)
+            idx.append(f"{prefix}{k}")
+            first = False
+        for line in body(idx):
+            self.emit(line, 3)
+        self.emit("}", 2)
+        self.emit("K2G_SYNC();", 2)
+
     def array(self, shape, dtype) -> _Val:
         name = self.fresh()
         n = max(1, math.prod(shape))
-        self.emit(f"{self.ctype(dtype)} {name}[{n}];", 2)
+        if self.warp:
+            # a place in the warp's scratch, given by place_scratch
+            ct = self.ctype(dtype)
+            self.scratch[name] = n * {torch.bool: 1, torch.float32: 4,
+                                      torch.float64: 8}[dtype]
+            self.emit(f"{ct}* {name} = reinterpret_cast<{ct}*>(ws + "
+                      f"@{name}@);", 2)
+        else:
+            self.emit(f"{self.ctype(dtype)} {name}[{n}];", 2)
         return _Val(shape, dtype, name, _contiguous_strides(shape), 0)
+
+    def place_scratch(self) -> int:
+        """Give each array of the warp form its offset in the scratch, in
+        bytes, 16-aligned: an array lives from the line that declares it to
+        the last line that names it, and an array that begins after
+        another's last line may take its place (ops are whole loops with a
+        sync after each, so no lane still reads it).  Returns the scratch's
+        bytes."""
+        last = {}
+        for k, line in enumerate(self.lines):
+            for name in re.findall(r"\bv\d+\b", line):
+                if name in self.scratch:
+                    last[name] = k
+        live, top = [], 0           # (offset, bytes, last line) of each
+        for k, line in enumerate(self.lines):
+            m = re.search(r"@(v\d+)@", line)
+            if m is None:
+                continue
+            name = m.group(1)
+            size = -(-self.scratch[name] // 16) * 16
+            live = [a for a in live if a[2] >= k]
+            off = 0
+            for o, n, _ in sorted(live):
+                if off + size <= o:
+                    break
+                off = max(off, o + n)
+            live.append((off, size, last.get(name, k)))
+            top = max(top, off + size)
+            self.lines[k] = line.replace(f"@{name}@", str(off))
+        return top
 
     def regrouped(self, v: _Val, shape) -> _Val:
         """A fusion group's scalar read at another shape with the same core
@@ -457,6 +576,9 @@ class _Emitter:
         g, self.group = self.group, None
         if g is None:
             return {}
+        if self.warp:
+            self.lanes(g["core"], "c", lambda idx: g["body"])
+            return g["arrays"]
         depth = 2
         self.emit("{", depth)
         for k, n in enumerate(g["core"]):
@@ -534,11 +656,14 @@ class _Emitter:
         return out
 
     def reduce_sum(self, node, a: _Val, dims, keepdim, mean=False) -> _Val:
-        """A sum over ``dims`` in the order torch adds on CUDA, measured on
-        an H100 (PERF.md): over trailing dims (size-1 dims aside: the
-        summands of each output contiguous, the fastest dim) the row-sum
-        order ``k2g_warp_sum`` (csrc/solver.cuh's lane_part on one lane),
-        over other dims four running sums."""
+        """A sum over ``dims`` in the order torch adds on CUDA at the
+        twin's batch (the emitter's ``batch``), measured on an H100
+        (PERF.md): over trailing dims (size-1 dims aside: the summands of
+        each output contiguous, the fastest dim) the row-sum order
+        ``k2g_warp_sum`` (csrc/solver.cuh's lane_part on one lane), or
+        ``k2g_split_sum`` where torch's block is wider than a warp or its
+        warps split the row (:func:`_row_split`), over other dims four
+        running sums in :func:`_outer_split`'s groups."""
         nd = len(a.shape)
         dims = (set(range(nd)) if dims is None or (
             isinstance(dims, (list, tuple)) and len(dims) == 0)
@@ -569,43 +694,92 @@ class _Emitter:
         big = [k for k in range(nd) if a.shape[k] > 1]
         fastest = all(k < j for k in big if k in kept
                       for j in big if j in dims)
+        # the twin's outputs of this sum: the batch's
+        outputs = self.batch * math.prod(kshape)
         if fastest and count > 1:
             if not a.contiguous() or a.conv is not None:
                 a = self.materialize(a)
             flat = dataclasses.replace(a, shape=tuple(kshape),
                                        strides=_contiguous_strides(
                                            kshape + [count])[:-1])
+            W, Y = _row_split(count, outputs)
+            # 64 threads on at most 64 values, one a thread, add as 32 do
+            fn = (f"k2g_warp_sum<{count}>" if (W <= 32 or count <= 64)
+                  and Y == 1 else f"k2g_split_sum<{count}, {W}, {Y}>")
 
             def body(oi):
                 start = flat.at(oi)[len(a.name) + 1:-1]
                 return (f"{out.at(out_index(oi))} = "
-                        + result(f"k2g_warp_sum<{count}>({a.name} + {start})")
-                        + ";")
+                        + result(f"{fn}({a.name} + {start})") + ";")
             self.loop(kshape, body)
             return out
         if count == 0:
             raise Refused("a sum over no entries")
         # over leading or middle dims: the summands in the order of the
         # reduced dims, added as torch on CUDA adds a dim that is not the
-        # fastest: four running sums, slot k % 4 of summand k, then
-        # ((s0 + s1) + s2) + s3
+        # fastest (_outer_split): W groups (y = 0..W-1, W = 1 below torch's
+        # split), group y's summands y + W·i + 4W·m in four running sums
+        # (slot i), the last ones in slots 0, 1, 2 in turn, then ((s0 + s1)
+        # + s2) + s3, then the groups' halving tree
         rshape = [a.shape[k] for k in red]
+        inner = math.prod(a.shape[k] for k in kept if k > max(red))
+        W = _outer_split(count, inner, outputs)
         acc = self.fresh("s")
         ct = self.ctype(dtype)
+
+        def summand(full, k):
+            """a's entry of summand ``k`` (an int, or in the warp form a C
+            expression of the loop's counter)."""
+            ri = []
+            for j, n in enumerate(rshape):
+                st = math.prod(rshape[j + 1:])
+                if isinstance(k, int):
+                    ri.append(k // st % n)
+                else:
+                    e = f"({k})" if st == 1 else f"({k}) / {st}"
+                    ri.append(e if j == 0 else f"{e} % {n}")
+            for kk, i in zip(red, ri):
+                full[kk] = i
+            return a.at(full)
 
         def body(oi):
             full = [None] * nd
             for k, i in zip(kept, oi):
                 full[k] = i
-            lines = [f"{ct} " + ", ".join(f"{acc}_{j} = {ct}(0)"
-                                          for j in range(4)) + ";"]
-            for k, ri in enumerate(itertools.product(*map(range, rshape))):
-                for kk, i in zip(red, ri):
-                    full[kk] = i
-                lines.append(f"{acc}_{k % 4} = {acc}_{k % 4} + "
-                             f"{a.at(full)};")
-            lines.append(f"{out.at(out_index(oi))} = " + result(
-                f"(({acc}_0 + {acc}_1) + {acc}_2) + {acc}_3") + ";")
+            lines = []
+            for y in range(W):
+                g = f"{acc}_{y}"
+                lines.append(f"{ct} " + ", ".join(f"{g}_{j} = {ct}(0)"
+                                                  for j in range(4)) + ";")
+                ks = list(range(y, count - 3 * W, 4 * W))
+                if self.warp and ks:
+                    # the warp form: a loop, not unrolled over the width
+                    lines.append(
+                        f"for (int k = {y}; k < {ks[-1] + 4 * W}; k += "
+                        f"{4 * W}) {{ " + " ".join(
+                            f"{g}_{j} = {g}_{j} + "
+                            f"{summand(full, f'k + {j * W}')};"
+                            for j in range(4)) + " }")
+                else:
+                    for k in ks:
+                        lines += [f"{g}_{j} = {g}_{j} + "
+                                  f"{summand(full, k + j * W)};"
+                                  for j in range(4)]
+                k = ks[-1] + 4 * W if ks else y
+                for j in range(4):
+                    if k >= count:
+                        break
+                    lines.append(f"{g}_{j} = {g}_{j} + {summand(full, k)};")
+                    k += W
+                lines.append(f"{ct} {g} = (({g}_0 + {g}_1) + {g}_2) + "
+                             f"{g}_3;")
+            off = W // 2
+            while off:
+                lines += [f"{acc}_{y} = {acc}_{y} + {acc}_{y + off};"
+                          for y in range(off)]
+                off //= 2
+            lines.append(f"{out.at(out_index(oi))} = "
+                         + result(f"{acc}_0") + ";")
             return "{ " + " ".join(lines) + " }"
 
         self.loop(kshape, body)
@@ -647,14 +821,56 @@ class _Emitter:
                 ea = lambda k: a.at([k])                      # noqa: E731
                 eb = lambda k: b.at([k])                      # noqa: E731
             k = "k0" if K > 1 else 0
-            loop = (f"K2G_UNROLL for (int k0 = 0; k0 < {K}; ++k0) "
-                    if K > 1 else "")
+            loop = (f"{'' if self.warp else 'K2G_UNROLL '}for (int k0 = 0; "
+                    f"k0 < {K}; ++k0) " if K > 1 else "")
             return (f"{{ {self.ctype(dtype)} {acc} = {zero}; {loop}"
                     f"{acc} = {acc} + {ea(k)} * {eb(k)}; "
                     f"{out.at(oi)} = {acc}; }}")
 
         self.loop(shape, body)
         return out
+
+
+def _last_pow2(n: int) -> int:
+    return 1 << (max(int(n), 1).bit_length() - 1)
+
+
+def _row_split(count: int, outputs: int) -> tuple[int, int]:
+    """The geometry in which torch's CUDA sum adds ``count`` contiguous
+    summands of each of ``outputs`` outputs (ATen's Reduce.cuh
+    ``setReduceConfig``, csrc/solver_warp.cuh's ``torch_row_geometry``):
+    from 128 summands it reads 4-vectors; a block is W threads along the
+    row (the largest power of two ≤ the row's vectors or values, at most
+    512 / h, h = min(the largest power of two ≤ ``outputs``, 512 / min(that,
+    32)) rows a block), and Y = h warps split the row where that leaves at
+    least min(16·h, 256) summands a thread, else Y = 1.  (W, Y) = (32, 1),
+    or W < 32 on a shorter row (which adds as 32 slots do), from 16 outputs
+    on below 8,161 summands."""
+    dim0 = count // 4 if count >= 128 else count
+    p0 = _last_pow2(dim0) if dim0 < 512 else 512
+    p1 = _last_pow2(outputs) if outputs < 512 else 512
+    h = min(p1, 512 // min(p0, 32))
+    W = min(p0, 512 // h)
+    return W, (h if -(-count // W) >= min(16 * h, 256) else 1)
+
+
+def _outer_split(count: int, inner: int, outputs: int) -> int:
+    """The groups W in which torch's CUDA sum adds ``count`` summands over
+    a dim that is not the fastest, ``inner`` outputs contiguous after it,
+    ``outputs`` outputs in all (ATen's Reduce.cuh ``setReduceConfig``;
+    probed on an H100, PERF.md): it loads ``vec`` outputs at a time (4, 2 or
+    1, as ``inner`` divides), a block is w = min(the largest power of two ≤
+    ``outputs`` / ``vec``, 32) threads wide and ``h`` = min(the largest
+    power of two ≤ ``count``, 512 / ``vec`` / w) warps high, and from
+    min(16·h, 256) summands a thread on the warps split the summands (W =
+    h), else each thread adds them all (W = 1).  From a batch of 32 on,
+    w = 32."""
+    vec = 4 if inner % 4 == 0 else 2 if inner % 2 == 0 else 1
+    most = 512 // vec
+    dim0 = max(outputs // vec, 1)
+    wide = min(_last_pow2(dim0) if dim0 < most else most, 32)
+    high = min(_last_pow2(count) if count < most else most, most // wide)
+    return high if count >= min(16 * high, 256) else 1
 
 
 def _passes_through(node) -> bool:
@@ -762,12 +978,15 @@ def _op_name(node) -> str:
 
 
 def _emit_function(gm, dtype, inputs: list, values: dict, name: str,
-                   signature: str) -> tuple[str, int]:
+                   signature: str, warp: bool = False, batch: int = BATCH
+                   ) -> tuple[str, int, int]:
     """C++ of one traced graph ``gm`` as ``name``: its placeholders bound
     in order to ``inputs`` (each a :class:`_Val` over a pointer of the
-    signature), its output copied into ``out``.  Returns (source, the
-    arithmetic operations)."""
-    em = _Emitter(dtype)
+    signature), its output copied into ``out``; in the warp form
+    (``warp``) for the 32 lanes of a warp, every array in the scratch
+    ``ws``; its sums in torch's orders at the twin's ``batch``.  Returns
+    (source, the arithmetic operations, the scratch's bytes)."""
+    em = _Emitter(dtype, warp, batch)
     env: dict = {}
     consts: dict = {}       # values that depend on no input, emitted on use
     placeholders = [n for n in gm.graph.nodes if n.op == "placeholder"]
@@ -847,9 +1066,13 @@ def _emit_function(gm, dtype, inputs: list, values: dict, name: str,
         raise Refused("a function whose output is not one tensor")
     flat = em.cast(em.reshaped(res, (max(1, math.prod(res.shape)),)), dtype)
     em.loop(flat.shape, lambda i: f"out[{i[0]}] = {flat.at(i)};")
+    scratch = em.place_scratch() if warp else 0
     body = "\n".join(em.lines)
-    return (f"  template <typename T>\n  static K2G_HD void {name}"
-            f"({signature}) {{\n{body}\n  }}\n", em.ops)
+    if warp:
+        signature += ", unsigned char* ws, int lane"
+    return (f"  template <typename T>\n  static K2G_{'WD' if warp else 'HD'} "
+            f"void {name}"
+            f"({signature}) {{\n{body}\n  }}\n", em.ops, scratch)
 
 
 def _emit_op(em: _Emitter, node, op: str, args, kw):
@@ -1025,10 +1248,24 @@ _HEADER = """\
 #ifdef __CUDACC__
 #define K2G_HD __host__ __device__ __forceinline__
 #define K2G_UNROLL _Pragma("unroll")
+// the warp form (device code: it syncs the warp): entry e of an op on lane
+// e % 32, a sync after each op; each function compiled once, not inlined
+// at each of the kernel's calls (nvcc took minutes on the inlined copies)
+#define K2G_WD __device__ __noinline__
+#define K2G_LANES(e, n) for (int e = lane; e < (n); e += 32)
+#define K2G_SYNC() __syncwarp()
 #else
 #include <cmath>
+#include <vector>
 #define K2G_HD inline
+#define K2G_WD inline
 #define K2G_UNROLL
+// the warp form on the host: the 32 lanes one after another, each op whole
+// before the next
+#define K2G_LANES(e, n) \\
+  for (int k2g_l = 0; k2g_l < 32; ++k2g_l) \\
+    for (int e = k2g_l; e < (n); e += 32)
+#define K2G_SYNC() ((void)lane)
 #endif
 
 namespace tinyopt {{
@@ -1040,18 +1277,35 @@ using std::pow; using std::sin; using std::sqrt; using std::tanh;
 #endif
 
 // The sum of N contiguous values in the order of a CUDA row sum of torch
-// (the twin's, csrc/solver.cuh's lane_part on one lane): slot l < 32 holds
-// 0 + t_l + t_(l+32) + ..., then halving trees over the slots that may
-// hold a value.
+// (the twin's, csrc/solver.cuh's lane_part on one lane): below 128 values
+// slot l < 32 holds 0 + t_l + t_(l+32) + ...; from 128 on (torch loads
+// 4-vectors) slot l holds ((a0 + a1) + a2) + a3, a_j = 0 + t_(4l+j) +
+// t_(4l+128+j) + ..., the N % 4 last values added to a0 of slots 0, 1, 2;
+// then halving trees over the slots that may hold a value.
 template <int N, typename T>
 K2G_HD T k2g_warp_sum(const T* t) {{
   T u[32];
-  K2G_UNROLL
-  for (int k = 0; k < 32; ++k) {{
-    u[k] = k < N ? T(0) + t[k] : T(0);
-    for (int j = k + 32; j < N; j += 32) u[k] = u[k] + t[j];
+  if (N >= 128) {{
+    K2G_UNROLL
+    for (int k = 0; k < 32; ++k) {{
+      T a0 = T(0), a1 = T(0), a2 = T(0), a3 = T(0);
+      for (int j = 4 * k; j + 3 < N; j += 128) {{
+        a0 = a0 + t[j];
+        a1 = a1 + t[j + 1];
+        a2 = a2 + t[j + 2];
+        a3 = a3 + t[j + 3];
+      }}
+      if (N - N % 4 + k < N) a0 = a0 + t[N - N % 4 + k];
+      u[k] = ((a0 + a1) + a2) + a3;
+    }}
+  }} else {{
+    K2G_UNROLL
+    for (int k = 0; k < 32; ++k) {{
+      u[k] = k < N ? T(0) + t[k] : T(0);
+      for (int j = k + 32; j < N; j += 32) u[k] = u[k] + t[j];
+    }}
   }}
-  int live = N;
+  int live = N < 32 ? N : 32;
   K2G_UNROLL
   for (int off = 16; off >= 1; off >>= 1) {{
     K2G_UNROLL
@@ -1060,6 +1314,43 @@ K2G_HD T k2g_warp_sum(const T* t) {{
     live = live < off ? live : off;
   }}
   return u[0];
+}}
+
+// The sum of N contiguous values where torch's block is W > 32 threads
+// along the row or Y > 1 warps split it (a small batch, or a long row:
+// _row_split, csrc/solver_warp.cuh's torch_row_sum): thread (x, y) adds
+// 4-vectors x + y W, x + y W + W Y, ... in four sums (from 128 on; the N % 4
+// last values to a0 of threads 0, 1, 2 of y = 0) or values x, x + W, ...
+// (below), then each y's halving tree over its W threads, then the halving
+// tree over the Y warps.
+template <int N, int W, int Y, typename T>
+K2G_HD T k2g_split_sum(const T* t) {{
+  T tot[Y];
+  for (int y = 0; y < Y; ++y) {{
+    T u[W];
+    for (int x = 0; x < W; ++x) {{
+      if (N >= 128) {{
+        T a0 = T(0), a1 = T(0), a2 = T(0), a3 = T(0);
+        for (int v = x + y * W; 4 * v + 3 < N; v += W * Y) {{
+          a0 = a0 + t[4 * v];
+          a1 = a1 + t[4 * v + 1];
+          a2 = a2 + t[4 * v + 2];
+          a3 = a3 + t[4 * v + 3];
+        }}
+        if (y == 0 && N - N % 4 + x < N) a0 = a0 + t[N - N % 4 + x];
+        u[x] = ((a0 + a1) + a2) + a3;
+      }} else {{
+        u[x] = T(0);
+        for (int j = x; j < N; j += W) u[x] = u[x] + t[j];
+      }}
+    }}
+    for (int off = W / 2; off >= 1; off >>= 1)
+      for (int x = 0; x < off; ++x) u[x] = u[x] + u[x + off];
+    tot[y] = u[0];
+  }}
+  for (int off = Y / 2; off >= 1; off >>= 1)
+    for (int y = 0; y < off; ++y) tot[y] = tot[y] + tot[y + off];
+  return tot[0];
 }}
 
 // Ops that read an operand twice, as functions, so that an operand that is
@@ -1080,6 +1371,11 @@ K2G_HD T k2g_tanh_backward(T g, T y) {{ return g * (T(1) - y * y); }}
 struct Residual {{
   static constexpr int kP = {P}, kD = {d}, kNRes = {n_res}, kQ = {q};
   static constexpr bool kManifold = {manifold};
+  // the warp form (warp_rows, warp_jvp_rows, warp_vjp_rows: one instance a
+  // warp, its arrays in kScratch values of T a warp) or the register form
+  // (rows, jvp_rows, vjp_rows: one instance a thread)
+  static constexpr bool kWarp = {warp};
+  static constexpr int kScratch = {scratch};
 """
 
 _FOOTER = """\
@@ -1089,8 +1385,18 @@ _FOOTER = """\
 }}  // namespace tinyopt
 
 #ifdef K2G_HOST_ENTRY
-// Host entry points of the traced type, for the CPU tests (g++).
+// Host entry points of the traced type, for the CPU tests (g++): the
+// register form's (k2g_residual...) or the warp form's (k2g_warp_residual...,
+// its lanes one after another).
 extern "C" {{
+{entries}void k2g_retract({ct} const* x, {ct} const* dx, {ct}* out) {{
+  tinyopt::k2gen::Residual::retract_rows<{ct}>(x, dx, out);
+}}
+}}
+#endif
+"""
+
+_REGISTER_ENTRIES = """\
 void k2g_residual({ct} const* x, {ct} const* data, {ct}* out) {{
   tinyopt::k2gen::Residual::rows<{ct}>(x, data, out);
 }}
@@ -1100,11 +1406,24 @@ void k2g_jvp({ct} const* x, {ct} const* data, {ct} const* p, {ct}* out) {{
 void k2g_vjp({ct} const* x, {ct} const* data, {ct} const* q, {ct}* out) {{
   tinyopt::k2gen::Residual::vjp_rows<{ct}>(x, data, q, out);
 }}
-void k2g_retract({ct} const* x, {ct} const* dx, {ct}* out) {{
-  tinyopt::k2gen::Residual::retract_rows<{ct}>(x, dx, out);
+"""
+
+_WARP_ENTRIES = """\
+static unsigned char* k2g_ws() {{
+  static std::vector<{ct}> ws(tinyopt::k2gen::Residual::kScratch + 1);
+  return reinterpret_cast<unsigned char*>(ws.data());
 }}
+void k2g_warp_residual({ct} const* x, {ct} const* data, {ct}* out) {{
+  tinyopt::k2gen::Residual::warp_rows<{ct}>(x, data, out, k2g_ws(), 0);
 }}
-#endif
+void k2g_warp_jvp({ct} const* x, {ct} const* data, {ct} const* p,
+                  {ct}* out) {{
+  tinyopt::k2gen::Residual::warp_jvp_rows<{ct}>(x, data, p, out, k2g_ws(), 0);
+}}
+void k2g_warp_vjp({ct} const* x, {ct} const* data, {ct} const* q,
+                  {ct}* out) {{
+  tinyopt::k2gen::Residual::warp_vjp_rows<{ct}>(x, data, q, out, k2g_ws(), 0);
+}}
 """
 
 
@@ -1173,9 +1492,7 @@ def _make(residual_fn, x_example, data_example, dtype) -> GeneratedFamily:
     n_res = int(r0.numel())
     if n_res == 0:
         raise Refused("no residuals")
-    if max(P, d, n_res) > SEG_MAX:
-        raise Refused(f"max(P, D, n_res) = {max(P, d, n_res)} > {SEG_MAX} "
-                      "(ROADMAP Queue 2, K2-a)")
+    warp = max(P, d, n_res) > SEG_MAX
     shapes = tuple(_shape_of(l) for l in dleaves)
     q_len = sum(math.prod(s) for s in shapes)
     x_in = _Val((P,), dtype, "x", (1,), 0)
@@ -1189,7 +1506,11 @@ def _make(residual_fn, x_example, data_example, dtype) -> GeneratedFamily:
     tangent = torch.ones((d,), dtype=dtype, device=xv.device)
     cotangent = torch.ones((n_res,), dtype=dtype, device=xv.device)
     sig = "const T* __restrict__ x, const T* __restrict__ data, "
-    parts, ops = [], {}
+    # r, its jvp and its vjp in the register form up to SEG_MAX (one
+    # instance a thread), in the warp form past it (one instance a warp, for
+    # K2's warp kernel); the retraction in the register form (every lane of
+    # a warp retracts the whole x)
+    traced = []
     for name, fn, args, ins, head, want in (
             ("rows", res, (xv, *dleaves), [x_in, *d_ins], sig, n_res),
             ("jvp_rows", jvp, (xv, tangent, *dleaves), [x_in, p_in, *d_ins],
@@ -1211,23 +1532,48 @@ def _make(residual_fn, x_example, data_example, dtype) -> GeneratedFamily:
                     out.meta["val"].shape) != want:
             raise Refused(f"a {name} that is not one tensor of {want} "
                           "values")
-        src, n_ops = _emit_function(gm, dtype, ins, values, name,
-                                    head + "T* __restrict__ out")
-        parts.append(src)
-        ops[{"rows": "residual", "jvp_rows": "jvp", "vjp_rows": "vjp",
-             "retract_rows": "retract"}[name]] = n_ops
+        traced.append((name, gm, values, ins, head))
+    itemsize = torch.empty((), dtype=dtype).element_size()
     leaf_text = "".join(f", {tuple(s)}" for s in shapes)
     ct = "float" if dtype == torch.float32 else "double"
-    source = (_HEADER.format(
-        fn=getattr(residual_fn, "__qualname__", "residual"),
-        dtype=str(dtype).replace("torch.", ""), P=P, d=d, n_res=n_res,
-        q=q_len, leaves=f" (leaves {leaf_text[2:]})" if shapes else "",
-        manifold=str(spec.has_manifold).lower())
-        + "\n".join(parts) + _FOOTER.format(ct=ct))
-    return GeneratedFamily(
-        p=P, d=d, n_res=n_res, data_treedef=dtree, data_shapes=shapes,
-        q=q_len, dtype=dtype, source=source,
-        hash=hashlib.sha256(source.encode()).hexdigest()[:16], ops=ops)
+    entries = (_WARP_ENTRIES if warp else _REGISTER_ENTRIES).format(ct=ct)
+
+    def emit(batch: int) -> GeneratedFamily:
+        """The family's source with the twin's sums at ``batch``."""
+        parts, ops, scratch = [], {}, 0
+        for name, gm, values, ins, head in traced:
+            in_warp = warp and name != "retract_rows"
+            src, n_ops, n_ws = _emit_function(
+                gm, dtype, ins, values, ("warp_" if in_warp else "") + name,
+                head + "T* __restrict__ out", in_warp, batch)
+            parts.append(src)
+            scratch = max(scratch, n_ws)
+            ops[{"rows": "residual", "jvp_rows": "jvp", "vjp_rows": "vjp",
+                 "retract_rows": "retract"}[name]] = n_ops
+        scratch = -(-scratch // (4 * itemsize)) * 4     # values, 4 at a time
+        if warp:
+            from .cuda_solver import _MAX_SMEM, warp_state_values
+            need = (warp_state_values(P, d, n_res) + scratch) * itemsize
+            if need > _MAX_SMEM:
+                raise Refused(
+                    f"a warp's state and scratch ({need} bytes: (P, D, "
+                    f"n_res) = ({P}, {d}, {n_res}), {scratch} values of "
+                    f"scratch) exceed a block's shared memory ({_MAX_SMEM} "
+                    "bytes)")
+        source = (_HEADER.format(
+            fn=getattr(residual_fn, "__qualname__", "residual"),
+            dtype=str(dtype).replace("torch.", ""), P=P, d=d, n_res=n_res,
+            q=q_len, leaves=f" (leaves {leaf_text[2:]})" if shapes else "",
+            manifold=str(spec.has_manifold).lower(), warp=str(warp).lower(),
+            scratch=scratch)
+            + "\n".join(parts) + _FOOTER.format(ct=ct, entries=entries))
+        return GeneratedFamily(
+            p=P, d=d, n_res=n_res, data_treedef=dtree, data_shapes=shapes,
+            q=q_len, dtype=dtype, source=source,
+            hash=hashlib.sha256(source.encode()).hexdigest()[:16], ops=ops,
+            warp=warp, scratch=scratch, batch=batch, _emit=emit)
+
+    return emit(BATCH)
 
 
 def generated_family(residual_fn, x_example, data_example=None, dtype=None
